@@ -1,0 +1,196 @@
+// Decode attention: one query token per slot against the head-major bf16
+// cache of one layer, k/v [B, Hkv, S, D]; out [B, H, D].
+//
+// Replaces the Pallas kernels xbitops_tpu/kernels/decode_attention.py
+// _kernel_v2 (decode_attention.py:176) and _kernel (decode_attention.py:80),
+// entry decode_attention (decode_attention.py:925), for the dense bf16 cache.
+// The TPU's two forms (a per-block grid for the interpreter, a pipelined
+// per-slot program on the chip) become this one kernel.
+//
+// What bounds it on an H100: reading the live cache rows, B * Hkv * len * D
+// * 2 values, far below the tensor-core line.  So it reads only each slot's
+// live rows [lo, len) and spreads them over the card:
+// - split-KV flash decoding: grid (splits, Hkv, B); a block takes one kv
+//   head of one slot over `split_len` positions, its four warps take
+//   positions in turn, and each warp keeps an online softmax in f32 for the
+//   rep = H/Hkv query heads of that kv head (query head h*rep + r uses kv
+//   head h), so a k/v row is read once for all of them;
+// - a lane holds D/32 contiguous values of q, k, v and the output, so a
+//   warp reads a row in one coalesced access; q.k reduces by shuffles;
+// - blocks cannot carry state across the grid, so each writes its
+//   (max, sum, unnormalised output) and a second small kernel combines the
+//   splits of each (slot, head).
+// lengths are clamped to [0, S]; a window w > 0 reads [max(0, len-w), len).
+// A split with no live row writes max = -1e30, sum 0; a slot whose length is
+// 0 gets a zero output.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kWarps = 4;
+constexpr int kRepMax = 8;
+constexpr float kNegInf = -1e30f;
+
+template <int DPL>  // values per lane: D / 32
+__global__ void __launch_bounds__(kWarps * 32)
+attend_split_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    const int* __restrict__ lengths,
+                    float* __restrict__ part_o, float* __restrict__ part_m,
+                    float* __restrict__ part_l, int H, int Hkv, int S,
+                    int n_split, int split_len, int window, float scale) {
+  constexpr int D = DPL * 32;
+  __shared__ float sm_m[kWarps][kRepMax];
+  __shared__ float sm_l[kWarps][kRepMax];
+  __shared__ float sm_o[kWarps][kRepMax][D];
+
+  const int sp = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rep = H / Hkv;
+  const int len = min(max(lengths[b], 0), S);
+  const int lo = window > 0 ? max(0, len - window) : 0;
+  const int s0 = max(sp * split_len, lo);
+  const int s1 = min((sp + 1) * split_len, len);
+
+  float qr[kRepMax][DPL], acc[kRepMax][DPL], m_r[kRepMax], l_r[kRepMax];
+#pragma unroll
+  for (int r = 0; r < kRepMax; ++r) {
+    m_r[r] = kNegInf;
+    l_r[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) {
+      acc[r][i] = 0.f;
+      qr[r][i] = r < rep
+          ? __bfloat162float(q[(static_cast<size_t>(b) * H + h * rep + r) * D + lane * DPL + i])
+          : 0.f;
+    }
+  }
+
+  const size_t head = (static_cast<size_t>(b) * Hkv + h) * S;
+  for (int p = s0 + warp; p < s1; p += kWarps) {
+    const __nv_bfloat16* kp = k + (head + p) * D + lane * DPL;
+    const __nv_bfloat16* vp = v + (head + p) * D + lane * DPL;
+    float kf[DPL], vf[DPL];
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) {
+      kf[i] = __bfloat162float(kp[i]);
+      vf[i] = __bfloat162float(vp[i]);
+    }
+#pragma unroll
+    for (int r = 0; r < kRepMax; ++r) {
+      if (r >= rep) break;
+      float d = 0.f;
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) d = fmaf(qr[r][i], kf[i], d);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
+      d *= scale;
+      const float m_new = fmaxf(m_r[r], d);
+      const float alpha = expf(m_r[r] - m_new);
+      const float pe = expf(d - m_new);
+      l_r[r] = l_r[r] * alpha + pe;
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) acc[r][i] = fmaf(acc[r][i], alpha, pe * vf[i]);
+      m_r[r] = m_new;
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < kRepMax; ++r) {
+    if (r >= rep) break;
+    if (lane == 0) {
+      sm_m[warp][r] = m_r[r];
+      sm_l[warp][r] = l_r[r];
+    }
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) sm_o[warp][r][lane * DPL + i] = acc[r][i];
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < rep * D; idx += kWarps * 32) {
+    const int r = idx / D, d = idx - (idx / D) * D;
+    float mx = kNegInf;
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][r]);
+    float l = 0.f, o = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      const float c = expf(sm_m[w][r] - mx);
+      l += sm_l[w][r] * c;
+      o += sm_o[w][r][d] * c;
+    }
+    const size_t row = (static_cast<size_t>(b) * H + h * rep + r) * n_split + sp;
+    part_o[row * D + d] = o;
+    if (d == 0) {
+      part_m[row] = mx;
+      part_l[row] = l;
+    }
+  }
+}
+
+__global__ void combine_kernel(const float* __restrict__ part_o,
+                               const float* __restrict__ part_m,
+                               const float* __restrict__ part_l,
+                               __nv_bfloat16* __restrict__ out, int n_split, int D) {
+  const size_t bh = blockIdx.x;
+  const float* pm = part_m + bh * n_split;
+  const float* pl = part_l + bh * n_split;
+  float mx = kNegInf;
+  for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, pm[s]);
+  float l = 0.f;
+  for (int s = 0; s < n_split; ++s) l += pl[s] * expf(pm[s] - mx);
+  const float inv = 1.f / fmaxf(l, 1e-30f);
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float o = 0.f;
+    for (int s = 0; s < n_split; ++s)
+      o += part_o[(bh * n_split + s) * D + d] * expf(pm[s] - mx);
+    out[bh * D + d] = __float2bfloat16(o * inv);
+  }
+}
+
+template <int DPL>
+void launch_split(const dim3& grid, cudaStream_t st, const void* q, const void* k,
+                  const void* v, const void* lengths, void* part_o, void* part_m,
+                  void* part_l, int H, int Hkv, int S, int n_split, int split_len,
+                  int window, float scale) {
+  attend_split_kernel<DPL><<<grid, kWarps * 32, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lengths),
+      static_cast<float*>(part_o), static_cast<float*>(part_m),
+      static_cast<float*>(part_l), H, Hkv, S, n_split, split_len, window, scale);
+}
+
+}  // namespace
+
+// Returns cudaErrorInvalidValue (1) for a head_dim or GQA ratio it does not take.
+extern "C" int xb_decode_attention(const void* q, const void* k, const void* v,
+                                   const void* lengths, void* part_o, void* part_m,
+                                   void* part_l, void* out, int B, int H, int Hkv,
+                                   int S, int D, int n_split, int split_len,
+                                   int window, float scale, void* stream) {
+  if (H % Hkv || H / Hkv > kRepMax) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(n_split, Hkv, B);
+  switch (D) {
+    case 64:
+      launch_split<2>(grid, st, q, k, v, lengths, part_o, part_m, part_l, H, Hkv, S,
+                      n_split, split_len, window, scale);
+      break;
+    case 128:
+      launch_split<4>(grid, st, q, k, v, lengths, part_o, part_m, part_l, H, Hkv, S,
+                      n_split, split_len, window, scale);
+      break;
+    case 256:
+      launch_split<8>(grid, st, q, k, v, lengths, part_o, part_m, part_l, H, Hkv, S,
+                      n_split, split_len, window, scale);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  combine_kernel<<<B * H, 128, 0, st>>>(
+      static_cast<const float*>(part_o), static_cast<const float*>(part_m),
+      static_cast<const float*>(part_l), static_cast<__nv_bfloat16*>(out), n_split, D);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,87 @@
+"""Random packed models for benchmarks and smoke runs (port of
+``xbitops_tpu/utils/synth.py``).
+
+Speed depends on shapes, not values, so the packed QTensors are built straight
+from random bits on the device, with no dense weight and no quantization pass:
+a 7B model builds in seconds.  Randomness comes from an explicit
+``torch.Generator`` seeded by the caller.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from xbitops_tpu_torch import formats
+from xbitops_tpu_torch.formats import PLANE_DECOMP, QTensor
+from xbitops_tpu_torch.models.llama import Llama, LlamaBlock, LlamaConfig
+
+
+def random_qtensor(
+    gen: torch.Generator,
+    K: int,
+    N: int,
+    bits: int = 4,
+    group_size: int = 128,
+    tile_k: Optional[int] = None,
+    scale_lo: float = 0.002,
+    scale_hi: float = 0.01,
+) -> QTensor:
+    """A QTensor of random packed bits and small positive fp16 group scales,
+    on ``gen``'s device.  Zero points sit near mid-range, so dequantized
+    values are centred."""
+    dev = gen.device
+    tile_k = tile_k or formats.default_tile_k(K, group_size, bits)
+    K_logical, K = K, formats._round_up(K, tile_k)
+    planes = []
+    for pb in PLANE_DECOMP[bits]:
+        words = torch.randint(-(2**31), 2**31, (K // (32 // pb), N), generator=gen,
+                              device=dev, dtype=torch.int64)
+        planes.append(words.to(torch.int32))
+    T = K // tile_k
+    gt_pad = formats._round_up(max(1, tile_k // group_size), 8)
+    maxq = (1 << bits) - 1
+    scales = torch.empty((T, gt_pad, N), device=dev).uniform_(scale_lo, scale_hi, generator=gen)
+    z = torch.empty((T, gt_pad, N), device=dev).uniform_(0.4 * maxq, 0.6 * maxq, generator=gen)
+    return QTensor(
+        planes=tuple(planes),
+        scales=scales.half(),
+        scale_zeros=(scales * z).half(),
+        bits=bits, group_size=group_size, tile_k=tile_k, K=K, K_logical=K_logical,
+    )
+
+
+def random_llama_params(
+    cfg: LlamaConfig,
+    bits: int = 4,
+    group_size: int = 128,
+    *,
+    device,
+    seed: int = 0,
+    fuse: bool = True,
+) -> Llama:
+    """A random packed Llama on ``device``: fused q|k|v and gate|up
+    projections (``fuse``) or split ones, bf16 embedding, unit norms."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    h, ffn = cfg.hidden_size, cfg.intermediate_size
+    qdim = cfg.num_heads * cfg.head_dim
+    kvdim = cfg.num_kv_heads * cfg.head_dim
+
+    def q(kdim, ndim):
+        return random_qtensor(gen, kdim, ndim, bits, group_size)
+
+    def ones():
+        return torch.ones(h, dtype=torch.float32, device=device)
+
+    blocks = []
+    for _ in range(cfg.num_layers):
+        if fuse:
+            proj = dict(wqkv=q(h, qdim + 2 * kvdim), w_gateup=q(h, 2 * ffn))
+        else:
+            proj = dict(wq=q(h, qdim), wk=q(h, kvdim), wv=q(h, kvdim),
+                        w_gate=q(h, ffn), w_up=q(h, ffn))
+        proj.update(wo=q(qdim, h), w_down=q(ffn, h))
+        blocks.append(LlamaBlock(cfg, proj, ones(), ones()))
+    embed = (torch.randn((cfg.vocab_size, h), generator=gen, device=device) * 0.02)
+    return Llama(cfg, embed.to(torch.bfloat16), blocks, ones(), q(h, cfg.vocab_size))
