@@ -3,16 +3,28 @@
     python3 chip_smoke.py
 
 1. Builds the port's CUDA kernels from ``xbitops_tpu_torch/csrc`` (nvcc).
-2. Holds each kernel against its plain PyTorch version on the card, at the
-   shapes the serving path gives it, and times both with CUDA events (the L2
-   cache is flushed before every timed launch, as the serving path finds it).
-   A time is the op's: the kernel's wrapper, with the small device passes it
-   adds around its kernel (K padding, index casts, the split-K sum).
-3. Drives the serving path: a random 4-bit (g=128) Llama-2-7B at full width
-   through ``Engine.generate`` with 12 requests on 8 slots, then checks the
-   outputs, that every kernel launched during that run and that no plain
-   version ran on the card, and one decode step against the plain path
-   (the logits of a 2-layer cut, and each of the 32 blocks on one input).
+   Then holds each kernel against its plain PyTorch version on the card, at
+   the shapes the serving paths give it, and times both with CUDA events (the
+   L2 cache is flushed before every timed launch, as the serving path finds
+   it).  A time is the op's: the kernel's wrapper, with the small device
+   passes it adds around its kernel (K padding, index casts, the split-K sum).
+   Beside each time stands the least time the card could take (``bound_ms``:
+   the larger of bytes moved once over 3.35 TB/s and operations over 989
+   TFLOP/s, the H100's published rates) and, where one PyTorch call computes
+   the same function, that call's time (``library_ms``; the port never calls
+   it).
+2. Drives the serving path: a random 4-bit (g=128) Llama-2-7B at full width
+   and depth through ``Engine.generate`` with 12 requests on 8 slots over the
+   bf16 KV cache, then checks the outputs, that every kernel of that path
+   launched during the run and that no plain version ran on the card, and one
+   decode step against the plain path (the logits of a 2-layer cut, and each
+   of the 32 blocks on one input).
+3. Drives the long-context serving path on the same model: 8 requests of 40
+   to 1500 prompt tokens on 8 slots over the packed int8 KV cache, prompts
+   past 512 tokens admitted in chunks that attend the cache, with the same
+   checks; then, on a 2-layer cut, a chunked admission and an int8 decode
+   step against the plain path, and a 500-token prompt admitted in one bucket
+   against four chunks, on both caches.
 
 Any failed check raises, so the exit code is not 0.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -31,6 +43,8 @@ import numpy as np
 import torch
 
 SEED = 0
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor rate, published
 
 
 def fail(msg: str) -> None:
@@ -45,6 +59,18 @@ def check(cond: bool, msg: str) -> None:
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     """max |got - ref| over max |ref| (the repo's bf16 gate is 2e-2)."""
     return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+def bound(n_bytes: float, flops: float) -> dict:
+    """The least time the card could take: each input byte read and each
+    output byte written once at the memory rate, or the operations at the
+    dense bf16 tensor rate, whichever is larger."""
+    t_bytes, t_ops = 1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * flops / BF16_FLOPS_PER_S
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 class Timer:
@@ -75,14 +101,6 @@ class Timer:
 
 
 def phase_kernels(dev, timer):
-    from xbitops_tpu_torch.kernels.decode_attention import (
-        decode_attention,
-        decode_attention_reference,
-    )
-    from xbitops_tpu_torch.kernels.kv_append import (
-        kv_append_dense,
-        kv_append_dense_reference,
-    )
     from xbitops_tpu_torch.ops.qmatmul import qmatmul
     from xbitops_tpu_torch.utils import synth
 
@@ -109,8 +127,11 @@ def phase_kernels(dev, timer):
             print(f"qmatmul 4-bit {name} K={K} N={N} M={M}: op {ms:.4f} ms "
                   f"({gbs:.1f} GB/s packed stream at op time), plain {plain_ms:.4f} ms, rel err {e:.2e}",
                   flush=True)
+            b = bound(qt.bytes_packed() + nbytes(a, got), 2 * M * K * N)
+            print(f"  bound {b['bound_ms']:.4f} ms by {b['bound_by']}", flush=True)
             if name == "w_gateup" and M == 8:
-                res["qgemv"] = dict(ms=ms, plain_ms=plain_ms)
+                # no single PyTorch call computes a matmul on packed planes
+                res["qgemv"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, **b)
         if name == "w_down":
             check(qt.K == 11264 and qt.K_logical == 11008, "w_down K padding")
     qt = synth.random_qtensor(gen, 4096, 4096, 4, 128)
@@ -136,17 +157,65 @@ def phase_kernels(dev, timer):
           flush=True)
     res["qgemv"]["max_abs_err"] = worst_abs
 
-    # --- decode attention with the fused append, and the append alone ---
+    res.update(kernels_decode(dev, timer, gen))
+    res.update(kernels_prefill(dev, timer, gen))
+    return res
+
+
+def packed_cache(gen, L, B, Hkv, S, D):
+    """A random packed int8 cache: words k, v [L, B, Hkv, S/4, D] and bf16
+    scales [L, B, 4, Hkv, S/4], sized so that dequantized values are O(1)."""
+    dev = gen.device
+    k, v = (torch.randint(-(2**31), 2**31, (L, B, Hkv, S // 4, D), generator=gen, device=dev,
+                          dtype=torch.int64).to(torch.int32) for _ in range(2))
+    ks, vs = (torch.empty((L, B, 4, Hkv, S // 4), device=dev).uniform_(0.005, 0.02, generator=gen)
+              .to(torch.bfloat16) for _ in range(2))
+    return k, v, ks, vs
+
+
+def sdpa(q, k, v, mask):
+    """The yardstick: one PyTorch attention call.  q [B, H, Tq, D]; k/v
+    [B, Hkv, S, D] bf16; mask bool, broadcastable to [B, H, Tq, S]."""
+    rep = q.shape[1] // k.shape[1]
+    if rep > 1:
+        k, v = k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1)
+    return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+
+
+def kernels_decode(dev, timer, gen):
+    """Decode attention with the fused append, bf16 and int8, and the two
+    appends alone, at the 7B shapes with ragged lengths."""
+    from xbitops_tpu_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_reference,
+    )
+    from xbitops_tpu_torch.kernels.kv_append import (
+        _unpack_kv_words,
+        kv_append_dense,
+        kv_append_dense_reference,
+        kv_append_packed,
+        kv_append_packed_reference,
+    )
+
+    res = {}
     S, D = 2048, 128
     lens_live = [1, 7, 128, 1000, 2047, 2048, 513]  # + one inactive slot
     B = len(lens_live) + 1
     pos = torch.tensor([n - 1 for n in lens_live] + [S], device=dev)  # inactive: S
     lens = torch.clamp(pos + 1, max=S)
-    att_err, app_ok = 0.0, True
+    s_idx = torch.arange(S, device=dev)
+    att_err = att8_err = 0.0
     for H, Hkv, window in ((32, 32, None), (32, 8, None), (32, 32, 512)):
+        timed = H == Hkv and window is None
+        q = torch.randn(B, H, D, device=dev, generator=gen).to(torch.bfloat16)
+        live_rows = int(lens.sum()) * Hkv * D
+        mask = (s_idx[None] < lens[:, None])[:, None, None, :]  # [B, 1, 1, S]
+        if window is not None:
+            mask = mask & (s_idx[None] >= (lens - window).clamp(min=0)[:, None])[:, None, None, :]
+
+        # --- bf16 cache ---
         k = torch.randn(2, B, Hkv, S, D, device=dev, generator=gen).to(torch.bfloat16)
         v = torch.randn(2, B, Hkv, S, D, device=dev, generator=gen).to(torch.bfloat16)
-        q = torch.randn(B, H, D, device=dev, generator=gen).to(torch.bfloat16)
         kn = torch.randn(B, Hkv, D, device=dev, generator=gen).to(torch.bfloat16)
         vn = torch.randn(B, Hkv, D, device=dev, generator=gen).to(torch.bfloat16)
         k_ref, v_ref = k.clone(), v.clone()
@@ -156,20 +225,27 @@ def phase_kernels(dev, timer):
         ref = decode_attention_reference(q, k_ref[1], v_ref[1], lens, window)
         same = torch.equal(k, k_ref) and torch.equal(v, v_ref)
         e = (out.float() - ref.float()).abs().max().item()
-        print(f"decode_attention+append B={B} H={H} Hkv={Hkv} S={S} window={window}: "
-              f"rows exact {same}, max abs err {e:.2e}", flush=True)
+        lib = sdpa(q[:, :, None], k[1], v[1], mask)[:, :, 0]
+        e_lib = (lib[:-1].float() - ref[:-1].float()).abs().max().item()
+        print(f"decode_attention+append bf16 B={B} H={H} Hkv={Hkv} S={S} window={window}: "
+              f"rows exact {same}, max abs err {e:.2e} (library call vs plain {e_lib:.2e})",
+              flush=True)
         check(same, "appended cache rows differ from the plain append")
         check(e <= 2e-2, f"decode attention abs err {e:.3e} > 2e-2")
+        check(e_lib <= 2e-2, f"the library yardstick does not compute the same function: {e_lib}")
         att_err = max(att_err, e)
-        if H == Hkv and window is None:
+        if timed:
             ms = timer(lambda: decode_attention(q, k, v, lens, layer_idx=1,
                                                 kv_new=(kn, vn, pos)))
             plain_ms = timer(lambda: (
                 kv_append_dense_reference(k, v, kn, vn, pos, 1),
                 decode_attention_reference(q, k[1], v[1], lens)), iters=3)
-            print(f"decode_attention+append MHA: op {ms:.4f} ms, plain {plain_ms:.4f} ms",
+            library_ms = timer(lambda: sdpa(q[:, :, None], k[1], v[1], mask))
+            b = bound(2 * 2 * live_rows + nbytes(q, out, kn, vn), 4 * H * D * int(lens.sum()))
+            print(f"decode_attention+append bf16 MHA: op {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"library {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}",
                   flush=True)
-            res["decode_attention"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=att_err)
+            res["decode_attention"] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **b)
             k2, v2 = k.clone(), v.clone()
             kn2, vn2 = kn + 1, vn - 1
             kv_append_dense(k, v, kn2, vn2, pos, 0)
@@ -177,25 +253,205 @@ def phase_kernels(dev, timer):
             app_ok = torch.equal(k, k2) and torch.equal(v, v2)
             ms = timer(lambda: kv_append_dense(k, v, kn2, vn2, pos, 0))
             plain_ms = timer(lambda: kv_append_dense_reference(k, v, kn2, vn2, pos, 0))
+            # yardstick: index_copy_ of the B * Hkv new rows, once for k and once for v
+            act = pos < S
+            rows = ((torch.arange(B, device=dev)[:, None] * Hkv
+                     + torch.arange(Hkv, device=dev)[None]) * S + pos[:, None])[act].reshape(-1)
+            kf, vf = k[0].view(-1, D), v[0].view(-1, D)
+            kr, vr = kn2[act].reshape(-1, D), vn2[act].reshape(-1, D)
+            library_ms = timer(lambda: (kf.index_copy_(0, rows, kr), vf.index_copy_(0, rows, vr)))
+            check(torch.equal(k, k2) and torch.equal(v, v2),
+                  "the index_copy_ yardstick does not compute the same function")
+            b = bound(2 * nbytes(kn2, vn2), 0)
             print(f"kv_append B={B} Hkv={Hkv} S={S}: exact {app_ok}, op {ms:.4f} ms, "
-                  f"plain {plain_ms:.4f} ms", flush=True)
+                  f"plain {plain_ms:.4f} ms, library (2 index_copy_) {library_ms:.4f} ms, "
+                  f"bound {b['bound_ms']:.5f} ms by {b['bound_by']} (launch-bound)", flush=True)
             check(app_ok, "kv_append differs from its plain version")
-            res["kv_append"] = dict(ms=ms, plain_ms=plain_ms, max_abs_err=0.0)
+            res["kv_append"] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                    max_abs_err=0.0, **b)
+        del k, v, k_ref, v_ref
+
+        # --- packed int8 cache ---
+        cache = packed_cache(gen, 2, B, Hkv, S, D)
+        kq, vq = (torch.randint(1, 256, (B, Hkv, D), generator=gen, device=dev,
+                                dtype=torch.int32) for _ in range(2))
+        ksn, vsn = (torch.empty((B, Hkv), device=dev).uniform_(0.005, 0.02, generator=gen)
+                    for _ in range(2))
+        new = (kq, vq, ksn, vsn, pos)
+        ref_cache = [t.clone() for t in cache]
+        out, *_ = decode_attention(q, cache[0], cache[1], lens, layer_idx=1, k_scale=cache[2],
+                                   v_scale=cache[3], kv_new=new, window=window)
+        kv_append_packed_reference(*ref_cache, *new, 1)
+        ref = decode_attention_reference(q, ref_cache[0][1], ref_cache[1][1], lens, window,
+                                         ref_cache[2][1], ref_cache[3][1])
+        same = all(torch.equal(a, b) for a, b in zip(cache, ref_cache))
+        e = (out.float() - ref.float()).abs().max().item()
+        print(f"decode_attention+append int8 B={B} H={H} Hkv={Hkv} S={S} window={window}: "
+              f"words and scales exact {same}, max abs err {e:.2e}", flush=True)
+        check(same, "appended int8 words or scales differ from the plain append")
+        check(e <= 2e-2, f"int8 decode attention abs err {e:.3e} > 2e-2")
+        att8_err = max(att8_err, e)
+        if timed:
+            k8, v8, ks8, vs8 = cache
+            ms = timer(lambda: decode_attention(q, k8, v8, lens, layer_idx=1, k_scale=ks8,
+                                                v_scale=vs8, kv_new=new))
+            plain_ms = timer(lambda: (
+                kv_append_packed_reference(k8, v8, ks8, vs8, *new, 1),
+                decode_attention_reference(q, k8[1], v8[1], lens, None, ks8[1], vs8[1])),
+                iters=3)
+            # yardstick: the same call as for the bf16 cache, on the rows dequantized to bf16
+            kd = _unpack_kv_words(k8[1], ks8[1]).to(torch.bfloat16)
+            vd = _unpack_kv_words(v8[1], vs8[1]).to(torch.bfloat16)
+            library_ms = timer(lambda: sdpa(q[:, :, None], kd, vd, mask))
+            del kd, vd
+            # a live position: D bytes and one bf16 scale, for k and for v
+            b = bound(2 * (live_rows + 2 * int(lens.sum()) * Hkv) + nbytes(q, out, kq, vq),
+                      4 * H * D * int(lens.sum()))
+            print(f"decode_attention+append int8 MHA: op {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"library (on bf16 rows) {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms by "
+                  f"{b['bound_by']}", flush=True)
+            res["decode_attention_int8"] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                                **b)
+            # the packed append alone: pos % 4 takes all four values, one slot sits at S
+            pos4 = torch.tensor([4, 9, 18, 31, 2047, 1000, 514, S], device=dev)
+            new4 = (kq, vq, ksn, vsn, pos4)
+            ref_cache = [t.clone() for t in cache]
+            at_s = [t[0, B - 1].clone() for t in cache]
+            kv_append_packed(*cache, *new4, 0)
+            kv_append_packed_reference(*ref_cache, *new4, 0)
+            app_ok = all(torch.equal(a, b) for a, b in zip(cache, ref_cache))
+            check(app_ok, "kv_append_packed differs from its plain version")
+            check(all(torch.equal(t[0, B - 1], a) for t, a in zip(cache, at_s)),
+                  "the slot at position S was written")
+            ms = timer(lambda: kv_append_packed(*cache, *new4, 0))
+            plain_ms = timer(lambda: kv_append_packed_reference(*cache, *new4, 0))
+            # one byte of B * Hkv * D words read and written, for k and v, and the scales
+            b = bound(2 * (2 * 4 + 4) * (B - 1) * Hkv * D + 2 * 2 * 2 * (B - 1) * Hkv, 0)
+            print(f"kv_append_packed B={B} Hkv={Hkv} S={S}: exact {app_ok}, op {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, bound {b['bound_ms']:.5f} ms by {b['bound_by']} "
+                  f"(launch-bound)", flush=True)
+            # no single PyTorch call rewrites one byte of a word
+            res["kv_append_packed"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                                           max_abs_err=0.0, **b)
+        del cache, ref_cache
     res["decode_attention"]["max_abs_err"] = att_err
+    res["decode_attention_int8"]["max_abs_err"] = att8_err
+
+    # The JAX package picks the int8 cache from max_seq_len 1024 on, a rule
+    # found on a TPU: what the H100 says at 8 slots of 1000 live positions.
+    H = Hkv = 32
+    B = 8
+    lens = torch.full((B,), 1000, device=dev)
+    q = torch.randn(B, H, D, device=dev, generator=gen).to(torch.bfloat16)
+    k = torch.randn(1, B, Hkv, S, D, device=dev, generator=gen).to(torch.bfloat16)
+    v = torch.randn(1, B, Hkv, S, D, device=dev, generator=gen).to(torch.bfloat16)
+    k8, v8, ks8, vs8 = packed_cache(gen, 1, B, Hkv, S, D)
+    times = []
+    for _ in range(2):  # in turns
+        times.append((timer(lambda: decode_attention(q, k, v, lens, layer_idx=0)),
+                      timer(lambda: decode_attention(q, k8, v8, lens, layer_idx=0, k_scale=ks8,
+                                                     v_scale=vs8))))
+    bf, i8 = (sum(t[i] for t in times) / len(times) for i in (0, 1))
+    print(f"decode attention B=8 live=1000 S={S} MHA, no append: bf16 cache {bf:.4f} ms, int8 "
+          f"cache {i8:.4f} ms (int8 / bf16 = {i8 / bf:.3f})", flush=True)
+    res["live1000"] = dict(bf16_ms=bf, int8_ms=i8)
     return res
 
 
-def phase_serving(dev):
+def kernels_prefill(dev, timer, gen):
+    """Chunked-prefill attention at the 7B shapes: 8 rows of 512 queries with
+    ragged starts, a prompt that ends mid-chunk and an inert row."""
+    from xbitops_tpu_torch.kernels.kv_append import _unpack_kv_words
+    from xbitops_tpu_torch.kernels.prefill_attention import (
+        prefill_attention,
+        prefill_attention_reference,
+    )
+
+    S, D, H, N, T, B = 2048, 128, 32, 8, 512, 8
+    starts = torch.tensor([0, 512, 1024, 1536, 1024, 0, 512, 0], device=dev)
+    lens = torch.tensor([512, 1024, 1536, 2048, 1324, 100, 900, 0], device=dev)  # last: inert
+    slots = torch.tensor([3, 0, 7, 1, 5, 2, 6, B], device=dev)
+    pos = starts[:, None] + torch.arange(T, device=dev)[None]
+    pos = torch.where(pos < lens[:, None], pos, S)
+    live = pos < S
+    s_idx = torch.arange(S, device=dev)
+    res, worst = {}, 0.0
+    for Hkv, window in ((32, None), (8, None), (32, 512)):
+        timed = Hkv == H and window is None
+        q = torch.randn(N, T, H, D, device=dev, generator=gen).to(torch.bfloat16)
+        visible = pos[live] + 1 if window is None else torch.clamp(pos[live] + 1, max=window)
+        flops = 4 * H * D * int(visible.sum())
+        lo = torch.zeros_like(lens) if window is None else (starts - (window - 1)).clamp(min=0)
+        rows_read = int((torch.minimum(lens, starts + T) - lo).clamp(min=0).sum()) * Hkv * D
+        for int8 in (False, True):
+            if int8:
+                k, v, ks, vs = (t[0] for t in packed_cache(gen, 1, B, Hkv, S, D))
+                scales = dict(k_scale=ks, v_scale=vs)
+                cache_bytes = 2 * rows_read + 2 * 2 * rows_read // D
+            else:
+                k, v = (torch.randn(B, Hkv, S, D, device=dev, generator=gen).to(torch.bfloat16)
+                        for _ in range(2))
+                scales = {}
+                cache_bytes = 2 * 2 * rows_read
+            out = prefill_attention(q, k, v, pos, slots, window=window, **scales)
+            ref = prefill_attention_reference(q, k, v, pos, slots, window=window, **scales)
+            e = (out.float() - ref.float()).abs().max().item()
+            pads_zero = bool((out[~live] == 0).all())
+            name = "int8" if int8 else "bf16"
+            print(f"prefill_attention {name} N={N} T={T} H={H} Hkv={Hkv} S={S} window={window}: "
+                  f"max abs err {e:.2e}, padding queries exactly 0: {pads_zero}", flush=True)
+            check(e <= 2e-2, f"prefill attention ({name}) abs err {e:.3e} > 2e-2")
+            check(pads_zero, "a padding query's output is not exactly 0")
+            check(ref.float().abs().max().item() > 0.05, "the plain version attended nothing")
+            worst = max(worst, e)
+            if timed:
+                ms = timer(lambda: prefill_attention(q, k, v, pos, slots, **scales))
+                plain_ms = timer(lambda: prefill_attention_reference(q, k, v, pos, slots,
+                                                                     **scales), iters=3)
+                # yardstick: one attention call on the slots' bf16 rows, masked by position
+                rows = slots.clamp(0, B - 1)
+                if int8:
+                    kd = _unpack_kv_words(k[rows], ks[rows]).to(torch.bfloat16)
+                    vd = _unpack_kv_words(v[rows], vs[rows]).to(torch.bfloat16)
+                else:
+                    kd, vd = k[rows], v[rows]
+                mask = (s_idx[None, None] <= pos[:, :, None])[:, None] & live[:, None, :, None]
+                qh = q.transpose(1, 2)
+                lib = sdpa(qh, kd, vd, mask).transpose(1, 2)
+                e_lib = (lib[live].float() - ref[live].float()).abs().max().item()
+                check(e_lib <= 2e-2, f"the library yardstick differs from the plain one: {e_lib}")
+                library_ms = timer(lambda: sdpa(qh, kd, vd, mask))
+                del kd, vd, mask, lib
+                b = bound(cache_bytes + nbytes(q, out), flops)
+                print(f"prefill_attention {name} MHA: op {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+                      f"TFLOP/s of {flops / 1e9:.1f} GFLOP), plain {plain_ms:.4f} ms, library "
+                      f"(on bf16 rows) {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms by "
+                      f"{b['bound_by']}", flush=True)
+                res["prefill_attention_" + name] = dict(ms=ms, plain_ms=plain_ms,
+                                                        library_ms=library_ms, **b)
+            del k, v, out, ref
+    # the long-context serving path runs the int8 form
+    res["prefill_attention"] = dict(res["prefill_attention_int8"], max_abs_err=worst)
+    return res
+
+
+BF16_PATH = ("qgemv", "kv_append", "decode_attention")
+INT8_PATH = ("qgemv", "prefill_attention", "kv_append_packed", "decode_attention_int8")
+
+
+def two_layer_cut(model):
+    from xbitops_tpu_torch.models import llama
+
+    return llama.Llama(dataclasses.replace(model.cfg, num_layers=2), model.embed,
+                       list(model.blocks)[:2], model.ln_final, model.lm_head.qtensor)
+
+
+def phase_serving(dev, model):
     from xbitops_tpu_torch.engine import Engine, Request
     from xbitops_tpu_torch.kernels import common
     from xbitops_tpu_torch.models import llama
-    from xbitops_tpu_torch.utils import synth
 
-    cfg = llama.LlamaConfig.llama2_7b()
-    t0 = time.perf_counter()
-    model = synth.random_llama_params(cfg, bits=4, group_size=128, device=dev, seed=SEED)
-    torch.cuda.synchronize()
-    print(f"7B model built in {time.perf_counter() - t0:.1f} s", flush=True)
+    cfg = model.cfg
     eng = Engine(model, cfg, slots=8, decode_burst=8, top_k=50, kv_quant=False, seed=SEED)
     rng = np.random.default_rng(SEED)
     lengths = np.linspace(16, 500, 12).astype(int)
@@ -214,13 +470,13 @@ def phase_serving(dev):
               f"request {c.id}: {len(c.tokens)} tokens, {c.finish_reason}")
         check(c.prompt_len == len(r.prompt), f"request {c.id}: prompt_len")
         check(all(0 <= t < cfg.vocab_size for t in c.tokens), f"request {c.id}: token range")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the serving path")
+    for name in BF16_PATH:
+        check(launches[name] > 0, f"kernel {name} was not launched on the serving path")
     check(not any(plain.values()), f"plain versions ran on the card: {plain}")
     st = eng.loop_stats
     ms_step = 1e3 * st["decode"] / st["decode_steps"]
     tok_s = st["decode_tokens"] / st["decode"]
-    print(f"serving: 12 requests, 8 slots, burst 8, {wall:.2f} s wall; prefill "
+    print(f"serving (bf16 cache): 12 requests, 8 slots, burst 8, {wall:.2f} s wall; prefill "
           f"{st['admit_prefill']:.2f} s; decode {st['decode_steps']:.0f} steps "
           f"{ms_step:.2f} ms/step, {tok_s:.1f} tokens/s; launches {launches}", flush=True)
 
@@ -233,8 +489,7 @@ def phase_serving(dev):
     # within rel 2e-2, and every one of the 32 blocks, fed the same input,
     # within rel 2e-2; the full-depth logits are reported.
     tokens = torch.tensor([c.tokens[-1] for c in out[:8]], device=dev)
-    cut = llama.Llama(dataclasses.replace(cfg, num_layers=2), model.embed,
-                      list(model.blocks)[:2], model.ln_final, model.lm_head.qtensor)
+    cut = two_layer_cut(model)
     errs = {}
     for m in (cut, model):
         n = m.cfg.num_layers
@@ -253,6 +508,111 @@ def phase_serving(dev):
           f"plain: worst rel err {layer_errs[worst]:.2e} (block {worst})", flush=True)
     check(layer_errs[worst] <= 2e-2, f"block {worst}: rel err {layer_errs[worst]:.3e} > 2e-2")
     return launches, dict(ms_step=ms_step, tok_s=tok_s)
+
+
+def phase_long_context(dev, model):
+    """Long-context serving over the packed int8 cache: prompts past the last
+    bucket are admitted in chunks of 512 that attend the cache."""
+    from xbitops_tpu_torch.engine import Engine, Request
+    from xbitops_tpu_torch.kernels import common
+    from xbitops_tpu_torch.models import llama
+
+    cfg = model.cfg
+    eng = Engine(model, cfg, slots=8, decode_burst=8, kv_quant=True, prefill_chunk=512,
+                 seed=SEED)
+    check(eng.cache.quantized and eng.cache.k.dtype == torch.int32, "the cache is not int8")
+    rng = np.random.default_rng(SEED + 1)
+    lengths = (600, 900, 1100, 1300, 1500, 40, 200, 500)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n).tolist(), max_new_tokens=16)
+            for n in lengths]
+
+    common.reset_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(reqs)
+    wall = time.perf_counter() - t0
+    launches, plain = dict(common.launches), dict(common.plain_on_cuda)
+
+    check(len(out) == 8, f"{len(out)} completions, want 8")
+    for c, r in zip(out, reqs):
+        check(len(c.tokens) == 16 and c.finish_reason == "length",
+              f"request {c.id}: {len(c.tokens)} tokens, {c.finish_reason}")
+        check(c.prompt_len == len(r.prompt), f"request {c.id}: prompt_len")
+        check(all(0 <= t < cfg.vocab_size for t in c.tokens), f"request {c.id}: token range")
+    for name in INT8_PATH:
+        check(launches[name] > 0, f"kernel {name} was not launched on the long-context path")
+    check(not any(plain.values()), f"plain versions ran on the card: {plain}")
+    check(eng.cache.lengths.tolist() == [n + 16 for n in lengths], "cache lengths")
+    st = eng.loop_stats
+    check(st["chunks"] == 3, f"{st['chunks']} chunk forwards, want 3")
+    ms_step = 1e3 * st["decode"] / st["decode_steps"]
+    tok_s = st["decode_tokens"] / st["decode"]
+    print(f"long-context serving (int8 cache): 8 requests of {min(lengths)}-{max(lengths)} "
+          f"prompt tokens, 8 slots, burst 8, {wall:.2f} s wall; chunked prefill "
+          f"{st['admit_prefill_chunks']:.2f} s in {st['chunks']:.0f} chunk forwards, bucketed "
+          f"prefill {st['admit_prefill']:.2f} s; decode {st['decode_steps']:.0f} steps "
+          f"{ms_step:.2f} ms/step, {tok_s:.1f} tokens/s; launches {launches}", flush=True)
+    del eng
+    torch.cuda.empty_cache()
+
+    # The 2-layer cut of the same model (the depth at which kernel and plain
+    # logits of this random model still agree within the bf16 gate): a
+    # chunked admission of 4 prompts in 2 chunks of 512, then one decode step,
+    # kernels against the plain versions, each on its own int8 cache.
+    cut = two_layer_cut(model)
+    lens = torch.tensor([1024, 900, 700, 600], device=dev)
+    slots = torch.tensor([2, 0, 3, 1], device=dev)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 1024))).to(dev)
+    caches = [llama.KVCache.init(cut.cfg, 4, dev, quantized=True) for _ in range(2)]
+    for ci in range(2):
+        args = (tokens[:, ci * 512 : (ci + 1) * 512], torch.full((4,), ci * 512, device=dev),
+                lens, slots)
+        resets = torch.full((4,), ci == 0, device=dev)
+        la, _ = llama.prefill_slots_chunk(cut, *args, caches[0], resets=resets)
+        lb, _ = llama.prefill_slots_chunk(cut, *args, caches[1], resets=resets,
+                                          use_kernel=False)
+    e = rel_err(la, lb)
+    print(f"prefill_slots_chunk 2 layers, 2 chunks of 512, int8 cache, kernels vs plain: "
+          f"logits rel err {e:.2e}", flush=True)
+    check(torch.isfinite(la.float()).all().item(), "non-finite logits")
+    check(e <= 2e-2, f"chunked admission (2-layer cut) logits rel err {e:.3e} > 2e-2")
+    check(caches[0].lengths.tolist() == caches[1].lengths.tolist() == [900, 600, 1024, 700],
+          "cache lengths after the chunked admission")
+    step_tok = la.float().argmax(dim=-1)[torch.argsort(slots)]  # slot order
+    la, _ = llama.decode_step(cut, step_tok, caches[0])
+    lb, _ = llama.decode_step(cut, step_tok, caches[1], use_kernel=False)
+    e = rel_err(la, lb)
+    print(f"decode_step 2 layers, int8 cache, kernels vs plain: logits rel err {e:.2e}",
+          flush=True)
+    check(e <= 2e-2, f"int8 decode_step (2-layer cut) logits rel err {e:.3e} > 2e-2")
+    del caches
+
+    # A 500-token prompt admitted in four chunks of 128 against one chunk of
+    # 512 (both attend the cache: gate rel 2e-2 on either cache) and against
+    # one bucket of 512 (bucketed admission attends the prompt's own rows
+    # before they are quantized, so on the int8 cache the difference holds
+    # the int8 rounding of k and v as well: gate rel 2e-2 on the bf16 cache,
+    # 1e-1 on the int8 cache).
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, 500)).to(dev)
+    padded = torch.zeros(512, dtype=torch.long, device=dev)
+    padded[:500] = prompt
+    for quantized in (False, True):
+        a, b, c = (llama.KVCache.init(cut.cfg, 2, dev, quantized=quantized) for _ in range(3))
+        l_bucket, _ = llama.prefill_slot(cut, padded, 500, 1, a)
+        l_one, _ = llama.prefill_slot_chunk(cut, padded, 0, 500, 1, c, reset=True)
+        for start in range(0, 512, 128):
+            l_four, _ = llama.prefill_slot_chunk(cut, padded[start : start + 128], start, 500, 1,
+                                                 b, reset=start == 0)
+        e_chunk, e_bucket = rel_err(l_four, l_one), rel_err(l_four, l_bucket)
+        print(f"500-token prompt, 2 layers, {'int8' if quantized else 'bf16'} cache: 4 chunks of "
+              f"128 vs 1 chunk of 512 logits rel err {e_chunk:.2e}; vs bucketed {e_bucket:.2e}",
+              flush=True)
+        check(a.lengths.tolist() == b.lengths.tolist() == c.lengths.tolist() == [0, 500],
+              "cache lengths")
+        check(e_chunk <= 2e-2, f"4 chunks vs 1 chunk logits rel err {e_chunk:.3e} > 2e-2")
+        gate = 1e-1 if quantized else 2e-2
+        check(e_bucket <= gate, f"bucketed vs chunked logits rel err {e_bucket:.3e} > {gate}")
+    return launches, dict(ms_step=ms_step, tok_s=tok_s, chunks=st["chunks"],
+                          chunk_s=st["admit_prefill_chunks"])
 
 
 def clone_cache(cache, n_layers):
@@ -298,28 +658,49 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     lib_path = common.build()
     common.lib()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s: {lib_path.name}", flush=True)
 
     timer = Timer(dev)
     res = phase_kernels(dev, timer)
+    del timer
     torch.cuda.empty_cache()
-    launches, serving = phase_serving(dev)
-    print(f"card: {card}; 7B 4-bit decode at B=8: {serving['ms_step']:.2f} ms/step, "
-          f"{serving['tok_s']:.1f} tokens/s", flush=True)
 
+    from xbitops_tpu_torch.models import llama
+    from xbitops_tpu_torch.utils import synth
+
+    cfg = llama.LlamaConfig.llama2_7b()
+    t0 = time.perf_counter()
+    model = synth.random_llama_params(cfg, bits=4, group_size=128, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    print(f"7B model built in {time.perf_counter() - t0:.1f} s", flush=True)
+    launches2, serving = phase_serving(dev, model)
+    torch.cuda.empty_cache()
+    launches3, long_ctx = phase_long_context(dev, model)
+    print(f"card: {card}; 7B 4-bit decode at B=8: bf16 cache, prompts to 500: "
+          f"{serving['ms_step']:.2f} ms/step, {serving['tok_s']:.1f} tokens/s; int8 cache, "
+          f"prompts to 1500: {long_ctx['ms_step']:.2f} ms/step, {long_ctx['tok_s']:.1f} tokens/s; "
+          f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+
+    csrc, jk = "xbitops_tpu_torch/csrc/", "xbitops_tpu/kernels/"
     src = {
-        "qgemv": ("xbitops_tpu_torch/csrc/qgemv.cu", "xbitops_tpu/kernels/qgemv_kernel.py:51"),
-        "decode_attention": ("xbitops_tpu_torch/csrc/decode_attention.cu",
-                             "xbitops_tpu/kernels/decode_attention.py:176"),
-        "kv_append": ("xbitops_tpu_torch/csrc/kv_append.cu",
-                      "xbitops_tpu/kernels/kv_append.py:92"),
+        "qgemv": (csrc + "qgemv.cu", jk + "qgemv_kernel.py:51"),
+        "decode_attention": (csrc + "decode_attention.cu", jk + "decode_attention.py:176"),
+        "kv_append": (csrc + "kv_append.cu", jk + "kv_append.py:92"),
+        "prefill_attention": (csrc + "prefill_attention.cu", jk + "prefill_attention.py:188"),
+        "kv_append_packed": (csrc + "kv_append.cu", jk + "kv_append.py:43"),
+        "decode_attention_int8": (csrc + "decode_attention.cu", jk + "decode_attention.py:176"),
     }
+    # launches: each kernel's count over the two serving runs (the counts were
+    # set to 0 just before each run and read just after it)
     kernels = [dict(name=n, route="cuda", source=src[n][0], replaces=src[n][1],
-                    launches=launches[n], max_abs_err=res[n]["max_abs_err"],
-                    ms=res[n]["ms"], plain_ms=res[n]["plain_ms"]) for n in src]
+                    launches=launches2[n] + launches3[n],
+                    **{key: res[n][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                                    "bound_by", "library_ms")}) for n in src]
+    for kern in kernels:
+        check(kern["launches"] > 0, f"kernel {kern['name']} was launched on no serving path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

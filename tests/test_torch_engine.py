@@ -2,7 +2,9 @@
 config: greedy tokens are identical, request by request, with slot recycling
 (3 requests on 2 slots) and bursts of 1 and 4 steps.  Also: seeded sampling
 is reproducible, top_k=1 sampling equals greedy, finish reasons, and the
-options not ported yet raise."""
+options not ported yet raise.  Long prompts (130-250 tokens at S=256, admitted
+in chunks of 128, which takes JAX through its flash-prefill kernel) and the
+packed int8 cache give identical greedy tokens too, alone and together."""
 
 import jax
 import numpy as np
@@ -100,7 +102,7 @@ def test_finish_reasons(model):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(kv_quant=True), dict(spec_tokens=2), dict(paged=True), dict(pipeline=1),
+    dict(spec_tokens=2), dict(paged=True), dict(pipeline=1),
     dict(mesh=object()), dict(draft_params={}), dict(max_restarts=1),
 ])
 def test_unported_options_raise(model, kw):
@@ -108,7 +110,65 @@ def test_unported_options_raise(model, kw):
         Engine(model, CFG, **kw)
 
 
-def test_long_prompt_names_prefill_attention(model):
-    eng = Engine(model, CFG, slots=1, prefill_chunk=16)
-    with pytest.raises(NotImplementedError, match="prefill_attention"):
-        eng.generate([Request(list(range(20)), max_new_tokens=1)])
+JCFG256 = jllama.LlamaConfig.tiny(seq=256)
+CFG256 = llama.LlamaConfig.tiny(seq=256)
+# This random model's logits are nearly flat, so a few prompts in ten put two
+# tokens within one bf16 step of each other and the frameworks' different
+# rounding picks either: seed 1 is one whose greedy path has no such tie.
+_long_rng = np.random.default_rng(1)
+LONG_PROMPTS = [_long_rng.integers(0, CFG.vocab_size, n).tolist()
+                for n in (130, 250, 9, 200, 20)]
+
+
+@pytest.fixture(scope="module")
+def model256(jparams):
+    return params_from_numpy(jax.tree.map(np.asarray, jparams), CFG256, "cpu")
+
+
+def _same_completions(got, want):
+    assert [c.tokens for c in got] == [c.tokens for c in want]
+    assert [(c.id, c.prompt_len, c.finish_reason) for c in got] == [
+        (c.id, c.prompt_len, c.finish_reason) for c in want]
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16cache", "int8cache"])
+def test_chunked_admission_matches_jax_engine(jparams, model256, kv_quant):
+    """Long prompts in chunks of 128 mixed with short ones in one generate, 5
+    requests on 3 slots: both kinds are admitted in one wave and a recycled
+    slot takes a long prompt."""
+    kw = dict(slots=3, decode_burst=4, prefill_chunk=128, kv_quant=kv_quant)
+    want = JEngine(jparams, JCFG256, **kw).generate(
+        [JRequest(prompt=p, max_new_tokens=5) for p in LONG_PROMPTS])
+    eng = Engine(model256, CFG256, **kw)
+    got = eng.generate([Request(prompt=p, max_new_tokens=5) for p in LONG_PROMPTS])
+    _same_completions(got, want)
+    assert eng.cache.quantized == kv_quant
+    # waves: (130, 250 chunked; 9), then 200 chunked, then 20: 2 + 2 chunk forwards
+    assert eng.loop_stats["chunks"] == 4 and eng.loop_stats["admit_prefill_chunks"] > 0
+
+
+def test_kv_quant_short_prompts_match_jax_engine(jparams, model):
+    kw = dict(slots=2, decode_burst=4, kv_quant=True)
+    want = JEngine(jparams, JCFG, **kw).generate(
+        [JRequest(prompt=p, max_new_tokens=6) for p in PROMPTS])
+    got = Engine(model, CFG, **kw).generate(
+        [Request(prompt=p, max_new_tokens=6) for p in PROMPTS])
+    _same_completions(got, want)
+
+
+@pytest.mark.parametrize("seq", [64, 1024])
+def test_kv_quant_auto_resolves_like_jax(jparams, seq):
+    jcfg, cfg = jllama.LlamaConfig.tiny(seq=seq), llama.LlamaConfig.tiny(seq=seq)
+    model = params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, "cpu")
+    want = JEngine(jparams, jcfg, slots=1).kv_quant
+    eng = Engine(model, cfg, slots=1)
+    assert eng.kv_quant == want == (seq >= 1024)
+    assert eng.cache.quantized == want
+    assert not Engine(model, cfg, slots=1, prefill_chunk=30).kv_quant  # chunk % 4 != 0
+
+
+def test_kv_quant_rounds_buckets_and_checks_the_chunk(model):
+    eng = Engine(model, CFG, slots=1, kv_quant=True, prefill_buckets=[6, 16, 30])
+    assert eng.buckets == [8, 16, 32]
+    with pytest.raises(ValueError):
+        Engine(model, CFG, slots=1, kv_quant=True, prefill_chunk=30)

@@ -7,8 +7,9 @@ only PyTorch is installed:
     python -m pytest --noconftest -m gpu tests/test_torch_kernels_gpu.py -q
 
 Tolerances: fused matmul rel 1e-5 / abs 3e-4 with f32 activations and rel 2e-2
-(of the output's largest value) with bf16 ones; appended cache rows exact;
-attention outputs abs 2e-2 in bf16.
+(of the output's largest value) with bf16 ones; appended cache rows, words
+and scales exact; attention outputs abs 2e-2 in bf16, padding queries of the
+prefill attention exactly 0.
 """
 
 import dataclasses
@@ -21,7 +22,16 @@ from xbitops_tpu_torch.kernels.decode_attention import (
     decode_attention,
     decode_attention_reference,
 )
-from xbitops_tpu_torch.kernels.kv_append import kv_append_dense, kv_append_dense_reference
+from xbitops_tpu_torch.kernels.kv_append import (
+    kv_append_dense,
+    kv_append_dense_reference,
+    kv_append_packed,
+    kv_append_packed_reference,
+)
+from xbitops_tpu_torch.kernels.prefill_attention import (
+    prefill_attention,
+    prefill_attention_reference,
+)
 from xbitops_tpu_torch.ops.qmatmul import qmatmul
 from xbitops_tpu_torch.utils import synth
 
@@ -135,3 +145,138 @@ def test_wrappers_count_and_reject(dev):
     assert common.launches["qgemv"] == 1 and common.plain_on_cuda["qgemv"] == 0
     qmatmul(torch.ones(2, 256, device=dev), qt, use_kernel=False)
     assert common.launches["qgemv"] == 1 and common.plain_on_cuda["qgemv"] == 1
+
+
+def _packed_cache(gen, L, B, Hkv, S, D):
+    """A random packed int8 cache on gen's device: words, words, scales, scales."""
+    dev = gen.device
+    words = [torch.randint(-(2**31), 2**31, (L, B, Hkv, S // 4, D), generator=gen, device=dev,
+                           dtype=torch.int64).to(torch.int32) for _ in range(2)]
+    scales = [torch.empty((L, B, 4, Hkv, S // 4), device=dev).uniform_(lo, hi, generator=gen)
+              .to(torch.bfloat16) for lo, hi in ((0.002, 0.01), (0.005, 0.02))]
+    return (*words, *scales)
+
+
+def _new_packed_rows(gen, B, Hkv, D):
+    dev = gen.device
+    kq, vq = (torch.randint(1, 256, (B, Hkv, D), generator=gen, device=dev, dtype=torch.int32)
+              for _ in range(2))
+    ks, vs = (torch.empty((B, Hkv), device=dev).uniform_(0.002, 0.02, generator=gen)
+              for _ in range(2))
+    return kq, vq, ks, vs
+
+
+@pytest.mark.parametrize("L,B,Hkv,S,D", [(2, 8, 32, 2048, 128), (1, 5, 3, 20, 64),
+                                         (2, 6, 1, 8, 256)])
+def test_kv_append_packed_kernel_matches_plain(dev, L, B, Hkv, S, D):
+    gen = _gen(dev, S + B)
+    cache = _packed_cache(gen, L, B, Hkv, S, D)
+    ref = [t.clone() for t in cache]
+    new = _new_packed_rows(gen, B, Hkv, D)
+    pos = torch.tensor([0, 1, 2, S - 1, S, -1, 7, 5][:B], device=dev)  # S, -1: no-op
+    out = kv_append_packed(*cache, *new, pos, L - 1)
+    kv_append_packed_reference(*ref, *new, pos, L - 1)
+    for got, o, want in zip(cache, out, ref):
+        assert o is got and torch.equal(got, want)
+    untouched = _packed_cache(_gen(dev, S + B), L, B, Hkv, S, D)
+    assert not torch.equal(cache[0], untouched[0]) and not torch.equal(cache[3], untouched[3])
+    if L > 1:
+        assert torch.equal(cache[0][0], untouched[0][0])  # the other layer
+
+
+@pytest.mark.parametrize("D,H,Hkv,S", [(128, 8, 8, 600), (128, 32, 4, 260), (64, 8, 1, 252),
+                                       (256, 4, 2, 1000), (128, 32, 32, 2048)])
+@pytest.mark.parametrize("window", [None, 100])
+def test_decode_attention_int8_kernel_matches_plain(dev, D, H, Hkv, S, window):
+    gen = _gen(dev, D + S)
+    B, L = 5, 2
+    k, v, ks, vs = _packed_cache(gen, L, B, Hkv, S, D)
+    q = torch.randn(B, H, D, device=dev, generator=gen).to(torch.bfloat16)
+    new = _new_packed_rows(gen, B, Hkv, D)
+    pos = torch.tensor([0, S - 1, S, 255 % S, S // 2 + 1], device=dev)  # S: inactive
+    lens = torch.clamp(pos + 1, max=S)
+    ref = [t.clone() for t in (k, v, ks, vs)]
+    out, *rest = decode_attention(q, k, v, lens, layer_idx=1, k_scale=ks, v_scale=vs,
+                                  kv_new=(*new, pos), window=window)
+    assert all(r is t for r, t in zip(rest, (k, v, ks, vs)))
+    kv_append_packed_reference(*ref, *new, pos, 1)
+    for got, want in zip((k, v, ks, vs), ref):
+        assert torch.equal(got, want)
+    want = decode_attention_reference(q, ref[0][1], ref[1][1], lens, window, ref[2][1], ref[3][1])
+    assert (out.float() - want.float()).abs().max() <= 2e-2
+    assert want.float().abs().max() > 0.05
+    zero = decode_attention(q, k[0], v[0], torch.zeros(B, dtype=torch.int32, device=dev),
+                            k_scale=ks[0], v_scale=vs[0])
+    assert zero.abs().max() == 0  # a slot with no live rows attends nothing
+
+
+def _chunk_positions(dev, starts, lens, T, S):
+    pos = torch.tensor(starts, device=dev)[:, None] + torch.arange(T, device=dev)[None]
+    return torch.where(pos < torch.tensor(lens, device=dev)[:, None], pos, S)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16cache", "int8cache"])
+@pytest.mark.parametrize("D,H,Hkv,S,T,window", [
+    (128, 32, 32, 2048, 512, None), (128, 32, 8, 2048, 512, 512), (128, 8, 2, 300, 70, None),
+    (64, 4, 4, 128, 64, 20), (256, 4, 1, 200, 96, None), (128, 4, 4, 64, 4, None),
+])
+def test_prefill_attention_kernel_matches_plain(dev, int8, D, H, Hkv, S, T, window):
+    gen = _gen(dev, D + S + T)
+    B, L = 5, 2
+    S = S - S % 4
+    if int8:
+        k, v, ks, vs = _packed_cache(gen, L, B, Hkv, S, D)
+        scales = dict(k_scale=ks, v_scale=vs)
+    else:
+        k, v = (torch.randn(L, B, Hkv, S, D, device=dev, generator=gen).to(torch.bfloat16)
+                for _ in range(2))
+        scales = {}
+    q = torch.randn(4, T, H, D, device=dev, generator=gen).to(torch.bfloat16)
+    # a chunk from 0 that ends mid-chunk, the cache's last chunk, one in the
+    # middle, and an inert row (slot out of range, nothing but padding)
+    starts = [0, S - T, (S - T) // 2 // 4 * 4, 0]
+    lens = [max(T - 5, 1), S, S, 0]
+    pos = _chunk_positions(dev, starts, lens, T, S)
+    slots = torch.tensor([3, 0, 4, B], device=dev)
+    got = prefill_attention(q, k, v, pos, slots, layer_idx=1, window=window, **scales)
+    one = {name: t[1] for name, t in scales.items()}
+    want = prefill_attention_reference(q, k[1], v[1], pos, slots, window=window, **one)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert (got.float() - want.float()).abs().max() <= 2e-2
+    assert want.float().abs().max() > 0.05
+    assert (got[pos >= S] == 0).all() and (pos >= S).any()
+    # a flat cache, and padding in the middle of a row
+    pos2 = pos.clone()
+    pos2[1, T // 2] = S
+    flat = {name: t[0] for name, t in scales.items()}
+    got = prefill_attention(q, k[0], v[0], pos2, slots, window=window, **flat)
+    want = prefill_attention_reference(q, k[0], v[0], pos2, slots, window=window, **flat)
+    assert (got.float() - want.float()).abs().max() <= 2e-2
+    assert (got[1, T // 2] == 0).all()
+
+
+def test_new_wrappers_count_and_reject(dev):
+    common.reset_counts()
+    gen = _gen(dev, 1)
+    k, v, ks, vs = _packed_cache(gen, 1, 2, 2, 16, 128)
+    q = torch.zeros(2, 4, 128, dtype=torch.bfloat16, device=dev)
+    lens = torch.ones(2, device=dev)
+    decode_attention(q, k, v, lens, layer_idx=0, k_scale=ks, v_scale=vs)
+    assert common.launches["decode_attention_int8"] == 1
+    assert common.launches["decode_attention"] == 0
+    with pytest.raises(ValueError):  # scales must be bf16
+        decode_attention(q, k, v, lens, layer_idx=0, k_scale=ks.float(), v_scale=vs.float())
+    with pytest.raises(ValueError):  # words must be int32
+        kv_append_packed(k.long(), v.long(), ks, vs, *_new_packed_rows(gen, 2, 2, 128), lens, 0)
+    with pytest.raises(NotImplementedError):
+        decode_attention(q, k, v, lens, layer_idx=0, page_table=torch.zeros(2, 1, device=dev))
+    qc = torch.zeros(2, 8, 4, 128, dtype=torch.bfloat16, device=dev)
+    pos = torch.arange(8, device=dev)[None].expand(2, 8)
+    prefill_attention(qc, k, v, pos, torch.arange(2, device=dev), layer_idx=0,
+                      k_scale=ks, v_scale=vs)
+    assert common.launches["prefill_attention"] == 1
+    with pytest.raises(ValueError):  # q must be bf16 on the card
+        prefill_attention(qc.float(), k, v, pos, torch.arange(2, device=dev), layer_idx=0,
+                          k_scale=ks, v_scale=vs)
+    assert common.launches["prefill_attention"] == 1
+    assert not any(common.plain_on_cuda.values())

@@ -3,7 +3,12 @@ hidden 256, head_dim 128, S=64, so JAX takes its flash-decode path): the same
 packed weights (converted through ``io.convert``) and the same tokens give
 logits within rel 2e-2 of the largest logit, for per-layer and stacked
 parameters.  The two frameworks round bf16 at different places, so tokens are
-compared only in the engine test."""
+compared only in the engine test.
+
+Chunked prefill (``prefill_slots_chunk``) runs at S=256 with chunks of 128, so
+that JAX takes its flash-prefill Pallas kernel (interpret mode), on the bf16 and
+the packed int8 cache.  The int8 cache is compared dequantized, within 2
+quanta: a 1-ulp bf16 difference in k between the frameworks can move a byte."""
 
 import jax
 import jax.numpy as jnp
@@ -13,7 +18,7 @@ import torch
 
 from xbitops_tpu.models import llama as jllama
 from xbitops_tpu.utils import synth as jsynth
-from xbitops_tpu_torch.io.convert import params_from_numpy
+from xbitops_tpu_torch.io.convert import kvcache_from_numpy, params_from_numpy
 from xbitops_tpu_torch.models import llama
 
 # tiny shapes: one intra-op thread, so that parallel test workers do not
@@ -133,8 +138,163 @@ def test_use_kernel_false_matches_default(model):
     _close(a.k, b.k.float().numpy())
 
 
-def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError):
-        llama.KVCache.init(CFG, 1, "cpu", quantized=True)
+def test_unported_paths_raise(model):
     with pytest.raises(NotImplementedError):
         llama.KVCache.init_paged(CFG, 1, 4)
+    with pytest.raises(NotImplementedError):
+        model(torch.zeros(1, 2, dtype=torch.long), llama.KVCache.init(CFG, 1, "cpu"),
+              torch.arange(2)[None], kv_unaligned=True)
+
+
+JCFG256 = jllama.LlamaConfig.tiny(seq=256)
+CFG256 = llama.LlamaConfig.tiny(seq=256)
+jprefill_slots_chunk = jax.jit(jllama.prefill_slots_chunk, static_argnums=1)
+CHUNK = 128
+LONG_LENS = np.asarray([200, 256 - 3], np.int32)
+LONG_SLOTS = np.asarray([2, 0], np.int32)
+LONG_TOKENS = np.random.default_rng(5).integers(0, CFG.vocab_size, (2, 256)).astype(np.int32)
+
+
+@pytest.fixture(scope="module")
+def model256(jparams):
+    return params_from_numpy(jax.tree.map(np.asarray, jparams), CFG256, "cpu")
+
+
+def _dequant(cache, layer_lens):
+    """The cache's k and v as f32 [L, B, Hkv, S, D], positions past each
+    slot's length zeroed."""
+    k, v = cache.k, cache.v
+    if cache.quantized:
+        k = llama._unpack_kv_words(cache.k, cache.k_scale)
+        v = llama._unpack_kv_words(cache.v, cache.v_scale)
+    live = torch.arange(k.shape[3])[None, :] < torch.as_tensor(layer_lens)[:, None].long()
+    live = live[None, :, None, :, None]
+    return (k.float() * live).numpy(), (v.float() * live).numpy()
+
+
+def _cache_close(cache, jcache):
+    """Same lengths; k/v agree on the live positions: bf16 within rel 2e-2 of
+    the largest value; int8 within 2 quanta of each row's scale in layer 0,
+    whose input is the same in both frameworks, and within 2 quanta plus the
+    bf16 gate in later layers, whose inputs have drifted by that much."""
+    jc = kvcache_from_numpy(jax.tree.map(np.asarray, jcache), "cpu")
+    lens = cache.lengths.tolist()
+    assert lens == jc.lengths.tolist()
+    for got, want in zip(_dequant(cache, lens), _dequant(jc, lens)):
+        if cache.quantized:
+            quantum = np.abs(want).max(axis=-1, keepdims=True) / 127.0
+            err = np.abs(got - want)
+            assert (err[0] <= 2 * quantum[0] + 1e-6).all()
+            assert (err <= 2 * quantum + 2e-2 * np.abs(want).max()).all()
+        else:
+            assert np.abs(got - want).max() <= 2e-2 * np.abs(want).max()
+        assert np.abs(want).max() > 0
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16cache", "int8cache"])
+def test_prefill_slots_chunk_matches_jax(jparams, model256, quantized):
+    """Two long prompts in two chunks of 128 (the second row's prompt ends
+    mid-chunk, the first row's too), then one decode step."""
+    jcache = jllama.KVCache.init(JCFG256, 3, quantized=quantized)
+    cache = llama.KVCache.init(CFG256, 3, "cpu", quantized=quantized)
+    cache.lengths[:] = torch.tensor([7, 9, 250])  # stale lengths of recycled slots
+    jcache = jcache.__class__(jcache.k, jcache.v, jnp.asarray([7, 9, 250], jnp.int32),
+                              jcache.k_scale, jcache.v_scale)
+    for ci in range(2):
+        tok = LONG_TOKENS[:, ci * CHUNK : (ci + 1) * CHUNK]
+        starts = np.full(2, ci * CHUNK, np.int32)
+        resets = np.full(2, ci == 0)
+        jl, jcache = jprefill_slots_chunk(
+            jparams, JCFG256, jnp.asarray(tok), jnp.asarray(starts), jnp.asarray(LONG_LENS),
+            jnp.asarray(LONG_SLOTS), jcache, resets=jnp.asarray(resets))
+        tl, cache2 = llama.prefill_slots_chunk(
+            model256, torch.from_numpy(tok), torch.from_numpy(starts),
+            torch.from_numpy(LONG_LENS), torch.from_numpy(LONG_SLOTS), cache,
+            resets=torch.from_numpy(resets))
+        assert cache2 is cache
+        np.testing.assert_array_equal(cache.lengths.numpy(), np.asarray(jcache.lengths))
+    _close(tl, jl)  # both prompts end in the second chunk
+    assert cache.lengths.tolist() == [253, 9, 200]
+    _cache_close(cache, jcache)
+    tok = np.asarray([3, 0, 200], np.int32)
+    active = np.asarray([True, False, True])
+    jl, jcache = jax.jit(jllama.decode_step, static_argnums=1)(
+        jparams, JCFG256, jnp.asarray(tok), jcache, active=jnp.asarray(active))
+    tl, _ = llama.decode_step(model256, torch.from_numpy(tok), cache,
+                              active=torch.from_numpy(active))
+    _close(tl[active], np.asarray(jl)[active])
+
+
+def test_prefill_slot_chunk_is_one_row_of_prefill_slots_chunk(model256):
+    tokens = torch.from_numpy(LONG_TOKENS[:1, :CHUNK].astype(np.int64))
+    a, b = (llama.KVCache.init(CFG256, 2, "cpu", quantized=True) for _ in range(2))
+    la, _ = llama.prefill_slot_chunk(model256, tokens[0], 0, 100, 1, a, reset=True)
+    lb, _ = llama.prefill_slots_chunk(model256, tokens, torch.tensor([0]), torch.tensor([100]),
+                                      torch.tensor([1]), b, resets=torch.tensor([True]))
+    assert torch.equal(la, lb[0]) and torch.equal(a.k, b.k) and torch.equal(a.k_scale, b.k_scale)
+    assert a.lengths.tolist() == [0, 100]
+
+
+def test_int8_prefill_and_decode_match_jax(jparams, model):
+    """Bucketed admission (whole words) and three decode steps (one byte of a
+    word each) on the packed int8 cache."""
+    jcache = jllama.KVCache.init(JCFG, 2, quantized=True)
+    cache = llama.KVCache.init(CFG, 2, "cpu", quantized=True)
+    assert cache.quantized and cache.S == CFG.max_seq_len
+    assert cache.k.dtype == torch.int32 and cache.k.shape == tuple(jcache.k.shape)
+    assert cache.k_scale.dtype == torch.bfloat16
+    assert cache.k_scale.shape == tuple(jcache.k_scale.shape)
+    jl, jcache = jprefill_slots(jparams, JCFG, jnp.asarray(PREFILL_TOKENS),
+                                jnp.asarray(PREFILL_LENS), jnp.asarray(PREFILL_SLOTS), jcache)
+    tl, _ = llama.prefill_slots(
+        model, torch.from_numpy(PREFILL_TOKENS), torch.from_numpy(PREFILL_LENS),
+        torch.from_numpy(PREFILL_SLOTS), cache)
+    _close(tl, jl)
+    tok = np.asarray(jnp.argmax(jl, axis=-1)).astype(np.int32)[::-1].copy()  # slot order
+    for active in ACTIVE:
+        jl, jcache = jdecode_step(jparams, JCFG, jnp.asarray(tok), jcache,
+                                  active=jnp.asarray(active))
+        act = np.asarray(active)
+        tl, _ = llama.decode_step(model, torch.from_numpy(tok), cache,
+                                  active=torch.from_numpy(act))
+        _close(tl[act], np.asarray(jl)[act])
+        tok = np.asarray(jnp.argmax(jl, axis=-1)).astype(np.int32)
+    _cache_close(cache, jcache)
+
+
+def test_int8_use_kernel_false_matches_default(model):
+    tokens = torch.tensor([[5, 9, 2, 7]])
+    a, b = (llama.KVCache.init(CFG, 1, "cpu", quantized=True) for _ in range(2))
+    la, _ = llama.prefill(model, tokens, a)
+    lb, _ = llama.prefill(model, tokens, b, use_kernel=False)
+    _close(la, lb.float().numpy())
+    la, _ = llama.decode_step(model, torch.tensor([4]), a)
+    lb, _ = llama.decode_step(model, torch.tensor([4]), b, use_kernel=False)
+    _close(la, lb.float().numpy())
+    assert torch.equal(a.k, b.k) and torch.equal(a.v_scale, b.v_scale)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16cache", "int8cache"])
+def test_chunk_overhanging_capacity_writes_its_valid_part(model, quantized):
+    """A chunk whose span runs past S (start 48 + chunk 48 > S = 64) writes
+    the rows that fit; the logits equal the bucketed admission's of the same
+    prompt."""
+    prompt = np.random.default_rng(9).integers(0, CFG.vocab_size, 60)
+    C, n = 48, 60
+    chunked = llama.KVCache.init(CFG, 2, "cpu", quantized=quantized)
+    for start in (0, C):
+        piece = np.zeros(C, np.int64)
+        part = prompt[start : start + C]
+        piece[: len(part)] = part
+        lc, _ = llama.prefill_slot_chunk(model, torch.from_numpy(piece), start, n, 1, chunked,
+                                         reset=start == 0)
+    whole = llama.KVCache.init(CFG, 2, "cpu", quantized=quantized)
+    padded = np.zeros(64, np.int64)
+    padded[:n] = prompt
+    lw, _ = llama.prefill_slot(model, torch.from_numpy(padded), n, 1, whole)
+    assert chunked.lengths.tolist() == whole.lengths.tolist() == [0, n]
+    _close(lc, lw.float().numpy())
+    for got, want in zip(_dequant(chunked, [0, n]), _dequant(whole, [0, n])):
+        assert np.abs(want[:, 1, :, C:n]).max() > 0  # the second chunk's rows are there
+        quantum = np.abs(want).max(axis=-1, keepdims=True) / 127.0
+        assert (np.abs(got - want) <= 2e-2 * np.abs(want).max() + 2 * quantum).all()

@@ -1,22 +1,35 @@
-// Decode attention: one query token per slot against the head-major bf16
-// cache of one layer, k/v [B, Hkv, S, D]; out [B, H, D].
+// Decode attention: one query token per slot against the head-major cache of
+// one layer; out [B, H, D].  Two cache forms in one source: bf16 rows
+// k/v [B, Hkv, S, D], and the packed int8 cache, words [B, Hkv, S/4, D] int32
+// (byte j of word w = position 4w + j, stored as value + 128) with bf16
+// scales [B, 4, Hkv, S/4].
 //
 // Replaces the Pallas kernels xbitops_tpu/kernels/decode_attention.py
 // _kernel_v2 (decode_attention.py:176) and _kernel (decode_attention.py:80),
-// entry decode_attention (decode_attention.py:925), for the dense bf16 cache.
-// The TPU's two forms (a per-block grid for the interpreter, a pipelined
-// per-slot program on the chip) become this one kernel.
+// entry decode_attention (decode_attention.py:925), for the dense bf16 and
+// int8 caches (the paged form is not ported).  The TPU's two forms (a
+// per-block grid for the interpreter, a pipelined per-slot program on the
+// chip) become this one kernel.
 //
 // What bounds it on an H100: reading the live cache rows, B * Hkv * len * D
-// * 2 values, far below the tensor-core line.  So it reads only each slot's
-// live rows [lo, len) and spreads them over the card:
+// values of 2 bytes (bf16) or 1 byte plus 2 scales a row (int8), far below
+// the tensor-core line.  So it reads only each slot's live rows [lo, len)
+// and spreads them over the card:
 // - split-KV flash decoding: grid (splits, Hkv, B); a block takes one kv
 //   head of one slot over `split_len` positions, its four warps take
-//   positions in turn, and each warp keeps an online softmax in f32 for the
-//   rep = H/Hkv query heads of that kv head (query head h*rep + r uses kv
-//   head h), so a k/v row is read once for all of them;
+//   positions (int8: word rows of four positions) in turn, and each warp
+//   keeps an online softmax in f32 for the rep = H/Hkv query heads of that
+//   kv head (query head h*rep + r uses kv head h), so a k/v row is read once
+//   for all of them;
 // - a lane holds D/32 contiguous values of q, k, v and the output, so a
 //   warp reads a row in one coalesced access; q.k reduces by shuffles;
+// - int8: a lane reads D/32 words of a word row and unpacks the four
+//   positions in registers with logical shifts; the score is
+//   (q . (byte - 128)) * scale * ks and the v scale is folded into the
+//   probability, p * vs, before p . (byte - 128), so no dequantized row is
+//   ever formed.  The TPU kernel's 128 * sum(q) correction and 2^(-8j) field
+//   scaling avoided shifts on its vector unit; here a shift costs one
+//   cycle;
 // - blocks cannot carry state across the grid, so each writes its
 //   (max, sum, unnormalised output) and a second small kernel combines the
 //   splits of each (slot, head).
@@ -33,11 +46,63 @@ constexpr int kWarps = 4;
 constexpr int kRepMax = 8;
 constexpr float kNegInf = -1e30f;
 
-template <int DPL>  // values per lane: D / 32
+// N consecutive words in one 8- or 16-byte access (p is aligned to N words).
+template <int N>
+__device__ __forceinline__ void load_words(const uint32_t* __restrict__ p, uint32_t (&out)[N]) {
+  if constexpr (N == 2) {
+    const uint2 t = *reinterpret_cast<const uint2*>(p);
+    out[0] = t.x;
+    out[1] = t.y;
+  } else {
+    static_assert(N % 4 == 0, "words per lane: 2 or a multiple of 4");
+#pragma unroll
+    for (int i = 0; i < N; i += 4) {
+      const uint4 t = *reinterpret_cast<const uint4*>(p + i);
+      out[i] = t.x;
+      out[i + 1] = t.y;
+      out[i + 2] = t.z;
+      out[i + 3] = t.w;
+    }
+  }
+}
+
+// One online-softmax step of a warp for one cache position: the score of each
+// of the rep query heads against the row kf (times s_scale), then the value
+// row vf weighted by the probability times v_scale.
+template <int DPL>
+__device__ __forceinline__ void attend_row(const float (&qr)[kRepMax][DPL],
+                                           const float (&kf)[DPL], const float (&vf)[DPL],
+                                           float s_scale, float v_scale, int rep,
+                                           float (&acc)[kRepMax][DPL],
+                                           float (&m_r)[kRepMax], float (&l_r)[kRepMax]) {
+#pragma unroll
+  for (int r = 0; r < kRepMax; ++r) {
+    if (r >= rep) break;
+    float d = 0.f;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) d = fmaf(qr[r][i], kf[i], d);
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
+    d *= s_scale;
+    const float m_new = fmaxf(m_r[r], d);
+    const float alpha = expf(m_r[r] - m_new);
+    const float pe = expf(d - m_new);
+    l_r[r] = l_r[r] * alpha + pe;
+    const float pv = pe * v_scale;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) acc[r][i] = fmaf(acc[r][i], alpha, pv * vf[i]);
+    m_r[r] = m_new;
+  }
+}
+
+// DPL: values per lane, D / 32.  INT8: k/v are packed words and ks/vs their
+// scales; otherwise k/v are bf16 rows and ks/vs are unused.
+template <int DPL, bool INT8>
 __global__ void __launch_bounds__(kWarps * 32)
 attend_split_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
+                    const void* __restrict__ k_raw, const void* __restrict__ v_raw,
+                    const __nv_bfloat16* __restrict__ ks,
+                    const __nv_bfloat16* __restrict__ vs,
                     const int* __restrict__ lengths,
                     float* __restrict__ part_o, float* __restrict__ part_m,
                     float* __restrict__ part_l, int H, int Hkv, int S,
@@ -69,32 +134,47 @@ attend_split_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
 
-  const size_t head = (static_cast<size_t>(b) * Hkv + h) * S;
-  for (int p = s0 + warp; p < s1; p += kWarps) {
-    const __nv_bfloat16* kp = k + (head + p) * D + lane * DPL;
-    const __nv_bfloat16* vp = v + (head + p) * D + lane * DPL;
-    float kf[DPL], vf[DPL];
+  if constexpr (INT8) {
+    const uint32_t* k = static_cast<const uint32_t*>(k_raw);
+    const uint32_t* v = static_cast<const uint32_t*>(v_raw);
+    const int Sw = S / 4;
+    const size_t head = (static_cast<size_t>(b) * Hkv + h) * Sw;
+    // scales[b, j, h, w]: the four positions of a word lie Hkv * Sw apart
+    const size_t sc_head = (static_cast<size_t>(b) * 4 * Hkv + h) * Sw;
+    const size_t sc_j = static_cast<size_t>(Hkv) * Sw;
+    for (int w = s0 / 4 + warp; 4 * w < s1; w += kWarps) {
+      uint32_t kw[DPL], vw[DPL];
+      load_words<DPL>(k + (head + w) * D + lane * DPL, kw);
+      load_words<DPL>(v + (head + w) * D + lane * DPL, vw);
 #pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      kf[i] = __bfloat162float(kp[i]);
-      vf[i] = __bfloat162float(vp[i]);
+      for (int j = 0; j < 4; ++j) {
+        const int p = 4 * w + j;
+        if (p < s0 || p >= s1) continue;  // warp-uniform
+        const float ksj = __bfloat162float(ks[sc_head + j * sc_j + w]);
+        const float vsj = __bfloat162float(vs[sc_head + j * sc_j + w]);
+        float kf[DPL], vf[DPL];
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) {
+          kf[i] = static_cast<float>(static_cast<int>((kw[i] >> (8 * j)) & 0xffu) - 128);
+          vf[i] = static_cast<float>(static_cast<int>((vw[i] >> (8 * j)) & 0xffu) - 128);
+        }
+        attend_row<DPL>(qr, kf, vf, scale * ksj, vsj, rep, acc, m_r, l_r);
+      }
     }
+  } else {
+    const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(k_raw);
+    const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(v_raw);
+    const size_t head = (static_cast<size_t>(b) * Hkv + h) * S;
+    for (int p = s0 + warp; p < s1; p += kWarps) {
+      const __nv_bfloat16* kp = k + (head + p) * D + lane * DPL;
+      const __nv_bfloat16* vp = v + (head + p) * D + lane * DPL;
+      float kf[DPL], vf[DPL];
 #pragma unroll
-    for (int r = 0; r < kRepMax; ++r) {
-      if (r >= rep) break;
-      float d = 0.f;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) d = fmaf(qr[r][i], kf[i], d);
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
-      d *= scale;
-      const float m_new = fmaxf(m_r[r], d);
-      const float alpha = expf(m_r[r] - m_new);
-      const float pe = expf(d - m_new);
-      l_r[r] = l_r[r] * alpha + pe;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[r][i] = fmaf(acc[r][i], alpha, pe * vf[i]);
-      m_r[r] = m_new;
+      for (int i = 0; i < DPL; ++i) {
+        kf[i] = __bfloat162float(kp[i]);
+        vf[i] = __bfloat162float(vp[i]);
+      }
+      attend_row<DPL>(qr, kf, vf, scale, 1.f, rep, acc, m_r, l_r);
     }
   }
 
@@ -148,41 +228,41 @@ __global__ void combine_kernel(const float* __restrict__ part_o,
   }
 }
 
-template <int DPL>
+template <int DPL, bool INT8>
 void launch_split(const dim3& grid, cudaStream_t st, const void* q, const void* k,
-                  const void* v, const void* lengths, void* part_o, void* part_m,
-                  void* part_l, int H, int Hkv, int S, int n_split, int split_len,
-                  int window, float scale) {
-  attend_split_kernel<DPL><<<grid, kWarps * 32, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<const int*>(lengths),
-      static_cast<float*>(part_o), static_cast<float*>(part_m),
-      static_cast<float*>(part_l), H, Hkv, S, n_split, split_len, window, scale);
+                  const void* v, const void* ks, const void* vs, const void* lengths,
+                  void* part_o, void* part_m, void* part_l, int H, int Hkv, int S,
+                  int n_split, int split_len, int window, float scale) {
+  attend_split_kernel<DPL, INT8><<<grid, kWarps * 32, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(q), k, v,
+      static_cast<const __nv_bfloat16*>(ks), static_cast<const __nv_bfloat16*>(vs),
+      static_cast<const int*>(lengths), static_cast<float*>(part_o),
+      static_cast<float*>(part_m), static_cast<float*>(part_l), H, Hkv, S, n_split,
+      split_len, window, scale);
 }
 
-}  // namespace
-
 // Returns cudaErrorInvalidValue (1) for a head_dim or GQA ratio it does not take.
-extern "C" int xb_decode_attention(const void* q, const void* k, const void* v,
-                                   const void* lengths, void* part_o, void* part_m,
-                                   void* part_l, void* out, int B, int H, int Hkv,
-                                   int S, int D, int n_split, int split_len,
-                                   int window, float scale, void* stream) {
+template <bool INT8>
+int decode_attention(const void* q, const void* k, const void* v, const void* ks,
+                     const void* vs, const void* lengths, void* part_o, void* part_m,
+                     void* part_l, void* out, int B, int H, int Hkv, int S, int D,
+                     int n_split, int split_len, int window, float scale, void* stream) {
   if (H % Hkv || H / Hkv > kRepMax) return static_cast<int>(cudaErrorInvalidValue);
+  if (INT8 && (S % 4 || split_len % 4)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(n_split, Hkv, B);
   switch (D) {
     case 64:
-      launch_split<2>(grid, st, q, k, v, lengths, part_o, part_m, part_l, H, Hkv, S,
-                      n_split, split_len, window, scale);
+      launch_split<2, INT8>(grid, st, q, k, v, ks, vs, lengths, part_o, part_m, part_l, H,
+                            Hkv, S, n_split, split_len, window, scale);
       break;
     case 128:
-      launch_split<4>(grid, st, q, k, v, lengths, part_o, part_m, part_l, H, Hkv, S,
-                      n_split, split_len, window, scale);
+      launch_split<4, INT8>(grid, st, q, k, v, ks, vs, lengths, part_o, part_m, part_l, H,
+                            Hkv, S, n_split, split_len, window, scale);
       break;
     case 256:
-      launch_split<8>(grid, st, q, k, v, lengths, part_o, part_m, part_l, H, Hkv, S,
-                      n_split, split_len, window, scale);
+      launch_split<8, INT8>(grid, st, q, k, v, ks, vs, lengths, part_o, part_m, part_l, H,
+                            Hkv, S, n_split, split_len, window, scale);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -193,4 +273,28 @@ extern "C" int xb_decode_attention(const void* q, const void* k, const void* v,
       static_cast<const float*>(part_o), static_cast<const float*>(part_m),
       static_cast<const float*>(part_l), static_cast<__nv_bfloat16*>(out), n_split, D);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" int xb_decode_attention(const void* q, const void* k, const void* v,
+                                   const void* lengths, void* part_o, void* part_m,
+                                   void* part_l, void* out, int B, int H, int Hkv,
+                                   int S, int D, int n_split, int split_len,
+                                   int window, float scale, void* stream) {
+  return decode_attention<false>(q, k, v, nullptr, nullptr, lengths, part_o, part_m, part_l,
+                                 out, B, H, Hkv, S, D, n_split, split_len, window, scale,
+                                 stream);
+}
+
+// The packed int8 cache: k/v are the words [B, Hkv, S/4, D] of one layer,
+// ks/vs its scales [B, 4, Hkv, S/4]; S counts positions.
+extern "C" int xb_decode_attention_int8(const void* q, const void* k, const void* v,
+                                        const void* ks, const void* vs,
+                                        const void* lengths, void* part_o, void* part_m,
+                                        void* part_l, void* out, int B, int H, int Hkv,
+                                        int S, int D, int n_split, int split_len,
+                                        int window, float scale, void* stream) {
+  return decode_attention<true>(q, k, v, ks, vs, lengths, part_o, part_m, part_l, out, B,
+                                H, Hkv, S, D, n_split, split_len, window, scale, stream);
 }

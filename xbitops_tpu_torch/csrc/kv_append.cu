@@ -1,8 +1,10 @@
-// In-place KV append: write one new row per slot into the head-major bf16
-// cache of one layer, k/v [B, Hkv, S, D], at row positions[i].
+// In-place KV append: write one new row per slot into the head-major cache of
+// one layer at row positions[i].  Two kernels: the bf16 cache k/v
+// [B, Hkv, S, D], and the packed int8 cache (below).
 //
-// Replaces the Pallas kernel xbitops_tpu/kernels/kv_append.py:_kernel_dense
-// (entry kv_append_dense, kv_append.py:109).
+// Replaces the Pallas kernels xbitops_tpu/kernels/kv_append.py:_kernel_dense
+// (entry kv_append_dense, kv_append.py:109) and :_kernel (entry
+// kv_append_packed, kv_append.py:166).
 //
 // What bounds it: nothing on an H100 -- it moves B * Hkv * D * 2 values
 // (1 MB at 7B, B=8), so its time is the launch.  The TPU kernel rewrote a
@@ -11,6 +13,17 @@
 //
 // Row i goes to slot i.  It writes nothing when its position is outside
 // [0, S): padding and inactive slots carry position S.
+//
+// The packed int8 cache keeps four positions in one int32 word: words
+// [B, Hkv, S/4, D], byte j of word w = position 4w + j (value + 128), and
+// scales [B, 4, Hkv, S/4] bf16 with scales[b, j, h, w] for position 4w + j.
+// Its append reads each (head, dim) word of the target word row, replaces
+// byte pos % 4 and writes it back, Hkv * D words and 2 * Hkv scales a slot:
+// launch-bound like the bf16 one.  The TPU kernel moved an 8-row slab and a
+// 128-lane scale chunk through VMEM and picked the new scales with a one-hot
+// reduce, all for Mosaic's tiling; none of it is needed here.  The word is
+// handled as uint32_t, so byte 3 (the sign bits of the int32) shifts
+// logically.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -35,7 +48,49 @@ __global__ void kv_append_kernel(uint16_t* __restrict__ k, uint16_t* __restrict_
   }
 }
 
+__global__ void kv_append_packed_kernel(uint32_t* __restrict__ k, uint32_t* __restrict__ v,
+                                        uint16_t* __restrict__ ks, uint16_t* __restrict__ vs,
+                                        const int* __restrict__ kq, const int* __restrict__ vq,
+                                        const uint16_t* __restrict__ ks_new,
+                                        const uint16_t* __restrict__ vs_new,
+                                        const int* __restrict__ positions,
+                                        int B, int Hkv, int Sw, int D) {
+  const int i = blockIdx.x;
+  if (i >= B) return;
+  const int pos = positions[i];
+  if (pos < 0 || pos >= Sw * 4) return;
+  const int w = pos >> 2, j = pos & 3;
+  const int sh = 8 * j;
+  const uint32_t keep = ~(0xffu << sh);
+  const int row = Hkv * D;
+  for (int e = threadIdx.x; e < row; e += blockDim.x) {
+    const int h = e / D, d = e - (e / D) * D;
+    const size_t dst = ((static_cast<size_t>(i) * Hkv + h) * Sw + w) * D + d;
+    const size_t src = static_cast<size_t>(i) * row + e;
+    k[dst] = (k[dst] & keep) | ((static_cast<uint32_t>(kq[src]) & 0xffu) << sh);
+    v[dst] = (v[dst] & keep) | ((static_cast<uint32_t>(vq[src]) & 0xffu) << sh);
+  }
+  for (int h = threadIdx.x; h < Hkv; h += blockDim.x) {
+    const size_t dst = ((static_cast<size_t>(i) * 4 + j) * Hkv + h) * Sw + w;
+    ks[dst] = ks_new[i * Hkv + h];
+    vs[dst] = vs_new[i * Hkv + h];
+  }
+}
+
 }  // namespace
+
+extern "C" int xb_kv_append_packed(void* k, void* v, void* ks, void* vs, const void* kq,
+                                   const void* vq, const void* ks_new, const void* vs_new,
+                                   const void* positions, int B, int Hkv, int Sw, int D,
+                                   void* stream) {
+  if (B == 0) return 0;
+  kv_append_packed_kernel<<<B, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(k), static_cast<uint32_t*>(v), static_cast<uint16_t*>(ks),
+      static_cast<uint16_t*>(vs), static_cast<const int*>(kq), static_cast<const int*>(vq),
+      static_cast<const uint16_t*>(ks_new), static_cast<const uint16_t*>(vs_new),
+      static_cast<const int*>(positions), B, Hkv, Sw, D);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int xb_kv_append(void* k, void* v, const void* k_new, const void* v_new,
                             const void* positions, int B, int Hkv, int S, int D,

@@ -3,16 +3,18 @@
 - a fixed pool of ``slots`` cache slots;
 - admission: waiting requests prefill into free slots in one batched forward,
   padded to a bucket length (pad tokens carry position S, so they write
-  nothing and advance nothing);
+  nothing and advance nothing); prompts longer than the last bucket are
+  admitted in chunks of ``prefill_chunk`` tokens that attend the cache, all
+  long prompts advancing one chunk per forward in lockstep;
 - decode in bursts of ``decode_burst`` steps over all slots with an ``active``
   mask; tokens stay on the device within a burst and are read back once;
 - finished slots refill from the queue without draining the batch;
 - per-request temperature, eos and max_new_tokens; engine-level top-k/top-p.
 
 PyTorch runs eagerly, so there is nothing to compile or donate: the KV cache
-is one tensor pair updated in place.  Not ported yet: the int8 cache, paged
-KV, speculative decoding, pipelined bursts, meshes, failure restarts and
-chunked admission of prompts longer than the last bucket.
+(bf16, or packed int8 with ``kv_quant``) is one set of tensors updated in
+place.  Not ported yet: paged KV, speculative decoding, pipelined bursts,
+meshes and failure restarts.
 """
 
 from __future__ import annotations
@@ -57,6 +59,12 @@ def default_buckets(max_seq_len: int) -> List[int]:
     return out
 
 
+# Smallest max_seq_len at which ``kv_quant=None`` picks the int8 cache.  The
+# value is the JAX package's, measured on a TPU v5e; it is kept for parity
+# until the H100 re-derives it.
+AUTO_KV_QUANT_MIN_S = 1024
+
+
 class Engine:
     """Continuous-batching engine over a packed :class:`~llama.Llama`."""
 
@@ -80,11 +88,13 @@ class Engine:
         draft_params=None,
         max_restarts: int = 0,
     ):
-        """``kv_quant=None`` means the bf16 cache, until the int8 cache is
-        ported (the JAX package's automatic choice was measured on a TPU).
+        """``kv_quant``: True for the packed int8 KV cache, False for bf16;
+        None picks int8 for long contexts (``max_seq_len >=
+        AUTO_KV_QUANT_MIN_S``) where the cache allows it.  ``prefill_chunk``:
+        the longest bucket, and the chunk length for longer prompts.
         ``seed`` seeds the engine's ``torch.Generator`` for sampled rows."""
         unported = dict(
-            kv_quant=kv_quant is True, spec_tokens=spec_tokens > 0, paged=paged,
+            spec_tokens=spec_tokens > 0, paged=paged,
             pipeline=bool(pipeline), mesh=mesh is not None,
             draft_params=draft_params is not None, max_restarts=max_restarts > 0,
         )
@@ -101,11 +111,27 @@ class Engine:
             b for b in (prefill_buckets or default_buckets(cfg.max_seq_len))
             if b <= self.prefill_chunk
         ) or [self.prefill_chunk]
+        if kv_quant is None:
+            kv_quant = (
+                cache_dtype == torch.bfloat16
+                and cfg.max_seq_len % 4 == 0
+                and self.prefill_chunk % 4 == 0
+                and cfg.flash_decode and cfg.head_dim % 128 == 0
+                and cfg.max_seq_len >= AUTO_KV_QUANT_MIN_S
+            )
+        self.kv_quant = bool(kv_quant)
+        if self.kv_quant:
+            # the packed int8 cache is written in whole 4-position words:
+            # every prefill length must be a multiple of 4
+            self.buckets = sorted({-(-b // 4) * 4 for b in self.buckets})
+            if self.prefill_chunk % 4:
+                raise ValueError("kv_quant requires prefill_chunk % 4 == 0")
         self.decode_burst = max(1, decode_burst)
         self.top_k, self.top_p = top_k, top_p
         self.device = model.device
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self.cache = llama.KVCache.init(cfg, slots, self.device, dtype=cache_dtype)
+        self.cache = llama.KVCache.init(cfg, slots, self.device, dtype=cache_dtype,
+                                        quantized=self.kv_quant)
         self._next_id = 0
         self.loop_stats = defaultdict(float)
 
@@ -136,10 +162,6 @@ class Engine:
             self._next_id = max(self._next_id, r.id + 1)
             if len(r.prompt) >= S:
                 raise ValueError(f"prompt length {len(r.prompt)} >= max_seq_len {S}")
-            if len(r.prompt) > self.buckets[-1]:
-                raise NotImplementedError(
-                    f"prompt length {len(r.prompt)} > last bucket {self.buckets[-1]}: "
-                    "chunked admission (prefill_attention) is not ported yet")
             pending.append(r)
 
         slot_req: List[Optional[Request]] = [None] * self.slots
@@ -173,13 +195,60 @@ class Engine:
             else:
                 cur_tok[b] = tok
 
+        def start(group, toks) -> None:
+            """Admit prefilled (slot, request, prompt) rows with their first tokens."""
+            for i, (b, r, prompt) in enumerate(group):
+                slot_req[b] = r
+                slot_gen[b] = []
+                slot_len[b] = len(prompt)
+                temps[b] = r.temperature
+                active[b] = True
+                accept(b, int(toks[i]))
+
         while pending or active.any():
             t_mark = time.perf_counter()
-            admit = []
+            admit, longs = [], []
             for b in range(self.slots):
                 if not active[b] and pending:
                     r = pending.popleft()
-                    admit.append((b, r, list(r.prompt)))
+                    (admit if len(r.prompt) <= self.buckets[-1] else longs).append(
+                        (b, r, list(r.prompt)))
+
+            if longs:
+                # every long prompt advances one chunk per forward; a row whose
+                # prompt is exhausted turns inert (length 0, slot out of range);
+                # only a prompt's final chunk is read back and sampled
+                C = self.prefill_chunk
+                n = len(longs)
+                n_chunks = -(-max(len(p) for _, _, p in longs) // C)
+                t_adm = [r.temperature for _, r, _ in longs]
+                temps_dev = torch.tensor(t_adm, device=dev)
+                last_tok = [0] * n
+                for ci in range(n_chunks):
+                    begin = ci * C
+                    tokens = np.zeros((n, C), np.int64)
+                    lens = np.zeros(n, np.int64)
+                    slots = np.full(n, self.slots, np.int64)
+                    for i, (b, _, prompt) in enumerate(longs):
+                        if begin < len(prompt):
+                            piece = prompt[begin : begin + C]
+                            tokens[i, : len(piece)] = piece
+                            lens[i], slots[i] = len(prompt), b
+                    logits, _ = llama.prefill_slots_chunk(
+                        self.model, torch.from_numpy(tokens).to(dev),
+                        torch.full((n,), begin, device=dev), torch.from_numpy(lens).to(dev),
+                        torch.from_numpy(slots).to(dev), self.cache,
+                        resets=torch.full((n,), ci == 0, device=dev))
+                    final = [i for i, (_, _, p) in enumerate(longs) if ci == (len(p) - 1) // C]
+                    if final:
+                        toks = self._sample(logits, temps_dev, greedy=max(t_adm) <= 0)
+                        toks = toks.cpu().numpy()
+                        for i in final:
+                            last_tok[i] = int(toks[i])
+                    lt["chunks"] += 1
+                start(longs, last_tok)
+                lt["admit_prefill_chunks"] += time.perf_counter() - t_mark
+                t_mark = time.perf_counter()
             if admit:
                 bucket = self._bucket(max(len(p) for _, _, p in admit))
                 tokens = np.zeros((len(admit), bucket), np.int64)
@@ -192,13 +261,7 @@ class Engine:
                     self.model, torch.from_numpy(tokens).to(dev), lens, slots, self.cache)
                 toks = self._sample(logits, torch.tensor(t_adm, device=dev),
                                     greedy=max(t_adm) <= 0).cpu().numpy()
-                for i, (b, r, prompt) in enumerate(admit):
-                    slot_req[b] = r
-                    slot_gen[b] = []
-                    slot_len[b] = len(prompt)
-                    temps[b] = r.temperature
-                    active[b] = True
-                    accept(b, int(toks[i]))
+                start(admit, toks)
                 lt["admit_prefill"] += time.perf_counter() - t_mark
             if not active.any():
                 continue

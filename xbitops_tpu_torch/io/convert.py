@@ -1,9 +1,10 @@
-"""Bring weights packed by the JAX package into the port.
+"""Bring weights and KV caches of the JAX package into the port.
 
 Both packages share the packed layout (format v3), so conversion is a copy: the
 caller hands over the JAX parameter tree after ``jax.tree.map(np.asarray, ...)``
 and this module reads the QTensor fields by name, so it needs no JAX import.
-fp16 scales stored as int16 bit patterns become ``float16`` views.
+fp16 scales stored as int16 bit patterns become ``float16`` views.  A leaf may
+also be a ``torch.Tensor`` already (``io.checkpoint.load_packed`` makes those).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 from xbitops_tpu_torch.formats import QTensor
-from xbitops_tpu_torch.models.llama import Llama, LlamaBlock, LlamaConfig
+from xbitops_tpu_torch.models.llama import KVCache, Llama, LlamaBlock, LlamaConfig
 
 _PROJECTIONS = ("wqkv", "wq", "wk", "wv", "wo", "w_gateup", "w_gate", "w_up", "w_down")
 
@@ -24,6 +25,8 @@ def _is_qtensor(x: Any) -> bool:
 
 
 def _tensor(a, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes bfloat16: move the bits
         return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16).to(device)
@@ -93,4 +96,20 @@ def params_from_numpy(params: dict, cfg: LlamaConfig, device) -> Llama:
         blocks=blocks,
         ln_final=_tensor(params["ln_final"], device),
         lm_head=_weight(params["lm_head"], device),
+    )
+
+
+def kvcache_from_numpy(cache: Any, device) -> KVCache:
+    """The JAX package's dense ``KVCache`` (numpy leaves, any object with its
+    fields) -> the port's, bf16 or packed int8: both keep the same layout, so
+    a request can prefill in one package and decode in the other."""
+    if getattr(cache, "page_table", None) is not None:
+        raise NotImplementedError("the paged KV cache is not ported yet")
+    quantized = cache.k_scale is not None
+    return KVCache(
+        k=_tensor(cache.k, device),
+        v=_tensor(cache.v, device),
+        lengths=_tensor(cache.lengths, device).to(torch.int32),
+        k_scale=_tensor(cache.k_scale, device) if quantized else None,
+        v_scale=_tensor(cache.v_scale, device) if quantized else None,
     )

@@ -1,9 +1,10 @@
 """Build, load and count the port's CUDA kernels.
 
 Every kernel source under ``xbitops_tpu_torch/csrc/*.cu`` has a plain C
-interface.  At first use they compile with ``nvcc`` for ``sm_90a`` into one
-shared library, cached under ``xbitops_tpu_torch/_build/<hash of the sources>/``,
-and load with ``ctypes``.  Pointers and the stream pass as ``c_void_p`` (a
+interface.  At first use they compile with ``nvcc`` for ``sm_90a`` (one
+``nvcc`` per source, all started together) into one shared library, cached
+under ``xbitops_tpu_torch/_build/<hash of the sources>/``, and load with
+``ctypes``.  Pointers and the stream pass as ``c_void_p`` (a
 pointer passed as a plain int would be cut to 32 bits), ints as ``c_int``.
 Each C entry returns ``cudaGetLastError()`` after its launch and the wrapper
 raises if it is not 0.  A failed build raises with nvcc's output: there is no
@@ -30,14 +31,16 @@ CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG / "_build"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 # Launch counts per kernel, and calls of a plain version on CUDA tensors.
 # A wrapper adds one where it launches its kernel and nowhere else, so a run
 # can show that the main path went through the kernels.
-launches = {"qgemv": 0, "kv_append": 0, "decode_attention": 0}
-plain_on_cuda = {"qgemv": 0, "kv_append": 0, "decode_attention": 0}
+KERNELS = ("qgemv", "kv_append", "decode_attention", "prefill_attention",
+           "kv_append_packed", "decode_attention_int8")
+launches = dict.fromkeys(KERNELS, 0)
+plain_on_cuda = dict.fromkeys(KERNELS, 0)
 
 
 def reset_counts() -> None:
@@ -58,8 +61,11 @@ _SIGNATURES = {
     "xb_qgemv": [_VP, _I, _I, _I, _I, _VP, _VP, _VP, _I, _I, _I, _I,
                  _VP, _VP, _I, _I, _I, _I, _I, _I, _VP, _VP, _I, _VP],
     "xb_kv_append": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    "xb_kv_append_packed": [_VP] * 9 + [_I, _I, _I, _I, _VP],
     "xb_decode_attention": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
                             _I, _I, _I, _I, _I, ctypes.c_float, _VP],
+    "xb_decode_attention_int8": [_VP] * 10 + [_I] * 8 + [ctypes.c_float, _VP],
+    "xb_prefill_attention": [_VP] * 8 + [_I] * 8 + [ctypes.c_float, _VP],
 }
 
 _lib = None
@@ -93,17 +99,30 @@ def build() -> Path:
     if lib_path.exists():
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}\n{proc.stderr}"
-        )
-    build_log = proc.stdout + proc.stderr
-    os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or nothing
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=out_dir) as tmp_dir:
+        # one nvcc per source, all at once, then one link
+        objs = [os.path.join(tmp_dir, src.stem + ".o") for src in sources]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)] for src, obj in zip(sources, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        tmp = os.path.join(tmp_dir, "lib.so")
+        link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", tmp, *objs]
+        logs = []
+        for cmd, proc in zip(cmds, procs):
+            out = proc.communicate()[0]
+            logs.append(out)
+            if proc.returncode != 0:
+                for other in procs:
+                    other.kill()
+                    other.wait()
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+        proc = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}):\n{' '.join(link)}\n{proc.stdout}")
+        build_log = "".join(logs) + proc.stdout
+        os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or nothing
     return lib_path
 
 

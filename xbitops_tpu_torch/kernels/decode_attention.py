@@ -1,9 +1,12 @@
-"""Length-aware one-token (decode) attention over the head-major bf16 cache:
-the CUDA kernel (``csrc/decode_attention.cu``) and its plain PyTorch version.
+"""Length-aware one-token (decode) attention over the head-major cache, bf16
+or packed int8: the CUDA kernel (``csrc/decode_attention.cu``) and its plain
+PyTorch version.
 
 Replaces the Pallas kernels ``xbitops_tpu/kernels/decode_attention.py``
 ``_kernel_v2`` and ``_kernel`` (entry ``decode_attention``) for the dense bf16
-cache; the int8 and paged forms are not ported yet.
+cache and the packed int8 cache (words ``[(L,) B, Hkv, S/4, D]`` int32 and
+scales ``[(L,) B, 4, Hkv, S/4]`` bf16, see ``kernels/kv_append.py``).  The
+paged form is not ported yet.
 """
 
 from __future__ import annotations
@@ -13,17 +16,29 @@ from typing import Optional
 import torch
 
 from xbitops_tpu_torch.kernels import common
-from xbitops_tpu_torch.kernels.kv_append import kv_append_dense
+from xbitops_tpu_torch.kernels.kv_append import (
+    _unpack_kv_words,
+    check_cache,
+    kv_append_dense,
+    kv_append_packed,
+    stacked_view,
+)
 
 NEG_INF = -1e30
 SPLIT_LEN = 256  # cache positions per thread block (split-KV)
 
 
-def decode_attention_reference(q, k, v, lengths, window: Optional[int] = None):
+def decode_attention_reference(q, k, v, lengths, window: Optional[int] = None,
+                               k_scale=None, v_scale=None):
     """Plain version: softmax(q k^T / sqrt(D)) v over positions
     ``[max(0, len - window), len)`` of each slot, in f32.  q [B, H, D];
-    k/v [B, Hkv, S, D] (one layer); returns [B, H, D] in q's dtype."""
-    common.count_plain("decode_attention", q)
+    k/v [B, Hkv, S, D] (one layer), or with ``k_scale``/``v_scale``
+    [B, 4, Hkv, S/4] the packed int8 words [B, Hkv, S/4, D], dequantized
+    first; returns [B, H, D] in q's dtype."""
+    int8 = k_scale is not None
+    common.count_plain("decode_attention_int8" if int8 else "decode_attention", q)
+    if int8:
+        k, v = _unpack_kv_words(k, k_scale), _unpack_kv_words(v, v_scale)
     B, H, D = q.shape
     Hkv, S = k.shape[1], k.shape[2]
     rep = H // Hkv
@@ -47,49 +62,59 @@ def decode_attention(
     v: torch.Tensor,
     lengths: torch.Tensor,  # int [B]: attend positions < lengths[b]
     layer_idx: Optional[int] = None,
-    kv_new=None,  # (k_new [B, Hkv, D], v_new, positions [B]): append first
+    k_scale: Optional[torch.Tensor] = None,  # [(L,) B, 4, Hkv, S/4]: int8 cache
+    v_scale: Optional[torch.Tensor] = None,
+    page_table=None,
+    kv_new=None,  # new rows to append first (see below)
     window: Optional[int] = None,
 ):
     """One-token attention of each slot over its first ``lengths[b]`` cache
     positions (of layer ``layer_idx`` of a stacked cache); returns [B, H, D].
 
-    ``window``: attend only ``[max(0, len - window), len)``; a window that
-    covers the whole cache is dropped.  ``kv_new``: write the new rows at
-    ``positions`` into the cache first (in place, positions >= S write
-    nothing) and return ``(out, k, v)`` -- k and v are the same tensors,
-    updated.  A CPU tensor takes the plain versions; a CUDA tensor launches
-    the kernels or raises."""
-    k_all, v_all = (k[None], v[None]) if layer_idx is None else (k, v)
-    li = layer_idx or 0
-    S = k_all.shape[3]
-    if window is not None:
-        if window < 1:
-            raise ValueError("sliding window must be >= 1")
-        if window >= S:
-            window = None
-    if kv_new is not None:
+    With ``k_scale``/``v_scale`` the cache is the packed int8 one: k/v are
+    int32 words ``[(L,) B, Hkv, S/4, D]``.  ``window``: attend only
+    ``[max(0, len - window), len)``; a window that covers the whole cache is
+    dropped.  ``kv_new``: write the new rows at ``positions`` into the cache
+    first (in place, positions >= S write nothing).  For the bf16 cache it is
+    ``(k_new [B, Hkv, D], v_new, positions [B])`` and the result
+    ``(out, k, v)``; for the int8 cache ``(kq [B, Hkv, D] biased int32, vq,
+    ks_new [B, Hkv], vs_new, positions)`` and the result
+    ``(out, k, v, k_scale, v_scale)`` -- the same tensors, updated.  A CPU
+    tensor takes the plain versions; a CUDA tensor launches the kernels or
+    raises."""
+    if page_table is not None:
+        raise NotImplementedError("paged decode attention is not ported yet")
+    int8 = k_scale is not None
+    k_all, v_all, ks_all, vs_all, li, window = stacked_view(
+        k, v, k_scale, v_scale, layer_idx, window)
+    if kv_new is not None and int8:
+        kq, vq, ks_new, vs_new, positions = kv_new
+        kv_append_packed(k_all, v_all, ks_all, vs_all, kq, vq, ks_new, vs_new, positions, li)
+    elif kv_new is not None:
         k_new, v_new, positions = kv_new
         kv_append_dense(k_all, v_all, k_new, v_new, positions, li)
     if not q.is_cuda:
-        out = decode_attention_reference(q, k_all[li], v_all[li], lengths, window)
+        scales = (ks_all[li], vs_all[li]) if int8 else ()
+        out = decode_attention_reference(q, k_all[li], v_all[li], lengths, window, *scales)
     else:
-        out = _launch(q, k_all, v_all, lengths, li, window)
-    return out if kv_new is None else (out, k, v)
+        out = _launch(q, k_all, v_all, ks_all, vs_all, lengths, li, window)
+    if kv_new is None:
+        return out
+    return (out, k, v, k_scale, v_scale) if int8 else (out, k, v)
 
 
-def _launch(q, k, v, lengths, layer_idx, window):
+def _launch(q, k, v, ks, vs, lengths, layer_idx, window):
     req = common.require
+    int8 = ks is not None
     B, H, D = q.shape
-    L, Bc, Hkv, S, Dc = k.shape
-    req(Bc == B and Dc == D, f"q {tuple(q.shape)} does not match cache {tuple(k.shape)}")
+    L, Bc, Hkv, S, Dc = check_cache(k, v, ks, vs)
+    req(Bc == B and Dc == D and k.device == q.device,
+        f"q {tuple(q.shape)} does not match cache {tuple(k.shape)}")
     req(0 <= layer_idx < L, f"layer {layer_idx} outside [0, {L})")
     req(D in (64, 128, 256), f"head_dim {D} not in (64, 128, 256)")
     req(H % Hkv == 0 and H // Hkv <= 8, f"H={H}, Hkv={Hkv}: GQA ratio must be <= 8")
     req(q.dtype == torch.bfloat16, "q must be bf16")
     q = q.contiguous()
-    for t in (k, v):
-        req(t.dtype == torch.bfloat16 and t.is_contiguous() and t.shape == k.shape
-            and t.device == q.device, "k/v caches: contiguous bf16 [L, B, Hkv, S, D]")
     req(lengths.shape == (B,), "lengths must be [B]")
     lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     n_split = -(-S // SPLIT_LEN)
@@ -97,12 +122,18 @@ def _launch(q, k, v, lengths, layer_idx, window):
     part_m = torch.empty((B, H, n_split), dtype=torch.float32, device=q.device)
     part_l = torch.empty((B, H, n_split), dtype=torch.float32, device=q.device)
     out = torch.empty((B, H, D), dtype=torch.bfloat16, device=q.device)
-    err = common.lib().xb_decode_attention(
-        q.data_ptr(), k[layer_idx].data_ptr(), v[layer_idx].data_ptr(),
-        lens.data_ptr(), part_o.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
-        out.data_ptr(), B, H, Hkv, S, D, n_split, SPLIT_LEN, window or 0,
-        float(D) ** -0.5, common.stream_ptr(q),
-    )
-    common.check(err, "decode_attention")
-    common.launches["decode_attention"] += 1
+    tail = (lens.data_ptr(), part_o.data_ptr(), part_m.data_ptr(), part_l.data_ptr(),
+            out.data_ptr(), B, H, Hkv, S, D, n_split, SPLIT_LEN, window or 0,
+            float(D) ** -0.5, common.stream_ptr(q))
+    if int8:
+        name = "decode_attention_int8"
+        err = common.lib().xb_decode_attention_int8(
+            q.data_ptr(), k[layer_idx].data_ptr(), v[layer_idx].data_ptr(),
+            ks[layer_idx].data_ptr(), vs[layer_idx].data_ptr(), *tail)
+    else:
+        name = "decode_attention"
+        err = common.lib().xb_decode_attention(
+            q.data_ptr(), k[layer_idx].data_ptr(), v[layer_idx].data_ptr(), *tail)
+    common.check(err, name)
+    common.launches[name] += 1
     return out

@@ -1,9 +1,17 @@
-"""In-place KV append into the head-major bf16 cache: the CUDA kernel
-(``csrc/kv_append.cu``) and its plain PyTorch version.
+"""In-place KV append into the head-major cache, bf16 and packed int8: the CUDA
+kernels (``csrc/kv_append.cu``) and their plain PyTorch versions.
 
-Replaces the Pallas kernel ``xbitops_tpu/kernels/kv_append.py:_kernel_dense``
-(entry ``kv_append_dense``).  Unlike the JAX function, which returns new
-arrays, this writes into ``k_all`` / ``v_all`` in place.
+Replaces the Pallas kernels ``xbitops_tpu/kernels/kv_append.py:_kernel_dense``
+(entry ``kv_append_dense``) and ``:_kernel`` (entry ``kv_append_packed``).
+Unlike the JAX functions, which return new arrays, these write into the cache
+tensors in place.
+
+The packed int8 cache: words ``[L, B, Hkv, S/4, D]`` int32, byte ``j`` of word
+``w`` holding position ``4w + j`` as its quantized value + 128, and per
+(position, head) scales ``[L, B, 4, Hkv, S/4]`` bf16 with
+``scales[l, b, j, h, w]`` the scale of position ``4w + j``.  The helpers that
+quantize, pack and unpack that layout are here too (plain PyTorch, as the JAX
+package left them to XLA).
 """
 
 from __future__ import annotations
@@ -13,6 +21,81 @@ from typing import Tuple
 import torch
 
 from xbitops_tpu_torch.kernels import common
+
+
+def _quant_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Absmax int8 quantization of x [..., D] (the model's [B, T, H, D]) over
+    its last axis, per (token, head): returns the values BIASED by +128
+    (1..255) as int32 and the f32 scales [...]."""
+    xf = x.float()
+    s = xf.abs().amax(dim=-1).clamp(min=1e-8) / 127.0
+    q = torch.round(xf / s[..., None]).clamp(-127, 127).to(torch.int32)
+    return q + 128, s
+
+
+def _pack_kv_words(q: torch.Tensor) -> torch.Tensor:
+    """[B, T, H, D] biased byte values -> head-major words [B, H, T/4, D]
+    int32 (byte j of word w = position 4w + j)."""
+    B, T, H, D = q.shape
+    qb = (q & 255).transpose(1, 2).reshape(B, H, T // 4, 4, D)
+    # byte 3 lands in the sign bits: int32 shifts wrap, as the JAX ones do
+    return qb[..., 0, :] | (qb[..., 1, :] << 8) | (qb[..., 2, :] << 16) | (qb[..., 3, :] << 24)
+
+
+def _pack_kv_scales(s: torch.Tensor) -> torch.Tensor:
+    """[B, T, H] per-position scales -> [B, 4, H, T/4] with
+    ``out[b, j, h, w] = s[b, 4w + j, h]``."""
+    B, T, H = s.shape
+    return s.reshape(B, T // 4, 4, H).permute(0, 2, 3, 1)
+
+
+def _unpack_kv_words(words: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
+    """Packed words [..., H, W, D] and scales [..., 4, H, W] -> dequantized
+    head-major [..., H, 4W, D] f32."""
+    parts = [((words >> (8 * j)) & 255) - 128 for j in range(4)]  # & 255 drops the sign fill
+    q = torch.stack(parts, dim=-2)  # [..., H, W, 4, D]
+    sc = scales.movedim(-3, -1)  # [..., H, W, 4]
+    deq = q.float() * sc.float()[..., None]
+    return deq.reshape(*words.shape[:-2], -1, words.shape[-1])
+
+
+def stacked_view(k, v, k_scale, v_scale, layer_idx, window):
+    """What the attention entries share: a flat cache gets a leading layer
+    axis of 1, and a window is checked and dropped when it covers the whole
+    cache.  Returns ``(k_all, v_all, ks_all, vs_all, layer, window)``."""
+    int8 = k_scale is not None
+    if int8 != (v_scale is not None):
+        raise ValueError("k_scale and v_scale go together")
+    if layer_idx is None:
+        k, v = k[None], v[None]
+        if int8:
+            k_scale, v_scale = k_scale[None], v_scale[None]
+    if window is not None:
+        if window < 1:
+            raise ValueError("sliding window must be >= 1")
+        if window >= k.shape[3] * (4 if int8 else 1):
+            window = None
+    return k, v, k_scale, v_scale, layer_idx or 0, window
+
+
+def check_cache(k_all, v_all, ks_all=None, vs_all=None):
+    """Reject a stacked cache the kernels do not take; returns
+    ``(L, B, Hkv, S, D)`` with S in positions.  bf16 rows [L, B, Hkv, S, D],
+    or with scales the packed int8 form."""
+    req = common.require
+    int8 = ks_all is not None
+    L, B, Hkv, rows, D = k_all.shape
+    for t in (k_all, v_all):
+        req(t.dtype == (torch.int32 if int8 else torch.bfloat16) and t.is_contiguous()
+            and t.shape == k_all.shape and t.device == k_all.device,
+            "k/v caches: contiguous int32 words [L, B, Hkv, S/4, D]" if int8
+            else "k/v caches: contiguous bf16 [L, B, Hkv, S, D]")
+    if int8:
+        for t in (ks_all, vs_all):
+            req(t is not None and t.dtype == torch.bfloat16 and t.is_contiguous()
+                and t.shape == (L, B, 4, Hkv, rows) and t.device == k_all.device,
+                f"k/v scales: contiguous bf16 [{L}, {B}, 4, {Hkv}, {rows}]")
+    return L, B, Hkv, rows * (4 if int8 else 1), D
 
 
 def kv_append_dense_reference(
@@ -48,11 +131,8 @@ def kv_append_dense(
     if not k_all.is_cuda:
         return kv_append_dense_reference(k_all, v_all, k_new, v_new, positions, layer)
     req = common.require
-    L, B, Hkv, S, D = k_all.shape
+    L, B, Hkv, S, D = check_cache(k_all, v_all)
     req(0 <= layer < L, f"layer {layer} outside [0, {L})")
-    for t in (k_all, v_all):
-        req(t.dtype == torch.bfloat16 and t.is_contiguous() and t.shape == k_all.shape
-            and t.device == k_all.device, "k/v caches: contiguous bf16 [L, B, Hkv, S, D]")
     for t in (k_new, v_new):
         req(t.shape == (B, Hkv, D) and t.device == k_all.device,
             f"new rows must be [{B}, {Hkv}, {D}] on the cache's device")
@@ -68,3 +148,80 @@ def kv_append_dense(
     common.check(err, "kv_append")
     common.launches["kv_append"] += 1
     return k_all, v_all
+
+
+def _rmw_packed(k_all, v_all, ks_all, vs_all, kq, vq, ks, vs, positions, layer, slots=None):
+    """Read-modify-write byte ``pos % 4`` of word ``pos // 4`` and set the
+    scale of that position, for each new row: row i goes to slot ``slots[i]``
+    (default i).  Rows whose slot or position is out of range write nothing."""
+    L, B, Hkv, Sw, D = k_all.shape
+    dev = k_all.device
+    pos = positions.long()
+    slot = torch.arange(pos.shape[0], device=dev) if slots is None else slots.long()
+    ok = (pos >= 0) & (pos < Sw * 4) & (slot >= 0) & (slot < B)
+    slot, pos = slot[ok], pos[ok]
+    h = torch.arange(Hkv, device=dev)
+    idx = (slot[:, None], h[None, :], (pos // 4)[:, None])
+    sh = ((pos % 4) * 8).to(torch.int32)[:, None, None]
+    keep = ~(torch.tensor(255, dtype=torch.int32, device=dev) << sh)
+    for words, new in ((k_all[layer], kq), (v_all[layer], vq)):
+        merged = (words[idx] & keep) | ((new[ok].to(torch.int32) & 255) << sh)
+        words.index_put_(idx, merged)
+    sidx = (slot[:, None], (pos % 4)[:, None], h[None, :], (pos // 4)[:, None])
+    ks_all[layer].index_put_(sidx, ks[ok].to(ks_all.dtype))
+    vs_all[layer].index_put_(sidx, vs[ok].to(vs_all.dtype))
+    return k_all, v_all, ks_all, vs_all
+
+
+def kv_append_packed_reference(k_all, v_all, ks_all, vs_all, kq, vq, ks, vs, positions,
+                               layer: int):
+    """Plain version of :func:`kv_append_packed` (in place, same guards)."""
+    common.count_plain("kv_append_packed", k_all)
+    return _rmw_packed(k_all, v_all, ks_all, vs_all, kq, vq, ks, vs, positions, layer)
+
+
+def kv_append_packed(
+    k_all: torch.Tensor,  # [L, B, Hkv, S/4, D] int32 words of biased bytes
+    v_all: torch.Tensor,
+    ks_all: torch.Tensor,  # [L, B, 4, Hkv, S/4] bf16
+    vs_all: torch.Tensor,
+    kq: torch.Tensor,  # [B, Hkv, D] int32 biased byte values (1..255)
+    vq: torch.Tensor,
+    ks: torch.Tensor,  # [B, Hkv] new scales
+    vs: torch.Tensor,
+    positions: torch.Tensor,  # int [B]; outside [0, S) writes nothing
+    layer: int,
+):
+    """Write position ``positions[b]`` of slot ``b`` in layer ``layer`` of the
+    packed int8 cache, in place: one byte of each (head, dim) word, the other
+    three kept, and the position's two scales.  Returns the four cache tensors.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    or raises."""
+    if not k_all.is_cuda:
+        return kv_append_packed_reference(
+            k_all, v_all, ks_all, vs_all, kq, vq, ks, vs, positions, layer)
+    req = common.require
+    L, B, Hkv, S, D = check_cache(k_all, v_all, ks_all, vs_all)
+    dev = k_all.device
+    req(0 <= layer < L, f"layer {layer} outside [0, {L})")
+    for t in (kq, vq):
+        req(t.shape == (B, Hkv, D) and t.device == dev and not t.dtype.is_floating_point,
+            f"new values must be integers [{B}, {Hkv}, {D}] on the cache's device")
+    for t in (ks, vs):
+        req(t.shape == (B, Hkv) and t.device == dev,
+            f"new scales must be [{B}, {Hkv}] on the cache's device")
+    req(positions.shape == (B,), "positions must be [B]")
+    kq = kq.to(torch.int32).contiguous()
+    vq = vq.to(torch.int32).contiguous()
+    ks = ks.to(torch.bfloat16).contiguous()
+    vs = vs.to(torch.bfloat16).contiguous()
+    pos = positions.to(device=dev, dtype=torch.int32).contiguous()
+    err = common.lib().xb_kv_append_packed(
+        k_all[layer].data_ptr(), v_all[layer].data_ptr(), ks_all[layer].data_ptr(),
+        vs_all[layer].data_ptr(), kq.data_ptr(), vq.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+        pos.data_ptr(), B, Hkv, S // 4, D, common.stream_ptr(k_all),
+    )
+    common.check(err, "kv_append_packed")
+    common.launches["kv_append_packed"] += 1
+    return k_all, v_all, ks_all, vs_all

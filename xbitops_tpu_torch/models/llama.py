@@ -2,16 +2,19 @@
 
 Every projection is a :class:`QLinear` over a packed
 :class:`~xbitops_tpu_torch.formats.QTensor`, run by the fused dequant-matmul
-kernel.  The KV cache is head-major ``[L, B, Hkv, S, D]`` bf16 and, unlike the
-JAX package's functional updates, every function here writes it IN PLACE and
-returns the same :class:`KVCache` object.  Positions ``>= S`` mark padding and
-inactive slots: they write nothing and advance no length.
+kernel.  The KV cache is head-major, ``[L, B, Hkv, S, D]`` bf16 or packed int8
+(see :class:`KVCache`), and, unlike the JAX package's functional updates, every
+function here writes it IN PLACE and returns the same :class:`KVCache` object.
+Positions ``>= S`` mark padding and inactive slots: they write nothing and
+advance no length.
 
-RMSNorm, RoPE, SiLU-times-up, the embedding and the eager attention are plain
-PyTorch, as the JAX package left them to XLA.  Decode (one token per slot)
-attends through the decode-attention kernel, which appends the new k/v rows
-first.  Not ported yet: the int8 and paged caches, unaligned (speculative)
-writes, chunked prefill against the cache, MoE layers and W4A8 prefill.
+RMSNorm, RoPE, SiLU-times-up, the embedding, the int8 quantization of new k/v
+rows and the eager attention are plain PyTorch, as the JAX package left them
+to XLA.  Decode (one token per slot) attends through the decode-attention
+kernel, which appends the new k/v rows first; a chunk of a long prompt
+attends its slot's cache through the prefill-attention kernel.  Not ported
+yet: the paged cache, unaligned (speculative) writes, MoE layers and W4A8
+prefill.
 """
 
 from __future__ import annotations
@@ -28,9 +31,17 @@ from xbitops_tpu_torch.kernels.decode_attention import (
     decode_attention_reference,
 )
 from xbitops_tpu_torch.kernels.kv_append import (
+    _pack_kv_scales,
+    _pack_kv_words,
+    _quant_kv,
+    _rmw_packed,
+    _unpack_kv_words,
     kv_append_dense,
     kv_append_dense_reference,
+    kv_append_packed,
+    kv_append_packed_reference,
 )
+from xbitops_tpu_torch.kernels.prefill_attention import prefill_attention
 from xbitops_tpu_torch.ops.qmatmul import qmatmul
 
 
@@ -97,29 +108,52 @@ FLASH_MIN_S = 64
 
 @dataclasses.dataclass
 class KVCache:
-    """Head-major cache ``k, v: [L, B, Hkv, S, D]`` with per-slot ``lengths``
-    (int32 [B]).  Updated in place by the model."""
+    """Head-major cache with per-slot ``lengths`` (int32 [B]), updated in
+    place by the model.  Either ``k, v: [L, B, Hkv, S, D]`` bf16, or packed
+    int8 (``k_scale`` set): ``k, v: [L, B, Hkv, S/4, D]`` int32 words, byte j
+    of word w holding position 4w + j as its quantized value + 128, with
+    per-(position, head) scales ``k_scale, v_scale: [L, B, 4, Hkv, S/4]``
+    bf16."""
 
     k: torch.Tensor
     v: torch.Tensor
     lengths: torch.Tensor
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
     @property
     def S(self) -> int:
-        return self.k.shape[3]
+        """Capacity of a slot in positions."""
+        return self.k.shape[3] * (4 if self.quantized else 1)
 
     @staticmethod
     def init(cfg: LlamaConfig, batch: int, device, dtype=torch.bfloat16,
              quantized: bool = False) -> "KVCache":
+        L, Hkv, D, S = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, cfg.max_seq_len
+        lengths = torch.zeros((batch,), dtype=torch.int32, device=device)
         if quantized:
-            raise NotImplementedError("the int8 KV cache is not ported yet")
+            if S % 4:
+                raise ValueError("int8 KV cache needs max_seq_len % 4 == 0")
+            words = (L, batch, Hkv, S // 4, D)
+            scales = (L, batch, 4, Hkv, S // 4)
+            return KVCache(
+                k=torch.zeros(words, dtype=torch.int32, device=device),
+                v=torch.zeros(words, dtype=torch.int32, device=device),
+                lengths=lengths,
+                k_scale=torch.zeros(scales, dtype=torch.bfloat16, device=device),
+                v_scale=torch.zeros(scales, dtype=torch.bfloat16, device=device),
+            )
         if dtype != torch.bfloat16:
-            raise NotImplementedError("the port's KV cache is bf16")
-        shape = (cfg.num_layers, batch, cfg.num_kv_heads, cfg.max_seq_len, cfg.head_dim)
+            raise NotImplementedError("the port's dense KV cache is bf16")
+        shape = (L, batch, Hkv, S, D)
         return KVCache(
             k=torch.zeros(shape, dtype=dtype, device=device),
             v=torch.zeros(shape, dtype=dtype, device=device),
-            lengths=torch.zeros((batch,), dtype=torch.int32, device=device),
+            lengths=lengths,
         )
 
     @staticmethod
@@ -210,17 +244,83 @@ def _attention(q, kT, vT, mask, scale):
 def _write_rows(cache: KVCache, li: int, k, v, positions, slot_ids) -> None:
     """Write new rows k/v [n, T, Hkv, D] at ``positions`` [n, T] of cache
     slots ``slot_ids`` [n] (default: row i -> slot i) in one batched write.
-    Only rows with 0 <= position < S and 0 <= slot < B are written."""
+    Only rows with 0 <= position < S and 0 <= slot < B are written: a chunk
+    that overhangs the capacity writes the part that fits.
+
+    The int8 cache takes T > 1 rows as whole words: T and every row's first
+    position are multiples of 4 and a row's valid positions are a prefix of
+    it (bucket and chunk admission), so a word is written when its first
+    position is valid; bytes of padding that ride along in a row's last word
+    are never attended and a later append replaces them.  T == 1 rewrites one
+    byte of each word."""
     n, T = positions.shape
     B, Hkv, S = cache.k.shape[1], cache.k.shape[2], cache.S
-    rows = torch.arange(n, device=positions.device) if slot_ids is None else slot_ids.long()
-    slot = rows[:, None].expand(n, T)
-    ok = (slot >= 0) & (slot < B) & (positions >= 0) & (positions < S)
-    s_ok, p_ok = slot[ok], positions[ok].long()
-    h = torch.arange(Hkv, device=positions.device)
-    idx = (s_ok[:, None], h[None, :], p_ok[:, None])
-    cache.k[li].index_put_(idx, k[ok].to(cache.k.dtype))
-    cache.v[li].index_put_(idx, v[ok].to(cache.v.dtype))
+    dev = positions.device
+    rows = torch.arange(n, device=dev) if slot_ids is None else slot_ids.long()
+    h = torch.arange(Hkv, device=dev)
+    if not cache.quantized:
+        slot = rows[:, None].expand(n, T)
+        ok = (slot >= 0) & (slot < B) & (positions >= 0) & (positions < S)
+        s_ok, p_ok = slot[ok], positions[ok].long()
+        idx = (s_ok[:, None], h[None, :], p_ok[:, None])
+        cache.k[li].index_put_(idx, k[ok].to(cache.k.dtype))
+        cache.v[li].index_put_(idx, v[ok].to(cache.v.dtype))
+        return
+    q, s = _quant_kv(torch.stack((k, v)))  # k and v in one pass
+    (kq, vq), (ks, vs) = q, s
+    if T == 1:
+        _rmw_packed(cache.k, cache.v, cache.k_scale, cache.v_scale, kq[:, 0], vq[:, 0],
+                    ks[:, 0], vs[:, 0], positions[:, 0], li, slots=rows)
+        return
+    if T % 4:
+        raise ValueError("int8 KV prefill needs T % 4 == 0")
+    first = positions[:, 0::4]  # [n, T/4]: first position of each word
+    slot = rows[:, None].expand(n, T // 4)
+    ok = (slot >= 0) & (slot < B) & (first >= 0) & (first < S)
+    s_ok, w_ok = slot[ok], first[ok].long() // 4
+    idx = (s_ok[:, None], h[None, :], w_ok[:, None])
+    j = torch.arange(4, device=dev)
+    sidx = (s_ok[:, None, None], j[None, :, None], h[None, None, :], w_ok[:, None, None])
+    for words, scales, q, s in ((cache.k, cache.k_scale, kq, ks), (cache.v, cache.v_scale, vq, vs)):
+        words[li].index_put_(idx, _pack_kv_words(q).transpose(1, 2)[ok])  # [m, Hkv, D]
+        packed = _pack_kv_scales(s).to(scales.dtype).permute(0, 3, 1, 2)  # [n, T/4, 4, Hkv]
+        scales[li].index_put_(sidx, packed[ok])
+
+
+def _new_row(cache: KVCache, k, v, positions):
+    """The ``kv_new`` of the append and decode kernels for one new row per
+    slot, k/v [B, 1, Hkv, D]: the rows as they are, or for the int8 cache
+    their biased bytes and scales; then the positions [B]."""
+    if not cache.quantized:
+        return k[:, 0], v[:, 0], positions[:, 0]
+    q, s = _quant_kv(torch.stack((k[:, 0], v[:, 0])))  # k and v in one pass
+    return q[0], q[1], s[0], s[1], positions[:, 0]
+
+
+def _append_row(cache: KVCache, li: int, new, use_kernel: bool) -> None:
+    """Write :func:`_new_row` rows into layer ``li``, row i to slot i."""
+    if cache.quantized:
+        append = kv_append_packed if use_kernel else kv_append_packed_reference
+        append(cache.k, cache.v, cache.k_scale, cache.v_scale, *new, li)
+    else:
+        append = kv_append_dense if use_kernel else kv_append_dense_reference
+        append(cache.k, cache.v, *new, li)
+
+
+def _slot_rows(cache: KVCache, li: int, slot_ids):
+    """Head-major k, v [n, Hkv, S, D] of layer ``li`` for the eager attention:
+    every slot, or the slots ``slot_ids`` (clamped into range: an inert row
+    reads some slot and its output is never used); the int8 cache
+    dequantized to f32."""
+    parts = [cache.k[li], cache.v[li]]
+    if cache.quantized:
+        parts += [cache.k_scale[li], cache.v_scale[li]]
+    if slot_ids is not None:
+        rows = slot_ids.long().clamp(0, parts[0].shape[0] - 1)
+        parts = [t[rows] for t in parts]
+    if cache.quantized:
+        return _unpack_kv_words(parts[0], parts[2]), _unpack_kv_words(parts[1], parts[3])
+    return parts[0], parts[1]
 
 
 class LlamaBlock(nn.Module):
@@ -240,10 +340,13 @@ class LlamaBlock(nn.Module):
         self.register_buffer("ln_mlp", ln_mlp)
 
     def forward(self, x, positions, rope, cache: KVCache, li: int, mask, slot_ids=None,
-                self_attend: bool = False, use_kernel: bool = True):
+                self_attend: bool = False, use_kernel: bool = True,
+                flash_prefill: bool = False):
         """x [B, T, hidden] at ``positions`` [B, T] (``rope``: their
         :func:`rope_tables`); writes layer ``li`` of ``cache`` in place.
-        ``mask`` None means decode through the decode-attention kernel."""
+        ``mask`` None means a kernel attends: the prefill-attention kernel
+        with ``flash_prefill``, else decode through the decode-attention
+        kernel."""
         cfg = self.cfg
         B, T, _ = x.shape
         H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -263,30 +366,37 @@ class LlamaBlock(nn.Module):
         k = _rope(k, rope)
 
         S = cache.S
-        if mask is None:  # decode through the kernel, which appends first
+        scales = (dict(k_scale=cache.k_scale, v_scale=cache.v_scale) if cache.quantized else {})
+        one_row = T == 1 and slot_ids is None and not self_attend  # row i -> slot i
+        if one_row:
+            new = _new_row(cache, k, v, positions)
+        if mask is None and not flash_prefill:  # decode through the kernel, which appends first
             lens = torch.clamp(positions[:, 0] + 1, max=S)
             if use_kernel:
                 att = decode_attention(
-                    q[:, 0], cache.k, cache.v, lens, layer_idx=li,
-                    kv_new=(k[:, 0], v[:, 0], positions[:, 0]),
-                    window=cfg.sliding_window,
+                    q[:, 0], cache.k, cache.v, lens, layer_idx=li, kv_new=new,
+                    window=cfg.sliding_window, **scales,
                 )[0]
             else:
-                kv_append_dense_reference(
-                    cache.k, cache.v, k[:, 0], v[:, 0], positions[:, 0], li)
+                _append_row(cache, li, new, use_kernel=False)
                 att = decode_attention_reference(
-                    q[:, 0], cache.k[li], cache.v[li], lens, cfg.sliding_window)
+                    q[:, 0], cache.k[li], cache.v[li], lens, cfg.sliding_window,
+                    *(s[li] for s in scales.values()))
             att = att[:, None]
         else:
-            if T == 1 and slot_ids is None and not self_attend:
-                append = kv_append_dense if use_kernel else kv_append_dense_reference
-                append(cache.k, cache.v, k[:, 0], v[:, 0], positions[:, 0], li)
+            if one_row:
+                _append_row(cache, li, new, use_kernel)
             else:
                 _write_rows(cache, li, k, v, positions, slot_ids)
             if self_attend:  # a fresh request attends only its own rows
                 att = _attention(q, k.transpose(1, 2), v.transpose(1, 2), mask, D ** -0.5)
-            else:
-                att = _attention(q, cache.k[li], cache.v[li], mask, D ** -0.5)
+            elif flash_prefill:  # a chunk attends the visible cache rows of its slot
+                rows = torch.arange(B, device=x.device) if slot_ids is None else slot_ids
+                att = prefill_attention(
+                    q, cache.k, cache.v, positions, rows, layer_idx=li,
+                    window=cfg.sliding_window, **scales)
+            else:  # eager, over every row of the slots
+                att = _attention(q, *_slot_rows(cache, li, slot_ids), mask, D ** -0.5)
         x = x + self.wo(att.reshape(B, T, qdim), use_kernel)
 
         hx = rms_norm(x, self.ln_mlp, cfg.rms_eps)
@@ -330,31 +440,32 @@ class Llama(nn.Module):
     ) -> Tuple[torch.Tensor, KVCache]:
         """Run T tokens per row (T=1: decode; T>1: prefill); returns logits
         [B, T, V] (``[B, 1, V]`` with ``logits_rows``) and the cache, updated
-        in place.  Rows attend the cache rows of their slot up to their
-        position, or with ``self_attend`` (a fresh request) only their own
-        new rows.  ``use_kernel=False`` runs every kernel's plain version."""
+        in place.  Rows attend the cache rows of their slot (``slot_ids``,
+        default row i -> slot i) up to their position, or with
+        ``self_attend`` (a fresh request) only their own new rows.
+        ``use_kernel=False`` runs every kernel's plain version."""
         if kv_unaligned:
             raise NotImplementedError("unaligned (speculative) writes are not ported yet")
-        if slot_ids is not None and not self_attend:
-            raise NotImplementedError(
-                "chunked prefill against the cache (prefill_attention) is not ported yet")
         cfg = self.cfg
         B, T = tokens.shape
         S = cache.S
         positions = positions.long()
         x = self.embed[tokens.long()].to(torch.bfloat16)
 
-        decode = (
-            T == 1 and slot_ids is None and not self_attend and cfg.flash_decode
-            and cfg.head_dim % 128 == 0 and S >= FLASH_MIN_S
-        )
+        flash = cfg.flash_decode and cfg.head_dim % 128 == 0
+        decode = T == 1 and slot_ids is None and not self_attend and flash and S >= FLASH_MIN_S
+        # T > 1 against the cache (a chunk of a long prompt, or a whole prompt
+        # through the cache): on the card the prefill-attention kernel reads
+        # only the rows each q-tile can see; the eager path reads the slots'
+        # whole allocation and, for the int8 cache, dequantizes all of it first
+        flash_prefill = T > 1 and not self_attend and flash and use_kernel and x.is_cuda
         mask = None
         if self_attend:
             # mask[b, q, t]: new row t visible to query q (causal, non-pad)
             mask = (positions[:, None, :] <= positions[:, :, None]) & (positions[:, None, :] < S)
             if cfg.sliding_window is not None:
                 mask &= positions[:, :, None] - positions[:, None, :] < cfg.sliding_window
-        elif not decode:
+        elif not decode and not flash_prefill:
             # mask[b, q, s]: cache position s visible to query q
             s_idx = torch.arange(S, device=tokens.device)[None, None, :]
             mask = s_idx <= positions[:, :, None]
@@ -364,7 +475,8 @@ class Llama(nn.Module):
         rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling_type,
                            cfg.rope_scaling_factor)
         for li, block in enumerate(self.blocks):
-            x = block(x, positions, rope, cache, li, mask, slot_ids, self_attend, use_kernel)
+            x = block(x, positions, rope, cache, li, mask, slot_ids, self_attend, use_kernel,
+                      flash_prefill)
 
         x = rms_norm(x, self.ln_final, cfg.rms_eps)
         if logits_rows is not None:
@@ -424,6 +536,51 @@ def prefill_slot(model: Llama, tokens, true_len: int, slot: int, cache: KVCache,
     logits, cache = prefill_slots(
         model, tokens[None], torch.tensor([true_len], device=dev),
         torch.tensor([slot], device=dev), cache, use_kernel=use_kernel,
+    )
+    return logits[0], cache
+
+
+def prefill_slots_chunk(model: Llama, tokens, starts, true_lens, slots, cache: KVCache,
+                        resets=None, use_kernel: bool = True):
+    """One chunk for each of n long prompts in one forward.  Unlike
+    :func:`prefill_slots`, attention reads the slots' cache (the earlier
+    chunks) and the chunk itself, so a prompt of any length prefills in pieces
+    of a fixed size.
+
+    ``tokens`` int [n, C] are prompt positions ``[starts, starts + C)`` of
+    each row (padding past ``true_lens`` is masked out);
+    ``starts``/``true_lens``/``slots`` int [n]; ``resets`` bool [n] clears a
+    recycled slot's stale length (first chunk).  A row whose prompt is
+    exhausted, or a padding row, is inert: ``true_len = 0`` and an
+    out-of-range slot.  Returns the logits row [n, V] of each prompt's last
+    token (meaningful once that row's final chunk ran) and the cache."""
+    n, C = tokens.shape
+    dev = tokens.device
+    S = cache.S
+    starts = starts.to(dev).long()
+    true_lens = true_lens.to(dev).long()
+    slots = slots.to(dev).long()
+    pos = starts[:, None] + torch.arange(C, device=dev)[None]
+    positions = torch.where(pos < true_lens[:, None], pos, S)
+    if resets is not None:
+        ok = (slots >= 0) & (slots < cache.lengths.shape[0]) & resets.to(dev).bool()
+        cache.lengths[slots[ok]] = 0
+    last_in_chunk = torch.clamp(true_lens - 1 - starts, 0, C - 1)
+    logits, cache = model(tokens, cache, positions, slot_ids=slots, logits_rows=last_in_chunk,
+                          use_kernel=use_kernel)
+    return logits[:, 0], cache
+
+
+def prefill_slot_chunk(model: Llama, tokens, start: int, true_len: int, slot: int,
+                       cache: KVCache, reset: bool = False, use_kernel: bool = True):
+    """One chunk (``tokens`` int [C], prompt positions ``[start, start + C)``)
+    of one long prompt into cache slot ``slot``; returns the logits [V] of the
+    prompt's last token (meaningful once the final chunk ran)."""
+    dev = tokens.device
+    logits, cache = prefill_slots_chunk(
+        model, tokens[None], torch.tensor([start], device=dev),
+        torch.tensor([true_len], device=dev), torch.tensor([slot], device=dev), cache,
+        resets=torch.tensor([reset], device=dev), use_kernel=use_kernel,
     )
     return logits[0], cache
 

@@ -1,0 +1,107 @@
+"""Where a forward's time goes on the card: kernel time by name, launches,
+host ops and the device's busy share, from ``torch.profiler``.
+
+    python3 -m xbitops_tpu_torch.utils.profiling
+
+profiles, on a random 4-bit Llama-2-7B at full width and depth with 8 slots
+(S=2048): one decode step over the bf16 cache and one over the int8 cache, all
+slots at 1000 live positions, and one chunk forward of chunked admission
+(5 rows of 512 tokens at positions 512-1023, int8 cache).  It needs one CUDA
+device and prints one JSON object per case.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from collections import defaultdict
+from typing import Callable, Dict
+
+import torch
+
+
+def profile(fn: Callable[[], object], steps: int = 4, warmup: int = 3, top: int = 8) -> Dict:
+    """Run ``fn`` ``warmup`` times, then ``steps`` times without the profiler
+    (host clock, synchronised: ``wall_ms``) and ``steps`` times under it.
+    Returns per call: ``device_ms`` (sum of kernel and device-copy times, each
+    counted once, from the trace's device events), ``busy`` (device_ms over
+    wall_ms), ``launches``, ``host_ops`` (ATen ops) and the ``top`` kernels
+    by time as ``{name: [ms, launches]}``."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    torch.cuda.synchronize()
+    wall_ms = 1e3 * (time.perf_counter() - t0) / steps
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    by_name = defaultdict(lambda: [0.0, 0])
+    host_ops = 0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:  # a kernel or a device copy
+            by_name[ev.name][0] += ev.device_time / 1e3  # us -> ms
+            by_name[ev.name][1] += 1
+        elif ev.name.startswith("aten::"):
+            host_ops += 1
+    device_ms = sum(t for t, _ in by_name.values()) / steps
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:top]
+    return dict(
+        wall_ms=wall_ms, device_ms=device_ms, busy=device_ms / wall_ms,
+        launches=sum(n for _, n in by_name.values()) / steps, host_ops=host_ops / steps,
+        top={name[:60]: [t / steps, n / steps] for name, (t, n) in ranked},
+    )
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("profiling: no CUDA device; nothing run", file=sys.stderr)
+        return 2
+    from xbitops_tpu_torch.models import llama
+    from xbitops_tpu_torch.utils import synth
+
+    dev = torch.device("cuda:0")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0], flush=True)
+    cfg = llama.LlamaConfig.llama2_7b()
+    model = synth.random_llama_params(cfg, bits=4, group_size=128, device=dev, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    slots, live = 8, 1000
+    tok = torch.randint(0, cfg.vocab_size, (slots,), generator=gen, device=dev)
+    with torch.no_grad():
+        for quantized in (False, True):
+            cache = llama.KVCache.init(cfg, slots, dev, quantized=quantized)
+
+            def step():
+                cache.lengths.fill_(live)  # every call decodes at the same position
+                llama.decode_step(model, tok, cache)
+
+            res = profile(step)
+            print(json.dumps(dict(case=f"decode step, {'int8' if quantized else 'bf16'} cache, "
+                                       f"B={slots}, live={live}", **res)), flush=True)
+            if quantized:
+                n, chunk = 5, 512
+                tokens = torch.randint(0, cfg.vocab_size, (n, chunk), generator=gen, device=dev)
+                args = (tokens, torch.full((n,), chunk, device=dev),
+                        torch.full((n,), 2 * chunk, device=dev), torch.arange(n, device=dev))
+                res = profile(lambda: llama.prefill_slots_chunk(model, *args, cache),
+                              steps=1, warmup=1)
+                print(json.dumps(dict(case=f"chunk forward, int8 cache, {n} rows of {chunk} at "
+                                           f"positions {chunk}-{2 * chunk - 1}", **res)),
+                      flush=True)
+            del cache
+            torch.cuda.empty_cache()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
