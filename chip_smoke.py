@@ -9,10 +9,10 @@
    it).  A time is the op's: the kernel's wrapper, with the small device
    passes it adds around its kernel (K padding, index casts, the split-K sum).
    Beside each time stands the least time the card could take (``bound_ms``:
-   the larger of bytes moved once over 3.35 TB/s and operations over 989
-   TFLOP/s, the H100's published rates) and, where one PyTorch call computes
-   the same function, that call's time (``library_ms``; the port never calls
-   it).
+   the larger of bytes moved once over 3.35 TB/s and operations over the
+   H100's published dense rate for their type, 989 TFLOP/s in bf16 and 1,979
+   TOP/s in int8) and, where one PyTorch call computes the same function,
+   that call's time (``library_ms``; the port never calls it).
 2. Drives the serving path: a random 4-bit (g=128) Llama-2-7B at full width
    and depth through ``Engine.generate`` with 12 requests on 8 slots over the
    bf16 KV cache, then checks the outputs, that every kernel of that path
@@ -25,6 +25,16 @@
    checks; then, on a 2-layer cut, a chunked admission and an int8 decode
    step against the plain path, and a 500-token prompt admitted in one bucket
    against four chunks, on both caches.
+4. Drives the quantize-and-W4A8 path on the same model: (a) the model with
+   ``prefill_a8=True`` serves 8 requests (seven prompts of 40-500 tokens in
+   one bucket, one of 1100 in three chunks): every block projection of a
+   forward of 32 rows or more runs on int8 activations through the grouped
+   kernel; (b) every block projection goes through ``requantize_a8`` on the
+   card (the dequant kernel, then the quantizer) and the 8-bit per-channel
+   model serves the same requests through the per-channel kernel; the same
+   requests once more with bf16 activations, for the admission rate.  Then
+   one admission of 512 rows against the plain path for (a) and (b), at the
+   first projection and through a 2-layer cut, and (b)'s logits against (a)'s.
 
 Any failed check raises, so the exit code is not 0.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -45,6 +55,7 @@ import torch
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
 BF16_FLOPS_PER_S = 989e12  # H100 SXM dense bf16 tensor rate, published
+INT8_OPS_PER_S = 1979e12  # H100 SXM dense int8 tensor rate, published
 
 
 def fail(msg: str) -> None:
@@ -61,11 +72,11 @@ def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
 
 
-def bound(n_bytes: float, flops: float) -> dict:
+def bound(n_bytes: float, flops: float, rate: float = BF16_FLOPS_PER_S) -> dict:
     """The least time the card could take: each input byte read and each
     output byte written once at the memory rate, or the operations at the
-    dense bf16 tensor rate, whichever is larger."""
-    t_bytes, t_ops = 1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * flops / BF16_FLOPS_PER_S
+    dense tensor rate of their type (default bf16), whichever is larger."""
+    t_bytes, t_ops = 1e3 * n_bytes / HBM_BYTES_PER_S, 1e3 * flops / rate
     return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -86,6 +97,7 @@ class Timer:
     def __call__(self, fn, iters: int = 10, warmup: int = 2) -> float:
         for _ in range(warmup):
             fn()
+        torch.cuda.synchronize()  # a warm-up's temporaries are free before the timed calls
         total = 0.0
         for _ in range(iters):
             self.flush_buf.zero_()
@@ -157,8 +169,135 @@ def phase_kernels(dev, timer):
           flush=True)
     res["qgemv"]["max_abs_err"] = worst_abs
 
+    res.update(kernels_quant(dev, timer, gen, shapes))
     res.update(kernels_decode(dev, timer, gen))
     res.update(kernels_prefill(dev, timer, gen))
+    return res
+
+
+def kernels_quant(dev, timer, gen, shapes):
+    """The dequant kernel and the two int8-activation matmul kernels against
+    their plain versions, and the reference-API ops on interchange tensors."""
+    from xbitops_tpu_torch import formats
+    from xbitops_tpu_torch.kernels import common
+    from xbitops_tpu_torch.kernels.dequant_kernel import dequant_kernel, dequant_kernel_reference
+    from xbitops_tpu_torch.kernels.qgemv_kernel import (
+        a8_per_channel,
+        qmatmul_kernel_a8,
+        qmatmul_kernel_a8_reference,
+    )
+    from xbitops_tpu_torch.ops.dequant import dequant
+    from xbitops_tpu_torch.ops.qmatmul import gemv, qmatmul, quantize_activations
+    from xbitops_tpu_torch.ops.quantize import requantize_a8
+    from xbitops_tpu_torch.utils import synth
+
+    res = {}
+    names = {torch.bfloat16: "bf16", torch.float16: "fp16", torch.float32: "f32"}
+
+    # --- dequant: equal to the plain version, bit for bit ---
+    def dequant_case(qt, label, timed):
+        for dt, dname in names.items():
+            got, ref = dequant_kernel(qt, dt), dequant_kernel_reference(qt, dt)
+            check(torch.equal(got, ref), f"dequant {label} -> {dname}: differs from its plain version")
+            if not timed:
+                continue
+            ms = timer(lambda: dequant_kernel(qt, dt))
+            plain_ms = timer(lambda: dequant_kernel_reference(qt, dt), iters=2, warmup=1)
+            b = bound(qt.bytes_packed() + nbytes(got), 2 * qt.K * qt.N)
+            print(f"dequant {label} -> {dname}: equal; op {ms:.4f} ms "
+                  f"({(qt.bytes_packed() + nbytes(got)) / ms / 1e6:.0f} GB/s), plain {plain_ms:.3f} ms, "
+                  f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}", flush=True)
+            if label == "4-bit w_gateup" and dt == torch.float32:
+                # the case requantize_a8 runs; no PyTorch call reads packed planes
+                res["dequant"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                                      max_abs_err=0.0, **b)
+            del got, ref
+
+    for bits in range(1, 9):
+        dequant_case(synth.random_qtensor(gen, 4096, 4096, bits, 128), f"{bits}-bit 4096x4096",
+                     timed=False)
+    print("dequant: widths 1-8 at 4096x4096 equal to the plain version in bf16, fp16, f32",
+          flush=True)
+    for name, (K, N) in shapes.items():
+        dequant_case(synth.random_qtensor(gen, K, N, 4, 128), f"4-bit {name}",
+                     timed=name in ("w_gateup", "w_down"))
+
+    # --- the int8-activation matmuls ---
+    worst = {"qgemv_a8": 0.0, "qgemv_a8_perchannel": 0.0}
+
+    def a8_case(qt, label, M, keep=None):
+        kname = "qgemv_a8_perchannel" if a8_per_channel(qt) else "qgemv_a8"
+        a = torch.randn(M, qt.K_logical, device=dev, generator=gen).to(torch.bfloat16)
+        a_pad = torch.nn.functional.pad(a.float(), (0, qt.K - qt.K_logical))
+        aq, a_scale = quantize_activations(a_pad)
+        got = qmatmul_kernel_a8(aq, qt) * a_scale
+        ref = qmatmul_kernel_a8_reference(aq, qt) * a_scale
+        err = (got - ref).abs().max().item()
+        top = ref.abs().max().item()
+        worst[kname] = max(worst[kname], err)
+        if kname == "qgemv_a8":  # the groups' f32 folds may fuse their multiply-adds
+            ok = torch.allclose(got, ref, rtol=1e-5, atol=3e-4)
+            gate = "rel 1e-5 / abs 3e-4"
+        else:  # integer sums and one rescale, f32 operation for f32 operation
+            ok = err <= 1e-4 * top
+            gate = "abs 1e-4 of the largest output"
+        check(ok, f"{kname} {label} M={M}: max abs err {err:.3e} (largest output {top:.3e}) "
+                  f"outside {gate}")
+        del got, ref
+        ms = timer(lambda: qmatmul_kernel_a8(aq, qt), iters=5)
+        op_ms = timer(lambda: qmatmul(a, qt, a8=True), iters=5)
+        plain_ms = timer(lambda: qmatmul_kernel_a8_reference(aq, qt), iters=1, warmup=1)
+        bf16_ms = timer(lambda: qmatmul(a, qt), iters=3, warmup=1)
+        ops = 2 * M * qt.K * qt.N
+        b = bound(qt.bytes_packed() + nbytes(aq) + 4 * M * qt.N, ops, INT8_OPS_PER_S)
+        print(f"{kname} {label} K={qt.K} N={qt.N} M={M}: max abs err {err:.2e} of {top:.2e}; "
+              f"kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s), op with the activation "
+              f"quantization {op_ms:.4f} ms, plain {plain_ms:.2f} ms, bound {b['bound_ms']:.4f} ms "
+              f"by {b['bound_by']}; for information, the bf16 qmatmul here {bf16_ms:.4f} ms",
+              flush=True)
+        if keep:
+            res[kname] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+
+    for name, (K, N) in shapes.items():
+        qt = synth.random_qtensor(gen, K, N, 4, 128)
+        common.reset_counts()
+        rq = requantize_a8(qt)
+        check(common.launches["dequant"] == 1 and rq.bits == 8 and a8_per_channel(rq)
+              and rq.K == K, f"requantize_a8 {name}: not 8-bit per channel through the kernel")
+        for M in (256, 2560):
+            keep = name == "w_gateup" and M == 2560
+            a8_case(qt, f"4-bit g=128 {name}", M, keep)
+            a8_case(rq, f"8-bit per-channel {name}", M, keep)
+        del qt, rq
+    for bits in (3, 7):  # planes combined into one integer before the dot
+        a8_case(synth.random_qtensor(gen, 4096, 4096, bits, 128), f"{bits}-bit g=128 wo", 256)
+    for kname, err in worst.items():
+        res[kname]["max_abs_err"] = err
+
+    # --- the reference-API ops on GPTQ interchange tensors, fp16 ---
+    K, N, g = 4096, 11008, 128
+    rng = np.random.default_rng(SEED)
+    wq = rng.integers(0, 16, (K, N)).astype(np.uint8)
+    zeros = rng.integers(0, 16, (K // g, N)).astype(np.uint8)
+    scales = rng.uniform(0.002, 0.01, (K // g, N)).astype(np.float16)
+    qweight, _, qzeros = formats.gptq_pack(wq, scales, zeros, 4)
+    args = [torch.from_numpy(x).to(dev) for x in (qweight, scales, qzeros)]
+    common.reset_counts()
+    w = dequant(*args, g, 4, K)
+    ref = formats.dequant_reference(*args, g, 4, K)
+    e = (w.float() - ref.float()).abs().max().item()
+    check(w.dtype == torch.float16 and w.shape == (K, N), "dequant: dtype or shape")
+    check(e <= 1e-3, f"dequant from interchange tensors: abs err {e:.3e} > 1e-3")
+    a = torch.randn(8, K, device=dev, generator=gen).to(torch.float16)
+    out = gemv(a, *args, g, 4, K)
+    want = a.float() @ ref.float()
+    e2 = rel_err(out, want)
+    check(out.dtype == torch.float16 and e2 <= 2e-2, f"gemv from interchange tensors: rel {e2:.3e}")
+    check(common.launches["dequant"] == 1 and common.launches["qgemv"] == 1
+          and not any(common.plain_on_cuda.values()), "dequant / gemv did not launch their kernels")
+    print(f"dequant and gemv from GPTQ interchange tensors {K}x{N} fp16: dequant max abs err "
+          f"{e:.1e} vs dequant_reference (equal: {torch.equal(w, ref)}), gemv M=8 rel err {e2:.2e}",
+          flush=True)
     return res
 
 
@@ -440,10 +579,7 @@ INT8_PATH = ("qgemv", "prefill_attention", "kv_append_packed", "decode_attention
 
 
 def two_layer_cut(model):
-    from xbitops_tpu_torch.models import llama
-
-    return llama.Llama(dataclasses.replace(model.cfg, num_layers=2), model.embed,
-                       list(model.blocks)[:2], model.ln_final, model.lm_head.qtensor)
+    return model.with_config(dataclasses.replace(model.cfg, num_layers=2))
 
 
 def phase_serving(dev, model):
@@ -507,7 +643,8 @@ def phase_serving(dev, model):
     print(f"decode step, each of {len(layer_errs)} blocks on the same input, kernels vs "
           f"plain: worst rel err {layer_errs[worst]:.2e} (block {worst})", flush=True)
     check(layer_errs[worst] <= 2e-2, f"block {worst}: rel err {layer_errs[worst]:.3e} > 2e-2")
-    return launches, dict(ms_step=ms_step, tok_s=tok_s)
+    return launches, dict(ms_step=ms_step, tok_s=tok_s, admit_s=st["admit_prefill"],
+                          admit_rows=st["admit_rows"])
 
 
 def phase_long_context(dev, model):
@@ -615,6 +752,121 @@ def phase_long_context(dev, model):
                           chunk_s=st["admit_prefill_chunks"])
 
 
+def phase_w4a8(dev, model):
+    """The quantize-and-W4A8 path at full width and depth: W4A8 admission on
+    the 4-bit grouped model, then on its 8-bit per-channel requantization."""
+    from xbitops_tpu_torch.engine import Engine, Request
+    from xbitops_tpu_torch.kernels import common
+    from xbitops_tpu_torch.models import llama
+    from xbitops_tpu_torch.ops.quantize import requantize_a8
+
+    cfg8 = dataclasses.replace(model.cfg, prefill_a8=True)
+    rng = np.random.default_rng(SEED + 2)
+    lengths = (40, 120, 200, 280, 360, 440, 500, 1100)
+    new = 8
+    reqs = [Request(prompt=rng.integers(0, cfg8.vocab_size, n).tolist(), max_new_tokens=new)
+            for n in lengths]
+    forwards = 1 + 3  # at T >= 32: one bucket of 7 x 512 rows, 3 chunks of the 1100-token prompt
+    n_proj = 4 * cfg8.num_layers
+
+    def serve(m, label):
+        eng = Engine(m, m.cfg, slots=8, decode_burst=8, kv_quant=False, prefill_chunk=512,
+                     seed=SEED)
+        t0 = time.perf_counter()
+        out = eng.generate(reqs)
+        wall = time.perf_counter() - t0
+        check(len(out) == len(reqs), f"{label}: {len(out)} completions")
+        for c, r in zip(out, reqs):
+            check(len(c.tokens) == new and c.finish_reason == "length",
+                  f"{label} request {c.id}: {len(c.tokens)} tokens, {c.finish_reason}")
+            check(c.prompt_len == len(r.prompt), f"{label} request {c.id}: prompt_len")
+            check(all(0 <= t < cfg8.vocab_size for t in c.tokens), f"{label} request {c.id}: range")
+        check(eng.cache.lengths.tolist() == [n + new for n in lengths], f"{label}: cache lengths")
+        st = eng.loop_stats
+        check(st["chunks"] == 3, f"{label}: {st['chunks']} chunk forwards, want 3")
+        rows, secs = st["admit_rows"] + st["chunk_rows"], st["admit_prefill"] + st["admit_prefill_chunks"]
+        print(f"{label}: 8 requests, prompts {min(lengths)}-{max(lengths)}, {wall:.2f} s wall; "
+              f"admission {secs:.3f} s for {rows:.0f} padded rows ({rows / secs:.0f} rows/s: "
+              f"bucket {st['admit_prefill']:.3f} s, 3 chunks {st['admit_prefill_chunks']:.3f} s); "
+              f"decode {1e3 * st['decode'] / st['decode_steps']:.2f} ms/step", flush=True)
+        del eng
+        torch.cuda.empty_cache()
+        return dict(admit_s=secs, rows=rows)
+
+    # (a) the 4-bit g=128 model, W4A8 admission through the grouped kernel
+    model_a = model.with_config(cfg8)
+    common.reset_counts()
+    stats_a = serve(model_a, "W4A8 serving (a), 4-bit g=128")
+    launches_a, plain = dict(common.launches), dict(common.plain_on_cuda)
+    check(launches_a["qgemv_a8"] == forwards * n_proj,
+          f"qgemv_a8 launched {launches_a['qgemv_a8']} times, want {forwards * n_proj}")
+    check(launches_a["qgemv_a8_perchannel"] == 0 and launches_a["qgemv"] > 0,
+          f"(a) launches {launches_a}")
+    check(not any(plain.values()), f"(a) plain versions ran on the card: {plain}")
+
+    # (b) every block projection requantized on the card, one at a time (the
+    # dense f32 form of w_gateup alone is 360 MB), then the same requests
+    common.reset_counts()
+    t0 = time.perf_counter()
+    blocks = []
+    for b in model.blocks:
+        proj = {n: requantize_a8(c.qtensor) for n, c in b.named_children()}
+        blocks.append(llama.LlamaBlock(cfg8, proj, b.ln_attn, b.ln_mlp))
+    model_b = llama.Llama(cfg8, model.embed, blocks, model.ln_final, model.lm_head.qtensor)
+    torch.cuda.synchronize()
+    t_rq = time.perf_counter() - t0
+    check(common.launches["dequant"] == n_proj, f"dequant launched {common.launches['dequant']}")
+    qt = model_b.blocks[0].w_down.qtensor
+    check(qt.bits == 8 and qt.group_size == qt.K == cfg8.intermediate_size,
+          f"requantized w_down: bits {qt.bits}, group {qt.group_size}, K {qt.K}")
+    print(f"requantize_a8 of {n_proj} projections on the card: {t_rq:.2f} s", flush=True)
+    stats_b = serve(model_b, "W4A8 serving (b), 8-bit per-channel")
+    launches_b, plain = dict(common.launches), dict(common.plain_on_cuda)
+    check(launches_b["qgemv_a8_perchannel"] == forwards * n_proj and launches_b["qgemv_a8"] == 0
+          and launches_b["qgemv"] > 0, f"(b) launches {launches_b}")
+    check(not any(plain.values()), f"(b) plain versions ran on the card: {plain}")
+
+    # the same requests with bf16 activations (not counted: it adds no kernel)
+    stats_16 = serve(model, "the same requests, prefill_a8=False")
+
+    # 2-layer cuts: one admission of T=512 (two prompts), kernels vs plain,
+    # and the 8-bit per-channel model against the 4-bit one.  A projection
+    # alone agrees to its bf16 output rounding (gate rel 1e-2).  Through
+    # layers the int8 rounding of the activations amplifies such a 1-ulp
+    # difference: where it moves a row's largest value, the row's scale moves
+    # and a good part of the row lands on other int8 steps.  The two paths
+    # then differ by about as much as int8 activations differ from bf16 ones
+    # (printed beside it), so the logits are gated at rel 1e-1, not 2e-2.
+    tokens = torch.from_numpy(rng.integers(0, cfg8.vocab_size, (2, 512))).to(dev)
+    lens, slots = torch.tensor([512, 300], device=dev), torch.tensor([1, 0], device=dev)
+
+    def admit(m, **kw):
+        cut = two_layer_cut(m)
+        return llama.prefill_slots(cut, tokens, lens, slots,
+                                   llama.KVCache.init(cut.cfg, 2, dev), **kw)[0]
+
+    l16 = admit(model)
+    logits = {}
+    for label, m in (("a", model_a), ("b", model_b)):
+        hx = llama.rms_norm(m.embed[tokens].to(torch.bfloat16), m.blocks[0].ln_attn, cfg8.rms_eps)
+        e1 = rel_err(m.blocks[0].wqkv(hx, True, True), m.blocks[0].wqkv(hx, False, True))
+        la, lb = admit(m), admit(m, use_kernel=False)
+        e, e16 = rel_err(la, lb), rel_err(la, l16)
+        print(f"W4A8 admission ({label}), T=512, kernels vs plain: first projection rel err "
+              f"{e1:.2e}; 2 layers, logits rel err {e:.2e} (against the 4-bit model with bf16 "
+              f"activations, both through the kernels: {e16:.2e})", flush=True)
+        check(torch.isfinite(la.float()).all().item(), f"({label}) non-finite logits")
+        check(e1 <= 1e-2, f"W4A8 ({label}) first projection rel err {e1:.3e} > 1e-2")
+        check(e <= 1e-1, f"W4A8 admission ({label}) (2-layer cut) logits rel err {e:.3e} > 1e-1")
+        logits[label] = la
+    e = rel_err(logits["b"], logits["a"])
+    print(f"W4A8 admission, 2 layers: 8-bit per-channel vs 4-bit g=128 logits rel err {e:.2e}",
+          flush=True)
+    check(e <= 1e-1, f"requantized model's logits rel err {e:.3e} > 1e-1 of the 4-bit model's")
+    launches = {k: launches_a[k] + launches_b[k] for k in launches_a}
+    return launches, dict(a=stats_a, b=stats_b, bf16=stats_16, requantize_s=t_rq)
+
+
 def clone_cache(cache, n_layers):
     from xbitops_tpu_torch.models import llama
 
@@ -679,9 +931,18 @@ def main() -> int:
     launches2, serving = phase_serving(dev, model)
     torch.cuda.empty_cache()
     launches3, long_ctx = phase_long_context(dev, model)
+    torch.cuda.empty_cache()
+    launches4, w4a8 = phase_w4a8(dev, model)
     print(f"card: {card}; 7B 4-bit decode at B=8: bf16 cache, prompts to 500: "
           f"{serving['ms_step']:.2f} ms/step, {serving['tok_s']:.1f} tokens/s; int8 cache, "
-          f"prompts to 1500: {long_ctx['ms_step']:.2f} ms/step, {long_ctx['tok_s']:.1f} tokens/s; "
+          f"prompts to 1500: {long_ctx['ms_step']:.2f} ms/step, {long_ctx['tok_s']:.1f} tokens/s",
+          flush=True)
+    rate = {k: w4a8[k]["rows"] / w4a8[k]["admit_s"] for k in ("a", "b", "bf16")}
+    print(f"card: {card}; 7B admission, padded prompt rows/s: W4A8 4-bit g=128 {rate['a']:.0f} "
+          f"({w4a8['a']['admit_s']:.3f} s), W4A8 8-bit per-channel {rate['b']:.0f} "
+          f"({w4a8['b']['admit_s']:.3f} s), bf16 activations on the same requests "
+          f"{rate['bf16']:.0f} ({w4a8['bf16']['admit_s']:.3f} s), bf16 activations in phase 2 "
+          f"{serving['admit_rows'] / serving['admit_s']:.0f} ({serving['admit_s']:.3f} s); "
           f"total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     csrc, jk = "xbitops_tpu_torch/csrc/", "xbitops_tpu/kernels/"
@@ -692,11 +953,14 @@ def main() -> int:
         "prefill_attention": (csrc + "prefill_attention.cu", jk + "prefill_attention.py:188"),
         "kv_append_packed": (csrc + "kv_append.cu", jk + "kv_append.py:43"),
         "decode_attention_int8": (csrc + "decode_attention.cu", jk + "decode_attention.py:176"),
+        "dequant": (csrc + "dequant.cu", jk + "dequant_kernel.py:32"),
+        "qgemv_a8": (csrc + "qgemv_a8.cu", jk + "qgemv_kernel.py:146"),
+        "qgemv_a8_perchannel": (csrc + "qgemv_a8.cu", jk + "qgemv_kernel.py:260"),
     }
-    # launches: each kernel's count over the two serving runs (the counts were
-    # set to 0 just before each run and read just after it)
+    # launches: each kernel's count over the serving runs of phases 2 to 4 (the
+    # counts were set to 0 just before each run and read just after it)
     kernels = [dict(name=n, route="cuda", source=src[n][0], replaces=src[n][1],
-                    launches=launches2[n] + launches3[n],
+                    launches=launches2[n] + launches3[n] + launches4[n],
                     **{key: res[n][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                     "bound_by", "library_ms")}) for n in src]
     for kern in kernels:

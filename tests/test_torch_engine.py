@@ -4,7 +4,10 @@ config: greedy tokens are identical, request by request, with slot recycling
 is reproducible, top_k=1 sampling equals greedy, finish reasons, and the
 options not ported yet raise.  Long prompts (130-250 tokens at S=256, admitted
 in chunks of 128, which takes JAX through its flash-prefill kernel) and the
-packed int8 cache give identical greedy tokens too, alone and together."""
+packed int8 cache give identical greedy tokens too, alone and together; so does
+W4A8 admission (``prefill_a8``: prompts of 33-50 tokens, bucket 64)."""
+
+import dataclasses
 
 import jax
 import numpy as np
@@ -172,3 +175,31 @@ def test_kv_quant_rounds_buckets_and_checks_the_chunk(model):
     assert eng.buckets == [8, 16, 32]
     with pytest.raises(ValueError):
         Engine(model, CFG, slots=1, kv_quant=True, prefill_chunk=30)
+
+
+# prompts past 32 tokens, so that admission (one bucket of 64 rows) clears the
+# int8-activation threshold; a seed whose greedy path has no near-tie
+_a8_rng = np.random.default_rng(2)
+A8_PROMPTS = [_a8_rng.integers(0, CFG.vocab_size, n).tolist() for n in (33, 50, 40)]
+
+
+def test_prefill_a8_engine_matches_jax_engine(jparams, model):
+    """3 requests on 2 slots with W4A8 admission: greedy tokens equal to the
+    JAX Engine's; an admission's logits are not those of the bf16-activation
+    model (the int8 path ran)."""
+    jcfg8 = dataclasses.replace(JCFG, prefill_a8=True)
+    cfg8 = dataclasses.replace(CFG, prefill_a8=True)
+    kw = dict(slots=2, decode_burst=4, kv_quant=False)
+    want = JEngine(jparams, jcfg8, **kw).generate(
+        [JRequest(prompt=p, max_new_tokens=6) for p in A8_PROMPTS])
+    model8 = model.with_config(cfg8)
+    eng = Engine(model8, cfg8, **kw)
+    assert eng.buckets[-1] == 64
+    got = eng.generate([Request(prompt=p, max_new_tokens=6) for p in A8_PROMPTS])
+    _same_completions(got, want)
+    # the admission logits differ from the bf16-activation model's
+    tokens = torch.zeros(64, dtype=torch.long)
+    tokens[:50] = torch.tensor(A8_PROMPTS[1])
+    l8, _ = llama.prefill_slot(model8, tokens, 50, 0, llama.KVCache.init(cfg8, 1, "cpu"))
+    l16, _ = llama.prefill_slot(model, tokens, 50, 0, llama.KVCache.init(CFG, 1, "cpu"))
+    assert not torch.equal(l8, l16)

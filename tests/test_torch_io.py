@@ -122,3 +122,34 @@ def test_kvcache_from_numpy_refuses_a_paged_cache():
     jcache = jax.tree.map(np.asarray, jllama.KVCache.init_paged(JCFG, 1, 2, page_size=32))
     with pytest.raises(NotImplementedError):
         kvcache_from_numpy(jcache, "cpu")
+
+
+def test_dense_and_per_channel_leaves_convert_and_round_trip(tmp_path):
+    """A JAX tree with dense bf16 leaves and 8-bit per-channel QTensors
+    (``requantize_a8``: one scale row repeated in every K-tile) converts, and
+    the port's checkpoint of it reads back to the same tensors."""
+    from xbitops_tpu.ops.quantize import quantize_array as jquantize, requantize_a8 as jrequant
+
+    jdense = jllama.init_params(jax.random.PRNGKey(1), JCFG, bits=None)
+    layers = []
+    for layer in jdense["layers"]:
+        rq = {k: jrequant(jquantize(jnp.asarray(layer[k], jnp.float32), 4, 128))
+              for k in ("wqkv", "w_down")}
+        layers.append(dict(layer, **rq))  # wo and w_gateup stay dense
+    jp = dict(jdense, layers=layers)
+    m = params_from_numpy(jax.tree.map(np.asarray, jp), CFG, "cpu")
+    assert isinstance(m.lm_head, llama.DenseLinear) and m.lm_head.weight.dtype == torch.bfloat16
+    assert isinstance(m.blocks[0].wo, llama.DenseLinear)
+    qt = m.blocks[1].w_down.qtensor
+    assert qt.bits == 8 and qt.group_size == qt.K_logical == 512 and qt.groups_per_tile == 1
+    assert qt.scales.shape[0] == qt.K // qt.tile_k and torch.equal(qt.scales[0], qt.scales[-1])
+    checkpoint.save_packed(m, str(tmp_path))
+    back = checkpoint.load_llama(str(tmp_path), CFG, device="cpu")
+    sa, sb = m.state_dict(), back.state_dict()
+    assert sa.keys() == sb.keys()
+    assert all(sa[n].dtype == sb[n].dtype and torch.equal(sa[n], sb[n]) for n in sa)
+    assert back.blocks[1].w_down.meta == m.blocks[1].w_down.meta
+    tokens = torch.tensor([[5, 9, 2, 7]])
+    la, _ = llama.prefill(m, tokens, llama.KVCache.init(CFG, 1, "cpu"))
+    lb, _ = llama.prefill(back, tokens, llama.KVCache.init(CFG, 1, "cpu"))
+    assert torch.equal(la, lb)

@@ -9,7 +9,10 @@ only PyTorch is installed:
 Tolerances: fused matmul rel 1e-5 / abs 3e-4 with f32 activations and rel 2e-2
 (of the output's largest value) with bf16 ones; appended cache rows, words
 and scales exact; attention outputs abs 2e-2 in bf16, padding queries of the
-prefill attention exactly 0.
+prefill attention exactly 0; the dequant kernel equal to its plain version bit
+for bit; the int8-activation matmul equal per channel (its only f32 operations
+repeat the plain version's) and rel 1e-5 / abs 3e-4 grouped (the groups' f32
+folds may fuse their multiply-adds).
 """
 
 import dataclasses
@@ -18,6 +21,7 @@ import pytest
 import torch
 
 from xbitops_tpu_torch.kernels import common
+from xbitops_tpu_torch.kernels.dequant_kernel import dequant_kernel, dequant_kernel_reference
 from xbitops_tpu_torch.kernels.decode_attention import (
     decode_attention,
     decode_attention_reference,
@@ -32,7 +36,14 @@ from xbitops_tpu_torch.kernels.prefill_attention import (
     prefill_attention,
     prefill_attention_reference,
 )
-from xbitops_tpu_torch.ops.qmatmul import qmatmul
+from xbitops_tpu_torch.kernels.qgemv_kernel import (
+    a8_per_channel,
+    qmatmul_kernel_a8,
+    qmatmul_kernel_a8_reference,
+)
+from xbitops_tpu_torch.ops.dequant import dequant_qtensor
+from xbitops_tpu_torch.ops.qmatmul import qmatmul, quantize_activations
+from xbitops_tpu_torch.ops.quantize import quantize_array, requantize_a8
 from xbitops_tpu_torch.utils import synth
 
 pytestmark = pytest.mark.gpu
@@ -280,3 +291,83 @@ def test_new_wrappers_count_and_reject(dev):
                           k_scale=ks, v_scale=vs)
     assert common.launches["prefill_attention"] == 1
     assert not any(common.plain_on_cuda.values())
+
+
+@pytest.mark.parametrize("bits,g,K,tile_k", QCASES)
+@pytest.mark.parametrize("out_dtype", [torch.bfloat16, torch.float16, torch.float32])
+def test_dequant_kernel_equals_plain(dev, bits, g, K, tile_k, out_dtype):
+    gen = _gen(dev, bits)
+    for N in (160, 130):  # 16-byte and single-word column paths
+        qt = synth.random_qtensor(gen, K, N, bits, g, tile_k=tile_k)
+        common.reset_counts()
+        got = dequant_kernel(qt, out_dtype)
+        assert common.launches["dequant"] == 1 and common.plain_on_cuda["dequant"] == 0
+        ref = dequant_kernel_reference(qt, out_dtype)
+        assert got.shape == (qt.K, N) and got.dtype == out_dtype
+        assert torch.equal(got, ref)
+
+
+def test_dequant_qtensor_f32_scales_act_order_padding(dev):
+    w = torch.randn(200, 200, device=dev, generator=_gen(dev, 1))
+    qt = quantize_array(w, 4, 64, act_order=True, scale_store_dtype=torch.float32)
+    assert qt.perm is not None and qt.K != 200 and qt.N_logical == 200
+    got = dequant_qtensor(qt, torch.float32)
+    assert torch.equal(got, dequant_qtensor(qt, torch.float32, use_kernel=False))
+    assert (got - w).abs().max() <= 0.51 * qt.scales.max()
+
+
+# grouped: (bits, group_size, K, tile_k) with groups of one chunk, several
+# chunks, less than a chunk, not a multiple of 32 rows, and a padded K
+A8_GROUPED = [(2, 128, 512, None), (4, 128, 1024, None), (8, 128, 512, None),
+              (3, 128, 512, None), (7, 64, 512, None), (4, 32, 256, None),
+              (4, 40, 640, None), (4, 512, 1024, 256), (8, 256, 1000, None),
+              (5, 128, 200, None)]
+
+
+@pytest.mark.parametrize("bits,g,K,tile_k", A8_GROUPED)
+@pytest.mark.parametrize("M,N", [(1, 160), (40, 130), (300, 384)])
+def test_a8_grouped_kernel_matches_plain(dev, bits, g, K, tile_k, M, N):
+    gen = _gen(dev, bits * 1000 + M)
+    qt = synth.random_qtensor(gen, K, N, bits, g, tile_k=tile_k)
+    assert not a8_per_channel(qt)
+    a = torch.nn.functional.pad(torch.randn(M, K, device=dev, generator=gen), (0, qt.K - K))
+    aq, a_scale = quantize_activations(a)
+    common.reset_counts()
+    got = qmatmul_kernel_a8(aq, qt) * a_scale
+    assert common.launches["qgemv_a8"] == 1 and common.launches["qgemv_a8_perchannel"] == 0
+    ref = qmatmul_kernel_a8_reference(aq, qt) * a_scale
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=3e-4)
+
+
+@pytest.mark.parametrize("bits,K", [(8, 512), (8, 1024), (4, 512), (3, 1024), (8, 4096)])
+@pytest.mark.parametrize("M,N", [(1, 160), (40, 130), (300, 384)])
+def test_a8_per_channel_kernel_equals_plain(dev, bits, K, M, N):
+    gen = _gen(dev, bits * 1000 + M)
+    qt = synth.random_qtensor(gen, K, N, bits, K)
+    assert a8_per_channel(qt)
+    aq, _ = quantize_activations(torch.randn(M, K, device=dev, generator=gen))
+    common.reset_counts()
+    got = qmatmul_kernel_a8(aq, qt)
+    assert common.launches["qgemv_a8_perchannel"] == 1 and common.launches["qgemv_a8"] == 0
+    assert torch.equal(got, qmatmul_kernel_a8_reference(aq, qt))
+
+
+def test_requantize_a8_and_qmatmul_a8_on_the_card(dev):
+    """quantize -> requantize (the dequant kernel) -> a8 matmul, against the
+    plain path; act-order gather, K padding and the N_logical cut included."""
+    gen = _gen(dev, 3)
+    w = torch.randn(1024, 200, device=dev, generator=gen) * 0.1
+    a = torch.randn(2, 33, 1024, device=dev, generator=gen)
+    qt = quantize_array(w, 4, 128, act_order=True)
+    common.reset_counts()
+    rq = requantize_a8(qt)
+    assert common.launches["dequant"] == 1 and rq.bits == 8 and a8_per_channel(rq)
+    for q, name in ((qt, "qgemv_a8"), (rq, "qgemv_a8_perchannel")):
+        common.reset_counts()
+        got = qmatmul(a, q, out_dtype=torch.float32, a8=True)
+        assert common.launches[name] == 1 and not any(common.plain_on_cuda.values())
+        ref = qmatmul(a, q, out_dtype=torch.float32, a8=True, use_kernel=False)
+        assert got.shape == (2, 33, 200)
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=3e-4)
+        full = qmatmul(a, q, out_dtype=torch.float32, use_kernel=False)
+        assert (got - full).abs().max() < 0.03 * full.abs().max()

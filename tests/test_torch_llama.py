@@ -8,7 +8,15 @@ compared only in the engine test.
 Chunked prefill (``prefill_slots_chunk``) runs at S=256 with chunks of 128, so
 that JAX takes its flash-prefill Pallas kernel (interpret mode), on the bf16 and
 the packed int8 cache.  The int8 cache is compared dequantized, within 2
-quanta: a 1-ulp bf16 difference in k between the frameworks can move a byte."""
+quanta: a 1-ulp bf16 difference in k between the frameworks can move a byte.
+
+``prefill_a8``: a forward of 48 rows runs the blocks' projections on int8
+activations in both packages (logits within the same rel 2e-2, and not those
+of the bf16-activation forward); one of 16 rows is below the threshold and
+bit-identical to ``prefill_a8=False``.  ``init_params``, dense weights and
+``perplexity`` are held to the JAX package's on its own weights."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -16,10 +24,13 @@ import numpy as np
 import pytest
 import torch
 
+import xbitops_tpu as xb
 from xbitops_tpu.models import llama as jllama
 from xbitops_tpu.utils import synth as jsynth
+from xbitops_tpu.utils.evaluate import perplexity as jperplexity
 from xbitops_tpu_torch.io.convert import kvcache_from_numpy, params_from_numpy
 from xbitops_tpu_torch.models import llama
+from xbitops_tpu_torch.utils.evaluate import perplexity, sequence_nll
 
 # tiny shapes: one intra-op thread, so that parallel test workers do not
 # oversubscribe the cores (torch's thread pools spin while they wait)
@@ -298,3 +309,106 @@ def test_chunk_overhanging_capacity_writes_its_valid_part(model, quantized):
         assert np.abs(want[:, 1, :, C:n]).max() > 0  # the second chunk's rows are there
         quantum = np.abs(want).max(axis=-1, keepdims=True) / 127.0
         assert (np.abs(got - want) <= 2e-2 * np.abs(want).max() + 2 * quantum).all()
+
+
+JCFG8 = dataclasses.replace(JCFG, prefill_a8=True)
+CFG8 = dataclasses.replace(CFG, prefill_a8=True)
+
+
+def test_prefill_a8_matches_jax_above_the_threshold(jparams, model):
+    model8 = model.with_config(CFG8)
+    tokens = np.random.default_rng(6).integers(0, CFG.vocab_size, (2, 48)).astype(np.int32)
+    jl, _ = jprefill(jparams, JCFG8, jnp.asarray(tokens), jllama.KVCache.init(JCFG, 2))
+    tl8, _ = llama.prefill(model8, torch.from_numpy(tokens), llama.KVCache.init(CFG, 2, "cpu"))
+    _close(tl8, jl)
+    tl, _ = llama.prefill(model, torch.from_numpy(tokens), llama.KVCache.init(CFG, 2, "cpu"))
+    assert not torch.equal(tl8, tl)  # the int8 path ran
+    # and stays within the int8 activation rounding, grown through two layers
+    assert (tl8.float() - tl.float()).abs().max() < 0.1 * tl.float().abs().max()
+    plain, _ = llama.prefill(model8, torch.from_numpy(tokens),
+                             llama.KVCache.init(CFG, 2, "cpu"), use_kernel=False)
+    _close(tl8, plain.float().numpy())  # the fake-quant plain path
+
+
+def test_prefill_a8_is_inert_below_the_threshold(model):
+    assert llama.A8_MIN_T == 32
+    model8 = model.with_config(CFG8)
+    tokens = torch.from_numpy(np.random.default_rng(7).integers(0, CFG.vocab_size, (2, 16)))
+    a, b = llama.KVCache.init(CFG, 2, "cpu"), llama.KVCache.init(CFG, 2, "cpu")
+    la, _ = llama.prefill(model8, tokens, a)
+    lb, _ = llama.prefill(model, tokens, b)
+    assert torch.equal(la, lb) and torch.equal(a.k, b.k)
+    la, _ = llama.decode_step(model8, torch.tensor([3, 200]), a)  # decode stays bf16
+    lb, _ = llama.decode_step(model, torch.tensor([3, 200]), b)
+    assert torch.equal(la, lb)
+
+
+def test_with_config_shares_weights_and_cuts_depth(model):
+    cut = model.with_config(dataclasses.replace(CFG, num_layers=1))
+    assert len(cut.blocks) == 1 and cut.cfg.num_layers == 1
+    assert cut.blocks[0].wqkv.plane0.data_ptr() == model.blocks[0].wqkv.plane0.data_ptr()
+    assert cut.lm_head.scales.data_ptr() == model.lm_head.scales.data_ptr()
+
+
+@pytest.fixture(scope="module")
+def jdense():
+    return jllama.init_params(jax.random.PRNGKey(1), JCFG, bits=None)
+
+
+def _jquantized(jdense):
+    def qz(w):
+        return xb.quantize_array(jnp.asarray(w, jnp.float32), 4, 32)
+
+    layers = [dict(layer, **{k: qz(layer[k]) for k in ("wqkv", "w_gateup", "wo", "w_down")})
+              for layer in jdense["layers"]]
+    return dict(jdense, layers=layers, lm_head=qz(jdense["lm_head"]))
+
+
+def test_perplexity_matches_jax_dense_quantized_and_a8(jdense):
+    """The JAX package's dense tiny weights and their 4-bit (g=32) quantized
+    form, carried across: log perplexity within 1e-2 of JAX's for the dense
+    model (dense bf16 projections), the quantized one and its W4A8 prefill;
+    W4A8 within 0.05 of W4A16, and not equal to it."""
+    stream = np.asarray(jax.random.randint(jax.random.PRNGKey(7), (2, 48), 0, CFG.vocab_size))
+    jq = _jquantized(jdense)
+    tokens = torch.from_numpy(stream.copy())
+    logs = {}
+    for name, jp, jcfg, cfg in (("dense", jdense, JCFG, CFG), ("w4a16", jq, JCFG, CFG),
+                                ("w4a8", jq, JCFG8, CFG8)):
+        want = jperplexity(jp, jcfg, jnp.asarray(stream))
+        m = params_from_numpy(jax.tree.map(np.asarray, jp), cfg, "cpu")
+        got = perplexity(m, tokens)
+        assert abs(np.log(got) - np.log(want)) < 1e-2, (name, got, want)
+        logs[name] = np.log(got)
+    assert isinstance(m.blocks[0].wqkv, llama.QLinear)
+    assert logs["w4a8"] != logs["w4a16"]
+    assert abs(logs["w4a8"] - logs["w4a16"]) < 0.05
+    nll = sequence_nll(m, tokens)
+    assert nll.shape == (2,) and nll.dtype == torch.float32 and bool(torch.isfinite(nll).all())
+
+
+@pytest.mark.parametrize("bits,fuse,act_order", [(4, True, False), (None, True, False),
+                                                  (3, False, True)])
+def test_init_params_builds_a_model_that_runs(bits, fuse, act_order):
+    gen = torch.Generator().manual_seed(0)
+    m = llama.init_params(gen, CFG, bits=bits, group_size=32, fuse=fuse, act_order=act_order)
+    names = {n for n, _ in m.blocks[0].named_children()}
+    assert names == ({"wqkv", "wo", "w_gateup", "w_down"} if fuse else
+                     {"wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"})
+    kind = llama.DenseLinear if bits is None else llama.QLinear
+    assert isinstance(m.blocks[1].w_down, kind) and isinstance(m.lm_head, kind)
+    if bits is None:
+        assert m.lm_head.weight.dtype == torch.bfloat16
+        assert m.lm_head.weight.shape == (CFG.hidden_size, CFG.vocab_size)
+    else:
+        qt = m.blocks[0].wo.qtensor
+        assert qt.bits == bits and qt.group_size == 32 and (qt.perm is not None) == act_order
+    tokens = torch.tensor([[5, 9, 2, 7]])
+    logits, cache = llama.prefill(m, tokens, llama.KVCache.init(CFG, 1, "cpu"))
+    assert logits.shape == (1, 4, CFG.vocab_size) and bool(torch.isfinite(logits.float()).all())
+    assert cache.lengths.tolist() == [4]
+    again = llama.init_params(torch.Generator().manual_seed(0), CFG, bits=bits, group_size=32,
+                              fuse=fuse, act_order=act_order)
+    assert torch.equal(again.embed, m.embed)
+    with pytest.raises(NotImplementedError):
+        llama.init_params(gen, CFG, tp=2)

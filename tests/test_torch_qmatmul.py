@@ -15,6 +15,7 @@ import torch
 import xbitops_tpu as xb
 from xbitops_tpu_torch.io.convert import qtensor_from_numpy
 from xbitops_tpu_torch.kernels import common
+from xbitops_tpu_torch.kernels.qgemv_kernel import qmatmul_kernel
 from xbitops_tpu_torch.ops.qmatmul import qmatmul
 
 # tiny shapes: one intra-op thread, so that parallel test workers do not
@@ -89,5 +90,10 @@ def test_qmatmul_cpu_takes_plain_path_and_rejects_a8(weights):
     out = qmatmul(torch.ones(2, 512, dtype=torch.bfloat16), qt)
     assert out.dtype == torch.bfloat16 and out.shape == (2, 256)
     assert common.launches["qgemv"] == 0 and common.plain_on_cuda["qgemv"] == 0
-    with pytest.raises(NotImplementedError):
-        qmatmul(torch.ones(2, 512), qt, a8=True)
+    # a8 on the CPU takes the plain version too; the kernel entry rejects a8
+    # activations that the op has not quantized to int8
+    out = qmatmul(torch.ones(2, 512), qt, a8=True)
+    assert out.dtype == torch.float32 and out.shape == (2, 256)
+    assert not any(common.launches.values()) and not any(common.plain_on_cuda.values())
+    with pytest.raises(ValueError):
+        qmatmul_kernel(torch.ones(2, 512), qt, out_dtype=torch.float32, a8=True)

@@ -27,50 +27,25 @@
 // - at each scale-group boundary: acc += s_g*dot - sz_g*asum in f32, the
 //   same algebra as the TPU kernel without its +128 bias trick;
 // - the eight warps' partial sums reduce through shared memory at the end.
-// Every width 1-8 decodes through the same generic path: for a slot plane
-// of width pb, ratio = 32/pb and wt = tile_k/ratio, local row kl sits in
-// slot j = kl/wt (bits pb*j) of word row t*wt + kl%wt; for the paired 4-bit
-// plane, kl = j*(tile_k/4) + 2r + h sits at bit 4j + 16h of word row r.
+// Every width 1-8 decodes through the same generic path; planes.cuh has the
+// layout of a plane's words.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "planes.cuh"
+
 namespace {
+
+using xb::kMaxPlanes;
+using xb::load_scale;
+using xb::load_words;
+using xb::Planes;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kChunk = 256;  // == kThreads: one staged row per thread
-constexpr int kMaxPlanes = 3;
-
-struct Planes {
-  const uint32_t* ptr[kMaxPlanes];
-  int pb[kMaxPlanes];
-  int n;
-  int paired;
-};
-
-__device__ __forceinline__ float load_scale(const void* p, size_t i, int f16) {
-  return f16 ? __half2float(static_cast<const __half*>(p)[i])
-             : static_cast<const float*>(p)[i];
-}
-
-// The CPL words of a plane at word row `row`, columns [nc, nc + CPL).
-template <int CPL>
-__device__ __forceinline__ void load_words(const uint32_t* plane, int row, int N, int nc,
-                                           uint32_t (&w)[CPL]) {
-  const uint32_t* p = plane + static_cast<size_t>(row) * N + nc;
-  if constexpr (CPL == 4) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(p));
-    w[0] = v.x;
-    w[1] = v.y;
-    w[2] = v.z;
-    w[3] = v.w;
-  } else {
-#pragma unroll
-    for (int c = 0; c < CPL; ++c) w[c] = __ldg(p + c);
-  }
-}
 
 template <int TM, int CPL>
 __global__ void __launch_bounds__(kThreads)
@@ -126,24 +101,8 @@ qgemv_kernel(const void* __restrict__ a, int a_f32, int M, int K, int N, Planes 
         reinterpret_cast<float4*>(a_s + r * TM)[q] =
             make_float4(v[4 * q], v[4 * q + 1], v[4 * q + 2], v[4 * q + 3]);
       if (r < kc) {
-        const int k = k0 + r;
-        const int t = k / tile_k, kl = k - t * tile_k;
-        for (int p = 0; p < pl.n; ++p) {
-          int row, sh;
-          if (p == 0 && pl.paired) {
-            const int ph = tile_k >> 2;
-            const int j = kl / ph, rem = kl - j * ph;
-            row = t * (tile_k >> 3) + (rem >> 1);
-            sh = 4 * j + 16 * (rem & 1);
-          } else {
-            const int wt = tile_k * pl.pb[p] / 32;
-            const int j = kl / wt;
-            row = t * wt + (kl - j * wt);
-            sh = pl.pb[p] * j;
-          }
-          w_row[p][r] = row;
-          w_shift[p][r] = sh;
-        }
+        for (int p = 0; p < pl.n; ++p)
+          xb::plane_slot(pl, p, tile_k, k0 + r, w_row[p][r], w_shift[p][r]);
       }
     }
     __syncthreads();
@@ -270,15 +229,7 @@ extern "C" int xb_qgemv(const void* a, int a_f32, int M, int K, int N,
                         void* part, void* out, int out_f32, void* stream) {
   if (k_per_split % kChunk || splits < 1 || (splits > 1 && !part))
     return static_cast<int>(cudaErrorInvalidValue);
-  Planes pl;
-  pl.ptr[0] = static_cast<const uint32_t*>(p0);
-  pl.ptr[1] = static_cast<const uint32_t*>(p1);
-  pl.ptr[2] = static_cast<const uint32_t*>(p2);
-  pl.pb[0] = pb0;
-  pl.pb[1] = pb1;
-  pl.pb[2] = pb2;
-  pl.n = p2 ? 3 : (p1 ? 2 : 1);
-  pl.paired = paired;
+  const Planes pl = xb::make_planes(p0, p1, p2, pb0, pb1, pb2, paired);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* pt = splits > 1 ? static_cast<float*>(part) : nullptr;
   if (M <= 8 && N % 4 == 0) {

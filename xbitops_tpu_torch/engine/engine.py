@@ -246,6 +246,7 @@ class Engine:
                         for i in final:
                             last_tok[i] = int(toks[i])
                     lt["chunks"] += 1
+                    lt["chunk_rows"] += n * C
                 start(longs, last_tok)
                 lt["admit_prefill_chunks"] += time.perf_counter() - t_mark
                 t_mark = time.perf_counter()
@@ -263,6 +264,7 @@ class Engine:
                                     greedy=max(t_adm) <= 0).cpu().numpy()
                 start(admit, toks)
                 lt["admit_prefill"] += time.perf_counter() - t_mark
+                lt["admit_rows"] += len(admit) * bucket
             if not active.any():
                 continue
 

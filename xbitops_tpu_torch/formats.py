@@ -18,6 +18,12 @@ as it is so one conversion serves both packages:
 
 The dequantized value is ``w[k, n] = wq[k, n] * s - sz`` with ``s``/``sz`` the
 scale row of ``k``'s group.
+
+The GPTQ interchange layout is read and written here too (``gptq_pack``,
+``gptq_unpack_*``, ``dequant_reference``, ``from_gptq``): ``qweight
+int32[ceil(K*bits/32), N]`` packs values along K, low bits first, values
+straddling words for widths that do not divide 32; ``qzeros int32[G,
+ceil(N*bits/32)]`` packs zero-points along N; ``w = wq*s - (z + bias)*s``.
 """
 
 from __future__ import annotations
@@ -26,16 +32,27 @@ import dataclasses
 import math
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 __all__ = [
     "PLANE_DECOMP",
+    "POW2_STORAGE",
+    "AUTO_PAD_WIDTHS",
     "QTensor",
+    "quantize",
+    "gptq_pack",
+    "gptq_unpack_weight",
+    "gptq_unpack_zeros",
+    "dequant_reference",
+    "resolve_storage_bits",
     "default_tile_k",
     "paired_ok",
     "pack_planes",
     "unpack_planes_reference",
     "tile_scales",
+    "make_qtensor",
+    "from_gptq",
     "dequant_qtensor_reference",
 ]
 
@@ -51,9 +68,35 @@ PLANE_DECOMP: dict[int, Tuple[int, ...]] = {
     8: (8,),
 }
 
+# Storage-width policy: the quantized VALUES stay b-bit but may be STORED in
+# the next power-of-two width's planes, trading bytes for a single-plane
+# decode.  ``"auto"`` pads the widths in AUTO_PAD_WIDTHS; that set is the JAX
+# package's, chosen by its timings on a TPU v5e, and is kept for parity (a
+# weight packed by either package has the same layout) until the H100
+# re-derives it.  ``"packed"`` always keeps exact b-bit storage.
+POW2_STORAGE = {1: 1, 2: 2, 3: 4, 4: 4, 5: 8, 6: 8, 7: 8, 8: 8}
+AUTO_PAD_WIDTHS = frozenset({3, 7})
+
+
+def resolve_storage_bits(bits: int, storage_bits) -> int:
+    """A ``storage_bits`` spec (None/"packed", "auto", or an int) -> the plane
+    width the values are packed at."""
+    if storage_bits in (None, "packed"):
+        return bits
+    if storage_bits == "auto":
+        return POW2_STORAGE[bits] if bits in AUTO_PAD_WIDTHS else bits
+    sb = int(storage_bits)
+    if sb not in PLANE_DECOMP or sb < bits:
+        raise ValueError(f"storage_bits={storage_bits} invalid for bits={bits}")
+    return sb
+
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def _tile_group_compatible(tile_k: int, group_size: int) -> bool:
+    return tile_k % group_size == 0 or group_size % tile_k == 0
 
 
 def min_tile_k(bits: int) -> int:
@@ -71,17 +114,134 @@ def default_tile_k(K: int, group_size: int, bits: int = 1) -> int:
     if aligned % floor == 0 and aligned <= 4096 and (_round_up(K, aligned) - K) * 8 <= K:
         return aligned
 
-    def nests(c):
-        return c % group_size == 0 or group_size % c == 0
-
     cands = [c for c in (1024, 512, 256, 128, 64, 32) if c >= floor]
     for c in cands:
-        if K % c == 0 and nests(c):
+        if K % c == 0 and _tile_group_compatible(c, group_size):
             return c
     for c in cands:
-        if nests(c):
+        if _tile_group_compatible(c, group_size):
             return c
     return math.lcm(group_size, floor)
+
+
+def quantize(
+    w: np.ndarray, bits: int, group_size: int, sym: bool = False
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Quantize a float weight ``w[K, N]`` (numpy) to ``bits`` with per-group
+    scale and zero, asymmetric min/max or ``sym``, GPTQ conventions.
+
+    Returns ``(wq uint8[K, N], scales f32[G, N], zeros uint8[G, N])`` with
+    ``w ~= (wq - z) * s``.  Scales round through fp16 BEFORE q and zero are
+    chosen, so they compensate the value that is stored."""
+    K, N = w.shape
+    G = -(-K // group_size)
+    maxq = (1 << bits) - 1
+    wq = np.zeros((K, N), np.uint8)
+    scales = np.zeros((G, N), np.float32)
+    zeros = np.zeros((G, N), np.uint8)
+    for g in range(G):
+        blk = w[g * group_size : (g + 1) * group_size].astype(np.float64)
+        if sym:
+            amax = np.abs(blk).max(axis=0)
+            scale = np.maximum(amax / (maxq / 2), 1e-8)
+            scale = scale.astype(np.float16).astype(np.float64)
+            zero = np.full(N, (maxq + 1) // 2, np.float64)
+        else:
+            lo = np.minimum(blk.min(axis=0), 0)
+            hi = np.maximum(blk.max(axis=0), 0)
+            scale = np.maximum((hi - lo) / maxq, 1e-8)
+            scale = scale.astype(np.float16).astype(np.float64)
+            zero = np.clip(np.round(-lo / scale), 0, maxq)
+        q = np.clip(np.round(blk / scale + zero), 0, maxq)
+        wq[g * group_size : (g + 1) * group_size] = q.astype(np.uint8)
+        scales[g] = scale.astype(np.float32)
+        zeros[g] = zero.astype(np.uint8)
+    return wq, scales, zeros
+
+
+def _pack_bits_np(vals: np.ndarray, bits: int, axis: int) -> np.ndarray:
+    """Pack integers (< 2**bits) into int32 words along ``axis``, low bits
+    first, values straddling word boundaries where bits does not divide 32."""
+    vals = np.moveaxis(vals, axis, 0)
+    K = vals.shape[0]
+    out = np.zeros((-(-K * bits // 32),) + vals.shape[1:], np.uint64)
+    for k in range(K):
+        wi, off = divmod(k * bits, 32)
+        v = vals[k].astype(np.uint64)
+        out[wi] |= (v << off) & 0xFFFFFFFF
+        if off + bits > 32:
+            out[wi + 1] |= v >> (32 - off)
+    return np.ascontiguousarray(np.moveaxis(out.astype(np.uint32).view(np.int32), 0, axis))
+
+
+def gptq_pack(
+    wq: np.ndarray, scales: np.ndarray, zeros: np.ndarray, bits: int, scale_dtype=np.float16
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Integer values, scales and zero-points (numpy) -> the interchange
+    layout ``(qweight, scales, qzeros)``: qweight packs along K, qzeros
+    along N."""
+    qweight = _pack_bits_np(wq.astype(np.uint32), bits, axis=0)
+    qzeros = _pack_bits_np(zeros.astype(np.uint32), bits, axis=1)
+    return qweight, scales.astype(scale_dtype), qzeros
+
+
+def _unpack_bits(words: torch.Tensor, bits: int, n_vals: int, axis: int) -> torch.Tensor:
+    """Inverse of :func:`_pack_bits_np` on a tensor: ``n_vals`` values along
+    ``axis`` as int32 (one gather per word half; handles straddling values)."""
+    w = words.movedim(axis, 0).to(torch.int64) & 0xFFFFFFFF
+    bitpos = torch.arange(n_vals, device=words.device) * bits
+    wi, off = bitpos // 32, bitpos % 32
+    shape = (-1,) + (1,) * (w.dim() - 1)
+    mask = (1 << bits) - 1
+    vals = (w[wi] >> off.reshape(shape)) & mask
+    need_hi = (off + bits > 32).reshape(shape)
+    hi = w[torch.clamp(wi + 1, max=w.shape[0] - 1)]
+    shift_hi = torch.where(need_hi, (32 - off).reshape(shape), 0)
+    vals = vals | torch.where(need_hi, (hi << shift_hi) & mask, 0)
+    return vals.to(torch.int32).movedim(0, axis)
+
+
+def gptq_unpack_weight(qweight: torch.Tensor, bits: int, K: int) -> torch.Tensor:
+    """``int32[ceil(K*bits/32), N]`` -> integer values ``int32[K, N]``."""
+    return _unpack_bits(qweight, bits, K, axis=0)
+
+
+def gptq_unpack_zeros(qzeros: torch.Tensor, bits: int, N: int) -> torch.Tensor:
+    """``int32[G, ceil(N*bits/32)]`` -> zero-points ``int32[G, N]``."""
+    return _unpack_bits(qzeros, bits, N, axis=1)
+
+
+def _scale_zeros(scales: torch.Tensor, zeros: torch.Tensor, add_zero_bias: int) -> torch.Tensor:
+    """``s * (z + bias)`` multiplied and rounded in the scales' dtype, as the
+    reference's half-precision ``-s*z`` operand is."""
+    z = zeros.float() + float(add_zero_bias)
+    return (scales * z.to(scales.dtype)).to(scales.dtype)
+
+
+def dequant_reference(
+    qweight: torch.Tensor,
+    scales: torch.Tensor,
+    qzeros: torch.Tensor,
+    group_size: int,
+    bits: int,
+    in_features: int,
+    add_zero_bias: int = 0,
+    g_idx: Optional[torch.Tensor] = None,
+    out_dtype=None,
+) -> torch.Tensor:
+    """Plain oracle of the reference library's ``dequant`` op on the
+    interchange layout: ``w = wq*s - sz`` with ``sz = s*(z + bias)`` rounded
+    through the scale dtype.  With ``g_idx`` each row takes its own group
+    (act-order)."""
+    K, N = in_features, scales.shape[1]
+    out_dtype = out_dtype or scales.dtype
+    wq = gptq_unpack_weight(qweight, bits, K).float()
+    sz = _scale_zeros(scales, gptq_unpack_zeros(qzeros, bits, N), add_zero_bias).float()
+    if g_idx is None:
+        gid = torch.arange(K, device=scales.device) // group_size
+    else:
+        gid = g_idx.long()
+    return (wq * scales.float()[gid] - sz[gid]).to(out_dtype)
 
 
 def paired_plane_layout(bits: int) -> bool:
@@ -284,6 +444,108 @@ def tile_scales(scales: torch.Tensor, tile_k: int, group_size: int, K: int) -> t
     if gt_pad != gt:
         out = torch.nn.functional.pad(out, (0, 0, 0, gt_pad - gt))
     return out
+
+
+def _pad_to(x: torch.Tensor, rows: int, cols: int, value=0) -> torch.Tensor:
+    """Pad a 2-D tensor at the bottom and right up to ``[rows, cols]``."""
+    return torch.nn.functional.pad(x, (0, cols - x.shape[1], 0, rows - x.shape[0]), value=value)
+
+
+def make_qtensor(
+    wq: torch.Tensor,
+    scales: torch.Tensor,
+    zeros: torch.Tensor,
+    bits: int,
+    group_size: int,
+    add_zero_bias: int = 0,
+    tile_k: Optional[int] = None,
+    perm: Optional[torch.Tensor] = None,
+    scale_store_dtype=None,
+    storage_bits=None,
+) -> QTensor:
+    """Build a QTensor from unpacked integer values ``wq[K, N]`` and per-group
+    ``scales``/``zeros`` ``[G, N]`` (port of ``formats.make_qtensor``; the
+    result equals the JAX package's after ``io.convert.qtensor_from_numpy``).
+
+    ``scale_zeros = s*(z + bias)`` is rounded through the scales' dtype, then
+    stored as ``scale_store_dtype`` (None: float16 for fp16 scales, else
+    float32).  K pads to a tile multiple and N to a multiple of 128 with scale
+    1, zero 0.  ``storage_bits``: see :func:`resolve_storage_bits`."""
+    if scale_store_dtype is None:
+        scale_store_dtype = torch.float16 if scales.dtype == torch.float16 else torch.float32
+    K_logical, N = wq.shape
+    g = group_size
+    value_bits = None
+    sb = resolve_storage_bits(bits, storage_bits)
+    if sb != bits:
+        value_bits, bits = bits, sb
+    floor = min_tile_k(bits)
+    tile_k = tile_k or default_tile_k(_round_up(K_logical, floor), g, bits)
+    if not _tile_group_compatible(tile_k, g):
+        raise ValueError(
+            f"tile_k={tile_k} and group_size={g} must divide one another "
+            "(tile boundaries must land on group boundaries)")
+    if tile_k < floor or tile_k % floor:
+        raise ValueError(f"tile_k={tile_k} must be a multiple of {floor} for bits={bits}")
+    K = _round_up(K_logical, tile_k)
+    Np = _round_up(N, 128)
+    G = max(scales.shape[0], -(-K // g))
+    wq = _pad_to(wq.to(torch.int32), K, Np)
+    scales = _pad_to(scales, G, Np, value=1)
+    zeros = _pad_to(zeros, G, Np)
+    sz = _scale_zeros(scales, zeros, add_zero_bias)
+    return QTensor(
+        planes=pack_planes(wq, bits, tile_k, paired=paired_ok(bits, tile_k, g)),
+        scales=tile_scales(scales.float(), tile_k, g, K).to(scale_store_dtype),
+        scale_zeros=tile_scales(sz.float(), tile_k, g, K).to(scale_store_dtype),
+        bits=bits,
+        group_size=g,
+        tile_k=tile_k,
+        K=K,
+        K_logical=K_logical,
+        perm=None if perm is None else perm.long(),
+        N_logical=N if Np != N else None,
+        value_bits=value_bits,
+    )
+
+
+def from_gptq(
+    qweight: torch.Tensor,
+    scales: torch.Tensor,
+    qzeros: torch.Tensor,
+    bits: int,
+    group_size: int,
+    in_features: int,
+    add_zero_bias: int = 0,
+    g_idx: Optional[torch.Tensor] = None,
+    tile_k: Optional[int] = None,
+    scale_store_dtype=None,
+    storage_bits=None,
+    col_perm: Optional[torch.Tensor] = None,
+    fold_perm: bool = False,
+) -> QTensor:
+    """An interchange-layout tensor -> the packed layout.
+
+    Act-order rows (``g_idx``) are sorted into contiguous groups here (a
+    stable sort), and the order is kept as ``perm`` so that matmuls gather
+    activations, not weights.  ``col_perm`` permutes the output columns
+    (folding a downstream layer's row sort into this layer); ``fold_perm``
+    says that was done upstream for THIS tensor's ``g_idx``: rows are still
+    sorted but no ``perm`` is stored."""
+    K, N = in_features, scales.shape[1]
+    wq = gptq_unpack_weight(qweight, bits, K)
+    zeros = gptq_unpack_zeros(qzeros, bits, N)
+    if col_perm is not None:
+        col_perm = col_perm.long()
+        wq, scales, zeros = wq[:, col_perm], scales[:, col_perm], zeros[:, col_perm]
+    perm = None
+    if g_idx is not None:
+        order = torch.argsort(g_idx, stable=True)
+        wq = wq[order]
+        perm = None if fold_perm else order
+    return make_qtensor(
+        wq, scales, zeros, bits, group_size, add_zero_bias, tile_k=tile_k, perm=perm,
+        scale_store_dtype=scale_store_dtype, storage_bits=storage_bits)
 
 
 def _expand_tiled_scales(ts: torch.Tensor, qt: QTensor) -> torch.Tensor:

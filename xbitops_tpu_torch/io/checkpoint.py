@@ -21,7 +21,7 @@ import torch
 
 from xbitops_tpu_torch.formats import QTensor
 from xbitops_tpu_torch.io.convert import _tensor, params_from_numpy, qtensor_from_numpy
-from xbitops_tpu_torch.models.llama import Llama, LlamaConfig
+from xbitops_tpu_torch.models.llama import Llama, LlamaConfig, linear_weight
 
 __all__ = ["save_packed", "load_packed", "load_llama"]
 
@@ -33,11 +33,11 @@ def _tree(model: Llama) -> dict:
     """The parameter tree of a model, in the JAX package's per-layer layout."""
     layers = []
     for block in model.blocks:
-        layer = {name: child.qtensor for name, child in block.named_children()}
+        layer = {name: linear_weight(child) for name, child in block.named_children()}
         layer.update(ln_attn=block.ln_attn, ln_mlp=block.ln_mlp)
         layers.append(layer)
     return {"embed": model.embed, "layers": layers, "ln_final": model.ln_final,
-            "lm_head": model.lm_head.qtensor}
+            "lm_head": linear_weight(model.lm_head)}
 
 
 def _encode(node: Any, path: str, arrays: dict) -> dict:

@@ -1,7 +1,7 @@
 """Build, load and count the port's CUDA kernels.
 
 Every kernel source under ``xbitops_tpu_torch/csrc/*.cu`` has a plain C
-interface.  At first use they compile with ``nvcc`` for ``sm_90a`` (one
+interface (``*.cuh`` are headers they share).  At first use they compile with ``nvcc`` for ``sm_90a`` (one
 ``nvcc`` per source, all started together) into one shared library, cached
 under ``xbitops_tpu_torch/_build/<hash of the sources>/``, and load with
 ``ctypes``.  Pointers and the stream pass as ``c_void_p`` (a
@@ -38,7 +38,8 @@ NVCC_FLAGS = [
 # A wrapper adds one where it launches its kernel and nowhere else, so a run
 # can show that the main path went through the kernels.
 KERNELS = ("qgemv", "kv_append", "decode_attention", "prefill_attention",
-           "kv_append_packed", "decode_attention_int8")
+           "kv_append_packed", "decode_attention_int8", "dequant", "qgemv_a8",
+           "qgemv_a8_perchannel")
 launches = dict.fromkeys(KERNELS, 0)
 plain_on_cuda = dict.fromkeys(KERNELS, 0)
 
@@ -66,6 +67,9 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _I, ctypes.c_float, _VP],
     "xb_decode_attention_int8": [_VP] * 10 + [_I] * 8 + [ctypes.c_float, _VP],
     "xb_prefill_attention": [_VP] * 8 + [_I] * 8 + [ctypes.c_float, _VP],
+    "xb_dequant": [_I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP, _I, _I, _I, _I, _VP, _I, _VP],
+    "xb_qgemv_a8": [_VP, _I, _I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP, _I, _I, _I, _I,
+                    _I, _VP, _VP],
 }
 
 _lib = None
@@ -90,7 +94,7 @@ def build() -> Path:
     global build_log
     sources = sorted(CSRC.glob("*.cu"))
     h = hashlib.sha256()
-    for src in sources:
+    for src in sorted(CSRC.glob("*.cu*")):  # the headers too
         h.update(src.name.encode())
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -153,3 +157,30 @@ def require(cond: bool, msg: str) -> None:
     """Reject an input the kernel does not take."""
     if not cond:
         raise ValueError(msg)
+
+
+def qtensor_args(qt, device) -> list:
+    """Check a 2-D packed QTensor for the kernels that read one, and return
+    its C arguments: three plane pointers, three plane widths, paired, scales,
+    scale_zeros, scales-are-fp16, tile_k, scale rows used a tile, scale rows
+    stored a tile."""
+    N = qt.N
+    require(1 <= len(qt.planes) <= 3, "1-3 planes")
+    require(qt.scales.dtype in (torch.float16, torch.float32), f"scales {qt.scales.dtype}")
+    require(qt.scale_zeros.dtype == qt.scales.dtype, "scale_zeros dtype != scales dtype")
+    for p in qt.planes:
+        require(p.is_cuda and p.device == device, "planes must be on the activations' device")
+        require(p.dtype == torch.int32 and p.dim() == 2 and p.is_contiguous(),
+                "planes must be contiguous int32 [K/(32/pb), N]")
+    for s in (qt.scales, qt.scale_zeros):
+        require(s.device == device and s.is_contiguous() and s.dim() == 3
+                and s.shape[0] == qt.K // qt.tile_k and s.shape[2] == N,
+                "scales must be contiguous [K/tile_k, gt_pad, N] on the planes' device")
+    require(qt.K % qt.tile_k == 0 and qt.tile_k % 32 == 0, f"tile_k={qt.tile_k}")
+    pad = 3 - len(qt.planes)
+    return [
+        *[p.data_ptr() for p in qt.planes], *[None] * pad, *qt.plane_bits, *[0] * pad,
+        int(qt.paired), qt.scales.data_ptr(), qt.scale_zeros.data_ptr(),
+        int(qt.scales.dtype == torch.float16), qt.tile_k, qt.groups_per_tile,
+        qt.scales.shape[1],
+    ]

@@ -2,7 +2,10 @@
 
 Every projection is a :class:`QLinear` over a packed
 :class:`~xbitops_tpu_torch.formats.QTensor`, run by the fused dequant-matmul
-kernel.  The KV cache is head-major, ``[L, B, Hkv, S, D]`` bf16 or packed int8
+kernel (with ``prefill_a8``, a block's projections of a forward of 32 rows or
+more run its int8-activation form), or a :class:`DenseLinear` over a dense
+bf16 weight (the unquantized model that quality is measured against).  The KV
+cache is head-major, ``[L, B, Hkv, S, D]`` bf16 or packed int8
 (see :class:`KVCache`), and, unlike the JAX package's functional updates, every
 function here writes it IN PLACE and returns the same :class:`KVCache` object.
 Positions ``>= S`` mark padding and inactive slots: they write nothing and
@@ -13,14 +16,13 @@ rows and the eager attention are plain PyTorch, as the JAX package left them
 to XLA.  Decode (one token per slot) attends through the decode-attention
 kernel, which appends the new k/v rows first; a chunk of a long prompt
 attends its slot's cache through the prefill-attention kernel.  Not ported
-yet: the paged cache, unaligned (speculative) writes, MoE layers and W4A8
-prefill.
+yet: the paged cache, unaligned (speculative) writes and MoE layers.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
@@ -42,7 +44,9 @@ from xbitops_tpu_torch.kernels.kv_append import (
     kv_append_packed_reference,
 )
 from xbitops_tpu_torch.kernels.prefill_attention import prefill_attention
+from xbitops_tpu_torch.ops.dense import dense_matmul
 from xbitops_tpu_torch.ops.qmatmul import qmatmul
+from xbitops_tpu_torch.ops.quantize import quantize_array
 
 
 @dataclasses.dataclass(frozen=True)
@@ -60,7 +64,7 @@ class LlamaConfig:
     rms_eps: float = 1e-5
     max_seq_len: int = 2048
     flash_decode: bool = True  # decode through the decode-attention kernel
-    prefill_a8: bool = False  # W4A8 prefill: not ported
+    prefill_a8: bool = False  # int8 activations in the blocks' matmuls at T >= A8_MIN_T
     rope_scaling_type: Optional[str] = None  # None | "linear" | "ntk"
     rope_scaling_factor: float = 1.0
     sliding_window: Optional[int] = None
@@ -104,6 +108,11 @@ class LlamaConfig:
 # the JAX package's, measured on a TPU v5e; it is kept for parity until the
 # H100 re-derives it.
 FLASH_MIN_S = 64
+
+# Fewest rows of a forward (T) whose block projections take int8 activations
+# under ``prefill_a8``; decode stays bf16.  The JAX package's value, kept so
+# that both packages round the same forwards.
+A8_MIN_T = 32
 
 
 @dataclasses.dataclass
@@ -182,8 +191,29 @@ class QLinear(nn.Module):
         planes = tuple(getattr(self, f"plane{i}") for i in range(self.n_planes))
         return QTensor(planes, self.scales, self.scale_zeros, perm=self.perm, **self.meta)
 
-    def forward(self, x: torch.Tensor, use_kernel: bool = True) -> torch.Tensor:
-        return qmatmul(x, self.qtensor, out_dtype=x.dtype, use_kernel=use_kernel)
+    def forward(self, x: torch.Tensor, use_kernel: bool = True, a8: bool = False) -> torch.Tensor:
+        return qmatmul(x, self.qtensor, out_dtype=x.dtype, use_kernel=use_kernel, a8=a8)
+
+
+class DenseLinear(nn.Module):
+    """A projection over a dense ``[K, N]`` weight (bf16 matmul, f32 sums).
+    There is no int8 path for a dense weight: ``a8`` changes nothing."""
+
+    def __init__(self, w: torch.Tensor):
+        super().__init__()
+        self.register_buffer("weight", w)
+
+    def forward(self, x: torch.Tensor, use_kernel: bool = True, a8: bool = False) -> torch.Tensor:
+        return dense_matmul(x, self.weight)
+
+
+def _linear(w: Union[QTensor, torch.Tensor]) -> nn.Module:
+    return QLinear(w) if isinstance(w, QTensor) else DenseLinear(w)
+
+
+def linear_weight(linear: nn.Module) -> Union[QTensor, torch.Tensor]:
+    """The weight a projection module holds: its QTensor, or its dense tensor."""
+    return linear.qtensor if isinstance(linear, QLinear) else linear.weight
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -328,14 +358,12 @@ class LlamaBlock(nn.Module):
     ``wq/wk/wv`` projection, then a SiLU MLP with fused ``w_gateup`` or split
     ``w_gate/w_up`` projections."""
 
-    def __init__(self, cfg: LlamaConfig, proj: Dict[str, QTensor],
+    def __init__(self, cfg: LlamaConfig, proj: Dict[str, Union[QTensor, torch.Tensor]],
                  ln_attn: torch.Tensor, ln_mlp: torch.Tensor):
         super().__init__()
         self.cfg = cfg
-        for name, qt in proj.items():
-            if not isinstance(qt, QTensor):
-                raise NotImplementedError(f"{name}: only packed (QTensor) weights are ported")
-            self.add_module(name, QLinear(qt))
+        for name, w in proj.items():
+            self.add_module(name, _linear(w))
         self.register_buffer("ln_attn", ln_attn)
         self.register_buffer("ln_mlp", ln_mlp)
 
@@ -351,17 +379,18 @@ class LlamaBlock(nn.Module):
         B, T, _ = x.shape
         H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         qdim, kvdim = H * D, Hkv * D
+        a8 = cfg.prefill_a8 and T >= A8_MIN_T
 
         hx = rms_norm(x, self.ln_attn, cfg.rms_eps)
         if hasattr(self, "wqkv"):
-            qkv = self.wqkv(hx, use_kernel)
+            qkv = self.wqkv(hx, use_kernel, a8)
             q = qkv[..., :qdim].reshape(B, T, H, D)
             k = qkv[..., qdim : qdim + kvdim].reshape(B, T, Hkv, D)
             v = qkv[..., qdim + kvdim :].reshape(B, T, Hkv, D)
         else:
-            q = self.wq(hx, use_kernel).reshape(B, T, H, D)
-            k = self.wk(hx, use_kernel).reshape(B, T, Hkv, D)
-            v = self.wv(hx, use_kernel).reshape(B, T, Hkv, D)
+            q = self.wq(hx, use_kernel, a8).reshape(B, T, H, D)
+            k = self.wk(hx, use_kernel, a8).reshape(B, T, Hkv, D)
+            v = self.wv(hx, use_kernel, a8).reshape(B, T, Hkv, D)
         q = _rope(q, rope)
         k = _rope(k, rope)
 
@@ -397,35 +426,46 @@ class LlamaBlock(nn.Module):
                     window=cfg.sliding_window, **scales)
             else:  # eager, over every row of the slots
                 att = _attention(q, *_slot_rows(cache, li, slot_ids), mask, D ** -0.5)
-        x = x + self.wo(att.reshape(B, T, qdim), use_kernel)
+        x = x + self.wo(att.reshape(B, T, qdim), use_kernel, a8)
 
         hx = rms_norm(x, self.ln_mlp, cfg.rms_eps)
         if hasattr(self, "w_gateup"):
-            gu = self.w_gateup(hx, use_kernel)
+            gu = self.w_gateup(hx, use_kernel, a8)
             gate, up = gu[..., : cfg.intermediate_size], gu[..., cfg.intermediate_size :]
         else:
-            gate, up = self.w_gate(hx, use_kernel), self.w_up(hx, use_kernel)
+            gate, up = self.w_gate(hx, use_kernel, a8), self.w_up(hx, use_kernel, a8)
         act = (torch.nn.functional.silu(gate.float()) * up.float()).to(x.dtype)
-        return x + self.w_down(act, use_kernel)
+        return x + self.w_down(act, use_kernel, a8)
 
 
 class Llama(nn.Module):
-    """The decoder: embedding, blocks, final norm and the packed lm_head."""
+    """The decoder: embedding, blocks, final norm and the lm_head (which
+    keeps bf16 activations under ``prefill_a8``)."""
 
     def __init__(self, cfg: LlamaConfig, embed: torch.Tensor, blocks: List[LlamaBlock],
-                 ln_final: torch.Tensor, lm_head: QTensor):
+                 ln_final: torch.Tensor, lm_head: Union[QTensor, torch.Tensor]):
         super().__init__()
-        if cfg.prefill_a8:
-            raise NotImplementedError("W4A8 prefill (prefill_a8) is not ported yet")
         self.cfg = cfg
         self.register_buffer("embed", embed)
         self.blocks = nn.ModuleList(blocks)
         self.register_buffer("ln_final", ln_final)
-        self.lm_head = QLinear(lm_head)
+        self.lm_head = _linear(lm_head)
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def with_config(self, cfg: LlamaConfig) -> "Llama":
+        """The same weights (shared, not copied) under another config: another
+        option (``prefill_a8``), or the first ``cfg.num_layers`` blocks.  The
+        JAX package passes the config with every call; here a model holds
+        it."""
+        blocks = [
+            LlamaBlock(cfg, {n: linear_weight(c) for n, c in b.named_children()},
+                       b.ln_attn, b.ln_mlp)
+            for b in list(self.blocks)[: cfg.num_layers]
+        ]
+        return Llama(cfg, self.embed, blocks, self.ln_final, linear_weight(self.lm_head))
 
     def forward(
         self,
@@ -492,6 +532,51 @@ class Llama(nn.Module):
             rows, vals = rows[ok], valid_next[ok]
             cache.lengths[rows] = torch.maximum(cache.lengths[rows], vals)
         return logits, cache
+
+
+def init_params(
+    gen: torch.Generator,
+    cfg: LlamaConfig,
+    bits: Optional[int] = 4,
+    group_size: int = 128,
+    dtype=torch.bfloat16,
+    tp: int = 1,
+    fuse: bool = True,
+    act_order: bool = False,
+) -> Llama:
+    """A random model on ``gen``'s device: normal weights of scale
+    ``fan_in ** -0.5`` quantized to ``bits`` by :func:`quantize_array`
+    (``None``: kept dense in ``dtype``), q|k|v and gate|up fused (``fuse``) or
+    split, unit norms (port of ``models.llama.init_params``; the two packages
+    draw different numbers from a seed)."""
+    if tp > 1:
+        raise NotImplementedError("tensor-parallel packing waits for the port of parallel/")
+    dev = gen.device
+
+    def q(kdim, ndim, scale):
+        w = torch.randn((kdim, ndim), generator=gen, device=dev) * scale
+        if bits is None:
+            return w.to(dtype)
+        return quantize_array(w, bits, group_size, act_order=act_order)
+
+    def ones():
+        return torch.ones(cfg.hidden_size, dtype=torch.float32, device=dev)
+
+    h, ffn = cfg.hidden_size, cfg.intermediate_size
+    qdim = cfg.num_heads * cfg.head_dim
+    kvdim = cfg.num_kv_heads * cfg.head_dim
+    s = h ** -0.5
+    blocks = []
+    for _ in range(cfg.num_layers):
+        if fuse:
+            proj = dict(wqkv=q(h, qdim + 2 * kvdim, s), w_gateup=q(h, 2 * ffn, s))
+        else:
+            proj = dict(wq=q(h, qdim, s), wk=q(h, kvdim, s), wv=q(h, kvdim, s),
+                        w_gate=q(h, ffn, s), w_up=q(h, ffn, s))
+        proj.update(wo=q(qdim, h, s), w_down=q(ffn, h, ffn ** -0.5))
+        blocks.append(LlamaBlock(cfg, proj, ones(), ones()))
+    embed = (torch.randn((cfg.vocab_size, h), generator=gen, device=dev) * 0.02).to(dtype)
+    return Llama(cfg, embed, blocks, ones(), q(h, cfg.vocab_size, s))
 
 
 def decode_step(model: Llama, tokens, cache: KVCache, active=None, use_kernel: bool = True):

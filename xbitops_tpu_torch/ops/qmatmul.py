@@ -1,4 +1,9 @@
-"""Public fused quantized matmul: activations x packed QTensor."""
+"""Public fused quantized matmul ops (port of ``xbitops_tpu/ops/qmatmul.py``).
+
+``qmatmul`` is the native surface (activations x packed QTensor); ``gemv``
+takes the GPTQ interchange layout, as the reference library's ``gemv`` does,
+at every width 1-8 and group size >= 16.
+"""
 
 from __future__ import annotations
 
@@ -7,6 +12,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from xbitops_tpu_torch import formats
 from xbitops_tpu_torch.formats import QTensor, dequant_qtensor_reference
 from xbitops_tpu_torch.kernels import common
 from xbitops_tpu_torch.kernels.qgemv_kernel import qmatmul_kernel
@@ -30,12 +36,16 @@ def qmatmul(
     picks one layer of a stacked QTensor (a view).  ``precise`` keeps the
     activations in f32 (default: bf16), sums are f32 either way.
 
-    ``use_kernel=False`` is the plain path: f32 activations times the dense
-    dequantized weight.  Otherwise a CPU tensor runs the kernel's plain
-    version and a CUDA tensor launches the kernel or raises.
+    ``a8=True`` (W4A8-style, for admission's large M): the activations are
+    quantized per row to int8 (absmax), the products are integer and the
+    scale returns on the kernel's f32 output.  The weight side stays exact;
+    only the activations round (about 1/254 of a row's largest value).
+
+    ``use_kernel=False`` is the plain path: f32 activations (with ``a8``,
+    rounded to their int8 grid) times the dense dequantized weight.  Otherwise
+    a CPU tensor runs the kernel's plain version and a CUDA tensor launches
+    the kernel or raises.
     """
-    if a8:
-        raise NotImplementedError("W4A8 (a8=True) is not ported yet")
     out_dtype = out_dtype or a.dtype
     if layer is not None:
         qt = qt.layer(layer)
@@ -50,11 +60,53 @@ def qmatmul(
     if not use_kernel:
         common.count_plain("qgemv", a)
         w = dequant_qtensor_reference(qt, out_dtype=torch.float32)
-        return (a2.float() @ w).reshape(*lead, Nl).to(out_dtype)
+        af = a2.float()
+        if a8:  # round the activations as the kernel path does
+            aq, a_scale = quantize_activations(af)
+            af = aq.float() * a_scale
+        return (af @ w).reshape(*lead, Nl).to(out_dtype)
     if qt.perm is not None:
         a2 = a2[:, qt.perm]
     if qt.K != K:  # padded packed rows: zero activations contribute nothing
         a2 = F.pad(a2, (0, qt.K - K))
+    if a8:
+        aq, a_scale = quantize_activations(a2.float())
+        out = qmatmul_kernel(aq, qt, out_dtype=torch.float32, a8=True) * a_scale
+        return out[:, :Nl].reshape(*lead, Nl).to(out_dtype)
     kernel_out = torch.float32 if out_dtype == torch.float16 else out_dtype
     out = qmatmul_kernel(a2, qt, out_dtype=kernel_out, precise=precise)
     return out[:, :Nl].reshape(*lead, Nl).to(out_dtype)
+
+
+def quantize_activations(af: torch.Tensor):
+    """Per-row absmax int8: ``af[M, K]`` (f32) ``~= a_scale * aq``.  Returns
+    ``aq`` int8 and ``a_scale`` f32 ``[M, 1]``.  The quotient is a true
+    division and rounds half to even, so ``aq`` is the JAX package's bit for
+    bit."""
+    a_scale = torch.clamp(af.abs().amax(dim=1, keepdim=True), min=1e-30) / 127.0
+    return torch.round(af / a_scale).to(torch.int8), a_scale
+
+
+def gemv(
+    input_a: torch.Tensor,
+    qweight: torch.Tensor,
+    scales: torch.Tensor,
+    qzeros: torch.Tensor,
+    group_size: int,
+    bits: int,
+    in_features: int,
+    add_zero_bias: int = 0,
+    g_idx: Optional[torch.Tensor] = None,
+    out_dtype=None,
+    use_kernel: bool = True,
+) -> torch.Tensor:
+    """Drop-in analog of the reference library's ``gemv``: fused dequantize +
+    GEMV/GEMM from the GPTQ interchange layout.
+
+    This wrapper repacks the weight on every call; in a hot loop convert once
+    with :func:`xbitops_tpu_torch.formats.from_gptq` and call :func:`qmatmul`."""
+    qt = formats.from_gptq(
+        qweight, scales, qzeros, bits, group_size, in_features,
+        add_zero_bias=add_zero_bias, g_idx=g_idx,
+    )
+    return qmatmul(input_a, qt, out_dtype=out_dtype or input_a.dtype, use_kernel=use_kernel)

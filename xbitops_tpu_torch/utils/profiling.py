@@ -6,7 +6,9 @@ host ops and the device's busy share, from ``torch.profiler``.
 profiles, on a random 4-bit Llama-2-7B at full width and depth with 8 slots
 (S=2048): one decode step over the bf16 cache and one over the int8 cache, all
 slots at 1000 live positions, and one chunk forward of chunked admission
-(5 rows of 512 tokens at positions 512-1023, int8 cache).  It needs one CUDA
+(5 rows of 512 tokens at positions 512-1023, int8 cache) with bf16
+activations, with int8 activations (``prefill_a8``) and with int8 activations
+on the 8-bit per-channel requantization of the blocks.  It needs one CUDA
 device and prints one JSON object per case.
 """
 
@@ -65,7 +67,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profiling: no CUDA device; nothing run", file=sys.stderr)
         return 2
+    import dataclasses
+
     from xbitops_tpu_torch.models import llama
+    from xbitops_tpu_torch.ops.quantize import requantize_a8
     from xbitops_tpu_torch.utils import synth
 
     dev = torch.device("cuda:0")
@@ -93,11 +98,23 @@ def main() -> int:
                 tokens = torch.randint(0, cfg.vocab_size, (n, chunk), generator=gen, device=dev)
                 args = (tokens, torch.full((n,), chunk, device=dev),
                         torch.full((n,), 2 * chunk, device=dev), torch.arange(n, device=dev))
-                res = profile(lambda: llama.prefill_slots_chunk(model, *args, cache),
-                              steps=1, warmup=1)
-                print(json.dumps(dict(case=f"chunk forward, int8 cache, {n} rows of {chunk} at "
-                                           f"positions {chunk}-{2 * chunk - 1}", **res)),
-                      flush=True)
+                cfg8 = dataclasses.replace(cfg, prefill_a8=True)
+                blocks8 = [llama.LlamaBlock(
+                    cfg8, {k: requantize_a8(c.qtensor) for k, c in b.named_children()},
+                    b.ln_attn, b.ln_mlp) for b in model.blocks]
+                models = {
+                    "bf16 activations": model,
+                    "int8 activations, 4-bit g=128": model.with_config(cfg8),
+                    "int8 activations, 8-bit per channel": llama.Llama(
+                        cfg8, model.embed, blocks8, model.ln_final, model.lm_head.qtensor),
+                }
+                for label, m in models.items():
+                    res = profile(lambda: llama.prefill_slots_chunk(m, *args, cache),
+                                  steps=1, warmup=1)
+                    print(json.dumps(dict(case=f"chunk forward, {label}, int8 cache, {n} rows of "
+                                               f"{chunk} at positions {chunk}-{2 * chunk - 1}",
+                                          **res)), flush=True)
+                del models, blocks8
             del cache
             torch.cuda.empty_cache()
     return 0
