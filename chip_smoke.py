@@ -35,6 +35,19 @@
    requests once more with bf16 activations, for the admission rate.  Then
    one admission of 512 rows against the plain path for (a) and (b), at the
    first projection and through a 2-layer cut, and (b)'s logits against (a)'s.
+5. Drives the paged serving path on the same model: ``Engine(paged=True,
+   page_size=256)`` with a pool of 24 pages for 8 slots (a third of what
+   ``slots x max_seq_len`` would take) serves 10 requests of 40 to 1500 prompt
+   tokens over the bf16 pool, then 6 over the int8 pool (``kv_quant=True``);
+   prompts past 512 tokens are admitted in chunks, and an admission waits until
+   finished requests have given pages back.  Checks: every request completes,
+   every page is back at the end, each paged kernel form launched and no plain
+   version ran on the card; then, on a 2-layer cut, a paged chunk admission
+   and a paged decode step against the plain path and against the linear
+   cache's kernels.  Printed beside it: the linear engine on the same requests.
+   Phase 1 holds the paged forms of the two attention kernels and the two
+   appends to their plain versions too, at the serving shape and at pages of
+   16 positions with GQA, a window, -1 entries and an inactive slot.
 
 Any failed check raises, so the exit code is not 0.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -70,6 +83,17 @@ def check(cond: bool, msg: str) -> None:
 def rel_err(got: torch.Tensor, ref: torch.Tensor) -> float:
     """max |got - ref| over max |ref| (the repo's bf16 gate is 2e-2)."""
     return ((got.float() - ref.float()).abs().max() / ref.float().abs().max()).item()
+
+
+def worst_diff(got, want) -> float:
+    """Largest absolute difference over pairs of tensors, of the values as
+    they are stored (bf16 rows; int32 words and their bf16 scales as numbers),
+    a chunk at a time in float64."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        for x, y in zip(a.reshape(-1).split(1 << 26), b.reshape(-1).split(1 << 26)):
+            worst = max(worst, (x.double() - y.double()).abs().max().item())
+    return worst
 
 
 def bound(n_bytes: float, flops: float, rate: float = BF16_FLOPS_PER_S) -> dict:
@@ -172,6 +196,7 @@ def phase_kernels(dev, timer):
     res.update(kernels_quant(dev, timer, gen, shapes))
     res.update(kernels_decode(dev, timer, gen))
     res.update(kernels_prefill(dev, timer, gen))
+    res.update(kernels_paged(dev, timer, gen))
     return res
 
 
@@ -199,6 +224,7 @@ def kernels_quant(dev, timer, gen, shapes):
         for dt, dname in names.items():
             got, ref = dequant_kernel(qt, dt), dequant_kernel_reference(qt, dt)
             check(torch.equal(got, ref), f"dequant {label} -> {dname}: differs from its plain version")
+            err = worst_diff((got,), (ref,))
             if not timed:
                 continue
             ms = timer(lambda: dequant_kernel(qt, dt))
@@ -210,7 +236,7 @@ def kernels_quant(dev, timer, gen, shapes):
             if label == "4-bit w_gateup" and dt == torch.float32:
                 # the case requantize_a8 runs; no PyTorch call reads packed planes
                 res["dequant"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                                      max_abs_err=0.0, **b)
+                                      max_abs_err=err, **b)
             del got, ref
 
     for bits in range(1, 9):
@@ -389,6 +415,7 @@ def kernels_decode(dev, timer, gen):
             kn2, vn2 = kn + 1, vn - 1
             kv_append_dense(k, v, kn2, vn2, pos, 0)
             kv_append_dense_reference(k2, v2, kn2, vn2, pos, 0)
+            app_err = worst_diff((k, v), (k2, v2))
             app_ok = torch.equal(k, k2) and torch.equal(v, v2)
             ms = timer(lambda: kv_append_dense(k, v, kn2, vn2, pos, 0))
             plain_ms = timer(lambda: kv_append_dense_reference(k, v, kn2, vn2, pos, 0))
@@ -407,7 +434,7 @@ def kernels_decode(dev, timer, gen):
                   f"bound {b['bound_ms']:.5f} ms by {b['bound_by']} (launch-bound)", flush=True)
             check(app_ok, "kv_append differs from its plain version")
             res["kv_append"] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                                    max_abs_err=0.0, **b)
+                                    max_abs_err=app_err, **b)
         del k, v, k_ref, v_ref
 
         # --- packed int8 cache ---
@@ -458,6 +485,7 @@ def kernels_decode(dev, timer, gen):
             at_s = [t[0, B - 1].clone() for t in cache]
             kv_append_packed(*cache, *new4, 0)
             kv_append_packed_reference(*ref_cache, *new4, 0)
+            app_err = worst_diff(cache, ref_cache)
             app_ok = all(torch.equal(a, b) for a, b in zip(cache, ref_cache))
             check(app_ok, "kv_append_packed differs from its plain version")
             check(all(torch.equal(t[0, B - 1], a) for t, a in zip(cache, at_s)),
@@ -471,7 +499,7 @@ def kernels_decode(dev, timer, gen):
                   f"(launch-bound)", flush=True)
             # no single PyTorch call rewrites one byte of a word
             res["kv_append_packed"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                                           max_abs_err=0.0, **b)
+                                           max_abs_err=app_err, **b)
         del cache, ref_cache
     res["decode_attention"]["max_abs_err"] = att_err
     res["decode_attention_int8"]["max_abs_err"] = att8_err
@@ -571,6 +599,289 @@ def kernels_prefill(dev, timer, gen):
             del k, v, out, ref
     # the long-context serving path runs the int8 form
     res["prefill_attention"] = dict(res["prefill_attention_int8"], max_abs_err=worst)
+    return res
+
+
+def kernels_paged(dev, timer, gen):
+    """The paged forms of decode attention, prefill attention and the two
+    appends against their plain versions and against the linear kernels on the
+    cache the pools were cut from: at the serving shape (pages of 256, timed)
+    and at pages of 16 with GQA, a window, -1 entries and an inactive slot."""
+    from xbitops_tpu_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_reference,
+    )
+    from xbitops_tpu_torch.kernels.kv_append import (
+        _unpack_kv_words,
+        gather_pages,
+        kv_append_dense,
+        kv_append_dense_reference,
+        kv_append_packed,
+        kv_append_packed_reference,
+    )
+    from xbitops_tpu_torch.kernels.prefill_attention import (
+        prefill_attention,
+        prefill_attention_reference,
+    )
+    from xbitops_tpu_torch.utils.synth import cut_pages
+
+    res = {}
+    S, D, L = 2048, 128, 2
+    lens_live = [1, 7, 128, 1000, 2047, 2048, 513]  # + one inactive slot: no page, length S
+    B = len(lens_live) + 1
+    pos = torch.tensor([n - 1 for n in lens_live] + [S], device=dev)
+    lens = torch.clamp(pos + 1, max=S)
+    held = torch.where(pos < S, lens, 0)  # positions a slot holds pages for
+    s_idx = torch.arange(S, device=dev)
+    worst = dict.fromkeys(("decode_attention_paged", "decode_attention_int8_paged"), 0.0)
+
+    def linear_cache(Hkv, int8, batch=B):
+        if int8:
+            return list(packed_cache(gen, L, batch, Hkv, S, D))
+        return [torch.randn(L, batch, Hkv, S, D, device=dev, generator=gen).to(torch.bfloat16)
+                for _ in range(2)]
+
+    def scales_of(t, li=None):
+        if len(t) != 4:
+            return {}
+        return dict(k_scale=t[2] if li is None else t[2][li],
+                    v_scale=t[3] if li is None else t[3][li])
+
+    # --- decode attention with the append through the table, and the appends alone ---
+    for H, Hkv, psz, window in ((32, 32, 256, None), (32, 8, 16, None), (32, 32, 16, 512)):
+        timed = psz == 256
+        P = S // psz
+        q = torch.randn(B, H, D, device=dev, generator=gen).to(torch.bfloat16)
+        mask = (s_idx[None] < lens[:, None])[:, None, None, :]
+        if window is not None:
+            mask = mask & (s_idx[None] >= (lens - window).clamp(min=0)[:, None])[:, None, None, :]
+        n_attended = int(lens.sum())  # the inactive slot attends S positions too
+        for int8 in (False, True):
+            name = "decode_attention_int8_paged" if int8 else "decode_attention_paged"
+            append, append_plain = ((kv_append_packed, kv_append_packed_reference) if int8
+                                    else (kv_append_dense, kv_append_dense_reference))
+            linear = linear_cache(Hkv, int8)
+            table, pools = cut_pages(gen, linear, P, held)
+            check(bool((table[-1] == -1).all() and (table[0, 1:] == -1).all()),
+                  "the table should hold -1 entries")
+            if int8:
+                new = [torch.randint(1, 256, (B, Hkv, D), generator=gen, device=dev,
+                                     dtype=torch.int32) for _ in range(2)]
+                new += [torch.empty((B, Hkv), device=dev).uniform_(0.005, 0.02, generator=gen)
+                        for _ in range(2)]
+            else:
+                new = [torch.randn(B, Hkv, D, device=dev, generator=gen).to(torch.bfloat16)
+                       for _ in range(2)]
+            ref = [t.clone() for t in pools]
+            out, *_ = decode_attention(q, pools[0], pools[1], lens, layer_idx=1,
+                                       kv_new=(*new, pos), window=window, page_table=table,
+                                       **scales_of(pools))
+            append_plain(*ref, *new, pos, 1, table)
+            want = decode_attention_reference(q, ref[0][1], ref[1][1], lens, window,
+                                              *(t[1] for t in ref[2:]), page_table=table)
+            same = all(torch.equal(a, b) for a, b in zip(pools, ref))
+            e = (out.float() - want.float()).abs().max().item()
+            lin, *_ = decode_attention(q, linear[0], linear[1], lens, layer_idx=1,
+                                       kv_new=(*new, pos), window=window, **scales_of(linear))
+            e_lin = (out[:-1].float() - lin[:-1].float()).abs().max().item()
+            print(f"{name}+append B={B} H={H} Hkv={Hkv} S={S} page_size={psz} window={window}: "
+                  f"pools exact {same}, max abs err {e:.2e} vs plain, {e_lin:.2e} vs the linear "
+                  f"kernel", flush=True)
+            check(same, f"{name}: appended pools differ from the plain paged append")
+            check(e <= 2e-2, f"{name} abs err {e:.3e} > 2e-2")
+            check(e_lin <= 2e-2, f"{name} differs from the linear kernel by {e_lin:.3e}")
+            check(torch.isfinite(out.float()).all().item(), f"{name}: non-finite output")
+            worst[name] = max(worst[name], e)
+            if not timed:
+                del linear, pools, ref
+                continue
+            kw = scales_of(pools)
+            ms = timer(lambda: decode_attention(q, pools[0], pools[1], lens, layer_idx=1,
+                                                kv_new=(*new, pos), page_table=table, **kw))
+            plain_ms = timer(lambda: (
+                append_plain(*pools, *new, pos, 1, table),
+                decode_attention_reference(q, pools[0][1], pools[1][1], lens, None,
+                                           *(t[1] for t in pools[2:]), page_table=table)),
+                iters=3)
+            lin_ms = timer(lambda: decode_attention(q, linear[0], linear[1], lens, layer_idx=1,
+                                                    kv_new=(*new, pos), **scales_of(linear)))
+            # yardstick: one attention call on the slots' rows, gathered (and for int8
+            # dequantized to bf16) beforehand: the gather is not in its time
+            kd, vd = gather_pages(pools[0][1], table), gather_pages(pools[1][1], table)
+            if int8:
+                kd = _unpack_kv_words(kd, gather_pages(pools[2][1], table, scales=True))
+                vd = _unpack_kv_words(vd, gather_pages(pools[3][1], table, scales=True))
+                kd, vd = kd.to(torch.bfloat16), vd.to(torch.bfloat16)
+            lib = sdpa(q[:, :, None], kd, vd, mask)[:, :, 0]
+            e_lib = (lib[:-1].float() - want[:-1].float()).abs().max().item()
+            check(e_lib <= 2e-2, f"the library yardstick differs from the plain one: {e_lib}")
+            library_ms = timer(lambda: sdpa(q[:, :, None], kd, vd, mask))
+            del kd, vd, lib
+            # Rows moved once: those the slots hold, and pool page 0, which every
+            # entry of the inactive slot's row of -1 clamps to (less the rows of
+            # page 0 that a slot holds and so reads anyway).
+            owner = (table == 0).nonzero()
+            shared = 0 if not len(owner) else int(
+                (held[owner[0, 0]] - owner[0, 1] * psz).clamp(0, psz))
+            n_moved = int(held.sum()) + psz - shared
+            row_bytes = (D + 2) if int8 else 2 * D  # a position of one head: k or v
+            b = bound(2 * row_bytes * n_moved * Hkv + nbytes(q, out, table, *new[:2]),
+                      4 * H * D * n_attended)
+            print(f"{name}+append MHA page_size={psz}: op {ms:.4f} ms (the linear op here "
+                  f"{lin_ms:.4f} ms), plain {plain_ms:.4f} ms, library (on gathered bf16 rows) "
+                  f"{library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+                  f"({n_moved} distinct rows a head moved, {n_attended} attended)", flush=True)
+            res[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, linear_ms=lin_ms,
+                             **b)
+
+            # the append alone: positions in four different pages and bytes, one slot with
+            # no page for its position, one past the capacity
+            aname = "kv_append_packed_paged" if int8 else "kv_append_paged"
+            pos4 = torch.tensor([0, 5, 18, 999, 2046, 2047, 800, S], device=dev)
+            ref = [t.clone() for t in pools]
+            before = [t[0].clone() for t in pools]
+            append(*pools, *new, pos4, 0, table)
+            append_plain(*ref, *new, pos4, 0, table)
+            app_err = worst_diff(pools, ref)
+            app_ok = all(torch.equal(a, c) for a, c in zip(pools, ref))
+            check(app_ok, f"{aname} differs from its plain version")
+            wrote = [int(table[i, int(pos4[i]) // psz]) for i in range(B - 1)]
+            check(wrote[-1] == -1 and min(wrote[:-1]) >= 0, "slot 6 should have no page at 800")
+            keep = torch.ones(pools[0].shape[1], dtype=torch.bool, device=dev)
+            keep[wrote[:-1]] = False
+            check(all(torch.equal(t[0][keep], old[keep]) for t, old in zip(pools, before))
+                  and not torch.equal(pools[0][0][~keep], before[0][~keep]),
+                  f"{aname} wrote outside the six pages of the six slots that hold one")
+            ms = timer(lambda: append(*pools, *new, pos4, 0, table))
+            plain_ms = timer(lambda: append_plain(*pools, *new, pos4, 0, table))
+            library_ms = None  # no single PyTorch call rewrites one byte of a word
+            n_rows = B - 2
+            if int8:
+                b = bound(2 * (2 * 4 + 4) * n_rows * Hkv * D + 2 * 2 * 2 * n_rows * Hkv
+                          + nbytes(table), 0)
+            else:
+                # yardstick: index_copy_ of the new rows, once for k and once for v, at
+                # row numbers of the flattened pool found through the table beforehand
+                act = torch.tensor([w >= 0 for w in wrote] + [False], device=dev)
+                pages = torch.tensor([max(w, 0) for w in wrote] + [0], device=dev)
+                rows = ((pages[:, None] * Hkv + torch.arange(Hkv, device=dev)[None]) * psz
+                        + (pos4 % psz)[:, None])[act].reshape(-1)
+                kf, vf = pools[0][0].view(-1, D), pools[1][0].view(-1, D)
+                kr, vr = new[0][act].reshape(-1, D), new[1][act].reshape(-1, D)
+                library_ms = timer(lambda: (kf.index_copy_(0, rows, kr),
+                                            vf.index_copy_(0, rows, vr)))
+                check(all(torch.equal(a, c) for a, c in zip(pools, ref)),
+                      "the index_copy_ yardstick does not compute the same function")
+                b = bound(2 * 2 * n_rows * Hkv * D * 2 + nbytes(table), 0)
+            print(f"{aname} B={B} Hkv={Hkv} page_size={psz}: exact {app_ok}, op {ms:.4f} ms, "
+                  f"plain {plain_ms:.4f} ms, library {library_ms}, bound {b['bound_ms']:.5f} ms "
+                  f"by {b['bound_by']} (launch-bound)", flush=True)
+            res[aname] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                              max_abs_err=app_err, **b)
+            del linear, pools, ref, before
+    for name, e in worst.items():
+        res[name]["max_abs_err"] = e
+
+    # --- prefill attention: the chunk shapes of the linear case, behind a table ---
+    N, T, H = 8, 512, 32
+    starts = torch.tensor([0, 512, 1024, 1536, 1024, 0, 512, 0], device=dev)
+    plens = torch.tensor([512, 1024, 1536, 2048, 1324, 100, 900, 0], device=dev)  # last: inert
+    slots = torch.tensor([3, 0, 7, 1, 5, 2, 6, N], device=dev)
+    ppos = starts[:, None] + torch.arange(T, device=dev)[None]
+    ppos = torch.where(ppos < plens[:, None], ppos, S)
+    live = ppos < S
+    slot_lens = torch.zeros(N, dtype=torch.long, device=dev)
+    slot_lens[slots[:-1]] = plens[:-1]
+    worst_pf = 0.0
+    for Hkv, psz, window in ((32, 256, None), (8, 16, None), (32, 16, 512)):
+        timed = psz == 256
+        q = torch.randn(N, T, H, D, device=dev, generator=gen).to(torch.bfloat16)
+        visible = ppos[live] + 1 if window is None else torch.clamp(ppos[live] + 1, max=window)
+        flops = 4 * H * D * int(visible.sum())
+        lo = torch.zeros_like(plens) if window is None else (starts - (window - 1)).clamp(min=0)
+        rows_read = int((torch.minimum(plens, starts + T) - lo).clamp(min=0).sum()) * Hkv * D
+        for int8 in (False, True):
+            linear = linear_cache(Hkv, int8, batch=N)
+            table, pools = cut_pages(gen, linear, S // psz, slot_lens)
+            out = prefill_attention(q, pools[0], pools[1], ppos, slots, layer_idx=1,
+                                    window=window, page_table=table, **scales_of(pools))
+            want = prefill_attention_reference(q, pools[0][1], pools[1][1], ppos, slots,
+                                               window=window, page_table=table,
+                                               **scales_of(pools, 1))
+            lin = prefill_attention(q, linear[0], linear[1], ppos, slots, layer_idx=1,
+                                    window=window, **scales_of(linear))
+            e = (out.float() - want.float()).abs().max().item()
+            kind = "int8" if int8 else "bf16"
+            print(f"prefill_attention_paged {kind} N={N} T={T} H={H} Hkv={Hkv} page_size={psz} "
+                  f"window={window}: max abs err {e:.2e}, padding queries exactly 0: "
+                  f"{bool((out[~live] == 0).all())}, equal to the linear kernel: "
+                  f"{torch.equal(out, lin)}", flush=True)
+            check(e <= 2e-2, f"paged prefill attention ({kind}) abs err {e:.3e} > 2e-2")
+            check(bool((out[~live] == 0).all()), "a padding query's output is not exactly 0")
+            check(want.float().abs().max().item() > 0.05, "the plain version attended nothing")
+            check(torch.equal(out, lin), "paged prefill attention differs from the linear kernel")
+            worst_pf = max(worst_pf, e)
+            if timed:
+                kw, lkw = scales_of(pools), scales_of(linear)
+                ms = timer(lambda: prefill_attention(q, pools[0], pools[1], ppos, slots,
+                                                     layer_idx=1, page_table=table, **kw))
+                lin_ms = timer(lambda: prefill_attention(q, linear[0], linear[1], ppos, slots,
+                                                         layer_idx=1, **lkw))
+                plain_ms = timer(lambda: prefill_attention_reference(
+                    q, pools[0][1], pools[1][1], ppos, slots, page_table=table,
+                    **scales_of(pools, 1)), iters=3)
+                # yardstick: one attention call on the rows' gathered pages as bf16
+                tbl = table[slots.clamp(0, N - 1).long()]
+                kd, vd = gather_pages(pools[0][1], tbl), gather_pages(pools[1][1], tbl)
+                if int8:
+                    kd = _unpack_kv_words(kd, gather_pages(pools[2][1], tbl, scales=True))
+                    vd = _unpack_kv_words(vd, gather_pages(pools[3][1], tbl, scales=True))
+                    kd, vd = kd.to(torch.bfloat16), vd.to(torch.bfloat16)
+                mask = (s_idx[None, None] <= ppos[:, :, None])[:, None] & live[:, None, :, None]
+                qh = q.transpose(1, 2)
+                lib = sdpa(qh, kd, vd, mask).transpose(1, 2)
+                e_lib = (lib[live].float() - want[live].float()).abs().max().item()
+                check(e_lib <= 2e-2, f"the library yardstick differs from the plain one: {e_lib}")
+                library_ms = timer(lambda: sdpa(qh, kd, vd, mask))
+                del kd, vd, mask, lib
+                cache_bytes = 2 * rows_read + 2 * 2 * rows_read // D if int8 else 2 * 2 * rows_read
+                b = bound(cache_bytes + nbytes(q, out, table), flops)
+                print(f"prefill_attention_paged {kind} MHA page_size={psz}: op {ms:.4f} ms (the "
+                      f"linear op here {lin_ms:.4f} ms; {flops / ms / 1e9:.1f} TFLOP/s), plain "
+                      f"{plain_ms:.4f} ms, library (on gathered bf16 rows) {library_ms:.4f} ms, "
+                      f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}", flush=True)
+                res["prefill_attention_paged_" + kind] = dict(
+                    ms=ms, plain_ms=plain_ms, library_ms=library_ms, linear_ms=lin_ms, **b)
+            del linear, pools, out, want, lin
+    res["prefill_attention_paged"] = dict(res["prefill_attention_paged_int8"],
+                                          max_abs_err=worst_pf)
+
+    # --- paged against linear decode attention at 8 slots of 1000 live positions ---
+    H = Hkv = 32
+    B8 = 8
+    lens8 = torch.full((B8,), 1000, device=dev)
+    q = torch.randn(B8, H, D, device=dev, generator=gen).to(torch.bfloat16)
+    times = {}
+    for int8 in (False, True):
+        linear = [t[:1] for t in linear_cache(Hkv, int8, batch=B8)]
+        cuts = {psz: cut_pages(gen, linear, S // psz, lens8) for psz in (256, 16)}
+        runs = {"linear": lambda: decode_attention(q, linear[0], linear[1], lens8, layer_idx=0,
+                                                   **scales_of(linear))}
+        for psz, (table, pools) in cuts.items():
+            runs[f"pages of {psz}"] = (lambda table=table, pools=pools: decode_attention(
+                q, pools[0], pools[1], lens8, layer_idx=0, page_table=table, **scales_of(pools)))
+        got = {k: [] for k in runs}
+        for _ in range(2):  # in turns
+            for k, fn in runs.items():
+                got[k].append(timer(fn))
+        times["int8" if int8 else "bf16"] = {k: sum(v) / len(v) for k, v in got.items()}
+        del linear, cuts, runs
+    for kind, t in times.items():
+        print(f"decode attention B=8 live=1000 S={S} MHA, no append, {kind}: "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+              + f" (pages of 256 / linear = {t['pages of 256'] / t['linear']:.3f}, pages of 16 / "
+              f"linear = {t['pages of 16'] / t['linear']:.3f})", flush=True)
+    res["paged_live1000"] = times
     return res
 
 
@@ -867,6 +1178,257 @@ def phase_w4a8(dev, model):
     return launches, dict(a=stats_a, b=stats_b, bf16=stats_16, requantize_s=t_rq)
 
 
+PAGED_BF16_PATH = ("qgemv", "kv_append_paged", "decode_attention_paged",
+                   "prefill_attention_paged")
+PAGED_INT8_PATH = ("qgemv", "kv_append_packed_paged", "decode_attention_int8_paged",
+                   "prefill_attention_paged")
+
+
+def first_splits(model, batch, out, lin_out, kind, quantized):
+    """Where the paged and the linear engine's greedy tokens part, a request
+    at a time: the index of the first token that differs and, from a third
+    computation of that step's logits (the prompt and the tokens both engines
+    agreed on, admitted in chunks of 512 into a linear cache, all such
+    requests as one batch), the two largest logits.  A near-tie shows as a gap
+    far below the logits' scale with the two engines' tokens as the top two.
+    Printed, not gated."""
+    from xbitops_tpu_torch.models import llama
+
+    dev, rows = model.device, []
+    for r, c, d in zip(batch, out, lin_out):
+        i = next((j for j, (a, b) in enumerate(zip(c.tokens, d.tokens)) if a != b), None)
+        if i is not None:
+            rows.append((c.id, i, list(r.prompt) + c.tokens[:i], c.tokens[i], d.tokens[i]))
+    if not rows:
+        print(f"paged {kind}: every token equals the linear engine's", flush=True)
+        return []
+    n, C = len(rows), 512
+    cache = llama.KVCache.init(model.cfg, n, dev, quantized=quantized)
+    lens = torch.tensor([len(ctx) for *_, ctx, _, _ in rows], device=dev)
+    logits = torch.zeros(n, model.cfg.vocab_size, device=dev)
+    for ci in range(-(-int(lens.max()) // C)):
+        tokens = torch.zeros(n, C, dtype=torch.long)
+        slots = torch.full((n,), n)
+        for j, (_, _, ctx, _, _) in enumerate(rows):
+            piece = ctx[ci * C : (ci + 1) * C]
+            if piece:
+                tokens[j, : len(piece)] = torch.tensor(piece)
+                slots[j] = j
+        lg, _ = llama.prefill_slots_chunk(
+            model, tokens.to(dev), torch.full((n,), ci * C, device=dev),
+            torch.where(slots.to(dev) < n, lens, 0), slots.to(dev), cache,
+            resets=torch.full((n,), ci == 0, device=dev))
+        final = (lens - 1) // C == ci
+        logits[final] = lg.float()[final]
+    top = logits.topk(2, dim=-1)
+    found = []
+    for j, (rid, i, ctx, tp, tl) in enumerate(rows):
+        v, ix = top.values[j].tolist(), top.indices[j].tolist()
+        scale = logits[j].abs().max().item()
+        found.append(dict(request=rid, index=i, context=len(ctx), paged=tp, linear=tl, top2=ix,
+                          gap=v[0] - v[1], gap_rel=(v[0] - v[1]) / scale,
+                          top2_are_the_two=sorted(ix) == sorted((tp, tl))))
+        print(f"paged {kind} request {rid}: tokens part at index {i} (context {len(ctx)}): paged "
+              f"{tp}, linear {tl}; recomputed top two {ix} with logits {v[0]:.4f}, {v[1]:.4f}: gap "
+              f"{v[0] - v[1]:.4f}, {(v[0] - v[1]) / scale:.2e} of the largest |logit| "
+              f"{scale:.3f}; the top two are the engines' two tokens: "
+              f"{found[-1]['top2_are_the_two']}", flush=True)
+    del cache
+    torch.cuda.empty_cache()
+    return found
+
+
+def phase_paged(dev, model):
+    """The paged serving path: a pool of 24 pages of 256 positions for 8 slots
+    of 2048, once bf16 and once int8, beside the linear engine on the same
+    requests; two requests on a pool of 4 pages, one of which sits bursts out
+    until the other frees pages; then a paged chunk admission and decode step
+    on a 2-layer cut."""
+    from xbitops_tpu_torch.engine import Engine, Request
+    from xbitops_tpu_torch.kernels import common
+    from xbitops_tpu_torch.models import llama
+
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED + 3)
+    pool_pages, psz = 24, 256
+    # the first five prompts take 19 pages, the sixth needs 6: it waits with slots free
+    lengths = (1500, 1100, 900, 700, 40, 1300, 300, 120, 500, 60)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n).tolist(),
+                    max_new_tokens=16 if i % 2 else 32) for i, n in enumerate(lengths)]
+    demand = sum(-(-(len(r.prompt) + r.max_new_tokens) // psz) for r in reqs)
+    check(demand > pool_pages, f"the requests' joint demand ({demand} pages) fits the pool")
+    kw = dict(slots=8, decode_burst=8, prefill_chunk=512, seed=SEED)
+    out_launches, stats = {}, {}
+    for kv_quant, path in ((False, PAGED_BF16_PATH), (True, PAGED_INT8_PATH)):
+        kind = "int8" if kv_quant else "bf16"
+        batch = reqs[:6] if kv_quant else reqs
+        eng = Engine(model, cfg, paged=True, pool_pages=pool_pages, page_size=psz,
+                     kv_quant=kv_quant, **kw)
+        check(eng.cache.paged and eng.cache.k.shape[1] == pool_pages
+              and eng.cache.quantized == kv_quant, f"the {kind} cache is not the paged pool")
+        common.reset_counts()
+        t0 = time.perf_counter()
+        out = eng.generate(batch)
+        wall = time.perf_counter() - t0
+        launches, plain = dict(common.launches), dict(common.plain_on_cuda)
+        check(len(out) == len(batch), f"paged {kind}: {len(out)} completions")
+        for c, r in zip(out, batch):
+            check(len(c.tokens) == r.max_new_tokens and c.finish_reason == "length",
+                  f"paged {kind} request {c.id}: {len(c.tokens)} tokens, {c.finish_reason}")
+            check(c.prompt_len == len(r.prompt), f"paged {kind} request {c.id}: prompt_len")
+            check(all(0 <= t < cfg.vocab_size for t in c.tokens),
+                  f"paged {kind} request {c.id}: token range")
+        check(sorted(eng._free_pages) == list(range(pool_pages))
+              and bool((eng.cache.page_table == -1).all()) and not any(eng._slot_pages),
+              f"paged {kind}: pages are still held after generate")
+        for name in path:
+            check(launches[name] > 0, f"kernel {name} was not launched on the paged {kind} path")
+        linear_forms = [n for n in launches if launches[n] and n not in path]
+        check(not linear_forms, f"paged {kind}: other kernels launched: {linear_forms}")
+        check(not any(plain.values()), f"paged {kind}: plain versions ran on the card: {plain}")
+        st = dict(eng.loop_stats)
+        check(st["admission_waits"] > 0, f"paged {kind}: no admission waited for pages")
+        del eng
+        torch.cuda.empty_cache()
+
+        # the linear engine on the same requests (not counted: it adds no kernel)
+        lin_eng = Engine(model, cfg, kv_quant=kv_quant, **kw)
+        lin_out = lin_eng.generate(batch)
+        lst = dict(lin_eng.loop_stats)
+        del lin_eng
+        torch.cuda.empty_cache()
+        same = sum(a == b for c, d in zip(out, lin_out) for a, b in zip(c.tokens, d.tokens))
+        total = sum(len(c.tokens) for c in out)
+
+        def rates(s):
+            rows = s["admit_rows"] + s["chunk_rows"]
+            secs = s["admit_prefill"] + s["admit_prefill_chunks"]
+            return dict(ms_step=1e3 * s["decode"] / s["decode_steps"],
+                        tok_s=s["decode_tokens"] / s["decode"], rows_s=rows / secs,
+                        steps=s["decode_steps"], chunks=s["chunks"])
+
+        pg, ln = rates(st), rates(lst)
+        print(f"paged serving ({kind} pool of {pool_pages} pages of {psz} for 8 slots): "
+              f"{len(batch)} requests, prompts {min(lengths)}-{max(lengths)}, {wall:.2f} s wall; "
+              f"{st['admission_waits']:.0f} admission waits, "
+              f"{st.get('deferred_slot_steps', 0):.0f} deferred slot steps; paged "
+              f"{pg['ms_step']:.2f} ms/step over {pg['steps']:.0f} steps, {pg['tok_s']:.1f} "
+              f"tokens/s, admission {pg['rows_s']:.0f} padded rows/s in {pg['chunks']:.0f} chunk "
+              f"forwards; the linear engine on the same requests {ln['ms_step']:.2f} ms/step "
+              f"over {ln['steps']:.0f} steps, {ln['tok_s']:.1f} tokens/s, {ln['rows_s']:.0f} "
+              f"rows/s; tokens equal to the linear engine's: {same} of {total}; launches "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        splits = first_splits(model, batch, out, lin_out, kind, kv_quant)
+        # the paged engine again on a pool that never makes a request wait: the
+        # linear engine's schedule, so only the cache's form differs (not counted)
+        full = cfg.max_seq_len // psz * kw["slots"]
+        eng = Engine(model, cfg, paged=True, pool_pages=full, page_size=psz, kv_quant=kv_quant,
+                     **kw)
+        full_out = eng.generate(batch)
+        waits = eng.loop_stats.get("admission_waits", 0)
+        del eng
+        torch.cuda.empty_cache()
+        same_full = sum(a == b for c, d in zip(full_out, lin_out)
+                        for a, b in zip(c.tokens, d.tokens))
+        print(f"paged serving ({kind} pool of {full} pages, {waits:.0f} admission waits: the "
+              f"linear engine's schedule): tokens equal to the linear engine's: {same_full} of "
+              f"{total}", flush=True)
+        out_launches[kind] = launches
+        stats[kind] = dict(paged=pg, linear=ln, equal_tokens=same, tokens=total, splits=splits,
+                           equal_tokens_full_pool=same_full)
+
+    # Deferral: a pool of 4 pages.  The prompt of 250 takes one page and the
+    # one of 700 three, so the pool is full at admission; the first needs its
+    # second page at position 256, inside its first burst, and sits bursts out
+    # until the second request has finished and released its pages.
+    pair = [Request(prompt=rng.integers(0, cfg.vocab_size, 250).tolist(), max_new_tokens=24),
+            Request(prompt=rng.integers(0, cfg.vocab_size, 700).tolist(), max_new_tokens=16)]
+    for kv_quant in (False, True):
+        kind = "int8" if kv_quant else "bf16"
+        eng = Engine(model, cfg, paged=True, pool_pages=4, page_size=psz, kv_quant=kv_quant, **kw)
+        common.reset_counts()
+        out = eng.generate(pair)
+        launches, plain = dict(common.launches), dict(common.plain_on_cuda)
+        st = dict(eng.loop_stats)
+        check(st.get("deferred_slot_steps", 0) > 0, f"paged {kind}, pool of 4: no slot deferred")
+        check(all(len(c.tokens) == r.max_new_tokens and c.finish_reason == "length"
+                  for c, r in zip(out, pair)), f"paged {kind}, pool of 4: a request was cut")
+        check(sorted(eng._free_pages) == list(range(4))
+              and bool((eng.cache.page_table == -1).all()),
+              f"paged {kind}, pool of 4: pages are still held after generate")
+        check(not any(plain.values()), f"paged {kind}, pool of 4: plain versions ran: {plain}")
+        del eng
+        torch.cuda.empty_cache()
+        lin_eng = Engine(model, cfg, kv_quant=kv_quant, **kw)
+        lin_out = lin_eng.generate(pair)
+        del lin_eng
+        torch.cuda.empty_cache()
+        same = sum(a == b for c, d in zip(out, lin_out) for a, b in zip(c.tokens, d.tokens))
+        print(f"paged serving ({kind} pool of 4 pages of {psz}), prompts 250 and 700: "
+              f"{st['deferred_slot_steps']:.0f} deferred slot steps, "
+              f"{st.get('admission_waits', 0):.0f} admission waits, {st['decode_steps']:.0f} "
+              f"steps; tokens equal to the linear engine's: {same} of 40", flush=True)
+        first_splits(model, pair, out, lin_out, f"{kind}, pool of 4", kv_quant)
+        for k, v in launches.items():
+            out_launches[kind][k] += v
+
+    # The 2-layer cut: 4 prompts admitted in 2 chunks of 512 into a paged
+    # cache with a shuffled table, then one decode step: the paged kernels
+    # against the plain path on its own paged cache (gate rel 2e-2), and
+    # against the linear cache's kernels (the same rows: printed and gated too).
+    cut = two_layer_cut(model)
+    lens = torch.tensor([1024, 900, 700, 600], device=dev)
+    slots = torch.tensor([2, 0, 3, 1], device=dev)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (4, 1024))).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for quantized in (False, True):
+        kind = "int8" if quantized else "bf16"
+        # a shuffled table that holds each slot's prompt and one more position
+        need = torch.zeros(4, dtype=torch.long, device=dev)
+        need[slots] = lens + 1
+        pages = cut.cfg.max_seq_len // psz
+        order = torch.randperm(20, generator=gen, device=dev).reshape(4, 5)
+        order = torch.nn.functional.pad(order, (0, pages - 5), value=-1)
+        given = torch.arange(pages, device=dev)[None] * psz < need[:, None]
+        table = torch.where(given, order, -1).to(torch.int32)
+        check(int((table >= 0).sum()) == 15, "the cut's table should hold 15 pages")
+        caches = []
+        for _ in range(2):
+            c = llama.KVCache.init_paged(cut.cfg, 4, 20, psz, device=dev, quantized=quantized)
+            c.page_table.copy_(table)
+            caches.append(c)
+        caches.append(llama.KVCache.init(cut.cfg, 4, dev, quantized=quantized))
+        for ci in range(2):
+            args = (tokens[:, ci * 512 : (ci + 1) * 512], torch.full((4,), ci * 512, device=dev),
+                    lens, slots)
+            resets = torch.full((4,), ci == 0, device=dev)
+            la, _ = llama.prefill_slots_chunk(cut, *args, caches[0], resets=resets)
+            lb, _ = llama.prefill_slots_chunk(cut, *args, caches[1], resets=resets,
+                                              use_kernel=False)
+            lc, _ = llama.prefill_slots_chunk(cut, *args, caches[2], resets=resets)
+        e, e_lin = rel_err(la, lb), rel_err(la, lc)
+        print(f"paged prefill_slots_chunk 2 layers, 2 chunks of 512, {kind} pool: logits rel "
+              f"err {e:.2e} vs the plain path, {e_lin:.2e} vs the linear cache's kernels",
+              flush=True)
+        check(torch.isfinite(la.float()).all().item(), "non-finite logits")
+        check(e <= 2e-2, f"paged chunked admission ({kind}) logits rel err {e:.3e} > 2e-2")
+        check(e_lin <= 2e-2, f"paged vs linear chunked admission ({kind}): {e_lin:.3e} > 2e-2")
+        check(all(c.lengths.tolist() == [900, 600, 1024, 700] for c in caches),
+              "cache lengths after the paged chunked admission")
+        step_tok = la.float().argmax(dim=-1)[torch.argsort(slots)]  # slot order
+        la, _ = llama.decode_step(cut, step_tok, caches[0])
+        lb, _ = llama.decode_step(cut, step_tok, caches[1], use_kernel=False)
+        lc, _ = llama.decode_step(cut, step_tok, caches[2])
+        e, e_lin = rel_err(la, lb), rel_err(la, lc)
+        print(f"paged decode_step 2 layers, {kind} pool: logits rel err {e:.2e} vs the plain "
+              f"path, {e_lin:.2e} vs the linear cache's kernels", flush=True)
+        check(e <= 2e-2, f"paged decode_step ({kind}) logits rel err {e:.3e} > 2e-2")
+        check(e_lin <= 2e-2, f"paged vs linear decode_step ({kind}): {e_lin:.3e} > 2e-2")
+        del caches
+    launches = {k: out_launches["bf16"][k] + out_launches["int8"][k] for k in out_launches["bf16"]}
+    return launches, stats
+
+
 def clone_cache(cache, n_layers):
     from xbitops_tpu_torch.models import llama
 
@@ -933,6 +1495,8 @@ def main() -> int:
     launches3, long_ctx = phase_long_context(dev, model)
     torch.cuda.empty_cache()
     launches4, w4a8 = phase_w4a8(dev, model)
+    torch.cuda.empty_cache()
+    launches5, paged = phase_paged(dev, model)
     print(f"card: {card}; 7B 4-bit decode at B=8: bf16 cache, prompts to 500: "
           f"{serving['ms_step']:.2f} ms/step, {serving['tok_s']:.1f} tokens/s; int8 cache, "
           f"prompts to 1500: {long_ctx['ms_step']:.2f} ms/step, {long_ctx['tok_s']:.1f} tokens/s",
@@ -944,6 +1508,14 @@ def main() -> int:
           f"{rate['bf16']:.0f} ({w4a8['bf16']['admit_s']:.3f} s), bf16 activations in phase 2 "
           f"{serving['admit_rows'] / serving['admit_s']:.0f} ({serving['admit_s']:.3f} s); "
           f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    for kind, st in paged.items():
+        pg, ln = st["paged"], st["linear"]
+        print(f"card: {card}; 7B paged serving, {kind} pool (24 pages of 256 for 8 slots) against "
+              f"the linear cache on the same requests: {pg['ms_step']:.2f} vs {ln['ms_step']:.2f} "
+              f"ms/step, {pg['tok_s']:.1f} vs {ln['tok_s']:.1f} tokens/s, admission "
+              f"{pg['rows_s']:.0f} vs {ln['rows_s']:.0f} padded rows/s; equal tokens "
+              f"{st['equal_tokens']} of {st['tokens']} ({st['equal_tokens_full_pool']} with a pool "
+              f"that makes no request wait)", flush=True)
 
     csrc, jk = "xbitops_tpu_torch/csrc/", "xbitops_tpu/kernels/"
     src = {
@@ -956,11 +1528,18 @@ def main() -> int:
         "dequant": (csrc + "dequant.cu", jk + "dequant_kernel.py:32"),
         "qgemv_a8": (csrc + "qgemv_a8.cu", jk + "qgemv_kernel.py:146"),
         "qgemv_a8_perchannel": (csrc + "qgemv_a8.cu", jk + "qgemv_kernel.py:260"),
+        "decode_attention_paged": (csrc + "decode_attention.cu", jk + "decode_attention.py:176"),
+        "decode_attention_int8_paged": (csrc + "decode_attention.cu",
+                                        jk + "decode_attention.py:176"),
+        "prefill_attention_paged": (csrc + "prefill_attention.cu",
+                                    jk + "prefill_attention.py:188"),
+        "kv_append_paged": (csrc + "kv_append.cu", jk + "kv_append.py:92"),
+        "kv_append_packed_paged": (csrc + "kv_append.cu", jk + "kv_append.py:43"),
     }
-    # launches: each kernel's count over the serving runs of phases 2 to 4 (the
+    # launches: each kernel's count over the serving runs of phases 2 to 5 (the
     # counts were set to 0 just before each run and read just after it)
     kernels = [dict(name=n, route="cuda", source=src[n][0], replaces=src[n][1],
-                    launches=launches2[n] + launches3[n] + launches4[n],
+                    launches=launches2[n] + launches3[n] + launches4[n] + launches5[n],
                     **{key: res[n][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                     "bound_by", "library_ms")}) for n in src]
     for kern in kernels:

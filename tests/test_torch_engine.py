@@ -2,7 +2,8 @@
 config: greedy tokens are identical, request by request, with slot recycling
 (3 requests on 2 slots) and bursts of 1 and 4 steps.  Also: seeded sampling
 is reproducible, top_k=1 sampling equals greedy, finish reasons, and the
-options not ported yet raise.  Long prompts (130-250 tokens at S=256, admitted
+options not ported yet raise (alone, and beside ``paged=True``, which is
+ported: ``tests/test_torch_paged.py``).  Long prompts (130-250 tokens at S=256, admitted
 in chunks of 128, which takes JAX through its flash-prefill kernel) and the
 packed int8 cache give identical greedy tokens too, alone and together; so does
 W4A8 admission (``prefill_a8``: prompts of 33-50 tokens, bucket 64)."""
@@ -105,7 +106,8 @@ def test_finish_reasons(model):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(spec_tokens=2), dict(paged=True), dict(pipeline=1),
+    dict(spec_tokens=2), dict(paged=True, pipeline=1), dict(paged=True, spec_tokens=2),
+    dict(pipeline=1),
     dict(mesh=object()), dict(draft_params={}), dict(max_restarts=1),
 ])
 def test_unported_options_raise(model, kw):

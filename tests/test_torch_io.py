@@ -119,9 +119,18 @@ def test_kvcache_from_numpy_continues_a_jax_prefill(jparams, model, quantized):
 
 
 def test_kvcache_from_numpy_refuses_a_paged_cache():
-    jcache = jax.tree.map(np.asarray, jllama.KVCache.init_paged(JCFG, 1, 2, page_size=32))
-    with pytest.raises(NotImplementedError):
-        kvcache_from_numpy(jcache, "cpu")
+    """A paged cache whose table does not fit it is refused; a sound one
+    converts with its pools and its table."""
+    jcache = jllama.KVCache.init_paged(JCFG, 1, 2, page_size=32)
+    cache = kvcache_from_numpy(jax.tree.map(np.asarray, jcache), "cpu")
+    assert cache.paged and cache.page_size == 32 and cache.S == CFG.max_seq_len
+    assert cache.k.shape == tuple(jcache.k.shape) and cache.page_table.dtype == torch.int32
+    assert cache.page_table.tolist() == [[-1, -1]]
+    for table in (np.zeros((2, 2), np.int32), np.zeros(2, np.int32), np.full((1, 2), 2, np.int32)):
+        bad = jax.tree.map(np.asarray, jcache.__class__(
+            jcache.k, jcache.v, jcache.lengths, page_table=jnp.asarray(table)))
+        with pytest.raises(ValueError):
+            kvcache_from_numpy(bad, "cpu")
 
 
 def test_dense_and_per_channel_leaves_convert_and_round_trip(tmp_path):

@@ -12,7 +12,9 @@ and scales exact; attention outputs abs 2e-2 in bf16, padding queries of the
 prefill attention exactly 0; the dequant kernel equal to its plain version bit
 for bit; the int8-activation matmul equal per channel (its only f32 operations
 repeat the plain version's) and rel 1e-5 / abs 3e-4 grouped (the groups' f32
-folds may fuse their multiply-adds).
+folds may fuse their multiply-adds).  The paged forms of the two attention
+kernels and the two appends are held to their plain versions at the same
+tolerances, and to the linear kernels on the cache the pool was cut from.
 """
 
 import dataclasses
@@ -27,6 +29,7 @@ from xbitops_tpu_torch.kernels.decode_attention import (
     decode_attention_reference,
 )
 from xbitops_tpu_torch.kernels.kv_append import (
+    gather_pages,
     kv_append_dense,
     kv_append_dense_reference,
     kv_append_packed,
@@ -279,8 +282,13 @@ def test_new_wrappers_count_and_reject(dev):
         decode_attention(q, k, v, lens, layer_idx=0, k_scale=ks.float(), v_scale=vs.float())
     with pytest.raises(ValueError):  # words must be int32
         kv_append_packed(k.long(), v.long(), ks, vs, *_new_packed_rows(gen, 2, 2, 128), lens, 0)
-    with pytest.raises(NotImplementedError):
-        decode_attention(q, k, v, lens, layer_idx=0, page_table=torch.zeros(2, 1, device=dev))
+    table = torch.tensor([[1], [0]], dtype=torch.int32, device=dev)  # k/v as 2 pages of 16
+    decode_attention(q, k, v, lens, layer_idx=0, k_scale=ks, v_scale=vs, page_table=table)
+    assert common.launches["decode_attention_int8_paged"] == 1
+    assert common.launches["decode_attention_int8"] == 1
+    with pytest.raises(ValueError):  # the table must be int32
+        decode_attention(q, k, v, lens, layer_idx=0, k_scale=ks, v_scale=vs,
+                         page_table=table.long())
     qc = torch.zeros(2, 8, 4, 128, dtype=torch.bfloat16, device=dev)
     pos = torch.arange(8, device=dev)[None].expand(2, 8)
     prefill_attention(qc, k, v, pos, torch.arange(2, device=dev), layer_idx=0,
@@ -371,3 +379,150 @@ def test_requantize_a8_and_qmatmul_a8_on_the_card(dev):
         torch.testing.assert_close(got, ref, rtol=1e-5, atol=3e-4)
         full = qmatmul(a, q, out_dtype=torch.float32, use_kernel=False)
         assert (got - full).abs().max() < 0.03 * full.abs().max()
+
+
+PAGED_DECODE = [(128, 8, 8, 8, 256), (128, 32, 4, 40, 16), (64, 8, 1, 9, 28), (256, 4, 2, 5, 64),
+                (128, 32, 32, 128, 16)]
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16pool", "int8pool"])
+@pytest.mark.parametrize("D,H,Hkv,P,psz", PAGED_DECODE)
+@pytest.mark.parametrize("window", [None, 100])
+def test_decode_attention_paged_kernel_matches_plain(dev, int8, D, H, Hkv, P, psz, window):
+    gen = _gen(dev, D + P * psz)
+    B, L, S = 5, 2, P * psz
+    if int8:
+        linear = list(_packed_cache(gen, L, B, Hkv, S, D))
+        new = _new_packed_rows(gen, B, Hkv, D)
+    else:
+        linear = [torch.randn(L, B, Hkv, S, D, device=dev, generator=gen).to(torch.bfloat16)
+                  for _ in range(2)]
+        new = tuple(torch.randn(B, Hkv, D, device=dev, generator=gen).to(torch.bfloat16)
+                    for _ in range(2))
+    scales = lambda t: dict(k_scale=t[2], v_scale=t[3]) if int8 else {}
+    q = torch.randn(B, H, D, device=dev, generator=gen).to(torch.bfloat16)
+    # slot 2 is inactive: position S, length S, and not one page
+    pos = torch.tensor([0, S - 1, S, 255 % S, S // 2 + 1], device=dev)
+    lens = torch.clamp(pos + 1, max=S)
+    table, pools = synth.cut_pages(gen, linear, P, torch.where(pos < S, lens, 0))
+    assert (table[2] == -1).all() and (table[0, 1:] == -1).all() and (table[1] >= 0).all()
+    ref = [t.clone() for t in pools]
+    common.reset_counts()
+    out, *rest = decode_attention(q, pools[0], pools[1], lens, layer_idx=1, kv_new=(*new, pos),
+                                  window=window, page_table=table, **scales(pools))
+    name = "decode_attention_int8_paged" if int8 else "decode_attention_paged"
+    append = "kv_append_packed_paged" if int8 else "kv_append_paged"
+    assert common.launches[name] == 1 and common.launches[append] == 1
+    assert sum(common.launches.values()) == 2 and not any(common.plain_on_cuda.values())
+    assert all(r is t for r, t in zip(rest, pools))
+    if int8:
+        kv_append_packed_reference(*ref, *new, pos, 1, table)
+    else:
+        kv_append_dense_reference(*ref, *new, pos, 1, table)
+    for got, want in zip(pools, ref):
+        assert torch.equal(got, want)
+    want = decode_attention_reference(q, ref[0][1], ref[1][1], lens, window,
+                                      *(t[1] for t in ref[2:]), page_table=table)
+    assert (out.float() - want.float()).abs().max() <= 2e-2
+    assert want.float().abs().max() > 0.05
+    # the linear kernel on the cache the pool was cut from, appended the same way
+    lin_out, *_ = decode_attention(q, linear[0], linear[1], lens, layer_idx=1,
+                                   kv_new=(*new, pos), window=window, **scales(linear))
+    live = pos < S
+    assert (out[live].float() - lin_out[live].float()).abs().max() <= 2e-2
+    for i, (pool, lin) in enumerate(zip(pools, linear)):  # the rows landed in the slots' pages
+        axis = 3 if i >= 2 else 2  # the row axis: scales [B, 4, Hkv, S/4], else [B, Hkv, rows, D]
+        got = gather_pages(pool[1], table, scales=i >= 2).movedim(axis, 1)
+        given = (table >= 0).repeat_interleave(got.shape[1] // P, dim=1)
+        assert torch.equal(got[given], lin[1].movedim(axis, 1)[given])
+    zero = decode_attention(q, pools[0][0], pools[1][0],
+                            torch.zeros(B, dtype=torch.int32, device=dev), page_table=table,
+                            **{n: t[0] for n, t in scales(pools).items()})
+    assert zero.abs().max() == 0  # a slot with no live rows attends nothing
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16pool", "int8pool"])
+@pytest.mark.parametrize("D,H,Hkv,P,psz,T,window", [
+    (128, 32, 32, 8, 256, 512, None), (128, 32, 8, 128, 16, 512, 512), (128, 8, 2, 19, 16, 70, None),
+    (64, 4, 4, 8, 16, 64, 20), (256, 4, 1, 13, 16, 96, None), (128, 4, 4, 3, 20, 4, None),
+])
+def test_prefill_attention_paged_kernel_matches_plain(dev, int8, D, H, Hkv, P, psz, T, window):
+    gen = _gen(dev, D + P * psz + T)
+    B, L, S = 5, 2, P * psz
+    if int8:
+        linear = list(_packed_cache(gen, L, B, Hkv, S, D))
+    else:
+        linear = [torch.randn(L, B, Hkv, S, D, device=dev, generator=gen).to(torch.bfloat16)
+                  for _ in range(2)]
+    scales = lambda t, li: dict(k_scale=t[2][li], v_scale=t[3][li]) if int8 else {}
+    q = torch.randn(4, T, H, D, device=dev, generator=gen).to(torch.bfloat16)
+    starts = [0, S - T, (S - T) // 2 // 4 * 4, 0]
+    lens = [max(T - 5, 1), S, (S - T) // 2 // 4 * 4 + T, 0]
+    pos = _chunk_positions(dev, starts, lens, T, S)
+    slots = torch.tensor([3, 0, 4, B], device=dev)
+    slot_lens = torch.zeros(B, dtype=torch.long, device=dev)
+    slot_lens[slots[:3]] = torch.tensor(lens[:3], device=dev)
+    table, pools = synth.cut_pages(gen, linear, P, slot_lens)
+    assert (table[1] == -1).all() and (table[0] >= 0).all()
+    common.reset_counts()
+    got = prefill_attention(q, pools[0], pools[1], pos, slots, layer_idx=1, window=window,
+                            page_table=table, **{n: t for n, t in zip(("k_scale", "v_scale"),
+                                                                      pools[2:])})
+    assert common.launches["prefill_attention_paged"] == 1
+    assert sum(common.launches.values()) == 1 and not any(common.plain_on_cuda.values())
+    want = prefill_attention_reference(q, pools[0][1], pools[1][1], pos, slots, window=window,
+                                       page_table=table, **scales(pools, 1))
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    assert (got.float() - want.float()).abs().max() <= 2e-2
+    assert want.float().abs().max() > 0.05
+    assert (got[pos >= S] == 0).all() and (pos >= S).any()
+    lin = prefill_attention(q, linear[0], linear[1], pos, slots, layer_idx=1, window=window,
+                            **{n: t for n, t in zip(("k_scale", "v_scale"), linear[2:])})
+    assert torch.equal(got, lin)  # the same tiles in the same order: the same sums
+    # flat pools, and padding in the middle of a row
+    pos2 = pos.clone()
+    pos2[1, T // 2] = S
+    got = prefill_attention(q, pools[0][0], pools[1][0], pos2, slots, window=window,
+                            page_table=table, **scales(pools, 0))
+    want = prefill_attention_reference(q, pools[0][0], pools[1][0], pos2, slots, window=window,
+                                       page_table=table, **scales(pools, 0))
+    assert (got.float() - want.float()).abs().max() <= 2e-2
+    assert (got[1, T // 2] == 0).all()
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16pool", "int8pool"])
+def test_paged_append_kernels_write_only_through_a_page(dev, int8):
+    """Rows whose position is outside [0, P * psz), whose table entry is -1 or
+    whose entry is not a page of the pool write nothing; the others write
+    exactly what the plain version writes."""
+    gen = _gen(dev, 11)
+    L, B, Hkv, D, P, psz, n_pages = 2, 8, 3, 128, 4, 16, 12
+    S = P * psz
+    if int8:
+        pools = list(_packed_cache(gen, L, n_pages, Hkv, psz, D))
+        new = _new_packed_rows(gen, B, Hkv, D)
+        kernel, plain = kv_append_packed, kv_append_packed_reference
+    else:
+        pools = [torch.randn(L, n_pages, Hkv, psz, D, device=dev, generator=gen).to(torch.bfloat16)
+                 for _ in range(2)]
+        new = tuple(torch.randn(B, Hkv, D, device=dev, generator=gen).to(torch.bfloat16)
+                    for _ in range(2))
+        kernel, plain = kv_append_dense, kv_append_dense_reference
+    table = torch.randperm(n_pages, generator=gen, device=dev)[:B, None].repeat(1, P)
+    table = (table + torch.arange(P, device=dev)[None]) % n_pages  # some page for every entry
+    table = table.to(torch.int32)
+    #        in page 0..3 by byte 0..3     past S  <0  no page  not a page
+    pos = torch.tensor([0, 17, 34, 63,      S,    -1,    5,      21], device=dev)
+    table[6, 0] = -1
+    table[7, 1] = n_pages + 5
+    before = [t.clone() for t in pools]
+    ref = [t.clone() for t in pools]
+    out = kernel(*pools, *new, pos, 1, table)
+    plain(*ref, *new, pos, 1, table)
+    for got, o, want, old in zip(pools, out, ref, before):
+        assert o is got and torch.equal(got, want)
+        assert torch.equal(got[0], old[0])  # the other layer
+        written = torch.zeros(n_pages, dtype=torch.bool, device=dev)
+        written[table[torch.arange(4), pos[:4] // psz].long()] = True
+        assert torch.equal(got[1][~written], old[1][~written])
+        assert not torch.equal(got[1][written], old[1][written])

@@ -167,7 +167,8 @@ def test_decode_attention_int8_matches_jax(L, B, H, Hkv, S, positions, window, a
 
 
 def test_decode_attention_int8_flat_cache_and_guards():
-    """A flat [B, Hkv, S/4, D] cache (no layer index); a paged call raises."""
+    """A flat [B, Hkv, S/4, D] cache (no layer index); the same tensors read as
+    a pool of B pages of S positions behind a table give the same output."""
     B, H, Hkv, S, D = 2, 4, 2, 64, 128
     rng = np.random.default_rng(7)
     q = rng.standard_normal((B, H, D), dtype=np.float32)
@@ -177,7 +178,12 @@ def test_decode_attention_int8_flat_cache_and_guards():
                    k_scale=jnp.asarray(ks), v_scale=jnp.asarray(vs))
     got = decode_attention(_t(q), _t(k), _t(v), _t(lens), k_scale=_t(ks), v_scale=_t(vs))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
-    with pytest.raises(NotImplementedError):
-        decode_attention(_t(q), _t(k), _t(v), _t(lens), page_table=torch.zeros(B, 1))
+    table = torch.tensor([[0], [1]], dtype=torch.int32)
+    paged = decode_attention(_t(q), _t(k), _t(v), _t(lens), k_scale=_t(ks), v_scale=_t(vs),
+                             page_table=table)
+    assert torch.equal(paged, got)
+    swapped = decode_attention(_t(q), _t(k), _t(v), _t(lens), k_scale=_t(ks), v_scale=_t(vs),
+                               page_table=table.flip(0))
+    assert not torch.equal(swapped, got)
     with pytest.raises(ValueError):
         decode_attention(_t(q), _t(k), _t(v), _t(lens), k_scale=_t(ks))

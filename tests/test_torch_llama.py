@@ -150,8 +150,15 @@ def test_use_kernel_false_matches_default(model):
 
 
 def test_unported_paths_raise(model):
-    with pytest.raises(NotImplementedError):
-        llama.KVCache.init_paged(CFG, 1, 4)
+    """Unaligned (speculative) writes are not ported; the paged cache is: a
+    forward on it equals the forward on the linear cache."""
+    paged = llama.KVCache.init_paged(CFG, 1, 4, 16, device="cpu")
+    assert paged.paged and paged.S == CFG.max_seq_len and paged.k.shape[1:4] == (4, 2, 16)
+    paged.page_table[0, 0] = 3
+    tokens = torch.tensor([[5, 9, 2, 7]])
+    lp, _ = llama.prefill(model, tokens, paged)
+    ll, _ = llama.prefill(model, tokens, llama.KVCache.init(CFG, 1, "cpu"))
+    assert torch.equal(lp, ll) and paged.k[:, 3].abs().sum() > 0 and paged.k[:, :3].abs().sum() == 0
     with pytest.raises(NotImplementedError):
         model(torch.zeros(1, 2, dtype=torch.long), llama.KVCache.init(CFG, 1, "cpu"),
               torch.arange(2)[None], kv_unaligned=True)

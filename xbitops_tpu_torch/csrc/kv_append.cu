@@ -24,57 +24,118 @@
 // reduce, all for Mosaic's tiling; none of it is needed here.  The word is
 // handled as uint32_t, so byte 3 (the sign bits of the int32) shifts
 // logically.
+//
+// The paged forms (entries xb_kv_append_paged, xb_kv_append_packed_paged) are
+// the same two kernels with another target: k/v are page pools
+// [n_pages, Hkv, psz, D] (int8: words [n_pages, Hkv, psz/4, D], scales
+// [n_pages, 4, Hkv, psz/4]) and position p of slot i lies in pool page
+// table[i, p / psz] at row p % psz, where the linear cache has slot i's own
+// S rows.  A table entry is an address: a row is written only when
+// 0 <= p < P * psz and 0 <= table[i, p / psz] < n_pages, so a slot without a
+// page for its position (entry -1) writes nothing, as the JAX package's
+// dropped scatter does.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+// Where position pos of slot i goes: the linear cache keeps it in block i of
+// `rows` = S rows at row pos; a pool in block table[i, pos / rows] of `rows`
+// = psz rows at row pos % rows.  False: nothing is written.
+template <bool PAGED>
+__device__ __forceinline__ bool locate(int i, int pos, int rows, const int* __restrict__ table,
+                                       int P, int n_pages, int* block, int* row) {
+  if constexpr (PAGED) {
+    if (pos < 0 || pos >= P * rows) return false;
+    const int page = table[static_cast<size_t>(i) * P + pos / rows];
+    if (page < 0 || page >= n_pages) return false;
+    *block = page;
+    *row = pos % rows;
+  } else {
+    if (pos < 0 || pos >= rows) return false;
+    *block = i;
+    *row = pos;
+  }
+  return true;
+}
+
+template <bool PAGED>
 __global__ void kv_append_kernel(uint16_t* __restrict__ k, uint16_t* __restrict__ v,
                                  const uint16_t* __restrict__ k_new,
                                  const uint16_t* __restrict__ v_new,
                                  const int* __restrict__ positions,
+                                 const int* __restrict__ table, int P, int n_pages,
                                  int B, int Hkv, int S, int D) {
   const int i = blockIdx.x;
   if (i >= B) return;
-  const int pos = positions[i];
-  if (pos < 0 || pos >= S) return;
+  int blk, pos;
+  if (!locate<PAGED>(i, positions[i], S, table, P, n_pages, &blk, &pos)) return;
   const int row = Hkv * D;
   for (int e = threadIdx.x; e < row; e += blockDim.x) {
     const int h = e / D, d = e - (e / D) * D;
-    const size_t dst = ((static_cast<size_t>(i) * Hkv + h) * S + pos) * D + d;
+    const size_t dst = ((static_cast<size_t>(blk) * Hkv + h) * S + pos) * D + d;
     const size_t src = static_cast<size_t>(i) * row + e;
     k[dst] = k_new[src];
     v[dst] = v_new[src];
   }
 }
 
+template <bool PAGED>
 __global__ void kv_append_packed_kernel(uint32_t* __restrict__ k, uint32_t* __restrict__ v,
                                         uint16_t* __restrict__ ks, uint16_t* __restrict__ vs,
                                         const int* __restrict__ kq, const int* __restrict__ vq,
                                         const uint16_t* __restrict__ ks_new,
                                         const uint16_t* __restrict__ vs_new,
                                         const int* __restrict__ positions,
+                                        const int* __restrict__ table, int P, int n_pages,
                                         int B, int Hkv, int Sw, int D) {
   const int i = blockIdx.x;
   if (i >= B) return;
-  const int pos = positions[i];
-  if (pos < 0 || pos >= Sw * 4) return;
+  int blk, pos;
+  if (!locate<PAGED>(i, positions[i], Sw * 4, table, P, n_pages, &blk, &pos)) return;
   const int w = pos >> 2, j = pos & 3;
   const int sh = 8 * j;
   const uint32_t keep = ~(0xffu << sh);
   const int row = Hkv * D;
   for (int e = threadIdx.x; e < row; e += blockDim.x) {
     const int h = e / D, d = e - (e / D) * D;
-    const size_t dst = ((static_cast<size_t>(i) * Hkv + h) * Sw + w) * D + d;
+    const size_t dst = ((static_cast<size_t>(blk) * Hkv + h) * Sw + w) * D + d;
     const size_t src = static_cast<size_t>(i) * row + e;
     k[dst] = (k[dst] & keep) | ((static_cast<uint32_t>(kq[src]) & 0xffu) << sh);
     v[dst] = (v[dst] & keep) | ((static_cast<uint32_t>(vq[src]) & 0xffu) << sh);
   }
   for (int h = threadIdx.x; h < Hkv; h += blockDim.x) {
-    const size_t dst = ((static_cast<size_t>(i) * 4 + j) * Hkv + h) * Sw + w;
+    const size_t dst = ((static_cast<size_t>(blk) * 4 + j) * Hkv + h) * Sw + w;
     ks[dst] = ks_new[i * Hkv + h];
     vs[dst] = vs_new[i * Hkv + h];
   }
+}
+
+template <bool PAGED>
+int append_packed(void* k, void* v, void* ks, void* vs, const void* kq, const void* vq,
+                  const void* ks_new, const void* vs_new, const void* positions,
+                  const void* table, int P, int n_pages, int B, int Hkv, int Sw, int D,
+                  void* stream) {
+  if (B == 0) return 0;
+  kv_append_packed_kernel<PAGED><<<B, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint32_t*>(k), static_cast<uint32_t*>(v), static_cast<uint16_t*>(ks),
+      static_cast<uint16_t*>(vs), static_cast<const int*>(kq), static_cast<const int*>(vq),
+      static_cast<const uint16_t*>(ks_new), static_cast<const uint16_t*>(vs_new),
+      static_cast<const int*>(positions), static_cast<const int*>(table), P, n_pages, B, Hkv,
+      Sw, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool PAGED>
+int append(void* k, void* v, const void* k_new, const void* v_new, const void* positions,
+           const void* table, int P, int n_pages, int B, int Hkv, int S, int D, void* stream) {
+  if (B == 0) return 0;
+  kv_append_kernel<PAGED><<<B, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint16_t*>(k), static_cast<uint16_t*>(v),
+      static_cast<const uint16_t*>(k_new), static_cast<const uint16_t*>(v_new),
+      static_cast<const int*>(positions), static_cast<const int*>(table), P, n_pages, B, Hkv,
+      S, D);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -83,22 +144,31 @@ extern "C" int xb_kv_append_packed(void* k, void* v, void* ks, void* vs, const v
                                    const void* vq, const void* ks_new, const void* vs_new,
                                    const void* positions, int B, int Hkv, int Sw, int D,
                                    void* stream) {
-  if (B == 0) return 0;
-  kv_append_packed_kernel<<<B, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(k), static_cast<uint32_t*>(v), static_cast<uint16_t*>(ks),
-      static_cast<uint16_t*>(vs), static_cast<const int*>(kq), static_cast<const int*>(vq),
-      static_cast<const uint16_t*>(ks_new), static_cast<const uint16_t*>(vs_new),
-      static_cast<const int*>(positions), B, Hkv, Sw, D);
-  return static_cast<int>(cudaGetLastError());
+  return append_packed<false>(k, v, ks, vs, kq, vq, ks_new, vs_new, positions, nullptr, 0, 0,
+                              B, Hkv, Sw, D, stream);
 }
 
 extern "C" int xb_kv_append(void* k, void* v, const void* k_new, const void* v_new,
                             const void* positions, int B, int Hkv, int S, int D,
                             void* stream) {
-  if (B == 0) return 0;
-  kv_append_kernel<<<B, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint16_t*>(k), static_cast<uint16_t*>(v),
-      static_cast<const uint16_t*>(k_new), static_cast<const uint16_t*>(v_new),
-      static_cast<const int*>(positions), B, Hkv, S, D);
-  return static_cast<int>(cudaGetLastError());
+  return append<false>(k, v, k_new, v_new, positions, nullptr, 0, 0, B, Hkv, S, D, stream);
+}
+
+// The paged forms: k/v (and ks/vs) are the pools of one layer, table int
+// [B, P], pszw / psz the word rows / rows of a page.
+extern "C" int xb_kv_append_packed_paged(void* k, void* v, void* ks, void* vs, const void* kq,
+                                         const void* vq, const void* ks_new,
+                                         const void* vs_new, const void* positions,
+                                         const void* table, int P, int n_pages, int B, int Hkv,
+                                         int pszw, int D, void* stream) {
+  if (P <= 0 || n_pages <= 0 || pszw <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return append_packed<true>(k, v, ks, vs, kq, vq, ks_new, vs_new, positions, table, P,
+                             n_pages, B, Hkv, pszw, D, stream);
+}
+
+extern "C" int xb_kv_append_paged(void* k, void* v, const void* k_new, const void* v_new,
+                                  const void* positions, const void* table, int P,
+                                  int n_pages, int B, int Hkv, int psz, int D, void* stream) {
+  if (P <= 0 || n_pages <= 0 || psz <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return append<true>(k, v, k_new, v_new, positions, table, P, n_pages, B, Hkv, psz, D, stream);
 }

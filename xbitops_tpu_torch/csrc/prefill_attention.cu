@@ -43,6 +43,20 @@
 // lies outside [0, S) is padding: it sees nothing and its output is exactly
 // 0.  A tile of nothing but padding reads no cache row.  T need not be a
 // multiple of the q-tile.
+//
+// The paged form (entry xb_prefill_attention_paged): k/v are page pools
+// [n_pages, Hkv, psz, D] (int8: words [n_pages, Hkv, psz/4, D], scales
+// [n_pages, 4, Hkv, psz/4]) and position p of slot b lies in pool page
+// table[b, p / psz] at row p % psz.  The JAX package has no such kernel: with
+// a table it gathers a slot's pages into one context per layer and attends
+// eagerly.  Here the lookup is in the tile load: a key tile of 32 positions
+// may cross pages (page_size 16), so each thread finds the page of the row
+// (int8: of the word, which never crosses a page) it loads, one division and
+// one table read per 16-byte load (a shift when the page size is a power of
+// two, as the usual 16 to 256 are); the rest of the kernel sees the same
+// shared-memory tile.  The linear cache is the case of one page of S rows per
+// slot.  A table entry is clamped into [0, n_pages) before use: rows of a page
+// that was never given are never visible to a live query, and nothing faults.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -118,18 +132,38 @@ __device__ __forceinline__ void unpack_byte(const uint32_t (&w)[4], int j, uint3
   out[1] = pack_bf16(f[2], f[3]);
 }
 
+// The block of `rows` rows that holds row `r` of a slot, and the row inside
+// it.  Linear: the slot's own block.  Paged: page table_row[r / rows], clamped;
+// shift >= 0 says rows == 1 << shift.
+template <bool PAGED>
+__device__ __forceinline__ size_t find_block(int r, int slot, int rows, int shift,
+                                             const int* __restrict__ table_row, int n_pages,
+                                             int* in_block) {
+  if constexpr (PAGED) {
+    const int pi = shift >= 0 ? r >> shift : r / rows;
+    *in_block = r - pi * rows;
+    return static_cast<size_t>(min(max(table_row[pi], 0), n_pages - 1));
+  } else {
+    *in_block = r;
+    return static_cast<size_t>(slot);
+  }
+}
+
 // DPL: D / 32.  INT8: k/v are packed words and ks/vs their scales; otherwise
-// k/v are bf16 rows and ks/vs are unused.
-template <int DPL, bool INT8>
+// k/v are bf16 rows and ks/vs are unused.  PAGED: k/v (and ks/vs) are pools of
+// pages of psz positions found through table [B, S / psz]; otherwise psz == S.
+template <int DPL, bool INT8, bool PAGED>
 __global__ void __launch_bounds__(kWarps * 32)
 prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
                          const void* __restrict__ k_raw, const void* __restrict__ v_raw,
                          const __nv_bfloat16* __restrict__ ks,
                          const __nv_bfloat16* __restrict__ vs,
                          const int* __restrict__ positions,
-                         const int* __restrict__ slot_ids,
+                         const int* __restrict__ slot_ids, const int* __restrict__ table,
                          __nv_bfloat16* __restrict__ out, int T, int H, int Hkv, int B,
-                         int S, int window, float scale) {
+                         int S, int psz, int n_pages, int window, float scale) {
+  // log2 of the page size where it is a power of two (int8: of 4 or more), else -1
+  const int psz_shift = PAGED && (psz & (psz - 1)) == 0 ? __ffs(psz) - 1 : -1;
   constexpr int D = DPL * 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw);
@@ -138,6 +172,7 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int hk = h / (H / Hkv);
   const int slot = min(max(slot_ids[n], 0), B - 1);
+  const int* table_row = PAGED ? table + static_cast<size_t>(slot) * (S / psz) : nullptr;
 
   if (tid == 0) {
     sm.hi = -1;
@@ -189,13 +224,12 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
 #pragma unroll
     for (int e = 0; e < DPL; ++e) o[r][e] = 0.f;
 
-  const int Sw = S / 4;
+  const int Sw = S / 4, pszw = psz / 4;
   for (int kb = hi >= 0 ? (lo / kBK) * kBK : 0; kb <= hi; kb += kBK) {
     __syncthreads();  // the tile of the step before has been used
     if constexpr (INT8) {
       const uint32_t* kw = static_cast<const uint32_t*>(k_raw);
       const uint32_t* vw = static_cast<const uint32_t*>(v_raw);
-      const size_t head = (static_cast<size_t>(slot) * Hkv + hk) * Sw;
       for (int idx = tid; idx < (kBK / 4) * (D / 4); idx += kWarps * 32) {
         const int wr = idx / (D / 4), c = idx - wr * (D / 4);
         const int w = kb / 4 + wr;
@@ -203,8 +237,12 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
         uint32_t a[4] = {0x80808080u, 0x80808080u, 0x80808080u, 0x80808080u};
         uint32_t b[4] = {0x80808080u, 0x80808080u, 0x80808080u, 0x80808080u};
         if (w < Sw) {
-          load_words<4>(kw + (head + w) * D + c * 4, a);
-          load_words<4>(vw + (head + w) * D + c * 4, b);
+          int wi;
+          const size_t blk =
+              find_block<PAGED>(w, slot, pszw, psz_shift - 2, table_row, n_pages, &wi);
+          const size_t at = ((blk * Hkv + hk) * pszw + wi) * D + c * 4;
+          load_words<4>(kw + at, a);
+          load_words<4>(vw + at, b);
         }
 #pragma unroll
         for (int jj = 0; jj < 4; ++jj) {
@@ -219,8 +257,10 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
         const int s = kb + tid;
         float a = 0.f, b = 0.f;
         if (s < S) {
-          // scales[b, j, h, w] of position 4w + j
-          const size_t at = ((static_cast<size_t>(slot) * 4 + (s & 3)) * Hkv + hk) * Sw + (s >> 2);
+          // scales[blk, j, h, w] of position 4w + j of the block
+          int si;
+          const size_t blk = find_block<PAGED>(s, slot, psz, psz_shift, table_row, n_pages, &si);
+          const size_t at = ((blk * 4 + (si & 3)) * Hkv + hk) * pszw + (si >> 2);
           a = __bfloat162float(ks[at]);
           b = __bfloat162float(vs[at]);
         }
@@ -230,13 +270,15 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
     } else {
       const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(k_raw);
       const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(v_raw);
-      const size_t head = (static_cast<size_t>(slot) * Hkv + hk) * S;
       for (int idx = tid; idx < kBK * (D / 8); idx += kWarps * 32) {
         const int r = idx / (D / 8), c = idx - r * (D / 8);
         uint32_t a[4] = {0u, 0u, 0u, 0u}, b[4] = {0u, 0u, 0u, 0u};
         if (kb + r < S) {
-          load_words<4>(kp + (head + kb + r) * D + c * 8, a);
-          load_words<4>(vp + (head + kb + r) * D + c * 8, b);
+          int ri;
+          const size_t blk = find_block<PAGED>(kb + r, slot, psz, psz_shift, table_row, n_pages, &ri);
+          const size_t at = ((blk * Hkv + hk) * psz + ri) * D + c * 8;
+          load_words<4>(kp + at, a);
+          load_words<4>(vp + at, b);
         }
         store_words<4>(&sm.k[r][c * 8], a);
         store_words<4>(&sm.v[r][c * 8], b);
@@ -363,12 +405,13 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int DPL, bool INT8>
+template <int DPL, bool INT8, bool PAGED>
 int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
-           const void* positions, const void* slot_ids, void* out, int N, int T, int H,
-           int Hkv, int B, int S, int window, float scale, cudaStream_t st) {
+           const void* positions, const void* slot_ids, const void* table, void* out, int N,
+           int T, int H, int Hkv, int B, int S, int psz, int n_pages, int window, float scale,
+           cudaStream_t st) {
   constexpr int D = DPL * 32;
-  auto kernel = prefill_attention_kernel<DPL, INT8>;
+  auto kernel = prefill_attention_kernel<DPL, INT8, PAGED>;
   // above 48 KB shared memory is dynamic and has to be asked for
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(sizeof(Smem<D>)));
@@ -377,28 +420,31 @@ int launch(const void* q, const void* k, const void* v, const void* ks, const vo
   kernel<<<grid, kWarps * 32, sizeof(Smem<D>), st>>>(
       static_cast<const __nv_bfloat16*>(q), k, v, static_cast<const __nv_bfloat16*>(ks),
       static_cast<const __nv_bfloat16*>(vs), static_cast<const int*>(positions),
-      static_cast<const int*>(slot_ids), static_cast<__nv_bfloat16*>(out), T, H, Hkv, B, S,
-      window, scale);
+      static_cast<const int*>(slot_ids), static_cast<const int*>(table),
+      static_cast<__nv_bfloat16*>(out), T, H, Hkv, B, S, psz, n_pages, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool INT8>
+template <bool INT8, bool PAGED>
 int dispatch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
-             const void* positions, const void* slot_ids, void* out, int N, int T, int H,
-             int Hkv, int B, int S, int D, int window, float scale, void* stream) {
+             const void* positions, const void* slot_ids, const void* table, void* out, int N,
+             int T, int H, int Hkv, int B, int S, int psz, int n_pages, int D, int window,
+             float scale, void* stream) {
   if (N == 0 || T == 0) return 0;
   if (H % Hkv || (INT8 && S % 4)) return static_cast<int>(cudaErrorInvalidValue);
+  if (PAGED && (psz <= 0 || n_pages <= 0 || S % psz || (INT8 && psz % 4)))
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch<2, INT8>(q, k, v, ks, vs, positions, slot_ids, out, N, T, H, Hkv, B, S,
-                             window, scale, st);
+      return launch<2, INT8, PAGED>(q, k, v, ks, vs, positions, slot_ids, table, out, N, T, H,
+                                    Hkv, B, S, psz, n_pages, window, scale, st);
     case 128:
-      return launch<4, INT8>(q, k, v, ks, vs, positions, slot_ids, out, N, T, H, Hkv, B, S,
-                             window, scale, st);
+      return launch<4, INT8, PAGED>(q, k, v, ks, vs, positions, slot_ids, table, out, N, T, H,
+                                    Hkv, B, S, psz, n_pages, window, scale, st);
     case 256:
-      return launch<8, INT8>(q, k, v, ks, vs, positions, slot_ids, out, N, T, H, Hkv, B, S,
-                             window, scale, st);
+      return launch<8, INT8, PAGED>(q, k, v, ks, vs, positions, slot_ids, table, out, N, T, H,
+                                    Hkv, B, S, psz, n_pages, window, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -416,8 +462,24 @@ extern "C" int xb_prefill_attention(const void* q, const void* k, const void* v,
                                     int Hkv, int B, int S, int D, int window, float scale,
                                     void* stream) {
   if (ks != nullptr)
-    return dispatch<true>(q, k, v, ks, vs, positions, slot_ids, out, N, T, H, Hkv, B, S, D,
-                          window, scale, stream);
-  return dispatch<false>(q, k, v, ks, vs, positions, slot_ids, out, N, T, H, Hkv, B, S, D,
-                         window, scale, stream);
+    return dispatch<true, false>(q, k, v, ks, vs, positions, slot_ids, nullptr, out, N, T, H,
+                                 Hkv, B, S, S, B, D, window, scale, stream);
+  return dispatch<false, false>(q, k, v, ks, vs, positions, slot_ids, nullptr, out, N, T, H,
+                                Hkv, B, S, S, B, D, window, scale, stream);
+}
+
+// The paged form: k/v are pools [n_pages, Hkv, psz, D] bf16, or with ks/vs
+// word pools [n_pages, Hkv, psz/4, D] and scale pools [n_pages, 4, Hkv, psz/4];
+// table int [B, P], slot_ids choose its rows; a slot holds P * psz positions.
+extern "C" int xb_prefill_attention_paged(const void* q, const void* k, const void* v,
+                                          const void* ks, const void* vs,
+                                          const void* positions, const void* slot_ids,
+                                          const void* table, void* out, int N, int T, int H,
+                                          int Hkv, int B, int P, int psz, int n_pages, int D,
+                                          int window, float scale, void* stream) {
+  if (ks != nullptr)
+    return dispatch<true, true>(q, k, v, ks, vs, positions, slot_ids, table, out, N, T, H, Hkv,
+                                B, P * psz, psz, n_pages, D, window, scale, stream);
+  return dispatch<false, true>(q, k, v, ks, vs, positions, slot_ids, table, out, N, T, H, Hkv,
+                               B, P * psz, psz, n_pages, D, window, scale, stream);
 }

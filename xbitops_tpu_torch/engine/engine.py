@@ -9,12 +9,17 @@
 - decode in bursts of ``decode_burst`` steps over all slots with an ``active``
   mask; tokens stay on the device within a burst and are read back once;
 - finished slots refill from the queue without draining the batch;
-- per-request temperature, eos and max_new_tokens; engine-level top-k/top-p.
+- per-request temperature, eos and max_new_tokens; engine-level top-k/top-p;
+- ``paged=True``: the KV cache is a pool of pages shared by the slots.  A host
+  allocator gives a slot the pages its prompt needs at admission and the
+  pages of its next burst before each burst, and takes them back when the
+  request finishes; a request waits while the pool cannot back its prompt,
+  and a slot the pool cannot serve sits a burst out.
 
 PyTorch runs eagerly, so there is nothing to compile or donate: the KV cache
 (bf16, or packed int8 with ``kv_quant``) is one set of tensors updated in
-place.  Not ported yet: paged KV, speculative decoding, pipelined bursts,
-meshes and failure restarts.
+place.  Not ported yet: speculative decoding, pipelined bursts, meshes and
+failure restarts.
 """
 
 from __future__ import annotations
@@ -83,6 +88,8 @@ class Engine:
         kv_quant: Optional[bool] = None,
         spec_tokens: int = 0,
         paged: bool = False,
+        pool_pages: Optional[int] = None,
+        page_size: int = 256,
         pipeline: int = 0,
         mesh=None,
         draft_params=None,
@@ -92,9 +99,16 @@ class Engine:
         None picks int8 for long contexts (``max_seq_len >=
         AUTO_KV_QUANT_MIN_S``) where the cache allows it.  ``prefill_chunk``:
         the longest bucket, and the chunk length for longer prompts.
-        ``seed`` seeds the engine's ``torch.Generator`` for sampled rows."""
+        ``seed`` seeds the engine's ``torch.Generator`` for sampled rows.
+
+        ``paged=True`` keeps the KV cache as a shared pool of ``pool_pages``
+        pages of ``page_size`` positions with a page table per slot, so the
+        slots together hold ``pool_pages * page_size`` positions instead of
+        ``slots * max_seq_len``; ``pool_pages`` defaults to the pages that
+        would be, ``slots * max_seq_len // page_size``.  ``page_size=256`` is
+        the JAX package's default."""
         unported = dict(
-            spec_tokens=spec_tokens > 0, paged=paged,
+            spec_tokens=spec_tokens > 0,
             pipeline=bool(pipeline), mesh=mesh is not None,
             draft_params=draft_params is not None, max_restarts=max_restarts > 0,
         )
@@ -130,10 +144,60 @@ class Engine:
         self.top_k, self.top_p = top_k, top_p
         self.device = model.device
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
-        self.cache = llama.KVCache.init(cfg, slots, self.device, dtype=cache_dtype,
-                                        quantized=self.kv_quant)
+        self.paged = paged
+        if paged:
+            if self.kv_quant and page_size % 4:
+                raise ValueError("paged int8 KV needs page_size % 4 == 0")
+            if not cfg.flash_decode or cfg.head_dim % 128:
+                raise ValueError("paged KV requires the flash decode kernel")
+            if cfg.max_seq_len % page_size:
+                raise ValueError("max_seq_len must be a multiple of page_size")
+            self.page_size = page_size
+            n_pages = pool_pages or slots * (cfg.max_seq_len // page_size)
+            self.cache = llama.KVCache.init_paged(
+                cfg, slots, n_pages, page_size, device=self.device, dtype=cache_dtype,
+                quantized=self.kv_quant)
+            self._free_pages = list(range(n_pages))
+            self._slot_pages: List[List[int]] = [[] for _ in range(slots)]
+            # the table lives on the host; the card's copy follows when it changed
+            self._table = np.full((slots, cfg.max_seq_len // page_size), -1, np.int32)
+            self._table_changed = False
+        else:
+            self.cache = llama.KVCache.init(cfg, slots, self.device, dtype=cache_dtype,
+                                            quantized=self.kv_quant)
         self._next_id = 0
         self.loop_stats = defaultdict(float)
+
+    # --- the page allocator (host side) ---
+
+    def _pages_for(self, b: int, upto: int) -> bool:
+        """Give slot ``b`` the pages that cover positions [0, upto); False if
+        the pool cannot right now (the caller lets the slot wait)."""
+        need = min(-(-upto // self.page_size), self._table.shape[1])  # capacity caps the rest
+        have = len(self._slot_pages[b])
+        if need - have > len(self._free_pages):
+            return False
+        for i in range(have, need):
+            p = self._free_pages.pop()
+            self._table[b, i] = p
+            self._slot_pages[b].append(p)
+            self._table_changed = True
+        return True
+
+    def _release_pages(self, b: int) -> None:
+        if self._slot_pages[b]:
+            self._table_changed = True
+        self._free_pages.extend(self._slot_pages[b])
+        self._slot_pages[b] = []
+        self._table[b, :] = -1
+
+    def _push_table(self) -> None:
+        """Copy the table to the card if the allocator changed it.  The copy is
+        queued behind the forwards already on the stream and the host does not
+        wait for it."""
+        if self._table_changed:
+            self.cache.page_table.copy_(torch.from_numpy(self._table), non_blocking=True)
+            self._table_changed = False
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets:
@@ -179,6 +243,8 @@ class Engine:
             slot_req[b] = None
             slot_gen[b] = []
             active[b] = False
+            if self.paged:
+                self._release_pages(b)
 
         def accept(b: int, tok: int) -> None:
             r = slot_req[b]
@@ -210,9 +276,21 @@ class Engine:
             admit, longs = [], []
             for b in range(self.slots):
                 if not active[b] and pending:
+                    # paged: a request is admitted only if the pool can back its
+                    # whole prompt and one more; else it waits for pages
+                    if self.paged and not self._pages_for(b, len(pending[0].prompt) + 1):
+                        lt["admission_waits"] += 1
+                        break
                     r = pending.popleft()
                     (admit if len(r.prompt) <= self.buckets[-1] else longs).append(
                         (b, r, list(r.prompt)))
+            if self.paged:
+                if pending and not (admit or longs) and not active.any():
+                    need = -(-(len(pending[0].prompt) + 1) // self.page_size)
+                    raise RuntimeError(
+                        f"paged KV pool too small: request needs {need} pages, pool has "
+                        f"{len(self._free_pages)} free and nothing running to release more")
+                self._push_table()
 
             if longs:
                 # every long prompt advances one chunk per forward; a row whose
@@ -270,6 +348,17 @@ class Engine:
 
             t_mark = time.perf_counter()
             step_active = active.copy()
+            if self.paged:
+                # a slot about to write needs the pages of this burst's positions;
+                # one the pool cannot serve sits the burst out and resumes later
+                for b in range(self.slots):
+                    if active[b] and not self._pages_for(
+                            b, min(int(slot_len[b]) + self.decode_burst, S)):
+                        step_active[b] = False
+                        lt["deferred_slot_steps"] += self.decode_burst
+                if not step_active.any():
+                    raise RuntimeError("paged KV pool exhausted: every active slot is blocked")
+                self._push_table()
             act_dev = torch.from_numpy(step_active).to(dev)
             temps_dev = torch.from_numpy(temps).to(dev)
             greedy = not (temps[step_active] > 0).any()
@@ -289,4 +378,6 @@ class Engine:
                         lt["decode_tokens"] += 1
                 if not active.any():
                     break  # the rest of the burst is garbage for every slot
+        if self.paged:
+            self._push_table()  # every page is back: the card's table says so too
         return sorted(done, key=lambda c: c.id)

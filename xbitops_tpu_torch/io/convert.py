@@ -100,16 +100,23 @@ def params_from_numpy(params: dict, cfg: LlamaConfig, device) -> Llama:
 
 
 def kvcache_from_numpy(cache: Any, device) -> KVCache:
-    """The JAX package's dense ``KVCache`` (numpy leaves, any object with its
-    fields) -> the port's, bf16 or packed int8: both keep the same layout, so
-    a request can prefill in one package and decode in the other."""
-    if getattr(cache, "page_table", None) is not None:
-        raise NotImplementedError("the paged KV cache is not ported yet")
+    """The JAX package's ``KVCache`` (numpy leaves, any object with its
+    fields) -> the port's, bf16 or packed int8, linear or paged (pools, scale
+    pools and page table): both keep the same layout, so a request can prefill
+    in one package and decode in the other."""
     quantized = cache.k_scale is not None
+    table = getattr(cache, "page_table", None)
+    if table is not None:
+        table = np.asarray(table)
+        slots, n_pages = cache.lengths.shape[0], cache.k.shape[1]
+        if table.ndim != 2 or table.shape[0] != slots or table.max(initial=-1) >= n_pages:
+            raise ValueError(f"page_table {table.shape} does not fit a cache of {slots} slots "
+                             f"and {n_pages} pool pages")
     return KVCache(
         k=_tensor(cache.k, device),
         v=_tensor(cache.v, device),
         lengths=_tensor(cache.lengths, device).to(torch.int32),
         k_scale=_tensor(cache.k_scale, device) if quantized else None,
         v_scale=_tensor(cache.v_scale, device) if quantized else None,
+        page_table=None if table is None else _tensor(table, device).to(torch.int32),
     )

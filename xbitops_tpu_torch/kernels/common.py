@@ -39,7 +39,8 @@ NVCC_FLAGS = [
 # can show that the main path went through the kernels.
 KERNELS = ("qgemv", "kv_append", "decode_attention", "prefill_attention",
            "kv_append_packed", "decode_attention_int8", "dequant", "qgemv_a8",
-           "qgemv_a8_perchannel")
+           "qgemv_a8_perchannel", "kv_append_paged", "kv_append_packed_paged",
+           "decode_attention_paged", "decode_attention_int8_paged", "prefill_attention_paged")
 launches = dict.fromkeys(KERNELS, 0)
 plain_on_cuda = dict.fromkeys(KERNELS, 0)
 
@@ -67,6 +68,11 @@ _SIGNATURES = {
                             _I, _I, _I, _I, _I, ctypes.c_float, _VP],
     "xb_decode_attention_int8": [_VP] * 10 + [_I] * 8 + [ctypes.c_float, _VP],
     "xb_prefill_attention": [_VP] * 8 + [_I] * 8 + [ctypes.c_float, _VP],
+    "xb_kv_append_paged": [_VP] * 6 + [_I] * 6 + [_VP],
+    "xb_kv_append_packed_paged": [_VP] * 10 + [_I] * 6 + [_VP],
+    "xb_decode_attention_paged": [_VP] * 9 + [_I] * 10 + [ctypes.c_float, _VP],
+    "xb_decode_attention_int8_paged": [_VP] * 11 + [_I] * 10 + [ctypes.c_float, _VP],
+    "xb_prefill_attention_paged": [_VP] * 9 + [_I] * 10 + [ctypes.c_float, _VP],
     "xb_dequant": [_I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP, _I, _I, _I, _I, _VP, _I, _VP],
     "xb_qgemv_a8": [_VP, _I, _I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP, _I, _I, _I, _I,
                     _I, _VP, _VP],

@@ -12,11 +12,20 @@ The packed int8 cache: words ``[L, B, Hkv, S/4, D]`` int32, byte ``j`` of word
 ``scales[l, b, j, h, w]`` the scale of position ``4w + j``.  The helpers that
 quantize, pack and unpack that layout are here too (plain PyTorch, as the JAX
 package left them to XLA).
+
+The paged cache: k/v are page pools ``[L, n_pages, Hkv, psz, D]`` bf16 (int8:
+words ``[L, n_pages, Hkv, psz/4, D]`` and scale pools
+``[L, n_pages, 4, Hkv, psz/4]``) shared by the slots, and ``page_table`` int32
+``[B, P]`` gives the pool page of each slot's page (-1: none).  Position ``p``
+of slot ``b`` lies in page ``page_table[b, p // psz]`` at row ``p % psz``.  With
+``page_table`` the two appends write there (the JAX package left these writes
+to XLA scatters, ``models/llama.py:_paged_word``); a position without a page
+writes nothing.
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -59,10 +68,11 @@ def _unpack_kv_words(words: torch.Tensor, scales: torch.Tensor) -> torch.Tensor:
     return deq.reshape(*words.shape[:-2], -1, words.shape[-1])
 
 
-def stacked_view(k, v, k_scale, v_scale, layer_idx, window):
+def stacked_view(k, v, k_scale, v_scale, layer_idx, window, page_table=None):
     """What the attention entries share: a flat cache gets a leading layer
     axis of 1, and a window is checked and dropped when it covers the whole
-    cache.  Returns ``(k_all, v_all, ks_all, vs_all, layer, window)``."""
+    cache (for a pool: a slot's ``P * psz`` positions).  Returns
+    ``(k_all, v_all, ks_all, vs_all, layer, window)``."""
     int8 = k_scale is not None
     if int8 != (v_scale is not None):
         raise ValueError("k_scale and v_scale go together")
@@ -73,7 +83,8 @@ def stacked_view(k, v, k_scale, v_scale, layer_idx, window):
     if window is not None:
         if window < 1:
             raise ValueError("sliding window must be >= 1")
-        if window >= k.shape[3] * (4 if int8 else 1):
+        pages = 1 if page_table is None else page_table.shape[1]
+        if window >= pages * k.shape[3] * (4 if int8 else 1):
             window = None
     return k, v, k_scale, v_scale, layer_idx or 0, window
 
@@ -98,15 +109,62 @@ def check_cache(k_all, v_all, ks_all=None, vs_all=None):
     return L, B, Hkv, rows * (4 if int8 else 1), D
 
 
+def check_pool(k_all, v_all, page_table, ks_all=None, vs_all=None):
+    """:func:`check_cache` for a stacked page pool and its table; returns
+    ``(L, n_pages, Hkv, psz, D, B, P)`` with psz in positions."""
+    L, n_pages, Hkv, psz, D = check_cache(k_all, v_all, ks_all, vs_all)
+    common.require(
+        page_table.dim() == 2 and page_table.dtype == torch.int32 and page_table.is_contiguous()
+        and page_table.device == k_all.device and page_table.shape[1] >= 1 and n_pages >= 1,
+        "page_table: contiguous int32 [B, P] on the pool's device")
+    return L, n_pages, Hkv, psz, D, page_table.shape[0], page_table.shape[1]
+
+
+def paged_rows(page_table, slots, pos, psz: int, n_pages: int):
+    """Where positions ``pos`` (int [n] or [n, T]) of table rows ``slots``
+    [n] lie in a pool of ``n_pages`` pages of ``psz`` positions: ``(ok, page,
+    row)``, each shaped like ``pos``.  ``ok`` is False where the slot is out of
+    range, the position outside ``[0, P * psz)`` or the slot has no page there;
+    ``page`` and ``row`` are in range everywhere, so they may index before
+    ``ok`` selects."""
+    B, P = page_table.shape
+    slots, pos = slots.long(), pos.long()
+    if pos.dim() == 2:
+        slots = slots[:, None].expand_as(pos)
+    ok = (slots >= 0) & (slots < B) & (pos >= 0) & (pos < P * psz)
+    page = page_table[slots.clamp(0, B - 1), (pos // psz).clamp(0, P - 1)].long()
+    ok &= (page >= 0) & (page < n_pages)
+    return ok, page.clamp(0, n_pages - 1), pos.clamp(min=0) % psz
+
+
+def gather_pages(pool, page_table, scales: bool = False):
+    """A slot's pages side by side, as the linear cache would hold them: one
+    layer's pool ``[n_pages, Hkv, R, D]`` -> ``[n, Hkv, P * R, D]`` for the
+    table rows ``page_table`` [n, P], or with ``scales`` a scale pool
+    ``[n_pages, 4, Hkv, R]`` -> ``[n, 4, Hkv, P * R]``.  An entry outside
+    ``[0, n_pages)`` (-1: no page) reads page 0 or the last one; such rows lie
+    past the slot's length."""
+    got = pool[page_table.long().clamp(0, pool.shape[0] - 1)]  # [n, P, ...]
+    n = got.shape[0]
+    if scales:
+        return got.movedim(1, 3).reshape(n, 4, pool.shape[2], -1)
+    return got.movedim(1, 2).reshape(n, pool.shape[1], -1, pool.shape[3])
+
+
 def kv_append_dense_reference(
-    k_all, v_all, k_new, v_new, positions, layer: int
+    k_all, v_all, k_new, v_new, positions, layer: int, page_table=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`kv_append_dense` (in place, same guards)."""
-    common.count_plain("kv_append", k_all)
+    common.count_plain("kv_append" if page_table is None else "kv_append_paged", k_all)
     L, B, Hkv, S, D = k_all.shape
     pos = positions.long()
-    ok = (pos >= 0) & (pos < S)
-    slot, pos = torch.arange(B, device=k_all.device)[ok], pos[ok]
+    if page_table is None:
+        ok = (pos >= 0) & (pos < S)
+        slot = torch.arange(B, device=k_all.device)
+    else:  # B counts pages and S the positions of one
+        ok, slot, pos = paged_rows(page_table, torch.arange(pos.shape[0], device=pos.device),
+                                   pos, S, B)
+    slot, pos = slot[ok], pos[ok]
     h = torch.arange(Hkv, device=k_all.device)
     idx = (slot[:, None], h[None, :], pos[:, None])
     k_all[layer].index_put_(idx, k_new[ok].to(k_all.dtype))
@@ -121,17 +179,24 @@ def kv_append_dense(
     v_new: torch.Tensor,
     positions: torch.Tensor,  # int [B]; outside [0, S) writes nothing
     layer: int,
+    page_table: Optional[torch.Tensor] = None,  # int32 [B, P]: k/v are page pools
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Write row ``positions[b]`` of slot ``b`` in layer ``layer``, in place;
     returns ``(k_all, v_all)``.  Slots whose position lies outside ``[0, S)``
-    write nothing.
+    write nothing.  With ``page_table``, k/v are pools
+    ``[L, n_pages, Hkv, psz, D]`` and the row goes to page
+    ``page_table[b, pos // psz]``; a slot with no page there writes nothing.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     or raises."""
     if not k_all.is_cuda:
-        return kv_append_dense_reference(k_all, v_all, k_new, v_new, positions, layer)
+        return kv_append_dense_reference(k_all, v_all, k_new, v_new, positions, layer,
+                                         page_table)
     req = common.require
-    L, B, Hkv, S, D = check_cache(k_all, v_all)
+    if page_table is None:
+        L, B, Hkv, S, D = check_cache(k_all, v_all)
+    else:
+        L, n_pages, Hkv, psz, D, B, P = check_pool(k_all, v_all, page_table)
     req(0 <= layer < L, f"layer {layer} outside [0, {L})")
     for t in (k_new, v_new):
         req(t.shape == (B, Hkv, D) and t.device == k_all.device,
@@ -140,25 +205,35 @@ def kv_append_dense(
     k_new = k_new.to(torch.bfloat16).contiguous()
     v_new = v_new.to(torch.bfloat16).contiguous()
     pos = positions.to(device=k_all.device, dtype=torch.int32).contiguous()
-    err = common.lib().xb_kv_append(
-        k_all[layer].data_ptr(), v_all[layer].data_ptr(),
-        k_new.data_ptr(), v_new.data_ptr(), pos.data_ptr(), B, Hkv, S, D,
-        common.stream_ptr(k_all),
-    )
-    common.check(err, "kv_append")
-    common.launches["kv_append"] += 1
+    head = (k_all[layer].data_ptr(), v_all[layer].data_ptr(), k_new.data_ptr(),
+            v_new.data_ptr(), pos.data_ptr())
+    if page_table is None:
+        name = "kv_append"
+        err = common.lib().xb_kv_append(*head, B, Hkv, S, D, common.stream_ptr(k_all))
+    else:
+        name = "kv_append_paged"
+        err = common.lib().xb_kv_append_paged(
+            *head, page_table.data_ptr(), P, n_pages, B, Hkv, psz, D, common.stream_ptr(k_all))
+    common.check(err, name)
+    common.launches[name] += 1
     return k_all, v_all
 
 
-def _rmw_packed(k_all, v_all, ks_all, vs_all, kq, vq, ks, vs, positions, layer, slots=None):
+def _rmw_packed(k_all, v_all, ks_all, vs_all, kq, vq, ks, vs, positions, layer, slots=None,
+                page_table=None):
     """Read-modify-write byte ``pos % 4`` of word ``pos // 4`` and set the
     scale of that position, for each new row: row i goes to slot ``slots[i]``
-    (default i).  Rows whose slot or position is out of range write nothing."""
+    (default i), or with ``page_table`` to that slot's page of the pools.
+    Rows whose slot or position is out of range, or that have no page, write
+    nothing."""
     L, B, Hkv, Sw, D = k_all.shape
     dev = k_all.device
     pos = positions.long()
     slot = torch.arange(pos.shape[0], device=dev) if slots is None else slots.long()
-    ok = (pos >= 0) & (pos < Sw * 4) & (slot >= 0) & (slot < B)
+    if page_table is None:
+        ok = (pos >= 0) & (pos < Sw * 4) & (slot >= 0) & (slot < B)
+    else:  # B counts pages and Sw the words of one
+        ok, slot, pos = paged_rows(page_table, slot, pos, Sw * 4, B)
     slot, pos = slot[ok], pos[ok]
     h = torch.arange(Hkv, device=dev)
     idx = (slot[:, None], h[None, :], (pos // 4)[:, None])
@@ -174,10 +249,12 @@ def _rmw_packed(k_all, v_all, ks_all, vs_all, kq, vq, ks, vs, positions, layer, 
 
 
 def kv_append_packed_reference(k_all, v_all, ks_all, vs_all, kq, vq, ks, vs, positions,
-                               layer: int):
+                               layer: int, page_table=None):
     """Plain version of :func:`kv_append_packed` (in place, same guards)."""
-    common.count_plain("kv_append_packed", k_all)
-    return _rmw_packed(k_all, v_all, ks_all, vs_all, kq, vq, ks, vs, positions, layer)
+    common.count_plain(
+        "kv_append_packed" if page_table is None else "kv_append_packed_paged", k_all)
+    return _rmw_packed(k_all, v_all, ks_all, vs_all, kq, vq, ks, vs, positions, layer,
+                       page_table=page_table)
 
 
 def kv_append_packed(
@@ -191,18 +268,25 @@ def kv_append_packed(
     vs: torch.Tensor,
     positions: torch.Tensor,  # int [B]; outside [0, S) writes nothing
     layer: int,
+    page_table: Optional[torch.Tensor] = None,  # int32 [B, P]: the four are page pools
 ):
     """Write position ``positions[b]`` of slot ``b`` in layer ``layer`` of the
     packed int8 cache, in place: one byte of each (head, dim) word, the other
     three kept, and the position's two scales.  Returns the four cache tensors.
+    With ``page_table`` they are pools (words ``[L, n_pages, Hkv, psz/4, D]``,
+    scales ``[L, n_pages, 4, Hkv, psz/4]``) and the byte goes to page
+    ``page_table[b, pos // psz]``; a slot with no page there writes nothing.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     or raises."""
     if not k_all.is_cuda:
         return kv_append_packed_reference(
-            k_all, v_all, ks_all, vs_all, kq, vq, ks, vs, positions, layer)
+            k_all, v_all, ks_all, vs_all, kq, vq, ks, vs, positions, layer, page_table)
     req = common.require
-    L, B, Hkv, S, D = check_cache(k_all, v_all, ks_all, vs_all)
+    if page_table is None:
+        L, B, Hkv, S, D = check_cache(k_all, v_all, ks_all, vs_all)
+    else:
+        L, n_pages, Hkv, S, D, B, P = check_pool(k_all, v_all, page_table, ks_all, vs_all)
     dev = k_all.device
     req(0 <= layer < L, f"layer {layer} outside [0, {L})")
     for t in (kq, vq):
@@ -217,11 +301,18 @@ def kv_append_packed(
     ks = ks.to(torch.bfloat16).contiguous()
     vs = vs.to(torch.bfloat16).contiguous()
     pos = positions.to(device=dev, dtype=torch.int32).contiguous()
-    err = common.lib().xb_kv_append_packed(
-        k_all[layer].data_ptr(), v_all[layer].data_ptr(), ks_all[layer].data_ptr(),
-        vs_all[layer].data_ptr(), kq.data_ptr(), vq.data_ptr(), ks.data_ptr(), vs.data_ptr(),
-        pos.data_ptr(), B, Hkv, S // 4, D, common.stream_ptr(k_all),
-    )
-    common.check(err, "kv_append_packed")
-    common.launches["kv_append_packed"] += 1
+    head = (k_all[layer].data_ptr(), v_all[layer].data_ptr(), ks_all[layer].data_ptr(),
+            vs_all[layer].data_ptr(), kq.data_ptr(), vq.data_ptr(), ks.data_ptr(), vs.data_ptr(),
+            pos.data_ptr())
+    if page_table is None:
+        name = "kv_append_packed"
+        err = common.lib().xb_kv_append_packed(*head, B, Hkv, S // 4, D,
+                                               common.stream_ptr(k_all))
+    else:
+        name = "kv_append_packed_paged"
+        err = common.lib().xb_kv_append_packed_paged(
+            *head, page_table.data_ptr(), P, n_pages, B, Hkv, S // 4, D,
+            common.stream_ptr(k_all))
+    common.check(err, name)
+    common.launches[name] += 1
     return k_all, v_all, ks_all, vs_all

@@ -8,6 +8,12 @@ Replaces the Pallas kernels ``xbitops_tpu/kernels/prefill_attention.py``
 own rows must already be in the cache when it runs: the model writes k/v
 before it attends, so the chunk's queries see themselves and each other
 through the cache.
+
+With ``page_table`` int32 ``[B, P]`` the cache is paged (pools
+``[(L,) n_pages, Hkv, psz(/4), D]``, see ``kernels/kv_append.py``) and the
+kernel reads each slot's pages in place.  The JAX package computes this case
+on its eager path, gathering each slot's pages into one context per layer;
+the port's model routes it here on the card instead.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ from xbitops_tpu_torch.kernels import common
 from xbitops_tpu_torch.kernels.kv_append import (
     _unpack_kv_words,
     check_cache,
+    check_pool,
+    gather_pages,
     stacked_view,
 )
 
@@ -27,17 +35,29 @@ NEG_INF = -1e30
 
 
 def prefill_attention_reference(q, k, v, positions, slot_ids, k_scale=None, v_scale=None,
-                                window: Optional[int] = None):
+                                window: Optional[int] = None, page_table=None):
     """Plain version, in f32, over ONE layer's cache: k/v [B, Hkv, S, D], or
     with ``k_scale``/``v_scale`` [B, 4, Hkv, S/4] the packed int8 words
     [B, Hkv, S/4, D], dequantized first.  It reads every row of the slots and
-    forms the [N, H, T, S] probabilities, which the kernel never does."""
-    common.count_plain("prefill_attention", q)
+    forms the [N, H, T, S] probabilities, which the kernel never does.  With
+    ``page_table`` [B, P] they are one layer's pools: the pages of table row
+    ``slot_ids[n]`` are gathered first (entries clamped into the pool), and
+    the rest is the same, so the result equals the linear form's on the
+    gathered cache exactly."""
+    paged = page_table is not None
+    common.count_plain("prefill_attention_paged" if paged else "prefill_attention", q)
     N, T, H, D = q.shape
-    rows = slot_ids.long().clamp(0, k.shape[0] - 1)
-    kc, vc = k[rows], v[rows]
-    if k_scale is not None:
-        kc, vc = _unpack_kv_words(kc, k_scale[rows]), _unpack_kv_words(vc, v_scale[rows])
+    rows = slot_ids.long().clamp(0, (page_table if paged else k).shape[0] - 1)
+    if paged:
+        tbl = page_table[rows]
+        kc, vc = gather_pages(k, tbl), gather_pages(v, tbl)
+        if k_scale is not None:
+            kc = _unpack_kv_words(kc, gather_pages(k_scale, tbl, scales=True))
+            vc = _unpack_kv_words(vc, gather_pages(v_scale, tbl, scales=True))
+    else:
+        kc, vc = k[rows], v[rows]
+        if k_scale is not None:
+            kc, vc = _unpack_kv_words(kc, k_scale[rows]), _unpack_kv_words(vc, v_scale[rows])
     Hkv, S = kc.shape[1], kc.shape[2]
     rep = H // Hkv
     kf = kc.float().repeat_interleave(rep, dim=1)  # query head h*rep+r -> kv head h
@@ -64,6 +84,7 @@ def prefill_attention(
     k_scale: Optional[torch.Tensor] = None,  # [(L,) B, 4, Hkv, S/4]: int8 cache
     v_scale: Optional[torch.Tensor] = None,
     window: Optional[int] = None,
+    page_table: Optional[torch.Tensor] = None,  # int32 [B, P]: k/v are page pools
 ) -> torch.Tensor:
     """``out[n, t]`` attends the cache positions ``s <= positions[n, t]``
     (and ``s > positions[n, t] - window`` with a window) of slot
@@ -72,19 +93,30 @@ def prefill_attention(
     wherever in the chunk it sits; a row of nothing but padding (an inert row,
     whatever its slot id) reads nothing.  Returns [N, T, H, D] in q's dtype.
 
+    With ``page_table`` the cache is paged: k/v are pools
+    ``[(L,) n_pages, Hkv, psz(/4), D]``, the scales pools
+    ``[(L,) n_pages, 4, Hkv, psz/4]``, a slot holds ``P * psz`` positions and
+    row ``n`` reads the pages of table row ``slot_ids[n]`` (clamped into
+    ``[0, B)``).  An entry outside ``[0, n_pages)`` is clamped into the pool;
+    such a page lies past the slot's length, where no live query looks.
+
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
     or raises."""
-    int8 = k_scale is not None
+    int8, paged = k_scale is not None, page_table is not None
     k_all, v_all, ks_all, vs_all, li, window = stacked_view(
-        k, v, k_scale, v_scale, layer_idx, window)
+        k, v, k_scale, v_scale, layer_idx, window, page_table)
     if not q.is_cuda:
         scales = (ks_all[li], vs_all[li]) if int8 else (None, None)
         return prefill_attention_reference(
-            q, k_all[li], v_all[li], positions, slot_ids, *scales, window=window)
+            q, k_all[li], v_all[li], positions, slot_ids, *scales, window=window,
+            page_table=page_table)
 
     req = common.require
     N, T, H, D = q.shape
-    L, B, Hkv, S, Dc = check_cache(k_all, v_all, ks_all, vs_all)
+    if paged:
+        L, n_pages, Hkv, psz, Dc, B, P = check_pool(k_all, v_all, page_table, ks_all, vs_all)
+    else:
+        L, B, Hkv, S, Dc = check_cache(k_all, v_all, ks_all, vs_all)
     dev = q.device
     req(Dc == D and k_all.device == dev,
         f"q {tuple(q.shape)} does not match cache {tuple(k_all.shape)}")
@@ -98,12 +130,19 @@ def prefill_attention(
     pos = positions.to(device=dev, dtype=torch.int32).contiguous()
     slots = slot_ids.to(device=dev, dtype=torch.int32).contiguous()
     out = torch.empty((N, T, H, D), dtype=torch.bfloat16, device=dev)
-    err = common.lib().xb_prefill_attention(
-        q.data_ptr(), k_all[li].data_ptr(), v_all[li].data_ptr(),
-        ks_all[li].data_ptr() if int8 else None, vs_all[li].data_ptr() if int8 else None,
-        pos.data_ptr(), slots.data_ptr(), out.data_ptr(), N, T, H, Hkv, B, S, D,
-        window or 0, float(D) ** -0.5, common.stream_ptr(q),
-    )
-    common.check(err, "prefill_attention")
-    common.launches["prefill_attention"] += 1
+    head = (q.data_ptr(), k_all[li].data_ptr(), v_all[li].data_ptr(),
+            ks_all[li].data_ptr() if int8 else None, vs_all[li].data_ptr() if int8 else None,
+            pos.data_ptr(), slots.data_ptr())
+    tail = (D, window or 0, float(D) ** -0.5, common.stream_ptr(q))
+    if paged:
+        name = "prefill_attention_paged"
+        err = common.lib().xb_prefill_attention_paged(
+            *head, page_table.data_ptr(), out.data_ptr(), N, T, H, Hkv, B, P, psz, n_pages,
+            *tail)
+    else:
+        name = "prefill_attention"
+        err = common.lib().xb_prefill_attention(
+            *head, out.data_ptr(), N, T, H, Hkv, B, S, *tail)
+    common.check(err, name)
+    common.launches[name] += 1
     return out

@@ -5,8 +5,9 @@ Every projection is a :class:`QLinear` over a packed
 kernel (with ``prefill_a8``, a block's projections of a forward of 32 rows or
 more run its int8-activation form), or a :class:`DenseLinear` over a dense
 bf16 weight (the unquantized model that quality is measured against).  The KV
-cache is head-major, ``[L, B, Hkv, S, D]`` bf16 or packed int8
-(see :class:`KVCache`), and, unlike the JAX package's functional updates, every
+cache is head-major, ``[L, B, Hkv, S, D]`` bf16 or packed int8, or a pool of
+pages shared by the slots behind a page table (see :class:`KVCache`), and,
+unlike the JAX package's functional updates, every
 function here writes it IN PLACE and returns the same :class:`KVCache` object.
 Positions ``>= S`` mark padding and inactive slots: they write nothing and
 advance no length.
@@ -15,8 +16,9 @@ RMSNorm, RoPE, SiLU-times-up, the embedding, the int8 quantization of new k/v
 rows and the eager attention are plain PyTorch, as the JAX package left them
 to XLA.  Decode (one token per slot) attends through the decode-attention
 kernel, which appends the new k/v rows first; a chunk of a long prompt
-attends its slot's cache through the prefill-attention kernel.  Not ported
-yet: the paged cache, unaligned (speculative) writes and MoE layers.
+attends its slot's cache through the prefill-attention kernel; both read a
+paged cache in place through its table.  Not ported yet: unaligned
+(speculative) writes and MoE layers.
 """
 
 from __future__ import annotations
@@ -38,10 +40,12 @@ from xbitops_tpu_torch.kernels.kv_append import (
     _quant_kv,
     _rmw_packed,
     _unpack_kv_words,
+    gather_pages,
     kv_append_dense,
     kv_append_dense_reference,
     kv_append_packed,
     kv_append_packed_reference,
+    paged_rows,
 )
 from xbitops_tpu_torch.kernels.prefill_attention import prefill_attention
 from xbitops_tpu_torch.ops.dense import dense_matmul
@@ -122,22 +126,44 @@ class KVCache:
     int8 (``k_scale`` set): ``k, v: [L, B, Hkv, S/4, D]`` int32 words, byte j
     of word w holding position 4w + j as its quantized value + 128, with
     per-(position, head) scales ``k_scale, v_scale: [L, B, 4, Hkv, S/4]``
-    bf16."""
+    bf16.
+
+    Paged (``page_table`` set): k/v are page POOLS
+    ``[L, n_pages, Hkv, page_size(/4), D]`` shared by all slots (scale pools
+    ``[L, n_pages, 4, Hkv, page_size/4]``), and ``page_table`` int32 [B, P]
+    gives the pool page of each slot's page, -1 for none.  Position ``p`` of
+    slot ``b`` lies in page ``page_table[b, p // page_size]`` at row
+    ``p % page_size``.  A slot then costs the pages it holds, not ``S`` rows:
+    the engine's allocator hands pages out as requests grow.  A position
+    without a page writes nothing."""
 
     k: torch.Tensor
     v: torch.Tensor
     lengths: torch.Tensor
     k_scale: Optional[torch.Tensor] = None
     v_scale: Optional[torch.Tensor] = None
+    page_table: Optional[torch.Tensor] = None
 
     @property
     def quantized(self) -> bool:
         return self.k_scale is not None
 
     @property
-    def S(self) -> int:
-        """Capacity of a slot in positions."""
+    def paged(self) -> bool:
+        return self.page_table is not None
+
+    @property
+    def page_size(self) -> int:
+        """Positions of one pool page (of a paged cache)."""
+        if not self.paged:
+            raise ValueError("page_size: the cache is not paged")
         return self.k.shape[3] * (4 if self.quantized else 1)
+
+    @property
+    def S(self) -> int:
+        """Capacity of a slot in positions (virtual for a paged cache)."""
+        rows = self.k.shape[3] * (4 if self.quantized else 1)
+        return self.page_table.shape[1] * rows if self.paged else rows
 
     @staticmethod
     def init(cfg: LlamaConfig, batch: int, device, dtype=torch.bfloat16,
@@ -166,8 +192,25 @@ class KVCache:
         )
 
     @staticmethod
-    def init_paged(*args, **kwargs) -> "KVCache":
-        raise NotImplementedError("the paged KV cache is not ported yet")
+    def init_paged(cfg: LlamaConfig, batch: int, pool_pages: int, page_size: int = 256, *,
+                   device, dtype=torch.bfloat16, quantized: bool = False) -> "KVCache":
+        """A paged cache: a pool of ``pool_pages`` pages of ``page_size``
+        positions (memory follows the pool, not ``batch * max_seq_len``) and a
+        table with no page given out.  ``page_size=256`` is the JAX package's
+        default, chosen there for a TPU block."""
+        if cfg.max_seq_len % page_size:
+            raise ValueError("max_seq_len must be a multiple of page_size")
+        if quantized and page_size % 4:
+            raise ValueError("int8 paged cache needs page_size % 4 == 0")
+        if not quantized and dtype != torch.bfloat16:
+            raise NotImplementedError("the port's dense KV cache is bf16")
+        # a pool is laid out as a linear cache of pool_pages slots of page_size positions
+        paged_cfg = dataclasses.replace(cfg, max_seq_len=page_size)
+        pool = KVCache.init(paged_cfg, pool_pages, device, dtype=dtype, quantized=quantized)
+        pool.lengths = torch.zeros((batch,), dtype=torch.int32, device=device)
+        pool.page_table = torch.full((batch, cfg.max_seq_len // page_size), -1,
+                                     dtype=torch.int32, device=device)
+        return pool
 
 
 class QLinear(nn.Module):
@@ -275,7 +318,9 @@ def _write_rows(cache: KVCache, li: int, k, v, positions, slot_ids) -> None:
     """Write new rows k/v [n, T, Hkv, D] at ``positions`` [n, T] of cache
     slots ``slot_ids`` [n] (default: row i -> slot i) in one batched write.
     Only rows with 0 <= position < S and 0 <= slot < B are written: a chunk
-    that overhangs the capacity writes the part that fits.
+    that overhangs the capacity writes the part that fits.  On a paged cache
+    the slot's table row gives the pool page of each position, and a position
+    whose page was not given out writes nothing.
 
     The int8 cache takes T > 1 rows as whole words: T and every row's first
     position are multiples of 4 and a row's valid positions are a prefix of
@@ -284,15 +329,23 @@ def _write_rows(cache: KVCache, li: int, k, v, positions, slot_ids) -> None:
     are never attended and a later append replaces them.  T == 1 rewrites one
     byte of each word."""
     n, T = positions.shape
-    B, Hkv, S = cache.k.shape[1], cache.k.shape[2], cache.S
+    Hkv, S = cache.k.shape[2], cache.S
     dev = positions.device
     rows = torch.arange(n, device=dev) if slot_ids is None else slot_ids.long()
     h = torch.arange(Hkv, device=dev)
+
+    def locate(pos):
+        """``(ok, block, row)`` of positions [n, m]: the block of the cache's
+        second axis (slot, or pool page) and the row inside it."""
+        if cache.paged:
+            return paged_rows(cache.page_table, rows, pos, cache.page_size, cache.k.shape[1])
+        slot = rows[:, None].expand_as(pos)
+        ok = (slot >= 0) & (slot < cache.k.shape[1]) & (pos >= 0) & (pos < S)
+        return ok, slot, pos
+
     if not cache.quantized:
-        slot = rows[:, None].expand(n, T)
-        ok = (slot >= 0) & (slot < B) & (positions >= 0) & (positions < S)
-        s_ok, p_ok = slot[ok], positions[ok].long()
-        idx = (s_ok[:, None], h[None, :], p_ok[:, None])
+        ok, blk, row = locate(positions)
+        idx = (blk[ok][:, None], h[None, :], row[ok][:, None])
         cache.k[li].index_put_(idx, k[ok].to(cache.k.dtype))
         cache.v[li].index_put_(idx, v[ok].to(cache.v.dtype))
         return
@@ -300,17 +353,16 @@ def _write_rows(cache: KVCache, li: int, k, v, positions, slot_ids) -> None:
     (kq, vq), (ks, vs) = q, s
     if T == 1:
         _rmw_packed(cache.k, cache.v, cache.k_scale, cache.v_scale, kq[:, 0], vq[:, 0],
-                    ks[:, 0], vs[:, 0], positions[:, 0], li, slots=rows)
+                    ks[:, 0], vs[:, 0], positions[:, 0], li, slots=rows,
+                    page_table=cache.page_table)
         return
     if T % 4:
         raise ValueError("int8 KV prefill needs T % 4 == 0")
-    first = positions[:, 0::4]  # [n, T/4]: first position of each word
-    slot = rows[:, None].expand(n, T // 4)
-    ok = (slot >= 0) & (slot < B) & (first >= 0) & (first < S)
-    s_ok, w_ok = slot[ok], first[ok].long() // 4
-    idx = (s_ok[:, None], h[None, :], w_ok[:, None])
+    ok, blk, row = locate(positions[:, 0::4])  # [n, T/4]: first position of each word
+    b_ok, w_ok = blk[ok], row[ok] // 4
+    idx = (b_ok[:, None], h[None, :], w_ok[:, None])
     j = torch.arange(4, device=dev)
-    sidx = (s_ok[:, None, None], j[None, :, None], h[None, None, :], w_ok[:, None, None])
+    sidx = (b_ok[:, None, None], j[None, :, None], h[None, None, :], w_ok[:, None, None])
     for words, scales, q, s in ((cache.k, cache.k_scale, kq, ks), (cache.v, cache.v_scale, vq, vs)):
         words[li].index_put_(idx, _pack_kv_words(q).transpose(1, 2)[ok])  # [m, Hkv, D]
         packed = _pack_kv_scales(s).to(scales.dtype).permute(0, 3, 1, 2)  # [n, T/4, 4, Hkv]
@@ -328,24 +380,32 @@ def _new_row(cache: KVCache, k, v, positions):
 
 
 def _append_row(cache: KVCache, li: int, new, use_kernel: bool) -> None:
-    """Write :func:`_new_row` rows into layer ``li``, row i to slot i."""
+    """Write :func:`_new_row` rows into layer ``li``, row i to slot i (on a
+    paged cache: to slot i's page)."""
     if cache.quantized:
         append = kv_append_packed if use_kernel else kv_append_packed_reference
-        append(cache.k, cache.v, cache.k_scale, cache.v_scale, *new, li)
+        append(cache.k, cache.v, cache.k_scale, cache.v_scale, *new, li, cache.page_table)
     else:
         append = kv_append_dense if use_kernel else kv_append_dense_reference
-        append(cache.k, cache.v, *new, li)
+        append(cache.k, cache.v, *new, li, cache.page_table)
 
 
 def _slot_rows(cache: KVCache, li: int, slot_ids):
     """Head-major k, v [n, Hkv, S, D] of layer ``li`` for the eager attention:
     every slot, or the slots ``slot_ids`` (clamped into range: an inert row
     reads some slot and its output is never used); the int8 cache
-    dequantized to f32."""
+    dequantized to f32.  A paged cache gathers each slot's pages into one
+    context of ``P * page_size`` positions; a page that was not given out
+    reads some page, past the slot's length."""
     parts = [cache.k[li], cache.v[li]]
     if cache.quantized:
         parts += [cache.k_scale[li], cache.v_scale[li]]
-    if slot_ids is not None:
+    if cache.paged:
+        tbl = cache.page_table
+        if slot_ids is not None:
+            tbl = tbl[slot_ids.long().clamp(0, tbl.shape[0] - 1)]
+        parts = [gather_pages(t, tbl, scales=i >= 2) for i, t in enumerate(parts)]
+    elif slot_ids is not None:
         rows = slot_ids.long().clamp(0, parts[0].shape[0] - 1)
         parts = [t[rows] for t in parts]
     if cache.quantized:
@@ -396,6 +456,7 @@ class LlamaBlock(nn.Module):
 
         S = cache.S
         scales = (dict(k_scale=cache.k_scale, v_scale=cache.v_scale) if cache.quantized else {})
+        table = cache.page_table  # None: the linear cache
         one_row = T == 1 and slot_ids is None and not self_attend  # row i -> slot i
         if one_row:
             new = _new_row(cache, k, v, positions)
@@ -404,13 +465,13 @@ class LlamaBlock(nn.Module):
             if use_kernel:
                 att = decode_attention(
                     q[:, 0], cache.k, cache.v, lens, layer_idx=li, kv_new=new,
-                    window=cfg.sliding_window, **scales,
+                    window=cfg.sliding_window, page_table=table, **scales,
                 )[0]
             else:
                 _append_row(cache, li, new, use_kernel=False)
                 att = decode_attention_reference(
                     q[:, 0], cache.k[li], cache.v[li], lens, cfg.sliding_window,
-                    *(s[li] for s in scales.values()))
+                    *(s[li] for s in scales.values()), page_table=table)
             att = att[:, None]
         else:
             if one_row:
@@ -423,7 +484,7 @@ class LlamaBlock(nn.Module):
                 rows = torch.arange(B, device=x.device) if slot_ids is None else slot_ids
                 att = prefill_attention(
                     q, cache.k, cache.v, positions, rows, layer_idx=li,
-                    window=cfg.sliding_window, **scales)
+                    window=cfg.sliding_window, page_table=table, **scales)
             else:  # eager, over every row of the slots
                 att = _attention(q, *_slot_rows(cache, li, slot_ids), mask, D ** -0.5)
         x = x + self.wo(att.reshape(B, T, qdim), use_kernel, a8)

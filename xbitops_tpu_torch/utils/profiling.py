@@ -4,8 +4,9 @@ host ops and the device's busy share, from ``torch.profiler``.
     python3 -m xbitops_tpu_torch.utils.profiling
 
 profiles, on a random 4-bit Llama-2-7B at full width and depth with 8 slots
-(S=2048): one decode step over the bf16 cache and one over the int8 cache, all
-slots at 1000 live positions, and one chunk forward of chunked admission
+(S=2048): one decode step over the bf16 cache, one over the paged bf16 cache
+(pages of 256 positions, shuffled through the pool) and one over the int8
+cache, all slots at 1000 live positions, and one chunk forward of chunked admission
 (5 rows of 512 tokens at positions 512-1023, int8 cache) with bf16
 activations, with int8 activations (``prefill_a8``) and with int8 activations
 on the 8-bit per-channel requantization of the blocks.  It needs one CUDA
@@ -83,16 +84,23 @@ def main() -> int:
     slots, live = 8, 1000
     tok = torch.randint(0, cfg.vocab_size, (slots,), generator=gen, device=dev)
     with torch.no_grad():
-        for quantized in (False, True):
-            cache = llama.KVCache.init(cfg, slots, dev, quantized=quantized)
+        for quantized, paged in ((False, False), (False, True), (True, False)):
+            if paged:
+                pages = cfg.max_seq_len // 256
+                cache = llama.KVCache.init_paged(cfg, slots, slots * pages, 256, device=dev)
+                order = torch.randperm(slots * pages, generator=gen, device=dev)
+                cache.page_table.copy_(order.reshape(slots, pages))
+            else:
+                cache = llama.KVCache.init(cfg, slots, dev, quantized=quantized)
 
             def step():
                 cache.lengths.fill_(live)  # every call decodes at the same position
                 llama.decode_step(model, tok, cache)
 
             res = profile(step)
-            print(json.dumps(dict(case=f"decode step, {'int8' if quantized else 'bf16'} cache, "
-                                       f"B={slots}, live={live}", **res)), flush=True)
+            kind = ("paged " if paged else "") + ("int8" if quantized else "bf16")
+            print(json.dumps(dict(case=f"decode step, {kind} cache, B={slots}, live={live}",
+                                  **res)), flush=True)
             if quantized:
                 n, chunk = 5, 512
                 tokens = torch.randint(0, cfg.vocab_size, (n, chunk), generator=gen, device=dev)

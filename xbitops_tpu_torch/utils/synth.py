@@ -1,5 +1,5 @@
-"""Random packed models for benchmarks and smoke runs (port of
-``xbitops_tpu/utils/synth.py``).
+"""Random packed models and paged caches for benchmarks and smoke runs (port
+of ``xbitops_tpu/utils/synth.py``).
 
 Speed depends on shapes, not values, so the packed QTensors are built straight
 from random bits on the device, with no dense weight and no quantization pass:
@@ -85,3 +85,38 @@ def random_llama_params(
         blocks.append(LlamaBlock(cfg, proj, ones(), ones()))
     embed = (torch.randn((cfg.vocab_size, h), generator=gen, device=device) * 0.02)
     return Llama(cfg, embed.to(torch.bfloat16), blocks, ones(), q(h, cfg.vocab_size))
+
+
+def scatter_pages(linear, page_table, n_pages: int, scales: bool = False):
+    """The inverse of ``kernels.kv_append.gather_pages``: a pool of
+    ``n_pages`` pages that holds one layer's linear cache ``[B, Hkv, P * R, D]`` (``scales``:
+    ``[B, 4, Hkv, P * R]``) where ``page_table`` [B, P] says; pages no entry
+    names stay zero and rows behind a negative entry are dropped."""
+    B, P = page_table.shape
+    if scales:
+        pages = linear.reshape(B, 4, linear.shape[2], P, -1).movedim(3, 1)
+    else:
+        pages = linear.reshape(B, linear.shape[1], P, -1, linear.shape[3]).movedim(2, 1)
+    pool = linear.new_zeros((n_pages,) + tuple(pages.shape[2:]))
+    ok = page_table >= 0
+    pool[page_table[ok].long()] = pages[ok]
+    return pool
+
+
+def cut_pages(gen: torch.Generator, linear, P: int, slot_lens: torch.Tensor):
+    """Cut stacked linear cache tensors (k, v[, ks, vs], each [L, B, ...]) into
+    pools of ``B * P + 8`` pages (eight that no slot holds) behind a shuffled
+    table [B, P]: a slot gets the pages that hold its first ``slot_lens[b]``
+    positions and -1 after.
+    Returns ``(table, pools)``; a kernel on the pools can then be held to the
+    linear kernel on the cache they were cut from."""
+    dev = gen.device
+    B = linear[0].shape[1]
+    n_pages = B * P + 8
+    psz = linear[0].shape[3] * (4 if len(linear) == 4 else 1) // P
+    order = torch.randperm(n_pages, generator=gen, device=dev)[: B * P].reshape(B, P)
+    given = torch.arange(P, device=dev)[None] * psz < slot_lens[:, None]
+    table = torch.where(given, order, -1).to(torch.int32)
+    pools = [torch.stack([scatter_pages(layer, table, n_pages, scales=i >= 2) for layer in t])
+             for i, t in enumerate(linear)]
+    return table, pools
