@@ -137,61 +137,89 @@ class Timer:
 
 
 def phase_kernels(dev, timer):
+    from xbitops_tpu_torch.kernels import common
+    from xbitops_tpu_torch.kernels.qgemv_kernel import qgemv_form, qmatmul_kernel
     from xbitops_tpu_torch.ops.qmatmul import qmatmul
     from xbitops_tpu_torch.utils import synth
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
     res = {}
 
-    # --- fused dequant-matmul at the 7B projection shapes ---
+    # --- fused dequant-matmul at the 7B projection shapes: the few-rows form
+    # (M = 8: a decode step), the tensor-core tile (M = 32: 32 slots decoding;
+    # 256; 2560: a chunk forward of 5 x 512) and, once, the CUDA-core form ---
     shapes = {"wqkv": (4096, 12288), "wo": (4096, 4096), "w_gateup": (4096, 22016),
               "w_down": (11008, 4096), "lm_head": (4096, 32000)}
-    worst = worst_abs = 0.0
+    worst = 0.0
+    worst_abs = {"qgemv": 0.0, "qgemv_mma": 0.0, "qgemv_cuda_core": 0.0}
+
+    def held(a, qt, label, precise=False):
+        """The routed kernel against the plain version; returns the counter it raised."""
+        common.reset_counts()
+        got = qmatmul(a, qt, precise=precise)
+        name = next(k for k, v in common.launches.items() if v)
+        check(sum(common.launches.values()) == 1 and name in worst_abs
+              and not any(common.plain_on_cuda.values()), f"qmatmul {label}: {common.launches}")
+        ref = qmatmul(a, qt, out_dtype=torch.float32, use_kernel=False)
+        e_abs = (got.float() - ref).abs().max().item()
+        worst_abs[name] = max(worst_abs[name], e_abs)
+        if precise:
+            check(torch.allclose(got, ref, rtol=1e-5, atol=3e-4),
+                  f"qmatmul precise {label}: outside rel 1e-5 / abs 3e-4 (max abs {e_abs:.3e})")
+            return name, e_abs
+        e = rel_err(got, ref)
+        check(e <= 2e-2, f"qmatmul {label}: rel err {e:.3e} > 2e-2")
+        return name, e
+
     for name, (K, N) in shapes.items():
         qt = synth.random_qtensor(gen, K, N, 4, 128)
-        for M in (8, 256):
+        for M in (8, 32, 256, 2560):
             a = torch.randn(M, K, device=dev, generator=gen).to(torch.bfloat16)
-            got = qmatmul(a, qt)
-            ref = qmatmul(a, qt, out_dtype=torch.float32, use_kernel=False)
-            e = rel_err(got, ref)
+            form = qgemv_form(M, False, qt)
+            kname, e = held(a, qt, f"{name} M={M}")
             worst = max(worst, e)
-            worst_abs = max(worst_abs, (got.float() - ref).abs().max().item())
-            check(e <= 2e-2, f"qmatmul {name} M={M}: rel err {e:.3e} > 2e-2")
             ms = timer(lambda: qmatmul(a, qt))
             plain_ms = timer(lambda: qmatmul(a, qt, use_kernel=False), iters=3)
             gbs = qt.bytes_packed() / ms / 1e6
-            print(f"qmatmul 4-bit {name} K={K} N={N} M={M}: op {ms:.4f} ms "
-                  f"({gbs:.1f} GB/s packed stream at op time), plain {plain_ms:.4f} ms, rel err {e:.2e}",
-                  flush=True)
-            b = bound(qt.bytes_packed() + nbytes(a, got), 2 * M * K * N)
-            print(f"  bound {b['bound_ms']:.4f} ms by {b['bound_by']}", flush=True)
+            b = bound(qt.bytes_packed() + nbytes(a) + 2 * M * N, 2 * M * K * N)
+            print(f"qmatmul 4-bit {name} K={K} N={N} M={M} ({form}): op {ms:.4f} ms "
+                  f"({gbs:.1f} GB/s packed stream, {2 * M * K * N / ms / 1e9:.1f} TFLOP/s at op "
+                  f"time), plain {plain_ms:.4f} ms, rel err {e:.2e}; bound {b['bound_ms']:.4f} ms "
+                  f"by {b['bound_by']}", flush=True)
+            # no single PyTorch call computes a matmul on packed planes
             if name == "w_gateup" and M == 8:
-                # no single PyTorch call computes a matmul on packed planes
+                check(kname == "qgemv" and form == "gemv", f"M=8 took {form}")
                 res["qgemv"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+            if name == "w_gateup" and M == 2560:
+                check(kname == "qgemv_mma" and form == "mma", f"M=2560 took {form}")
+                res["qgemv_mma"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+            if M == 256:  # the form this one replaced, for the record
+                a_pad = torch.nn.functional.pad(a, (0, qt.K - K))
+                core_ms = timer(lambda: qmatmul_kernel(a_pad, qt, form="cuda_core"), iters=3)
+                print(f"  the CUDA-core form here: {core_ms:.4f} ms", flush=True)
         if name == "w_down":
             check(qt.K == 11264 and qt.K_logical == 11008, "w_down K padding")
     qt = synth.random_qtensor(gen, 4096, 4096, 4, 128)
-    a = torch.randn(8, 4096, device=dev, generator=gen)
-    got = qmatmul(a, qt, precise=True)
-    ref = qmatmul(a, qt, use_kernel=False)
-    ok = torch.allclose(got, ref, rtol=1e-5, atol=3e-4)
-    e = (got - ref).abs().max().item()
-    worst_abs = max(worst_abs, e)
-    print(f"qmatmul precise 4096x4096 M=8: max abs err {e:.3e}", flush=True)
-    check(ok, "qmatmul precise outside rel 1e-5 / abs 3e-4")
-    for bits in (3, 8):
-        qt = synth.random_qtensor(gen, 4096, 4096, bits, 128)
-        a = torch.randn(8, 4096, device=dev, generator=gen).to(torch.bfloat16)
-        got = qmatmul(a, qt)
-        ref = qmatmul(a, qt, out_dtype=torch.float32, use_kernel=False)
-        e = rel_err(got, ref)
-        worst = max(worst, e)
-        worst_abs = max(worst_abs, (got.float() - ref).abs().max().item())
-        print(f"qmatmul {bits}-bit 4096x4096 M=8: rel err {e:.2e}", flush=True)
-        check(e <= 2e-2, f"qmatmul {bits}-bit rel err {e:.3e}")
-    print(f"qmatmul: worst rel err {worst:.2e} (gate 2e-2), worst abs err {worst_abs:.3e}",
+    for M in (8, 40):
+        a = torch.randn(M, 4096, device=dev, generator=gen)
+        kname, e = held(a, qt, f"4096x4096 M={M}", precise=True)
+        check(kname == "qgemv_cuda_core", f"precise took {kname}")
+        print(f"qmatmul precise 4096x4096 M={M}: max abs err {e:.3e}", flush=True)
+    # other widths and layouts, ragged M and N: 3-bit (two slot planes), 8-bit,
+    # 4-bit in the slot layout (groups of 40), 4-bit paired with N % 8 != 0
+    for bits, g, K, N in ((3, 128, 4096, 4096), (8, 128, 4096, 4096), (4, 40, 1280, 1000),
+                          (4, 128, 4096, 1004)):
+        qt = synth.random_qtensor(gen, K, N, bits, g)
+        for M in (8, 13, 300):
+            a = torch.randn(M, K, device=dev, generator=gen).to(torch.bfloat16)
+            _, e = held(a, qt, f"{bits}-bit g={g} {K}x{N} M={M}")
+            worst = max(worst, e)
+            print(f"qmatmul {bits}-bit g={g} {K}x{N} M={M} ({qgemv_form(M, False, qt)}, "
+                  f"paired {qt.paired}): rel err {e:.2e}", flush=True)
+    print(f"qmatmul: worst rel err {worst:.2e} (gate 2e-2), worst abs err {worst_abs}",
           flush=True)
-    res["qgemv"]["max_abs_err"] = worst_abs
+    for kname in ("qgemv", "qgemv_mma"):  # the CUDA-core form is on no serving path
+        res[kname]["max_abs_err"] = worst_abs[kname]
 
     res.update(kernels_quant(dev, timer, gen, shapes))
     res.update(kernels_decode(dev, timer, gen))
@@ -405,10 +433,24 @@ def kernels_decode(dev, timer, gen):
             plain_ms = timer(lambda: (
                 kv_append_dense_reference(k, v, kn, vn, pos, 1),
                 decode_attention_reference(q, k[1], v[1], lens)), iters=3)
-            library_ms = timer(lambda: sdpa(q[:, :, None], k[1], v[1], mask))
+            # yardstick, like for like: the op appends the new rows and then attends, so
+            # the library side is two index_copy_ of the B * Hkv new rows (k and v) and
+            # one attention call; the attention call alone is printed beside it
+            act = pos < S
+            rows = ((torch.arange(B, device=dev)[:, None] * Hkv
+                     + torch.arange(Hkv, device=dev)[None]) * S + pos[:, None])[act].reshape(-1)
+            kf1, vf1 = k[1].view(-1, D), v[1].view(-1, D)
+            kr1, vr1 = kn[act].reshape(-1, D), vn[act].reshape(-1, D)
+            library_ms = timer(lambda: (kf1.index_copy_(0, rows, kr1),
+                                        vf1.index_copy_(0, rows, vr1),
+                                        sdpa(q[:, :, None], k[1], v[1], mask)))
+            check(torch.equal(k, k_ref) and torch.equal(v, v_ref),
+                  "the index_copy_ yardstick does not write the rows the op writes")
+            sdpa_ms = timer(lambda: sdpa(q[:, :, None], k[1], v[1], mask))
             b = bound(2 * 2 * live_rows + nbytes(q, out, kn, vn), 4 * H * D * int(lens.sum()))
             print(f"decode_attention+append bf16 MHA: op {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"library {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}",
+                  f"library (2 index_copy_ + SDPA) {library_ms:.4f} ms (SDPA alone, which appends "
+                  f"nothing, {sdpa_ms:.4f} ms), bound {b['bound_ms']:.4f} ms by {b['bound_by']}",
                   flush=True)
             res["decode_attention"] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **b)
             k2, v2 = k.clone(), v.clone()
@@ -420,9 +462,6 @@ def kernels_decode(dev, timer, gen):
             ms = timer(lambda: kv_append_dense(k, v, kn2, vn2, pos, 0))
             plain_ms = timer(lambda: kv_append_dense_reference(k, v, kn2, vn2, pos, 0))
             # yardstick: index_copy_ of the B * Hkv new rows, once for k and once for v
-            act = pos < S
-            rows = ((torch.arange(B, device=dev)[:, None] * Hkv
-                     + torch.arange(Hkv, device=dev)[None]) * S + pos[:, None])[act].reshape(-1)
             kf, vf = k[0].view(-1, D), v[0].view(-1, D)
             kr, vr = kn2[act].reshape(-1, D), vn2[act].reshape(-1, D)
             library_ms = timer(lambda: (kf.index_copy_(0, rows, kr), vf.index_copy_(0, rows, vr)))
@@ -468,14 +507,15 @@ def kernels_decode(dev, timer, gen):
             # yardstick: the same call as for the bf16 cache, on the rows dequantized to bf16
             kd = _unpack_kv_words(k8[1], ks8[1]).to(torch.bfloat16)
             vd = _unpack_kv_words(v8[1], vs8[1]).to(torch.bfloat16)
+            # (no PyTorch call writes a byte of a packed word, so this side appends nothing)
             library_ms = timer(lambda: sdpa(q[:, :, None], kd, vd, mask))
             del kd, vd
             # a live position: D bytes and one bf16 scale, for k and for v
             b = bound(2 * (live_rows + 2 * int(lens.sum()) * Hkv) + nbytes(q, out, kq, vq),
                       4 * H * D * int(lens.sum()))
             print(f"decode_attention+append int8 MHA: op {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"library (on bf16 rows) {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms by "
-                  f"{b['bound_by']}", flush=True)
+                  f"library (SDPA on bf16 rows, no append: none exists for the packed write) "
+                  f"{library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}", flush=True)
             res["decode_attention_int8"] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                                                 **b)
             # the packed append alone: pos % 4 takes all four values, one slot sits at S
@@ -715,7 +755,24 @@ def kernels_paged(dev, timer, gen):
             lib = sdpa(q[:, :, None], kd, vd, mask)[:, :, 0]
             e_lib = (lib[:-1].float() - want[:-1].float()).abs().max().item()
             check(e_lib <= 2e-2, f"the library yardstick differs from the plain one: {e_lib}")
-            library_ms = timer(lambda: sdpa(q[:, :, None], kd, vd, mask))
+            if int8:  # no PyTorch call writes a byte of a packed word: no append on this side
+                library_ms = timer(lambda: sdpa(q[:, :, None], kd, vd, mask))
+                lib_what = "SDPA on gathered bf16 rows, no append"
+            else:
+                # like for like: the op appends through the table, so two index_copy_ of
+                # the new rows into the pool (row numbers found beforehand), then SDPA
+                act = pos < S
+                pg = table[torch.arange(B, device=dev), (pos // psz).clamp(max=P - 1)].long()
+                prow = ((pg[:, None] * Hkv + torch.arange(Hkv, device=dev)[None]) * psz
+                        + (pos % psz)[:, None])[act].reshape(-1)
+                kp1, vp1 = pools[0][1].view(-1, D), pools[1][1].view(-1, D)
+                nk, nv = new[0][act].reshape(-1, D), new[1][act].reshape(-1, D)
+                library_ms = timer(lambda: (kp1.index_copy_(0, prow, nk),
+                                            vp1.index_copy_(0, prow, nv),
+                                            sdpa(q[:, :, None], kd, vd, mask)))
+                check(all(torch.equal(a, c) for a, c in zip(pools, ref)),
+                      "the index_copy_ yardstick does not write the rows the op writes")
+                lib_what = "2 index_copy_ + SDPA on gathered bf16 rows"
             del kd, vd, lib
             # Rows moved once: those the slots hold, and pool page 0, which every
             # entry of the inactive slot's row of -1 clamps to (less the rows of
@@ -728,7 +785,7 @@ def kernels_paged(dev, timer, gen):
             b = bound(2 * row_bytes * n_moved * Hkv + nbytes(q, out, table, *new[:2]),
                       4 * H * D * n_attended)
             print(f"{name}+append MHA page_size={psz}: op {ms:.4f} ms (the linear op here "
-                  f"{lin_ms:.4f} ms), plain {plain_ms:.4f} ms, library (on gathered bf16 rows) "
+                  f"{lin_ms:.4f} ms), plain {plain_ms:.4f} ms, library ({lib_what}) "
                   f"{library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
                   f"({n_moved} distinct rows a head moved, {n_attended} attended)", flush=True)
             res[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, linear_ms=lin_ms,
@@ -885,8 +942,8 @@ def kernels_paged(dev, timer, gen):
     return res
 
 
-BF16_PATH = ("qgemv", "kv_append", "decode_attention")
-INT8_PATH = ("qgemv", "prefill_attention", "kv_append_packed", "decode_attention_int8")
+BF16_PATH = ("qgemv", "qgemv_mma", "kv_append", "decode_attention")
+INT8_PATH = ("qgemv", "qgemv_mma", "prefill_attention", "kv_append_packed", "decode_attention_int8")
 
 
 def two_layer_cut(model):
@@ -1178,9 +1235,9 @@ def phase_w4a8(dev, model):
     return launches, dict(a=stats_a, b=stats_b, bf16=stats_16, requantize_s=t_rq)
 
 
-PAGED_BF16_PATH = ("qgemv", "kv_append_paged", "decode_attention_paged",
+PAGED_BF16_PATH = ("qgemv", "qgemv_mma", "kv_append_paged", "decode_attention_paged",
                    "prefill_attention_paged")
-PAGED_INT8_PATH = ("qgemv", "kv_append_packed_paged", "decode_attention_int8_paged",
+PAGED_INT8_PATH = ("qgemv", "qgemv_mma", "kv_append_packed_paged", "decode_attention_int8_paged",
                    "prefill_attention_paged")
 
 
@@ -1519,7 +1576,8 @@ def main() -> int:
 
     csrc, jk = "xbitops_tpu_torch/csrc/", "xbitops_tpu/kernels/"
     src = {
-        "qgemv": (csrc + "qgemv.cu", jk + "qgemv_kernel.py:51"),
+        "qgemv": (csrc + "qgemv_word.cu", jk + "qgemv_kernel.py:51"),
+        "qgemv_mma": (csrc + "qgemv_mma.cu", jk + "qgemv_kernel.py:51"),
         "decode_attention": (csrc + "decode_attention.cu", jk + "decode_attention.py:176"),
         "kv_append": (csrc + "kv_append.cu", jk + "kv_append.py:92"),
         "prefill_attention": (csrc + "prefill_attention.cu", jk + "prefill_attention.py:188"),
@@ -1544,6 +1602,9 @@ def main() -> int:
                                                     "bound_by", "library_ms")}) for n in src]
     for kern in kernels:
         check(kern["launches"] > 0, f"kernel {kern['name']} was launched on no serving path")
+    # the serving paths route every matmul to the few-rows form or the tile
+    core = sum(ln["qgemv_cuda_core"] for ln in (launches2, launches3, launches4, launches5))
+    check(core == 0, f"the CUDA-core qgemv form was launched {core} times on the serving paths")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -40,9 +40,16 @@ from xbitops_tpu_torch.kernels.prefill_attention import (
     prefill_attention_reference,
 )
 from xbitops_tpu_torch.kernels.qgemv_kernel import (
+    COUNTER,
+    GEMV_MAX_M,
+    _stream_counters,
     a8_per_channel,
+    mma_whole_words,
+    qgemv_form,
+    qmatmul_kernel,
     qmatmul_kernel_a8,
     qmatmul_kernel_a8_reference,
+    word_layout,
 )
 from xbitops_tpu_torch.ops.dequant import dequant_qtensor
 from xbitops_tpu_torch.ops.qmatmul import qmatmul, quantize_activations
@@ -85,6 +92,109 @@ def test_qmatmul_kernel_matches_plain(dev, bits, g, K, tile_k, M):
     got = qmatmul(a16, qt)
     assert got.dtype == torch.bfloat16
     assert (got.float() - ref).abs().max() <= 2e-2 * ref.abs().max()
+
+
+# the same shapes, and the two shapes the whole-word forms were written for:
+# K-tiles of 1024 rows (paired 4-bit) and of 512 (8-bit), several tiles
+FORM_CASES = QCASES + [(4, 128, 2048, None), (8, 128, 1024, None), (4, 64, 1024, 256),
+                       (8, 16, 256, 64)]
+
+
+@pytest.mark.parametrize("bits,g,K,tile_k", FORM_CASES)
+@pytest.mark.parametrize("M", [1, 8, 9, 40, 300])
+@pytest.mark.parametrize("N", [160, 100, 99])
+def test_qmatmul_forms_match_plain(dev, bits, g, K, tile_k, M, N):
+    """The few-rows form and the tensor-core tile, each forced wherever it
+    takes the input, against the plain version (rel 2e-2 of the largest
+    output, bf16 out) and against the CUDA-core form in f32 (the same algebra
+    on exact products: only the order of the f32 sums differs, rel 1e-4).
+    N = 160 is no multiple of either tile, 100 takes the 16-byte loads
+    without the 8-column stores, 99 the single-word loads."""
+    gen = _gen(dev, bits * 1000 + M + N)
+    qt = synth.random_qtensor(gen, K, N, bits, g, tile_k=tile_k)
+    a = torch.randn(M, K, device=dev, generator=gen).to(torch.bfloat16)
+    ref = qmatmul(a, qt, out_dtype=torch.float32, use_kernel=False)
+    a_pad = torch.nn.functional.pad(a, (0, qt.K - K))
+    core = qmatmul_kernel(a_pad, qt, out_dtype=torch.float32, form="cuda_core")
+    top = ref.abs().max()
+    forms = ["mma"] if (qt.tile_k // qt.groups_per_tile) % 8 == 0 else []
+    if M <= GEMV_MAX_M and word_layout(qt):
+        forms.append("gemv")
+    assert qgemv_form(M, False, qt) in forms + ["cuda_core"]
+    for form in forms:
+        common.reset_counts()
+        got = qmatmul_kernel(a_pad, qt, out_dtype=torch.float32, form=form)
+        assert common.launches[COUNTER[form]] == 1
+        assert sum(common.launches.values()) == 1 and not any(common.plain_on_cuda.values())
+        assert (got - core).abs().max() <= 1e-4 * top, form
+        got16 = qmatmul_kernel(a_pad, qt, form=form)
+        assert got16.dtype == torch.bfloat16
+        assert (got16.float() - ref).abs().max() <= 2e-2 * top, form
+    if (bits, g, K) == (4, 128, 2048):
+        assert mma_whole_words(qt) and word_layout(qt)
+    if "gemv" not in forms:
+        with pytest.raises(ValueError):
+            qmatmul_kernel(a_pad, qt, form="gemv")
+
+
+@pytest.mark.parametrize("M", [(3, 5), (3, 50)], ids=["M15", "M150"])
+def test_qmatmul_forms_f32_scales_perm_n_logical_layer(dev, M):
+    """The routed bf16 forms through the op: a stacked QTensor's layer view,
+    f32 scales, the act-order gather, K padding and the N_logical cut."""
+    gen = _gen(dev, 8)
+    qts = [synth.random_qtensor(gen, 300, 256, 4, 128) for _ in range(2)]
+    st = dataclasses.replace(
+        qts[0],
+        planes=tuple(torch.stack(p) for p in zip(*(q.planes for q in qts))),
+        scales=torch.stack([q.scales.float() for q in qts]),
+        scale_zeros=torch.stack([q.scale_zeros.float() for q in qts]),
+        perm=torch.stack([torch.randperm(300, device=dev, generator=gen) for _ in qts]),
+        N_logical=250,
+    )
+    a = torch.randn(*M, 300, device=dev, generator=gen).to(torch.bfloat16)
+    for li in (0, 1):
+        ref = qmatmul(a, st, layer=li, out_dtype=torch.float32, use_kernel=False)
+        common.reset_counts()
+        got = qmatmul(a, st, layer=li)
+        name = COUNTER[qgemv_form(M[0] * M[1], False, st.layer(li))]
+        assert common.launches[name] == 1 and not any(common.plain_on_cuda.values())
+        assert got.shape == (*M, 250) and got.dtype == torch.bfloat16
+        assert (got.float() - ref).abs().max() <= 2e-2 * ref.abs().max()
+
+
+def test_qmatmul_few_rows_on_two_streams(dev):
+    """Few-rows calls with split K in flight on two streams: each stream has
+    its own split-K tickets, so both give what one stream gives, and the
+    tickets are back at zero afterwards."""
+    gen = _gen(dev, 9)
+    qts = [synth.random_qtensor(gen, 4096, 512, 4, 128) for _ in range(2)]
+    acts = [torch.randn(8, 4096, device=dev, generator=gen).to(torch.bfloat16) for _ in qts]
+    want = [qmatmul_kernel(a, qt, form="gemv") for a, qt in zip(acts, qts)]
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(dev) for _ in qts]
+    for _ in range(50):
+        got = []
+        for s, a, qt in zip(streams, acts, qts):
+            with torch.cuda.stream(s):
+                got.append(qmatmul_kernel(a, qt, form="gemv"))
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    for s in streams:
+        assert _stream_counters(dev, s.cuda_stream).abs().max() == 0
+
+
+def test_cuda_core_form_has_its_own_counter(dev):
+    """`precise`, and a few rows on a layout the few-rows form does not read
+    (groups of 40), count as the CUDA-core form and as nothing else."""
+    gen = _gen(dev, 10)
+    a = torch.randn(8, 640, device=dev, generator=gen)
+    for precise, qt in ((True, synth.random_qtensor(gen, 512, 160, 4, 128)),
+                        (False, synth.random_qtensor(gen, 640, 160, 4, 40))):
+        assert qgemv_form(8, precise, qt) == "cuda_core"
+        common.reset_counts()
+        qmatmul(a[:, :qt.K_logical], qt, precise=precise)
+        assert common.launches["qgemv_cuda_core"] == 1 and sum(common.launches.values()) == 1
 
 
 def test_qmatmul_kernel_f32_scales_perm_n_logical_layer(dev):
@@ -155,10 +265,11 @@ def test_wrappers_count_and_reject(dev):
         kv_append_dense(k.half(), k.half(), k[0, 0, :, 0].half()[None], k[0, 0, :, 0].half()[None],
                         torch.zeros(1, device=dev), 0)
     qt = synth.random_qtensor(_gen(dev, 0), 256, 128, 4, 128)
+    name = COUNTER[qgemv_form(2, False, qt)]
     qmatmul(torch.ones(2, 256, device=dev), qt)
-    assert common.launches["qgemv"] == 1 and common.plain_on_cuda["qgemv"] == 0
+    assert common.launches[name] == 1 and common.plain_on_cuda["qgemv"] == 0
     qmatmul(torch.ones(2, 256, device=dev), qt, use_kernel=False)
-    assert common.launches["qgemv"] == 1 and common.plain_on_cuda["qgemv"] == 1
+    assert common.launches[name] == 1 and common.plain_on_cuda["qgemv"] == 1
 
 
 def _packed_cache(gen, L, B, Hkv, S, D):
@@ -233,6 +344,7 @@ def _chunk_positions(dev, starts, lens, T, S):
 @pytest.mark.parametrize("D,H,Hkv,S,T,window", [
     (128, 32, 32, 2048, 512, None), (128, 32, 8, 2048, 512, 512), (128, 8, 2, 300, 70, None),
     (64, 4, 4, 128, 64, 20), (256, 4, 1, 200, 96, None), (128, 4, 4, 64, 4, None),
+    (64, 8, 2, 512, 100, None), (64, 4, 1, 300, 200, 64), (128, 8, 8, 1024, 333, None),
 ])
 def test_prefill_attention_kernel_matches_plain(dev, int8, D, H, Hkv, S, T, window):
     gen = _gen(dev, D + S + T)
@@ -445,6 +557,7 @@ def test_decode_attention_paged_kernel_matches_plain(dev, int8, D, H, Hkv, P, ps
 @pytest.mark.parametrize("D,H,Hkv,P,psz,T,window", [
     (128, 32, 32, 8, 256, 512, None), (128, 32, 8, 128, 16, 512, 512), (128, 8, 2, 19, 16, 70, None),
     (64, 4, 4, 8, 16, 64, 20), (256, 4, 1, 13, 16, 96, None), (128, 4, 4, 3, 20, 4, None),
+    (128, 8, 2, 6, 64, 100, None), (64, 4, 2, 5, 128, 70, 90),  # pages of whole key tiles
 ])
 def test_prefill_attention_paged_kernel_matches_plain(dev, int8, D, H, Hkv, P, psz, T, window):
     gen = _gen(dev, D + P * psz + T)

@@ -14,30 +14,37 @@
 //
 // What bounds it on an H100: operations.  A chunk does 4 * D flops for every
 // (query, visible key, head) and reads each visible cache row once per
-// q-tile from L2, so it sits far above the memory line.  This first version
-// does its products in f32 on the CUDA cores (67 TFLOP/s at most), not on the
-// tensor cores; its design keeps those cores fed:
+// q-tile from L2, so it sits far above the memory line, and both products
+// run on the tensor cores (mma.sync.m16n8k16 bf16, f32 sums; mma.cuh):
 // - one block per (q-tile of 64 queries, query head, chunk row): blocks are
 //   independent, so nothing is carried across the grid, and a block loops
 //   over the key tiles of [window_lo, max position of its tile] only.  Query
 //   head h reads kv head h / rep; the rep blocks of a kv head find its rows
 //   in L2;
-// - a key tile of 32 positions goes to shared memory as bf16: cache rows as
-//   they are, int8 words unpacked in registers (logical shifts on uint32_t)
-//   to byte - 128, which bf16 holds exactly.  The scales never touch the
-//   tile: the score is (q . (byte - 128)) * scale * ks and the v scale is
-//   folded into the probability, p * vs.  The TPU kernel's 128 * sum(q)
-//   correction and 2^(-8j) field scaling avoided shifts on its vector unit
-//   and are not copied;
-// - each warp owns 16 queries.  For q k^T a lane holds a 4 x 4 patch of the
-//   16 x 32 score tile (4 queries, 4 keys), so a value read from shared
-//   memory feeds 4 FMAs; row maxima reduce over 8 lanes by shuffles; the
-//   online softmax state (max, sum) stays in registers.  For p v the
-//   probabilities pass through shared memory and a lane holds D/32
-//   contiguous output values of all 16 queries, so v rows are read in one
-//   coalesced access and a probability is a broadcast;
-// - probabilities stay f32 for p v in both cache forms (the TPU kernel cast
-//   them to bf16 on the dense path only).
+// - each of the four warps owns 16 queries.  The q-tile goes to shared memory
+//   once and from there, through ldmatrix, into A fragments that stay in
+//   registers for D <= 128 (D = 256 reads them again each key tile: q, the
+//   output and the scores together would spill);
+// - a key tile of 64 positions sits in shared memory as bf16, k and v, in two
+//   buffers: the next tile loads while this one multiplies.  bf16 cache rows
+//   come by cp.async (16 bytes a copy); int8 words
+//   are fetched into registers before the products and unpacked after them,
+//   to byte - 128, which bf16 holds exactly (two bytes with one byte permute,
+//   two logic operations and one bf16x2 subtraction);
+// - s = q k^T with the k rows as the column operand (ldmatrix), the online
+//   softmax on the accumulator fragments in registers (a row's maximum and
+//   sum live in a quad of lanes: two shuffles), p rounded to bf16 in
+//   registers, where the score fragment IS the A fragment of p v, and v
+//   through ldmatrix.trans.  No probability passes shared memory;
+// - the scales never touch the tile: the score is (q . (byte - 128)) * scale
+//   * ks per key, and the v scale is folded into p before it is rounded.  The
+//   TPU kernel's 128 * sum(q) correction and 2^(-8j) field scaling avoided
+//   shifts on its vector unit and are not copied;
+// - p is rounded to bf16 before p v in both cache forms (the TPU kernel did so
+//   on the dense path); the row sum uses the unrounded f32 values.  The plain
+//   version keeps f32 probabilities: the difference is inside abs 2e-2;
+// - the output tile returns through the q-tile's shared memory, so a row is
+//   written in 16-byte pieces.
 // Every query is masked by its own position: a key s is visible to a query at
 // p when s <= p and, with a window w > 0, s > p - w.  A query whose position
 // lies outside [0, S) is padding: it sees nothing and its output is exactly
@@ -49,87 +56,52 @@
 // [n_pages, 4, Hkv, psz/4]) and position p of slot b lies in pool page
 // table[b, p / psz] at row p % psz.  The JAX package has no such kernel: with
 // a table it gathers a slot's pages into one context per layer and attends
-// eagerly.  Here the lookup is in the tile load: a key tile of 32 positions
+// eagerly.  Here the lookup is in the tile load: a key tile of 64 positions
 // may cross pages (page_size 16), so each thread finds the page of the row
 // (int8: of the word, which never crosses a page) it loads, one division and
 // one table read per 16-byte load (a shift when the page size is a power of
-// two, as the usual 16 to 256 are); the rest of the kernel sees the same
-// shared-memory tile.  The linear cache is the case of one page of S rows per
+// two, as the usual 16 to 256 are; finding the page once a tile where pages
+// hold whole tiles was tried and moved nothing).  The rest of the kernel sees
+// the same shared-memory tile.  The linear cache is the case of one page of S rows per
 // slot.  A table entry is clamped into [0, n_pages) before use: rows of a page
 // that was never given are never visible to a live query, and nothing faults.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;
-constexpr int kRows = 16;           // queries per warp
-constexpr int kTQ = kWarps * kRows; // queries per block
-constexpr int kBK = 32;             // keys per tile
-constexpr int kPStride = 40;        // floats per row of the probability tile
+constexpr int kThreads = kWarps * 32;
+constexpr int kRows = 16;            // queries per warp: one mma row tile
+constexpr int kTQ = kWarps * kRows;  // queries per block
+constexpr int kBK = 64;              // keys per tile
 constexpr float kNegInf = -1e30f;
 
 template <int D>
 struct alignas(16) Smem {
-  float q[kTQ][D + 4];
-  __nv_bfloat16 k[kBK][D + 8];
-  __nv_bfloat16 v[kBK][D];
-  float p[kWarps][kRows][kPStride];
-  float row[kWarps][kRows];  // per query: the rescale of this step, at the end 1 / sum
-  float ksc[kBK];            // per key: softmax scale (times the k scale)
-  float vsc[kBK];            // per key: the v scale
-  int pos[kTQ];              // per query: its position, -1 for padding
-  int hi, lo;                // largest and smallest live position of the tile
+  __nv_bfloat16 q[kTQ][D + 8];  // rows 16 bytes apart in the banks: conflict-free ldmatrix
+  __nv_bfloat16 k[2][kBK][D + 8];
+  __nv_bfloat16 v[2][kBK][D + 8];
+  float ksc[2][kBK];  // int8, per key: softmax scale times the k scale
+  float vsc[2][kBK];  // int8, per key: the v scale
+  int pos[kTQ];       // per query: its position, -1 for padding
+  int hi, lo;         // largest and smallest live position of the tile
 };
-
-__device__ __forceinline__ float bf16_lo(uint32_t u) { return __uint_as_float(u << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t u) { return __uint_as_float(u & 0xffff0000u); }
 
 __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
   const __nv_bfloat162 t = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<const uint32_t*>(&t);
 }
 
-// N consecutive 32-bit words in one access (p is aligned to N words).
-template <int N>
-__device__ __forceinline__ void load_words(const void* p, uint32_t (&out)[N]) {
-  static_assert(N == 1 || N == 2 || N == 4, "1, 2 or 4 words");
-  if constexpr (N == 1) {
-    out[0] = *static_cast<const uint32_t*>(p);
-  } else if constexpr (N == 2) {
-    const uint2 t = *static_cast<const uint2*>(p);
-    out[0] = t.x;
-    out[1] = t.y;
-  } else {
-    const uint4 t = *static_cast<const uint4*>(p);
-    out[0] = t.x;
-    out[1] = t.y;
-    out[2] = t.z;
-    out[3] = t.w;
-  }
-}
-
-template <int N>
-__device__ __forceinline__ void store_words(void* p, const uint32_t (&in)[N]) {
-  static_assert(N == 1 || N == 2 || N == 4, "1, 2 or 4 words");
-  if constexpr (N == 1) {
-    *static_cast<uint32_t*>(p) = in[0];
-  } else if constexpr (N == 2) {
-    *static_cast<uint2*>(p) = make_uint2(in[0], in[1]);
-  } else {
-    *static_cast<uint4*>(p) = make_uint4(in[0], in[1], in[2], in[3]);
-  }
-}
-
-// byte j of four words, as bf16 values byte - 128, packed in two words
-__device__ __forceinline__ void unpack_byte(const uint32_t (&w)[4], int j, uint32_t (&out)[2]) {
-  float f[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    f[i] = static_cast<float>(static_cast<int>((w[i] >> (8 * j)) & 0xffu) - 128);
-  out[0] = pack_bf16(f[0], f[1]);
-  out[1] = pack_bf16(f[2], f[3]);
+// byte j of w0 and of w1, as the bf16 pair (byte - 128), exactly: the low
+// seven bits go into the mantissa of 128.0, and what comes off is 128 when
+// the byte's top bit is set, else 256.
+__device__ __forceinline__ uint32_t unpack_pair(uint32_t w0, uint32_t w1, int j) {
+  const uint32_t t = __byte_perm(w0, w1, j | ((4 + j) << 8));
+  return xb::bf162_sub((t & 0x007F007Fu) | xb::kBf16x2_128, (t & 0x00800080u) ^ 0x43804380u);
 }
 
 // The block of `rows` rows that holds row `r` of a slot, and the row inside
@@ -153,7 +125,7 @@ __device__ __forceinline__ size_t find_block(int r, int slot, int rows, int shif
 // k/v are bf16 rows and ks/vs are unused.  PAGED: k/v (and ks/vs) are pools of
 // pages of psz positions found through table [B, S / psz]; otherwise psz == S.
 template <int DPL, bool INT8, bool PAGED>
-__global__ void __launch_bounds__(kWarps * 32)
+__global__ void __launch_bounds__(kThreads)
 prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
                          const void* __restrict__ k_raw, const void* __restrict__ v_raw,
                          const __nv_bfloat16* __restrict__ ks,
@@ -165,11 +137,15 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
   // log2 of the page size where it is a power of two (int8: of 4 or more), else -1
   const int psz_shift = PAGED && (psz & (psz - 1)) == 0 ? __ffs(psz) - 1 : -1;
   constexpr int D = DPL * 32;
+  constexpr int KSTEPS = D / 16;     // k16 steps of q k^T; pairs of 8-wide output tiles of p v
+  constexpr bool QREG = D <= 128;    // the q fragments stay in registers
+  constexpr int ITEMS = D / 32;      // int8: (word row, four columns) items a thread a tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw);
 
   const int t0 = blockIdx.x * kTQ, h = blockIdx.y, n = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
   const int hk = h / (H / Hkv);
   const int slot = min(max(slot_ids[n], 0), B - 1);
   const int* table_row = PAGED ? table + static_cast<size_t>(slot) * (S / psz) : nullptr;
@@ -189,219 +165,253 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
       atomicMin(&sm.lo, p);
     }
   }
-  // the q tile, as f32
-  for (int idx = tid; idx < kTQ * (D / 8); idx += kWarps * 32) {
+  // the q tile; rows past T are zero
+  for (int idx = tid; idx < kTQ * (D / 8); idx += kThreads) {
     const int r = idx / (D / 8), c = idx - r * (D / 8);
-    uint32_t w[4] = {0u, 0u, 0u, 0u};
+    uint4 w = make_uint4(0u, 0u, 0u, 0u);
     if (t0 + r < T)
-      load_words<4>(q + ((static_cast<size_t>(n) * T + t0 + r) * H + h) * D + c * 8, w);
-    float4 a = make_float4(bf16_lo(w[0]), bf16_hi(w[0]), bf16_lo(w[1]), bf16_hi(w[1]));
-    float4 b = make_float4(bf16_lo(w[2]), bf16_hi(w[2]), bf16_lo(w[3]), bf16_hi(w[3]));
-    *reinterpret_cast<float4*>(&sm.q[r][c * 8]) = a;
-    *reinterpret_cast<float4*>(&sm.q[r][c * 8 + 4]) = b;
+      w = *reinterpret_cast<const uint4*>(
+          q + ((static_cast<size_t>(n) * T + t0 + r) * H + h) * D + c * 8);
+    *reinterpret_cast<uint4*>(&sm.q[r][c * 8]) = w;
   }
   __syncthreads();
 
   const int hi = sm.hi;
   const int lo = window > 0 ? max(sm.lo - (window - 1), 0) : 0;
-
-  // lane (i, j) of a warp: queries i + 4a and keys j + 8c of the score tile
-  const int i = lane >> 3, j = lane & 7;
-  int pos_a[4];
+  // lane 4g + t4 holds rows g and g + 8 of its warp's 16 queries
+  const int pos_r[2] = {sm.pos[warp * kRows + g], sm.pos[warp * kRows + g + 8]};
   int warp_hi = -1;
-#pragma unroll
-  for (int a = 0; a < 4; ++a) pos_a[a] = sm.pos[warp * kRows + i + 4 * a];
   for (int r = 0; r < kRows; ++r) warp_hi = max(warp_hi, sm.pos[warp * kRows + r]);
 
-  float m_a[4], l_a[4], o[kRows][DPL];
+  const __nv_bfloat16* q_lane = &sm.q[warp * kRows + (lane & 15)][(lane >> 4) * 8];
+  uint32_t qf[QREG ? KSTEPS : 1][4];
+  if constexpr (QREG) {
 #pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    m_a[a] = kNegInf;
-    l_a[a] = 0.f;
+    for (int s = 0; s < KSTEPS; ++s) xb::ldmatrix_x4(qf[s], q_lane + s * 16);
   }
+
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+  float o[2 * KSTEPS][4];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r)
+  for (int dt = 0; dt < 2 * KSTEPS; ++dt)
 #pragma unroll
-    for (int e = 0; e < DPL; ++e) o[r][e] = 0.f;
+    for (int e = 0; e < 4; ++e) o[dt][e] = 0.f;
 
   const int Sw = S / 4, pszw = psz / 4;
-  for (int kb = hi >= 0 ? (lo / kBK) * kBK : 0; kb <= hi; kb += kBK) {
-    __syncthreads();  // the tile of the step before has been used
+
+  // bf16 cache: queue the copies of the 64 rows from kb on into buffer `buf`
+  auto queue_tile = [&](int kb, int buf) {
+    const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(k_raw);
+    const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(v_raw);
+    for (int idx = tid; idx < kBK * (D / 8); idx += kThreads) {
+      const int r = idx / (D / 8), c = idx - r * (D / 8);
+      const bool valid = kb + r < S;  // beyond the cache: zeros
+      size_t at = 0;
+      if (valid) {
+        int ri;
+        const size_t blk = find_block<PAGED>(kb + r, slot, psz, psz_shift, table_row, n_pages, &ri);
+        at = ((blk * Hkv + hk) * psz + ri) * D + c * 8;
+      }
+      xb::cp_async_16(&sm.k[buf][r][c * 8], kp + at, valid);
+      xb::cp_async_16(&sm.v[buf][r][c * 8], vp + at, valid);
+    }
+    xb::cp_async_commit();
+  };
+  // int8 cache: the tile's words and scales into registers ...
+  uint4 kw_r[ITEMS], vw_r[ITEMS];
+  float ks_r = 0.f, vs_r = 0.f;
+  auto fetch_tile = [&](int kb) {
+    const uint32_t* kw = static_cast<const uint32_t*>(k_raw);
+    const uint32_t* vw = static_cast<const uint32_t*>(v_raw);
+#pragma unroll
+    for (int it = 0; it < ITEMS; ++it) {
+      const int idx = tid + it * kThreads;
+      const int wr = idx / (D / 4), c = idx - wr * (D / 4);
+      const int w = kb / 4 + wr;
+      // beyond the cache: byte 128, the value 0
+      kw_r[it] = make_uint4(0x80808080u, 0x80808080u, 0x80808080u, 0x80808080u);
+      vw_r[it] = kw_r[it];
+      if (w < Sw) {
+        int wi;
+        const size_t blk = find_block<PAGED>(w, slot, pszw, psz_shift - 2, table_row, n_pages, &wi);
+        const size_t at = ((blk * Hkv + hk) * pszw + wi) * D + c * 4;
+        kw_r[it] = *reinterpret_cast<const uint4*>(kw + at);
+        vw_r[it] = *reinterpret_cast<const uint4*>(vw + at);
+      }
+    }
+    if (tid < kBK) {
+      const int s = kb + tid;
+      ks_r = vs_r = 0.f;
+      if (s < S) {
+        // scales[blk, j, h, w] of position 4w + j of the block
+        int si;
+        const size_t blk = find_block<PAGED>(s, slot, psz, psz_shift, table_row, n_pages, &si);
+        const size_t at = ((blk * 4 + (si & 3)) * Hkv + hk) * pszw + (si >> 2);
+        ks_r = __bfloat162float(ks[at]);
+        vs_r = __bfloat162float(vs[at]);
+      }
+    }
+  };
+  // ... and from the registers into buffer `buf` as bf16 (byte - 128)
+  auto store_tile = [&](int buf) {
+#pragma unroll
+    for (int it = 0; it < ITEMS; ++it) {
+      const int idx = tid + it * kThreads;
+      const int wr = idx / (D / 4), c = idx - wr * (D / 4);
+      const uint4 a = kw_r[it], b = vw_r[it];
+#pragma unroll
+      for (int jj = 0; jj < 4; ++jj) {
+        *reinterpret_cast<uint2*>(&sm.k[buf][4 * wr + jj][c * 4]) =
+            make_uint2(unpack_pair(a.x, a.y, jj), unpack_pair(a.z, a.w, jj));
+        *reinterpret_cast<uint2*>(&sm.v[buf][4 * wr + jj][c * 4]) =
+            make_uint2(unpack_pair(b.x, b.y, jj), unpack_pair(b.z, b.w, jj));
+      }
+    }
+    if (tid < kBK) {
+      sm.ksc[buf][tid] = ks_r * scale;
+      sm.vsc[buf][tid] = vs_r;
+    }
+  };
+
+  const int kb0 = hi >= 0 ? (lo / kBK) * kBK : 0;
+  const int n_tiles = hi >= 0 ? (hi - kb0) / kBK + 1 : 0;
+  if (n_tiles > 0) {
     if constexpr (INT8) {
-      const uint32_t* kw = static_cast<const uint32_t*>(k_raw);
-      const uint32_t* vw = static_cast<const uint32_t*>(v_raw);
-      for (int idx = tid; idx < (kBK / 4) * (D / 4); idx += kWarps * 32) {
-        const int wr = idx / (D / 4), c = idx - wr * (D / 4);
-        const int w = kb / 4 + wr;
-        // beyond the cache: byte 128, the value 0
-        uint32_t a[4] = {0x80808080u, 0x80808080u, 0x80808080u, 0x80808080u};
-        uint32_t b[4] = {0x80808080u, 0x80808080u, 0x80808080u, 0x80808080u};
-        if (w < Sw) {
-          int wi;
-          const size_t blk =
-              find_block<PAGED>(w, slot, pszw, psz_shift - 2, table_row, n_pages, &wi);
-          const size_t at = ((blk * Hkv + hk) * pszw + wi) * D + c * 4;
-          load_words<4>(kw + at, a);
-          load_words<4>(vw + at, b);
-        }
-#pragma unroll
-        for (int jj = 0; jj < 4; ++jj) {
-          uint32_t t[2];
-          unpack_byte(a, jj, t);
-          store_words<2>(&sm.k[4 * wr + jj][c * 4], t);
-          unpack_byte(b, jj, t);
-          store_words<2>(&sm.v[4 * wr + jj][c * 4], t);
-        }
-      }
-      if (tid < kBK) {
-        const int s = kb + tid;
-        float a = 0.f, b = 0.f;
-        if (s < S) {
-          // scales[blk, j, h, w] of position 4w + j of the block
-          int si;
-          const size_t blk = find_block<PAGED>(s, slot, psz, psz_shift, table_row, n_pages, &si);
-          const size_t at = ((blk * 4 + (si & 3)) * Hkv + hk) * pszw + (si >> 2);
-          a = __bfloat162float(ks[at]);
-          b = __bfloat162float(vs[at]);
-        }
-        sm.ksc[tid] = a * scale;
-        sm.vsc[tid] = b;
-      }
+      fetch_tile(kb0);
+      store_tile(0);
     } else {
-      const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(k_raw);
-      const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(v_raw);
-      for (int idx = tid; idx < kBK * (D / 8); idx += kWarps * 32) {
-        const int r = idx / (D / 8), c = idx - r * (D / 8);
-        uint32_t a[4] = {0u, 0u, 0u, 0u}, b[4] = {0u, 0u, 0u, 0u};
-        if (kb + r < S) {
-          int ri;
-          const size_t blk = find_block<PAGED>(kb + r, slot, psz, psz_shift, table_row, n_pages, &ri);
-          const size_t at = ((blk * Hkv + hk) * psz + ri) * D + c * 8;
-          load_words<4>(kp + at, a);
-          load_words<4>(vp + at, b);
-        }
-        store_words<4>(&sm.k[r][c * 8], a);
-        store_words<4>(&sm.v[r][c * 8], b);
-      }
-      if (tid < kBK) sm.ksc[tid] = scale;
+      queue_tile(kb0, 0);
     }
-    __syncthreads();
-    if (kb > warp_hi) continue;  // no query of this warp sees the tile (warp-uniform)
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    const int kb = kb0 + it * kBK, buf = it & 1;
+    const bool more = it + 1 < n_tiles;
+    // the next tile is on its way while this one multiplies
+    if constexpr (INT8) {
+      if (more) fetch_tile(kb + kBK);
+    } else {
+      if (more) {
+        queue_tile(kb + kBK, buf ^ 1);
+        xb::cp_async_wait<1>();
+      } else {
+        xb::cp_async_wait<0>();
+      }
+    }
+    __syncthreads();  // tile `it` is in shared memory
 
-    // scores: 4 queries x 4 keys a lane
-    float sc[4][4];
+    if (kb <= warp_hi) {  // else no query of this warp sees the tile (warp-uniform)
+      // scores: 16 queries x 64 keys a warp, 8 tiles of 8 keys
+      float sc[8][4];
 #pragma unroll
-    for (int a = 0; a < 4; ++a)
+      for (int nt = 0; nt < 8; ++nt)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) sc[a][c] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4];
+        for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
 #pragma unroll
-      for (int a = 0; a < 4; ++a)
-        qv[a] = *reinterpret_cast<const float4*>(&sm.q[warp * kRows + i + 4 * a][d]);
+      for (int s = 0; s < KSTEPS; ++s) {
+        uint32_t af[4];
+        if constexpr (QREG) {
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        uint32_t kk[2];
-        load_words<2>(&sm.k[j + 8 * c][d], kk);
-        const float k0 = bf16_lo(kk[0]), k1 = bf16_hi(kk[0]);
-        const float k2 = bf16_lo(kk[1]), k3 = bf16_hi(kk[1]);
+          for (int e = 0; e < 4; ++e) af[e] = qf[s][e];
+        } else {
+          xb::ldmatrix_x4(af, q_lane + s * 16);
+        }
 #pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          float s = sc[a][c];
-          s = fmaf(qv[a].x, k0, s);
-          s = fmaf(qv[a].y, k1, s);
-          s = fmaf(qv[a].z, k2, s);
-          s = fmaf(qv[a].w, k3, s);
-          sc[a][c] = s;
+        for (int np = 0; np < 4; ++np) {
+          // keys 16np.. : (keys 0-7, d 0-7), (keys 0-7, d 8-15), (keys 8-15, d 0-7), (8-15, 8-15)
+          uint32_t bk[4];
+          xb::ldmatrix_x4(bk, &sm.k[buf][np * 16 + ((lane >> 4) << 3) + (lane & 7)]
+                                       [s * 16 + ((lane >> 3) & 1) * 8]);
+          xb::mma_bf16(sc[2 * np], af, bk[0], bk[1]);
+          xb::mma_bf16(sc[2 * np + 1], af, bk[2], bk[3]);
         }
       }
-    }
 
-    // mask by position, online softmax, probabilities to shared memory
+      // mask by position and online softmax, on the fragments: c0, c1 are row
+      // g and c2, c3 row g + 8, keys 8nt + 2t4 and + 1
 #pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      const int p = pos_a[a];
-      float mx = kNegInf;
+      for (int half = 0; half < 2; ++half) {
+        const int p = pos_r[half];
+        float mx = kNegInf;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int s = kb + j + 8 * c;
-        const bool live = s <= p && (window <= 0 || s > p - window);
-        sc[a][c] = live ? sc[a][c] * sm.ksc[j + 8 * c] : kNegInf;
-        mx = fmaxf(mx, sc[a][c]);
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int kl = nt * 8 + 2 * t4 + e, s = kb + kl;
+            const bool live = s <= p && (window <= 0 || s > p - window);
+            const float x = live ? sc[nt][2 * half + e] * (INT8 ? sm.ksc[buf][kl] : scale)
+                                 : kNegInf;
+            sc[nt][2 * half + e] = x;
+            mx = fmaxf(mx, x);
+          }
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m_r[half], mx);
+        const float alpha = __expf(m_r[half] - m_new);
+        float sum = 0.f;
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float x = sc[nt][2 * half + e];
+            const float pe = x > 0.5f * kNegInf ? __expf(x - m_new) : 0.f;
+            sum += pe;
+            sc[nt][2 * half + e] = INT8 ? pe * sm.vsc[buf][nt * 8 + 2 * t4 + e] : pe;
+          }
+        l_r[half] = l_r[half] * alpha + sum;  // this lane's keys; summed over the quad at the end
+        m_r[half] = m_new;
+#pragma unroll
+        for (int dt = 0; dt < 2 * KSTEPS; ++dt) {
+          o[dt][2 * half] *= alpha;
+          o[dt][2 * half + 1] *= alpha;
+        }
       }
-#pragma unroll
-      for (int off = 1; off < 8; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m_a[a], mx);
-      const float alpha = expf(m_a[a] - m_new);
-      float sum = 0.f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float pe = sc[a][c] > 0.5f * kNegInf ? expf(sc[a][c] - m_new) : 0.f;
-        sum += pe;
-        sm.p[warp][i + 4 * a][j + 8 * c] = INT8 ? pe * sm.vsc[j + 8 * c] : pe;
-      }
-      l_a[a] = l_a[a] * alpha + sum;  // this lane's keys; summed over lanes at the end
-      m_a[a] = m_new;
-      if (j == 0) sm.row[warp][i + 4 * a] = alpha;
-    }
-    __syncwarp();
 
-    // output: D/32 values of each of the 16 queries a lane
+      // o += p v: the score fragments of keys 16kk.. are the A fragment of step kk
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float alpha = sm.row[warp][r];
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        uint32_t pa[4];
+        pa[0] = pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
+        pa[1] = pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
+        pa[2] = pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
+        pa[3] = pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
 #pragma unroll
-      for (int e = 0; e < DPL; ++e) o[r][e] *= alpha;
-    }
-#pragma unroll 2
-    for (int kk = 0; kk < kBK; kk += 4) {
-      float vv[4][DPL];
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        uint32_t w[DPL / 2];
-        load_words<DPL / 2>(&sm.v[kk + c][lane * DPL], w);
-#pragma unroll
-        for (int e = 0; e < DPL / 2; ++e) {
-          vv[c][2 * e] = bf16_lo(w[e]);
-          vv[c][2 * e + 1] = bf16_hi(w[e]);
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 pp = *reinterpret_cast<const float4*>(&sm.p[warp][r][kk]);
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) {
-          float acc = o[r][e];
-          acc = fmaf(pp.x, vv[0][e], acc);
-          acc = fmaf(pp.y, vv[1][e], acc);
-          acc = fmaf(pp.z, vv[2][e], acc);
-          acc = fmaf(pp.w, vv[3][e], acc);
-          o[r][e] = acc;
+        for (int dp = 0; dp < KSTEPS; ++dp) {
+          // d 16dp.. : (keys 0-7, d 0-7), (keys 8-15, d 0-7), (keys 0-7, d 8-15), (8-15, 8-15)
+          uint32_t bv[4];
+          xb::ldmatrix_x4_trans(bv, &sm.v[buf][kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)]
+                                             [dp * 16 + ((lane >> 4) << 3)]);
+          xb::mma_bf16(o[2 * dp], pa, bv[0], bv[1]);
+          xb::mma_bf16(o[2 * dp + 1], pa, bv[2], bv[3]);
         }
       }
     }
-    __syncwarp();  // sm.p and sm.row are rewritten in the next step
+    __syncthreads();  // tile `it` is consumed: its buffer's other half may be written
+    if constexpr (INT8) {
+      if (more) store_tile(buf ^ 1);
+    }
   }
 
-  // 1 / sum per query; a query that saw nothing (padding) gets 0
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    float l = l_a[a];
-#pragma unroll
-    for (int off = 1; off < 8; off <<= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
-    if (j == 0) sm.row[warp][i + 4 * a] = l > 0.f ? 1.f / l : 0.f;
-  }
+  // 1 / sum per query; a query that saw nothing (padding) gets 0.  The tile
+  // returns through the warp's own rows of sm.q.
   __syncwarp();
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int t = t0 + warp * kRows + r;
-    if (t >= T) break;
-    const float inv = sm.row[warp][r];
-    uint32_t w[DPL / 2];
+  for (int half = 0; half < 2; ++half) {
+    float l = l_r[half];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const float inv = l > 0.f ? 1.f / l : 0.f;
 #pragma unroll
-    for (int e = 0; e < DPL / 2; ++e) w[e] = pack_bf16(o[r][2 * e] * inv, o[r][2 * e + 1] * inv);
-    store_words<DPL / 2>(out + ((static_cast<size_t>(n) * T + t) * H + h) * D + lane * DPL, w);
+    for (int dt = 0; dt < 2 * KSTEPS; ++dt)
+      *reinterpret_cast<uint32_t*>(&sm.q[warp * kRows + g + 8 * half][dt * 8 + 2 * t4]) =
+          pack_bf16(o[dt][2 * half] * inv, o[dt][2 * half + 1] * inv);
+  }
+  __syncwarp();
+  for (int idx = lane; idx < kRows * (D / 8); idx += 32) {
+    const int r = idx / (D / 8), c = idx - r * (D / 8);
+    const int t = t0 + warp * kRows + r;
+    if (t < T)
+      *reinterpret_cast<uint4*>(out + ((static_cast<size_t>(n) * T + t) * H + h) * D + c * 8) =
+          *reinterpret_cast<const uint4*>(&sm.q[warp * kRows + r][c * 8]);
   }
 }
 

@@ -1,17 +1,21 @@
-// Fused dequantize + matmul: out[M, N] = a[M, K] @ dequant(qt)[K, N].
+// Fused dequantize + matmul: out[M, N] = a[M, K] @ dequant(qt)[K, N], on the
+// CUDA cores in f32.
 //
-// Replaces the Pallas kernel xbitops_tpu/kernels/qgemv_kernel.py:_kernel
-// (entry qmatmul_kernel, qgemv_kernel.py:335), in its bf16 and precise forms.
+// The first form of the port of the Pallas kernel
+// xbitops_tpu/kernels/qgemv_kernel.py:_kernel (entry qmatmul_kernel,
+// qgemv_kernel.py:335).  With bf16 activations qgemv_word.cu (a few rows)
+// and qgemv_mma.cu (the tensor-core tile) have taken its place wherever they
+// decode the layout; this one keeps f32 activations (`precise`: bf16 products
+// cannot hold rel 1e-5), every width and layout at M <= 8 that the few-rows
+// form does not read whole, and scale groups that are not multiples of 8 rows.
 //
-// What bounds it on an H100: at decode (M <= 8) the packed weight stream is
-// the only large read (4 bits a weight), so the bound is device-memory
-// bandwidth, reached only with enough loads in flight; the integer decode
-// per weight comes next.  At prefill (M up to slots x bucket) the decode is
-// shared by a whole M tile and the f32 multiply-adds on the CUDA cores bound
-// it (no tensor cores yet).
+// What bounds it on an H100: at M <= 8 the packed weight stream (4 bits a
+// weight) is the only large read, so the bound is device-memory bandwidth;
+// it reaches 8-13% of it, held back by an integer decode per weight from
+// shared tables and by fetching a word again for each K row it holds.  Above
+// that the f32 multiply-adds bound it (67 TFLOP/s at most).
 //
-// Design (simple first; the LOP3/prmt magic-bias decode and tensor-core
-// tiles are later work):
+// Design:
 // - a block covers TM rows of M and 32*CPL columns of N: lane l owns CPL
 //   adjacent columns, so a warp reads a row of a plane in one coalesced
 //   access (16 bytes a lane at decode, CPL = 4);
@@ -35,6 +39,7 @@
 #include <stdint.h>
 
 #include "planes.cuh"
+#include "splitk.cuh"
 
 namespace {
 
@@ -193,20 +198,6 @@ qgemv_kernel(const void* __restrict__ a, int a_f32, int M, int K, int N, Planes 
   }
 }
 
-// out = the sum over splits of part[split], in split order.
-__global__ void add_splits_kernel(const float* __restrict__ part, int splits, size_t MN,
-                                  void* __restrict__ out, int out_f32) {
-  for (size_t i = blockIdx.x * static_cast<size_t>(blockDim.x) + threadIdx.x; i < MN;
-       i += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    float v = 0.f;
-    for (int z = 0; z < splits; ++z) v += part[z * MN + i];
-    if (out_f32)
-      static_cast<float*>(out)[i] = v;
-    else
-      static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16(v);
-  }
-}
-
 template <int TM, int CPL>
 void launch(const dim3& grid, cudaStream_t st, const void* a, int a_f32, int M, int K, int N,
             const Planes& pl, const void* s, const void* sz, int s_f16, int tile_k, int gt,
@@ -244,8 +235,5 @@ extern "C" int xb_qgemv(const void* a, int a_f32, int M, int K, int N,
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
-  const size_t MN = static_cast<size_t>(M) * N;
-  const int blocks = static_cast<int>((MN + 255) / 256 < 4096 ? (MN + 255) / 256 : 4096);
-  add_splits_kernel<<<blocks, 256, 0, st>>>(pt, splits, MN, out, out_f32);
-  return static_cast<int>(cudaGetLastError());
+  return xb::add_splits(pt, splits, M, N, out, out_f32, st);
 }

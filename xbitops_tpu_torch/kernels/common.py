@@ -40,7 +40,8 @@ NVCC_FLAGS = [
 KERNELS = ("qgemv", "kv_append", "decode_attention", "prefill_attention",
            "kv_append_packed", "decode_attention_int8", "dequant", "qgemv_a8",
            "qgemv_a8_perchannel", "kv_append_paged", "kv_append_packed_paged",
-           "decode_attention_paged", "decode_attention_int8_paged", "prefill_attention_paged")
+           "decode_attention_paged", "decode_attention_int8_paged", "prefill_attention_paged",
+           "qgemv_mma", "qgemv_cuda_core")
 launches = dict.fromkeys(KERNELS, 0)
 plain_on_cuda = dict.fromkeys(KERNELS, 0)
 
@@ -62,6 +63,10 @@ _VP, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "xb_qgemv": [_VP, _I, _I, _I, _I, _VP, _VP, _VP, _I, _I, _I, _I,
                  _VP, _VP, _I, _I, _I, _I, _I, _I, _VP, _VP, _I, _VP],
+    "xb_qgemv_mma": [_VP, _I, _I, _I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP, _I, _I, _I, _I,
+                     _I, _I, _VP, _VP, _I, _VP],
+    "xb_qgemv_word": [_VP, _I, _I, _I, _I, _VP, _I, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP, _VP, _VP,
+                      _I, _VP],
     "xb_kv_append": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
     "xb_kv_append_packed": [_VP] * 9 + [_I, _I, _I, _I, _VP],
     "xb_decode_attention": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
@@ -80,7 +85,7 @@ _SIGNATURES = {
 
 _lib = None
 _lock = threading.Lock()
-build_log = ""  # ptxas resource report of the last build
+build_log = ""  # ptxas resource report of the library in use (kept beside it)
 
 
 def _nvcc() -> str:
@@ -106,7 +111,9 @@ def build() -> Path:
     h.update(" ".join(NVCC_FLAGS).encode())
     out_dir = BUILD_ROOT / h.hexdigest()[:16]
     lib_path = out_dir / "libxbitops_kernels.so"
+    log_path = out_dir / "build.log"
     if lib_path.exists():
+        build_log = log_path.read_text() if log_path.exists() else ""
         return lib_path
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
@@ -132,6 +139,7 @@ def build() -> Path:
             raise RuntimeError(
                 f"nvcc failed ({proc.returncode}):\n{' '.join(link)}\n{proc.stdout}")
         build_log = "".join(logs) + proc.stdout
+        log_path.write_text(build_log)
         os.replace(tmp, lib_path)  # atomic: a concurrent loader sees all or nothing
     return lib_path
 

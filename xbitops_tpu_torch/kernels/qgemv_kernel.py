@@ -1,8 +1,11 @@
 """Fused dequantize + matmul ``a[M, K] @ dequant(qt)[K, N]``: the CUDA kernels
 and their plain PyTorch versions.
 
-``csrc/qgemv.cu`` replaces the Pallas kernel
-``xbitops_tpu/kernels/qgemv_kernel.py:_kernel`` (bf16 and precise forms);
+Three sources replace the Pallas kernel
+``xbitops_tpu/kernels/qgemv_kernel.py:_kernel``: ``csrc/qgemv_word.cu`` (a few
+rows, every packed word read once), ``csrc/qgemv_mma.cu`` (the tensor-core
+tile for larger M) and ``csrc/qgemv.cu`` (f32 multiply-adds: ``precise`` and
+what the other two do not take); :func:`qgemv_form` chooses.
 ``csrc/qgemv_a8.cu`` replaces ``_kernel_a8`` and ``_kernel_a8_perchannel``
 (int8 activations, integer products).  The note at the top of each source says
 what bounds it on the card and how the design answers.
@@ -12,6 +15,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+from typing import Optional
 
 import torch
 
@@ -35,17 +39,39 @@ def qmatmul_kernel_reference(
     return (a @ w).to(out_dtype)
 
 
+def _pad_k(a: torch.Tensor, K: int) -> torch.Tensor:
+    """``a`` with zero columns up to ``K``."""
+    return a if a.shape[1] == K else torch.nn.functional.pad(a, (0, K - a.shape[1]))
+
+
 def _padded_view(qt: QTensor) -> QTensor:
     """The same weight seen with all ``K`` packed rows and ``N`` columns
     (no logical slicing, no permutation): the kernel's own view."""
     return dataclasses.replace(qt, K_logical=qt.K, N_logical=None, perm=None)
 
 
-CHUNK = 256  # K rows a block stages at a time (csrc/qgemv.cu kChunk)
-# Split-K target in blocks per SM.  Sweep of 1/2/4/8 at the five 7B shapes,
-# M=8 (H100 80GB HBM3, 700 W): 4 and 8 tie and beat 2 by ~11% summed over a
-# decode step's matmuls; 4 makes fewer partial sums.  PERF.md has the table.
-BLOCKS_PER_SM = 4
+CHUNK = 256  # K rows the CUDA-core form stages at a time (csrc/qgemv.cu kChunk)
+SUB = 64  # K rows a sub-chunk of the tensor-core tile (csrc/qgemv_mma.cu KS)
+# Split-K target in blocks per SM, per form (H100 80GB HBM3, 700 W; PERF.md
+# has the tables).  cuda_core: sweep of 1/2/4/8 at the five 7B shapes, M=8: 4
+# and 8 tie and beat 2 by ~11% summed over a decode step's matmuls; 4 makes
+# fewer partial sums.  gemv, the same sweep (`utils/qgemv_sweep.py --splits`):
+# 2, the blocks an SM holds, wins on every shape (30.2 / 19.8 / 42.8 / 33.1 /
+# 51.6 us against 36.7 / 19.9 / 60.7 / 33.8 / 64.6 at 1 and 34.3 / 19.8 / 48.2
+# / 40.6 / 54.2 at 4).  mma at M=32 and 256: 1, 2, 4 and 8 read within 10% of
+# each other; 2 is the blocks an SM holds.
+BLOCKS_PER_SM = {"cuda_core": 4, "gemv": 2, "mma": 2}
+# The largest M the few-rows form takes (its tile holds 16 activation rows),
+# and the smallest the tensor-core tile takes on layouts the few-rows form
+# does not decode.  `utils/qgemv_sweep.py`, same card: at M=16 the few-rows
+# form takes 0.049 / 0.030 / 0.066 / 0.055 / 0.081 ms at the five 7B shapes
+# and the tile 0.086 / 0.033 / 0.154 / 0.090 / 0.189; a 3-bit 4096x4096 weight
+# at M=8 takes 0.052 ms on the CUDA cores and 0.112 on the tile, at M=32 0.168
+# and 0.112.
+GEMV_MAX_M = 16
+MMA_MIN_M = 9
+# The launch counter of each form (`common.launches`).
+COUNTER = {"gemv": "qgemv", "mma": "qgemv_mma", "cuda_core": "qgemv_cuda_core"}
 
 
 @functools.lru_cache(maxsize=None)
@@ -53,38 +79,137 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def _k_splits(M: int, K: int, N: int, sms: int):
-    """(splits, rows per split): split K until the grid has about
-    ``BLOCKS_PER_SM`` blocks per SM; decode shapes have too few otherwise."""
-    tm, cols = (8, 128 if N % 4 == 0 else 32) if M <= 8 else (32, 32)
-    blocks = -(-N // cols) * -(-M // tm)
-    chunks = -(-K // CHUNK)
-    want = min(chunks, max(1, -(-BLOCKS_PER_SM * sms // blocks)))
-    per = -(-chunks // want) * CHUNK
-    return -(-K // per), per
+@functools.lru_cache(maxsize=None)
+def _stream_counters(device: torch.device, stream: int) -> torch.Tensor:
+    return torch.zeros(8192, dtype=torch.int32, device=device)
+
+
+def _split_counters(a: torch.Tensor, tiles: int) -> torch.Tensor:
+    """One zeroed int per column tile for the few-rows form's split-K tickets.
+    The kernel sets back what it counted, so the calls of one stream, which
+    the stream orders, share a buffer; calls on different streams may be in
+    flight together and each stream has its own.  A call that a CUDA graph
+    captures may be replayed on any stream, so it zeroes a buffer of its own
+    inside the graph."""
+    if torch.cuda.is_current_stream_capturing():
+        return torch.zeros(tiles, dtype=torch.int32, device=a.device)
+    counters = _stream_counters(a.device, common.stream_ptr(a))
+    common.require(tiles <= counters.numel(), f"{tiles} column tiles need more counters")
+    return counters
+
+
+def _g_tile(qt: QTensor) -> int:
+    """K rows that share a scale row."""
+    return qt.tile_k // qt.groups_per_tile
+
+
+def word_layout(qt: QTensor) -> bool:
+    """Whether the few-rows form decodes ``qt``: one plane, paired 4-bit or
+    8-bit, K-tiles of whole slabs (16 word rows) and scale groups that do not
+    cut a slab's run of 32 (8-bit: 16) consecutive K rows."""
+    if len(qt.planes) != 1:
+        return False
+    if qt.bits == 4 and qt.paired:
+        return qt.tile_k % 128 == 0 and _g_tile(qt) % 32 == 0
+    return qt.bits == 8 and qt.tile_k % 64 == 0 and _g_tile(qt) % 16 == 0
+
+
+def mma_whole_words(qt: QTensor) -> bool:
+    """Whether the tensor-core tile walks ``qt`` by word rows (the paired
+    4-bit plane with K-tiles of whole 32-word-row chunks and scale groups of
+    whole 64-row sub-chunks); otherwise it decodes contiguous K rows."""
+    return (len(qt.planes) == 1 and qt.bits == 4 and qt.paired and qt.tile_k % 256 == 0
+            and _g_tile(qt) % SUB == 0)
+
+
+def qgemv_form(M: int, precise: bool, qt: QTensor) -> str:
+    """Which kernel multiplies ``a[M, K]`` with ``qt``:
+
+    - ``"gemv"``: a few rows (``M <= GEMV_MAX_M``) on a layout whose words it
+      reads whole (:func:`word_layout`), bf16 activations, tensor cores;
+    - ``"mma"``: the tensor-core tile, bf16 activations, any width;
+    - ``"cuda_core"``: f32 multiply-adds: ``precise`` (bf16 products cannot
+      hold rel 1e-5), other layouts at ``M < MMA_MIN_M``, and scale groups
+      that are not a multiple of 8 rows (the tile's 16-byte copies)."""
+    if precise:
+        return "cuda_core"
+    if M <= GEMV_MAX_M and word_layout(qt):
+        return "gemv"
+    if M >= MMA_MIN_M and _g_tile(qt) % 8 == 0:
+        return "mma"
+    return "cuda_core"
+
+
+def _units(form: str, qt: QTensor):
+    """(units of K the form splits by, their alignment): chunks of 256 rows,
+    sub-chunks of up to 64 rows inside a scale group (whole-word chunks are
+    four of them), or slabs of 16 word rows."""
+    if form == "cuda_core":
+        return -(-qt.K // CHUNK), 1
+    if form == "gemv":
+        # four slabs fold together where a scale group holds their rows: the
+        # splits then start on a stage (csrc/qgemv_word.cu LAZY)
+        rows = 128 if qt.bits == 4 else 64
+        lazy = _g_tile(qt) % rows == 0 and qt.tile_k % (4 * rows) == 0
+        return qt.K // rows, (4 if lazy else 1)
+    if mma_whole_words(qt):
+        return qt.K // SUB, 4
+    g = _g_tile(qt)
+    return (qt.K // g) * -(-g // SUB), 1
+
+
+def _blocks(form: str, M: int, N: int) -> int:
+    """Blocks of the form's grid before K is split."""
+    if form == "cuda_core":
+        tm, cols = (8, 128 if N % 4 == 0 else 32) if M <= 8 else (32, 32)
+    elif form == "gemv":
+        tm, cols = 16, 256
+    else:
+        tm, cols = (64 if M <= 64 else 128), 64
+    return -(-N // cols) * -(-M // tm)
+
+
+def _k_splits(form: str, M: int, N: int, units: int, sms: int, align: int = 1):
+    """(splits, units per split): split K until the grid has about
+    ``BLOCKS_PER_SM[form]`` blocks per SM; shapes with few rows have too few
+    otherwise.  ``per`` is a multiple of ``align`` and ``splits * per``
+    covers ``units``.  The few-rows form stays at or under that number (one
+    wave of resident blocks: a second wave of its short-lived blocks cost
+    more than it filled); the other two go just over it."""
+    target, blocks = BLOCKS_PER_SM[form] * sms, _blocks(form, M, N)
+    want = target // blocks if form == "gemv" else -(-target // blocks)
+    want = min(units, max(1, want))
+    per = -(-(-(-units // want)) // align) * align
+    return -(-units // per), per
 
 
 def qmatmul_kernel(
     a: torch.Tensor, qt: QTensor, out_dtype=torch.bfloat16, precise: bool = False,
-    a8: bool = False,
+    a8: bool = False, form: Optional[str] = None,
 ) -> torch.Tensor:
     """``a (M, K) @ dequant(qt) (K, N) -> (M, N)`` without materialising the weight.
 
-    ``a`` must already be padded to ``qt.K`` columns and permuted (the public
-    op ``ops.qmatmul`` does both).  Activations enter in bf16, or in f32 when
-    ``precise``; sums are f32.  With ``a8`` they are int8 (quantized per row
-    by the op, which applies their scale to this f32 output) and the products
-    are integer: see :func:`qmatmul_kernel_a8`.  A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel or raises."""
+    ``a`` must already be permuted (the public op ``ops.qmatmul`` does it) and
+    hold ``qt.K_logical`` to ``qt.K`` columns: the packed rows past its last
+    column are K padding and meet zeros, inside the kernel where the form
+    allows it (no padded copy of the activations is made).  Activations enter
+    in bf16, or in f32 when ``precise``; sums are f32.  With ``a8`` they are
+    int8 ``[M, qt.K]`` (quantized per row by the op, which applies their scale
+    to this f32 output) and the products are integer: see
+    :func:`qmatmul_kernel_a8`.  A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel or raises.  ``form`` overrides
+    :func:`qgemv_form` (to time one form against another); a form that does
+    not take the input raises."""
     if a8:
         common.require(not precise, "a8 is integer-exact; `precise` does not apply")
         common.require(out_dtype == torch.float32, "the a8 kernels write f32")
         return qmatmul_kernel_a8(a, qt)
-    if not a.is_cuda:
-        return qmatmul_kernel_reference(a, qt, out_dtype, precise)
     req = common.require
-    M, K = a.shape
-    req(K == qt.K, f"activation K={K} != packed K={qt.K}")
+    M, Ka = a.shape
+    K = qt.K
+    req(qt.K_logical <= Ka <= K, f"activation K={Ka} outside [{qt.K_logical}, {K}]")
+    if not a.is_cuda:
+        return qmatmul_kernel_reference(_pad_k(a, K), qt, out_dtype, precise)
     req(out_dtype in (torch.bfloat16, torch.float32), f"out_dtype {out_dtype}")
     qargs = common.qtensor_args(qt, a.device)
     N = qt.N
@@ -92,17 +217,35 @@ def qmatmul_kernel(
     out = torch.empty((M, N), dtype=out_dtype, device=a.device)
     if M == 0:
         return out
-    splits, per = _k_splits(M, K, N, _sm_count(a.device.index))
+    form = form or qgemv_form(M, precise, qt)
+    req(form in BLOCKS_PER_SM, f"form {form!r}")
+    if form == "cuda_core" or Ka % 8:  # the form, or its 16-byte copies, need whole rows
+        a, Ka = _pad_k(a, K), K
+    if a.data_ptr() % 16:  # a view that starts inside an allocation
+        a = a.clone()
+    req(form == "cuda_core" or not precise, "`precise` runs on the CUDA-core form only")
+    req(form != "gemv" or (M <= GEMV_MAX_M and word_layout(qt)),
+        f"the few-rows form does not take M={M}, bits={qt.bits}, tile_k={qt.tile_k}")
+    units, align = _units(form, qt)
+    splits, per = _k_splits(form, M, N, units, _sm_count(a.device.index), align)
     part = None
     if splits > 1:
         part = torch.empty((splits, M, N), dtype=torch.float32, device=a.device)
-    err = common.lib().xb_qgemv(
-        a.data_ptr(), int(precise), M, K, N, *qargs, splits, per,
-        None if part is None else part.data_ptr(),
-        out.data_ptr(), int(out_dtype == torch.float32), common.stream_ptr(a),
-    )
-    common.check(err, "qgemv")
-    common.launches["qgemv"] += 1
+    tail = (None if part is None else part.data_ptr(), out.data_ptr(),
+            int(out_dtype == torch.float32), common.stream_ptr(a))
+    if form == "cuda_core":
+        err = common.lib().xb_qgemv(
+            a.data_ptr(), int(precise), M, K, N, *qargs, splits, per * CHUNK, *tail)
+    elif form == "mma":
+        err = common.lib().xb_qgemv_mma(a.data_ptr(), M, K, Ka, N, *qargs, splits, per, *tail)
+    else:
+        counters = _split_counters(a, -(-N // 256)) if splits > 1 else None
+        err = common.lib().xb_qgemv_word(
+            a.data_ptr(), M, K, Ka, N, qargs[0], qt.bits, *qargs[7:], splits, per, tail[0],
+            None if counters is None else counters.data_ptr(), *tail[1:])
+    name = COUNTER[form]
+    common.check(err, name)
+    common.launches[name] += 1
     return out
 
 

@@ -31,8 +31,9 @@ def qmatmul(
     dense weight (port of ``xbitops_tpu/ops/qmatmul.py:qmatmul``).
 
     Leading dims of ``a`` fold into M.  Act-order QTensors gather the
-    activation columns through ``qt.perm``; K pads with zero columns up to the
-    packed ``qt.K``; the output is cut to ``N_logical`` columns.  ``layer``
+    activation columns through ``qt.perm``; the packed rows past K (``qt.K``
+    pads K to a tile multiple) meet zeros; the output is cut to ``N_logical``
+    columns.  ``layer``
     picks one layer of a stacked QTensor (a view).  ``precise`` keeps the
     activations in f32 (default: bf16), sums are f32 either way.
 
@@ -67,10 +68,8 @@ def qmatmul(
         return (af @ w).reshape(*lead, Nl).to(out_dtype)
     if qt.perm is not None:
         a2 = a2[:, qt.perm]
-    if qt.K != K:  # padded packed rows: zero activations contribute nothing
-        a2 = F.pad(a2, (0, qt.K - K))
-    if a8:
-        aq, a_scale = quantize_activations(a2.float())
+    if a8:  # padded packed rows: zero activations contribute nothing
+        aq, a_scale = quantize_activations(F.pad(a2.float(), (0, qt.K - K)))
         out = qmatmul_kernel(aq, qt, out_dtype=torch.float32, a8=True) * a_scale
         return out[:, :Nl].reshape(*lead, Nl).to(out_dtype)
     kernel_out = torch.float32 if out_dtype == torch.float16 else out_dtype

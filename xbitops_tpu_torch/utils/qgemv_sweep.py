@@ -1,0 +1,105 @@
+"""Time the three forms of the fused dequant-matmul against each other on the
+card, to set the routing constants of ``kernels/qgemv_kernel.py``
+(``GEMV_MAX_M``, ``MMA_MIN_M``, ``BLOCKS_PER_SM``).
+
+    python3 -m xbitops_tpu_torch.utils.qgemv_sweep [--splits]
+
+For the five Llama-2-7B projection shapes (4-bit, g=128) and M in 1, 8, 9,
+16, 32, 64, 128, 256, 2560 it prints one JSON line per (shape, M) with the
+time of every form that takes the input, in ms: CUDA events around the
+wrapper, the L2 cache flushed and a device sleep queued before each call, so
+the weights are cold and the wrapper's host time stays out.  The CUDA-core
+form is left out above M=256 (seconds a call).  With ``--splits`` it times
+the split-K target of the few-rows form and of the tile (blocks per SM 1, 2,
+4, 8) at M=8 and M=32, and an 8-bit and a 3-bit weight at 4096x4096.  It
+needs one CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+
+import torch
+
+
+def timed(fn, flush, iters: int = 8, warmup: int = 2) -> float:
+    """Mean device ms of ``fn()`` with cold caches."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(iters):
+        flush.zero_()
+        torch.cuda._sleep(2_000_000)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        total += e0.elapsed_time(e1)
+    return total / iters
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("qgemv_sweep: no CUDA device; nothing run", file=sys.stderr)
+        return 2
+    from xbitops_tpu_torch.kernels import qgemv_kernel as qk
+    from xbitops_tpu_torch.utils import synth
+
+    dev = torch.device("cuda:0")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0], flush=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    flush = torch.empty(64 * 2**20, dtype=torch.float32, device=dev)
+    shapes = {"wqkv": (4096, 12288), "wo": (4096, 4096), "w_gateup": (4096, 22016),
+              "w_down": (11008, 4096), "lm_head": (4096, 32000)}
+
+    def forms_of(M, qt):
+        forms = ["mma"]
+        if M <= qk.GEMV_MAX_M and qk.word_layout(qt):
+            forms.append("gemv")
+        if M <= 256:
+            forms.append("cuda_core")
+        return forms
+
+    def row(label, qt, M, forms):
+        a = torch.randn(M, qt.K, device=dev, generator=gen).to(torch.bfloat16)
+        ms = {f: timed(lambda f=f: qk.qmatmul_kernel(a, qt, form=f), flush,
+                       iters=3 if f == "cuda_core" and M > 16 else 8) for f in forms}
+        print(json.dumps(dict(case=label, K=qt.K, N=qt.N, M=M, routed=qk.qgemv_form(M, False, qt),
+                              packed_MB=qt.bytes_packed() / 1e6,
+                              **{f + "_ms": round(t, 5) for f, t in ms.items()})), flush=True)
+
+    if "--splits" not in sys.argv[1:]:
+        for name, (K, N) in shapes.items():
+            qt = synth.random_qtensor(gen, K, N, 4, 128)
+            for M in (1, 8, 9, 16, 32, 64, 128, 256, 2560):
+                row(name, qt, M, forms_of(M, qt))
+            del qt
+        return 0
+
+    default = dict(qk.BLOCKS_PER_SM)
+    for name, (K, N) in shapes.items():
+        qt = synth.random_qtensor(gen, K, N, 4, 128)
+        for form, M in (("gemv", 8), ("mma", 32), ("mma", 256)):
+            a = torch.randn(M, qt.K, device=dev, generator=gen).to(torch.bfloat16)
+            ms = {}
+            for per_sm in (1, 2, 4, 8):
+                qk.BLOCKS_PER_SM[form] = per_sm
+                ms[per_sm] = round(timed(lambda: qk.qmatmul_kernel(a, qt, form=form), flush), 5)
+            qk.BLOCKS_PER_SM.update(default)
+            print(json.dumps(dict(case=name, form=form, M=M, ms_by_blocks_per_sm=ms)), flush=True)
+        del qt
+    for bits in (8, 3):
+        qt = synth.random_qtensor(gen, 4096, 4096, bits, 128)
+        for M in (8, 32, 256):
+            row(f"{bits}-bit wo", qt, M, forms_of(M, qt))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
