@@ -48,6 +48,13 @@
    Phase 1 holds the paged forms of the two attention kernels and the two
    appends to their plain versions too, at the serving shape and at pages of
    16 positions with GQA, a window, -1 entries and an inactive slot.
+6. Drives the eager decode (``flash_decode=False``) on a 2-layer cut of the
+   same model, where each step writes its new rows through the standalone
+   append kernel: 6 requests through the engine over the bf16 and the int8
+   cache, then 4 decode steps on each cache cut into pages of 256, against the
+   linear cache and the plain path.  In the serving paths of phases 2-5 the
+   decode-attention kernel appends itself; the ``kernels`` line gives an
+   append form its own launches and, as ``fused_launches``, those appends.
 
 Any failed check raises, so the exit code is not 0.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -375,6 +382,31 @@ def sdpa(q, k, v, mask):
     return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask)
 
 
+def fused_once(call, name: str, append: str, cache):
+    """Run a decode-attention call that appends (``kv_new``) into the tensors
+    ``cache``.  Returns the first call's output and a copy of ``cache`` as
+    that call left it: those are what is held against the plain version.  A
+    second call (the workspace is made by then) must be one launch of
+    ``name``, counted as an append in form ``append``, allocate its output and
+    nothing else, and write the bytes the first wrote."""
+    from xbitops_tpu_torch.kernels import common
+
+    out = call()[0]
+    torch.cuda.synchronize()
+    after = [t.clone() for t in cache]
+    common.reset_counts()
+    before = torch.cuda.memory_stats()["allocation.all.allocated"]
+    call()
+    allocs = torch.cuda.memory_stats()["allocation.all.allocated"] - before
+    launched = {k: n for k, n in common.launches.items() if n}
+    check(launched == {name: 1, append + "_fused": 1},
+          f"{name} with kv_new: launches {launched}, want one fused launch")
+    check(allocs == 1, f"{name} with kv_new allocated {allocs} tensors, want 1 (its output)")
+    check(all(torch.equal(a, t) for a, t in zip(after, cache)),
+          f"{name}: a second call with the same kv_new wrote other bytes")
+    return out, after
+
+
 def kernels_decode(dev, timer, gen):
     """Decode attention with the fused append, bf16 and int8, and the two
     appends alone, at the 7B shapes with ragged lengths."""
@@ -412,11 +444,13 @@ def kernels_decode(dev, timer, gen):
         kn = torch.randn(B, Hkv, D, device=dev, generator=gen).to(torch.bfloat16)
         vn = torch.randn(B, Hkv, D, device=dev, generator=gen).to(torch.bfloat16)
         k_ref, v_ref = k.clone(), v.clone()
-        out, _, _ = decode_attention(q, k, v, lens, layer_idx=1, kv_new=(kn, vn, pos),
-                                     window=window)
+        out, after = fused_once(lambda: decode_attention(q, k, v, lens, layer_idx=1,
+                                                         kv_new=(kn, vn, pos), window=window),
+                                "decode_attention", "kv_append", (k, v))
         kv_append_dense_reference(k_ref, v_ref, kn, vn, pos, 1)
         ref = decode_attention_reference(q, k_ref[1], v_ref[1], lens, window)
-        same = torch.equal(k, k_ref) and torch.equal(v, v_ref)
+        same = all(torch.equal(a, b) for a, b in zip(after, (k_ref, v_ref)))
+        del after
         e = (out.float() - ref.float()).abs().max().item()
         lib = sdpa(q[:, :, None], k[1], v[1], mask)[:, :, 0]
         e_lib = (lib[:-1].float() - ref[:-1].float()).abs().max().item()
@@ -484,12 +518,14 @@ def kernels_decode(dev, timer, gen):
                     for _ in range(2))
         new = (kq, vq, ksn, vsn, pos)
         ref_cache = [t.clone() for t in cache]
-        out, *_ = decode_attention(q, cache[0], cache[1], lens, layer_idx=1, k_scale=cache[2],
-                                   v_scale=cache[3], kv_new=new, window=window)
+        out, after = fused_once(lambda: decode_attention(
+            q, cache[0], cache[1], lens, layer_idx=1, k_scale=cache[2], v_scale=cache[3],
+            kv_new=new, window=window), "decode_attention_int8", "kv_append_packed", cache)
         kv_append_packed_reference(*ref_cache, *new, 1)
         ref = decode_attention_reference(q, ref_cache[0][1], ref_cache[1][1], lens, window,
                                          ref_cache[2][1], ref_cache[3][1])
-        same = all(torch.equal(a, b) for a, b in zip(cache, ref_cache))
+        same = all(torch.equal(a, b) for a, b in zip(after, ref_cache))
+        del after
         e = (out.float() - ref.float()).abs().max().item()
         print(f"decode_attention+append int8 B={B} H={H} Hkv={Hkv} S={S} window={window}: "
               f"words and scales exact {same}, max abs err {e:.2e}", flush=True)
@@ -713,14 +749,18 @@ def kernels_paged(dev, timer, gen):
                 new = [torch.randn(B, Hkv, D, device=dev, generator=gen).to(torch.bfloat16)
                        for _ in range(2)]
             ref = [t.clone() for t in pools]
-            out, *_ = decode_attention(q, pools[0], pools[1], lens, layer_idx=1,
-                                       kv_new=(*new, pos), window=window, page_table=table,
-                                       **scales_of(pools))
+            out, after = fused_once(lambda: decode_attention(
+                q, pools[0], pools[1], lens, layer_idx=1, kv_new=(*new, pos), window=window,
+                page_table=table, **scales_of(pools)), name,
+                "kv_append_packed_paged" if int8 else "kv_append_paged", pools)
             append_plain(*ref, *new, pos, 1, table)
             want = decode_attention_reference(q, ref[0][1], ref[1][1], lens, window,
                                               *(t[1] for t in ref[2:]), page_table=table)
-            same = all(torch.equal(a, b) for a, b in zip(pools, ref))
-            e = (out.float() - want.float()).abs().max().item()
+            same = all(torch.equal(a, b) for a, b in zip(after, ref))
+            del after
+            # the inactive slot (last) reads page 0, which another slot may be
+            # writing in the same launch: its output is not defined
+            e = (out[:-1].float() - want[:-1].float()).abs().max().item()
             lin, *_ = decode_attention(q, linear[0], linear[1], lens, layer_idx=1,
                                        kv_new=(*new, pos), window=window, **scales_of(linear))
             e_lin = (out[:-1].float() - lin[:-1].float()).abs().max().item()
@@ -942,8 +982,11 @@ def kernels_paged(dev, timer, gen):
     return res
 
 
-BF16_PATH = ("qgemv", "qgemv_mma", "kv_append", "decode_attention")
-INT8_PATH = ("qgemv", "qgemv_mma", "prefill_attention", "kv_append_packed", "decode_attention_int8")
+# The kernels each serving path must launch; decode appends its new rows
+# inside the attention kernel ("kv_append*_fused" count those launches).
+BF16_PATH = ("qgemv", "qgemv_mma", "kv_append_fused", "decode_attention")
+INT8_PATH = ("qgemv", "qgemv_mma", "prefill_attention", "kv_append_packed_fused",
+             "decode_attention_int8")
 
 
 def two_layer_cut(model):
@@ -1235,10 +1278,10 @@ def phase_w4a8(dev, model):
     return launches, dict(a=stats_a, b=stats_b, bf16=stats_16, requantize_s=t_rq)
 
 
-PAGED_BF16_PATH = ("qgemv", "qgemv_mma", "kv_append_paged", "decode_attention_paged",
+PAGED_BF16_PATH = ("qgemv", "qgemv_mma", "kv_append_paged_fused", "decode_attention_paged",
                    "prefill_attention_paged")
-PAGED_INT8_PATH = ("qgemv", "qgemv_mma", "kv_append_packed_paged", "decode_attention_int8_paged",
-                   "prefill_attention_paged")
+PAGED_INT8_PATH = ("qgemv", "qgemv_mma", "kv_append_packed_paged_fused",
+                   "decode_attention_int8_paged", "prefill_attention_paged")
 
 
 def first_splits(model, batch, out, lin_out, kind, quantized):
@@ -1486,11 +1529,97 @@ def phase_paged(dev, model):
     return launches, stats
 
 
-def clone_cache(cache, n_layers):
-    from xbitops_tpu_torch.models import llama
+# The standalone append kernel of each cache form: the one-row write of a
+# decode step that attends eagerly (``flash_decode=False``).
+EAGER_APPENDS = {"bf16": "kv_append", "int8": "kv_append_packed",
+                 "paged bf16": "kv_append_paged", "paged int8": "kv_append_packed_paged"}
 
-    return llama.KVCache(cache.k[:n_layers].clone(), cache.v[:n_layers].clone(),
-                         cache.lengths.clone())
+
+def phase_eager_decode(dev, model):
+    """Decode with ``flash_decode=False`` on a 2-layer cut of the full-width
+    model: each step writes its new rows with the standalone append kernel
+    (``csrc/kv_append.cu``) and attends in PyTorch.  The linear caches serve
+    requests through the engine.  The engine pages a cache only for the
+    decode-attention kernel, so the paged forms run ``decode_step`` on the
+    engine's cache cut into pages of 256 behind a shuffled table, held against
+    the linear cache on the same tokens and against the plain path."""
+    from xbitops_tpu_torch.engine import Engine, Request
+    from xbitops_tpu_torch.kernels import common
+    from xbitops_tpu_torch.models import llama
+    from xbitops_tpu_torch.utils.synth import cut_pages
+
+    cfg = dataclasses.replace(model.cfg, num_layers=2, flash_decode=False)
+    cut = model.with_config(cfg)
+    rng = np.random.default_rng(SEED + 4)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n).tolist(), max_new_tokens=16)
+            for n in (16, 100, 250, 300, 400, 500)]
+    steps, psz = 4, 256
+    out_launches = {}
+    for kv_quant in (False, True):
+        kind = "int8" if kv_quant else "bf16"
+        eng = Engine(cut, cfg, slots=8, decode_burst=8, kv_quant=kv_quant, seed=SEED)
+        check(eng.cache.quantized == kv_quant and not eng.cache.paged, f"the {kind} cache")
+        common.reset_counts()
+        out = eng.generate(reqs)
+        launches, plain = dict(common.launches), dict(common.plain_on_cuda)
+        check(all(len(c.tokens) == 16 and c.finish_reason == "length" for c in out),
+              f"eager decode, {kind}: a request was cut")
+        check(launches[EAGER_APPENDS[kind]] > 0,
+              f"eager decode, {kind}: {EAGER_APPENDS[kind]} was not launched")
+        attn = {n: v for n, v in launches.items() if n.startswith("decode_attention") and v}
+        check(not attn, f"eager decode, {kind}: the decode-attention kernel ran: {attn}")
+        check(not any(plain.values()), f"eager decode, {kind}: plain versions ran: {plain}")
+        cache = eng.cache
+        del eng
+
+        # the next steps: on the linear cache through the kernels (not counted),
+        # then on the paged cut of it (counted), both fed the linear run's tokens
+        tok = torch.tensor([c.tokens[-1] for c in out] + [0] * (8 - len(out)), device=dev)
+        parts = [cache.k, cache.v] + ([cache.k_scale, cache.v_scale] if kv_quant else [])
+        table, pools = cut_pages(gen, parts, cfg.max_seq_len // psz,
+                                 cache.lengths.long() + steps)
+        paged = llama.KVCache(pools[0], pools[1], cache.lengths.clone(), *pools[2:],
+                              page_table=table)
+        first = clone_cache(paged)
+        lin_logits, toks = [], [tok]
+        for _ in range(steps):
+            lg, _ = llama.decode_step(cut, toks[-1], cache)
+            lin_logits.append(lg)
+            toks.append(lg.float().argmax(dim=-1))
+        common.reset_counts()
+        pg_logits = [llama.decode_step(cut, t, paged)[0] for t in toks[:steps]]
+        paged_launches, plain = dict(common.launches), dict(common.plain_on_cuda)
+        want, _ = llama.decode_step(cut, tok, first, use_kernel=False)
+        e_lin = max(rel_err(a, b) for a, b in zip(pg_logits, lin_logits))
+        e = rel_err(pg_logits[0], want)
+        pk = "paged " + kind
+        print(f"eager decode (flash_decode=False), 2 layers, {kind} cache: 6 requests, "
+              f"{sum(len(c.tokens) for c in out)} tokens through the engine; {steps} steps on "
+              f"the {kind} cache cut into pages of {psz}: logits rel err {e_lin:.2e} vs the "
+              f"linear cache, {e:.2e} vs the plain path; launches "
+              f"{ {k: v for k, v in launches.items() if v} }, paged "
+              f"{ {k: v for k, v in paged_launches.items() if v} }", flush=True)
+        check(all(torch.isfinite(x.float()).all().item() for x in pg_logits), "non-finite logits")
+        check(e_lin <= 2e-2, f"eager decode, {pk} vs linear: rel err {e_lin:.3e} > 2e-2")
+        check(e <= 2e-2, f"eager decode, {pk} vs the plain path: rel err {e:.3e} > 2e-2")
+        check(paged_launches[EAGER_APPENDS[pk]] == 2 * steps,
+              f"eager decode, {pk}: {EAGER_APPENDS[pk]} launched "
+              f"{paged_launches[EAGER_APPENDS[pk]]} times, want {2 * steps}")
+        check(not any(plain.values()), f"eager decode, {pk}: plain versions ran: {plain}")
+        out_launches[kind], out_launches[pk] = launches, paged_launches
+        del cache, paged, first, pools
+        torch.cuda.empty_cache()
+    return {k: sum(ln[k] for ln in out_launches.values()) for k in out_launches["bf16"]}
+
+
+def clone_cache(cache, n_layers=None):
+    """A copy of ``cache`` (of its first ``n_layers`` layers), its scales and
+    page table included."""
+    layered = ("k", "v", "k_scale", "v_scale")
+    return dataclasses.replace(cache, **{
+        f.name: (t[:n_layers] if f.name in layered else t).clone()
+        for f in dataclasses.fields(cache) if (t := getattr(cache, f.name)) is not None})
 
 
 def block_errs(model, tokens, cache):
@@ -1554,6 +1683,8 @@ def main() -> int:
     launches4, w4a8 = phase_w4a8(dev, model)
     torch.cuda.empty_cache()
     launches5, paged = phase_paged(dev, model)
+    torch.cuda.empty_cache()
+    launches6 = phase_eager_decode(dev, model)
     print(f"card: {card}; 7B 4-bit decode at B=8: bf16 cache, prompts to 500: "
           f"{serving['ms_step']:.2f} ms/step, {serving['tok_s']:.1f} tokens/s; int8 cache, "
           f"prompts to 1500: {long_ctx['ms_step']:.2f} ms/step, {long_ctx['tok_s']:.1f} tokens/s",
@@ -1594,16 +1725,23 @@ def main() -> int:
         "kv_append_paged": (csrc + "kv_append.cu", jk + "kv_append.py:92"),
         "kv_append_packed_paged": (csrc + "kv_append.cu", jk + "kv_append.py:43"),
     }
-    # launches: each kernel's count over the serving runs of phases 2 to 5 (the
-    # counts were set to 0 just before each run and read just after it)
-    kernels = [dict(name=n, route="cuda", source=src[n][0], replaces=src[n][1],
-                    launches=launches2[n] + launches3[n] + launches4[n] + launches5[n],
+    # launches: each kernel's count over the runs of phases 2 to 6 (the counts
+    # were set to 0 just before each run and read just after it).  An append
+    # row counts its own kernel's launches (phase 6: the eager decode), and
+    # apart, as fused_launches, the decode-attention launches (csrc/
+    # decode_attention.cu) that appended in its form on the serving paths
+    runs = (launches2, launches3, launches4, launches5, launches6)
+    count = lambda n: sum(ln[n] for ln in runs)
+    kernels = [dict(name=n, route="cuda", source=src[n][0], replaces=src[n][1], launches=count(n),
+                    **({"fused_launches": count(n + "_fused")} if n in common.APPENDS else {}),
                     **{key: res[n][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                                                     "bound_by", "library_ms")}) for n in src]
     for kern in kernels:
         check(kern["launches"] > 0, f"kernel {kern['name']} was launched on no serving path")
+        check(kern.get("fused_launches", 1) > 0,
+              f"decode attention appended in form {kern['name']} on no serving path")
     # the serving paths route every matmul to the few-rows form or the tile
-    core = sum(ln["qgemv_cuda_core"] for ln in (launches2, launches3, launches4, launches5))
+    core = sum(ln["qgemv_cuda_core"] for ln in runs)
     check(core == 0, f"the CUDA-core qgemv form was launched {core} times on the serving paths")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

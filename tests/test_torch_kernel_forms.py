@@ -1,5 +1,6 @@
 """The routing of the fused dequant-matmul's three kernel forms, their
-split-K arithmetic, and numpy models of the order in which the whole-word
+split-K arithmetic, the split plan of the fused decode-attention kernel, and
+numpy models of the order in which the whole-word
 kernels walk K (``csrc/qgemv_mma.cu``, ``csrc/qgemv_word.cu``): which K rows
 a word of each plane yields, which rows a sub-chunk or a slab covers, and the
 fold ``acc += s_g * dot_g - sz_g * asum_g`` over those pieces, against
@@ -8,12 +9,15 @@ themselves run only on the card (``tests/test_torch_kernels_gpu.py``); what
 surrounds them is held here.
 """
 
+import itertools
+
 import numpy as np
 import pytest
 import torch
 
 from xbitops_tpu_torch import formats
 from xbitops_tpu_torch.formats import PLANE_DECOMP, dequant_qtensor_reference
+from xbitops_tpu_torch.kernels import decode_attention as da
 from xbitops_tpu_torch.kernels import qgemv_kernel as qk
 from xbitops_tpu_torch.utils import synth
 
@@ -221,3 +225,102 @@ def test_forced_form_is_checked_before_any_launch():
     out = qk.qmatmul_kernel(a, qt, form="mma")
     assert out.shape == (2, 128) and out.dtype == torch.bfloat16
     torch.testing.assert_close(out, qk.qmatmul_kernel_reference(a, qt))
+
+
+# A Python model of the kernel's split plan (``csrc/decode_attention.cu``:
+# ``first``, ``n_live``, ``s0``/``s1``, ``t_begin`` and the writer test), over
+# the wrapper's ``n_splits`` / ``SPLIT_LEN`` / ``TILE``.
+def _live_splits(length, S, window=None):
+    """The splits that hold positions ``[max(0, len - window), len)`` of a slot
+    (``len`` clamped into ``[0, S]``), in the order the last block combines them."""
+    length = min(max(length, 0), S)
+    lo = max(0, length - window) if window else 0
+    if length <= lo:
+        return range(0)
+    return range(lo // da.SPLIT_LEN, (length - 1) // da.SPLIT_LEN + 1)
+
+
+def _writer_split(position, S):
+    """The split whose block writes a new row at ``position``; None outside ``[0, S)``."""
+    return position // da.SPLIT_LEN if 0 <= position < S else None
+
+
+def _split_tiles(split, length, S, window=None):
+    """First positions of the tiles a split's block streams: from its first
+    attended position rounded down to a tile, to its last."""
+    length = min(max(length, 0), S)
+    lo = max(0, length - window) if window else 0
+    s0, s1 = max(split * da.SPLIT_LEN, lo), min((split + 1) * da.SPLIT_LEN, length)
+    if s0 >= s1:
+        return range(0)
+    return range(s0 - s0 % da.TILE, s1, da.TILE)
+
+
+@pytest.mark.parametrize("S", [4, 64, 252, 256, 260, 2048])
+@pytest.mark.parametrize("window", [None, 1, 100, 300])
+def test_decode_split_plan(S, window):
+    """The split plan of the fused decode-attention kernel
+    (``csrc/decode_attention.cu``), as modelled above: exactly one
+    split writes each position of ``[0, S)`` and none writes outside it; an
+    int8 word (positions 4w..4w+3) never straddles two splits; the live
+    splits of a slot are contiguous, in increasing order, and their tiles,
+    which start on a multiple of 64, cover ``[lo, len)`` once; the new row is
+    in exactly one tile of its writer when it is attended."""
+    n, L = da.n_splits(S), da.SPLIT_LEN
+    assert n * L >= S > (n - 1) * L and L % da.TILE == 0 and L % 4 == 0
+    for p in range(-3, S + 3):
+        w = _writer_split(p, S)
+        assert (w is None) == (not 0 <= p < S)
+        assert w is None or (0 <= w < n and w * L <= p < (w + 1) * L)
+    for word in range(S // 4):
+        assert len({_writer_split(4 * word + j, S) for j in range(4)}) == 1
+    for length in sorted({-3, 0, 1, 2, S // 2, S - 1, S, S + 5}):
+        ln = min(max(length, 0), S)
+        lo = max(0, ln - window) if window else 0
+        live = list(_live_splits(length, S, window))
+        assert live == list(range(live[0], live[-1] + 1)) if live else ln == 0
+        covered = []
+        for sp in range(n):
+            tiles = list(_split_tiles(sp, length, S, window))
+            assert bool(tiles) == (sp in live)
+            assert all(t % da.TILE == 0 for t in tiles)
+            covered += [p for t in tiles for p in range(t, t + da.TILE)
+                        if lo <= p < ln and sp * L <= p < (sp + 1) * L]
+            pos = ln - 1  # the decode contract: the new row is the last attended one
+            if ln > 0 and _writer_split(pos, S) == sp:
+                assert sum(t <= pos < t + da.TILE for t in tiles) == 1
+        assert covered == list(range(lo, ln))
+
+
+def test_decode_split_combine_order_is_fixed():
+    """A numpy model of the kernel's combine: each live split leaves (max,
+    sum, unnormalised output); the block that takes the last ticket adds them
+    in split order, so every order of finishing gives the same bits, and the
+    result is the softmax over the live positions."""
+    rng = np.random.default_rng(0)
+    S, D, length, window = 2048, 16, 1500, 900
+    scores = rng.standard_normal(S).astype(np.float32) * 3
+    v = rng.standard_normal((S, D)).astype(np.float32)
+    live = list(_live_splits(length, S, window))
+    lo = length - window
+    parts = {}
+    for sp in live:
+        rows = np.arange(max(sp * da.SPLIT_LEN, lo), min((sp + 1) * da.SPLIT_LEN, length))
+        m = scores[rows].max()
+        p = np.exp(scores[rows] - m)
+        parts[sp] = (m, p.sum(dtype=np.float32), (p[:, None] * v[rows]).sum(0, dtype=np.float32))
+
+    def combine(finished):
+        assert sorted(finished) == live  # the ticket of finished[-1] is the last one
+        mx = np.float32(max(parts[sp][0] for sp in live))
+        l, o = np.float32(0), np.zeros(D, np.float32)
+        for sp in live:  # split order, whichever block took the last ticket
+            c = np.exp(parts[sp][0] - mx, dtype=np.float32)
+            l, o = l + parts[sp][1] * c, o + parts[sp][2] * c
+        return o / l
+
+    got = [combine(list(order)) for order in itertools.permutations(live)]  # finishing orders
+    assert all(np.array_equal(g, got[0]) for g in got)
+    w = np.exp(scores[lo:length] - scores[lo:length].max())
+    np.testing.assert_allclose(got[0], (w[:, None] * v[lo:length]).sum(0) / w.sum(), rtol=1e-5,
+                               atol=1e-6)

@@ -556,6 +556,21 @@ def test_paged_engine_errors(model):
         Engine(model.with_config(no_flash), no_flash, paged=True, page_size=PSZ)
 
 
+@pytest.mark.parametrize("paged", [False, True], ids=["linear", "paged"])
+def test_auto_kv_quant_matches_jax_engine(jparams, model, paged):
+    """``kv_quant=None`` at ``max_seq_len`` 1024 and head_dim 128: both
+    engines pick the int8 cache for the linear layout and the bf16 pool for
+    the paged one (the reference's rule starts with ``not paged``)."""
+    jcfg = dataclasses.replace(JCFG, max_seq_len=1024)
+    cfg = dataclasses.replace(CFG, max_seq_len=1024)
+    assert cfg.head_dim == 128 and cfg.max_seq_len >= 1024
+    kw = dict(slots=2, kv_quant=None, paged=paged, page_size=256)
+    want = JEngine(jparams, jcfg, **kw).kv_quant
+    eng = Engine(model.with_config(cfg), cfg, **kw)
+    assert eng.kv_quant == want == (not paged)
+    assert eng.cache.quantized == (not paged) and eng.cache.paged == paged
+
+
 def test_paged_engine_pool_exhausted(model):
     """One slot alone on a pool of one page: its prompt fits, its 17th
     position has no page and nothing can free one."""

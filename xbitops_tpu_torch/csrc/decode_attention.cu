@@ -1,369 +1,647 @@
-// Decode attention: one query token per slot against the head-major cache of
-// one layer; out [B, H, D].  Two cache forms in one source: bf16 rows
-// k/v [B, Hkv, S, D], and the packed int8 cache, words [B, Hkv, S/4, D] int32
-// (byte j of word w = position 4w + j, stored as value + 128) with bf16
-// scales [B, 4, Hkv, S/4].
+// Decode attention with the KV append fused in: one query token per slot
+// against the head-major cache of one layer, out [B, H, D], after the slot's
+// new k/v row has been written at positions[b].  One launch a layer does all
+// of it: the write, the attention and the combine of the splits.
 //
-// Replaces the Pallas kernels xbitops_tpu/kernels/decode_attention.py
-// _kernel_v2 (decode_attention.py:176) and _kernel (decode_attention.py:80),
-// entry decode_attention (decode_attention.py:925), for the dense bf16 and
-// int8 caches and for their paged forms (below).  The TPU's two forms (a
-// per-block grid for the interpreter, a pipelined per-slot program on the
-// chip) become this one kernel.
+// Replaces the Pallas kernel xbitops_tpu/kernels/decode_attention.py
+// _kernel_v2 (decode_attention.py:176, wrapper _decode_attention_v2 :728)
+// with kv_new, which writes the new row into the aliased cache inside the
+// same kernel, and _kernel (:80), entry decode_attention (:925).  The
+// append kernels (csrc/kv_append.cu) stay for the one-row writes of a step
+// that attends eagerly, as the TPU package keeps its kv_append kernels as
+// the fallback.
 //
-// What bounds it on an H100: reading the live cache rows, B * Hkv * len * D
-// values of 2 bytes (bf16) or 1 byte plus 2 scales a row (int8), far below
-// the tensor-core line.  So it reads only each slot's live rows [lo, len)
-// and spreads them over the card:
-// - split-KV flash decoding: grid (splits, Hkv, B); a block takes one kv
-//   head of one slot over `split_len` positions, its four warps take
-//   positions (int8: word rows of four positions) in turn, and each warp
-//   keeps an online softmax in f32 for the rep = H/Hkv query heads of that
-//   kv head (query head h*rep + r uses kv head h), so a k/v row is read once
-//   for all of them;
-// - a lane holds D/32 contiguous values of q, k, v and the output, so a
-//   warp reads a row in one coalesced access; q.k reduces by shuffles;
-// - int8: a lane reads D/32 words of a word row and unpacks the four
-//   positions in registers with logical shifts; the score is
-//   (q . (byte - 128)) * scale * ks and the v scale is folded into the
-//   probability, p * vs, before p . (byte - 128), so no dequantized row is
-//   ever formed.  The TPU kernel's 128 * sum(q) correction and 2^(-8j) field
-//   scaling avoided shifts on its vector unit; here a shift costs one
-//   cycle;
-// - blocks cannot carry state across the grid, so each writes its
-//   (max, sum, unnormalised output) and a second small kernel combines the
-//   splits of each (slot, head).
-// lengths are clamped to [0, S]; a window w > 0 reads [max(0, len-w), len).
-// A split with no live row writes max = -1e30, sum 0; a slot whose length is
-// 0 gets a zero output.
+// Cache forms: bf16 rows k/v [B, Hkv, S, D]; the packed int8 cache, words
+// [B, Hkv, S/4, D] int32 (byte j of word w = position 4w + j, stored as value
+// + 128) with bf16 scales [B, 4, Hkv, S/4]; and the paged form of either,
+// pools [n_pages, Hkv, psz(/4), D] (scales [n_pages, 4, Hkv, psz/4]) where
+// position p of slot b lies in pool page table[b, p / psz] at row p % psz
+// (the linear cache is the case of one page of S rows a slot).
 //
-// The paged forms (entries xb_decode_attention_paged and
-// xb_decode_attention_int8_paged): k/v are page pools [n_pages, Hkv, psz, D]
-// (int8: words [n_pages, Hkv, psz/4, D] with scales [n_pages, 4, Hkv, psz/4],
-// the four positions of a word Hkv * psz/4 apart) and position p of slot b
-// lies in pool page table[b, p / psz] at row p % psz; a slot's capacity is
-// S = P * psz.  The kernel is the same one: a split walks its positions a
-// page at a time and looks the page up once per page (the TPU kernel put the
-// lookup in its index maps, one page per grid step), and the linear cache is
-// the case of one page of S rows per slot, page b.  A split may cross many
-// pages (page_size 16 against a split of 256) or lie inside one.  A table
-// entry is an address: it is clamped into [0, n_pages) before use, as the TPU
-// kernel clamps it at 0, so an inactive slot (length S, a row of -1) reads
-// page 0 and faults nothing; its output is never used.
+// What it computes, for each slot b:
+// 1. the append: with k_new, row positions[b] gets k_new[b], v_new[b] (int8:
+//    byte pos % 4 of each (head, dim) word of word row pos / 4, the other
+//    three bytes kept, and the position's two scales, rounded to bf16).  A
+//    position outside [0, S), or one whose table entry is not a page of the
+//    pool, writes nothing;
+// 2. softmax(q k^T / sqrt(D)) v over positions [max(0, len - window), len),
+//    len = lengths[b] clamped to [0, S], window 0 = none; query head h*rep + r
+//    reads kv head h (rep <= 8); a slot with len 0 gets zeros.
+//
+// What bounds it on an H100: the bytes of the live rows (B * Hkv * len * D *
+// 2 for bf16, about half for int8), far below the tensor-core line.  The
+// design keeps enough of them in flight:
+// - split-KV: grid (splits, Hkv, B), a block takes one kv head of one slot
+//   over split_len (256) positions, in tiles of 64 positions;
+// - a tile of k and v (bf16: 16 KB each at D = 128) streams into shared
+//   memory through a ring of 3 stages (int8: 4 stages of 8 KB each) by
+//   cp.async, 16 bytes a copy, so up to ~200 KB are in flight an SM.  The
+//   paged form looks the page up once a tile where pages hold whole tiles,
+//   else once a row;
+// - each of the four warps scores its 16 positions of a tile at once on the
+//   tensor cores, transposed: the k rows are the 16-row A operand and the
+//   rep query heads the 8 columns of B (mma.sync.m16n8k16, f32 sums), then
+//   takes one maximum and one rescale for the 16 rows, not two expf and a
+//   shuffle tree a row.  p v runs transposed too: v^T (ldmatrix.trans) times
+//   p^T, whose fragment movmatrix makes from the score fragment in registers;
+// - int8: the words go to shared memory as they are and unpack in registers,
+//   byte - 128 exact in bf16; the k scale multiplies the score and the v
+//   scale is folded into p before it is rounded, so no dequantized row is
+//   ever formed.  A scale comes in by a 4-byte cp.async of the word that
+//   holds it;
+// - the four warps' (max, sum, output) merge through shared memory; then the
+//   block writes its split's partial result to a workspace, takes a ticket
+//   from the (slot, kv head)'s counter, and the block that takes the last
+//   ticket combines the live splits in split order (the result does not
+//   depend on which block finished first) and sets the counter back to 0.
+//   A slot with one live split writes its output directly.
+// p is rounded to bf16 before p v (the plain version keeps f32 p; abs 2e-2).
+//
+// The append, inside: the block whose split holds positions[b] writes the
+// row.  bf16: it stores the new row at the start, and its tile takes that row
+// from k_new/v_new, not from the cache.  int8: the tile pass reads the word
+// row anyway; it merges the new byte into it on the way to shared memory and
+// stores the merged words, and the tile takes the new scale likewise.  A
+// split holds whole words (split_len % 4 == 0), so no other block of the slot
+// reads a word that this launch writes.  Where the new position is not
+// attended (outside [lo, len)), the block writes it alone at the start.
+//
+// Which outputs are defined: a slot whose attended positions all lie in
+// pages of its own.  A table entry is an address: it is clamped into
+// [0, n_pages) before a read, so an inactive slot (a row of -1, length S)
+// reads page 0 and faults nothing; but page 0 may belong to another slot,
+// whose block may be writing its new row there in the same launch, so that
+// slot's output depends on the order of the two and is not defined (it is
+// never used).  The cache bytes written are always defined.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "mma.cuh"
+
 namespace {
 
 constexpr int kWarps = 4;
-constexpr int kRepMax = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kBK = 64;                   // positions a tile
+constexpr int kRowsW = kBK / kWarps;      // positions a warp a tile: one m16 tile
 constexpr float kNegInf = -1e30f;
+constexpr int kLen64 = 1, kPos64 = 2, kNewScaleF32 = 4;  // Args::flags
+static_assert(kThreads == 2 * kBK, "an int8 tile's scales: one a thread");
 
-// N consecutive words in one 8- or 16-byte access (p is aligned to N words).
-template <int N>
-__device__ __forceinline__ void load_words(const uint32_t* __restrict__ p, uint32_t (&out)[N]) {
-  if constexpr (N == 2) {
-    const uint2 t = *reinterpret_cast<const uint2*>(p);
-    out[0] = t.x;
-    out[1] = t.y;
-  } else {
-    static_assert(N % 4 == 0, "words per lane: 2 or a multiple of 4");
-#pragma unroll
-    for (int i = 0; i < N; i += 4) {
-      const uint4 t = *reinterpret_cast<const uint4*>(p + i);
-      out[i] = t.x;
-      out[i + 1] = t.y;
-      out[i + 2] = t.z;
-      out[i + 3] = t.w;
-    }
-  }
+struct Args {
+  const __nv_bfloat16* q;  // [B, H, D]
+  void* k;                 // bf16 rows, or int32 words, of one layer
+  void* v;
+  __nv_bfloat16* ks;       // int8: scales of one layer; else null
+  __nv_bfloat16* vs;
+  const void* lengths;     // int32 or int64 [B]
+  const void* positions;   // int32 or int64 [B]; null without an append
+  const int* table;        // [B, S / psz], or null: the linear cache
+  const void* k_new;       // bf16 [B, Hkv, D] (int8: int32 biased bytes); null: no append
+  const void* v_new;
+  const void* ks_new;      // int8: f32 or bf16 [B, Hkv]
+  const void* vs_new;
+  float* part;             // workspace: [B, Hkv, n_split, rep, D] outputs, then max, sum
+  int* counters;           // [B, Hkv], all 0 at the call and after it
+  __nv_bfloat16* out;      // [B, H, D]
+  int B, H, Hkv, rep, S, psz, n_pages, n_split, split_len, window, flags;
+  float scale;
+};
+
+template <int D>
+struct alignas(16) StageBf16 {
+  __nv_bfloat16 k[kBK][D + 8];  // rows 16 bytes apart in the banks: conflict-free ldmatrix
+  __nv_bfloat16 v[kBK][D + 8];
+};
+
+template <int D>
+struct alignas(16) StageInt8 {
+  uint32_t k[kBK / 4][D + 8];  // word rows: four positions each
+  uint32_t v[kBK / 4][D + 8];
+  uint32_t sc[2][kBK];         // k, v scale of each position: the 4-byte word that holds it
+  uint8_t hi[2][kBK];          // 1: the scale is that word's upper half
+};
+
+template <int D, bool INT8>
+struct Ring {
+  static constexpr int kStages = INT8 ? (D <= 128 ? 4 : 3) : (D <= 128 ? 3 : 2);
+  using Stage = typename std::conditional<INT8, StageInt8<D>, StageBf16<D>>::type;
+};
+
+// The ring, and after the tiles the four warps' states, which reuse it.
+template <int D, int REP, bool INT8>
+union Smem {
+  typename Ring<D, INT8>::Stage st[Ring<D, INT8>::kStages];
+  struct {
+    float o[kWarps][REP][D];
+    float m[kWarps][REP];
+    float l[kWarps][REP];
+  } mg;
+};
+
+__device__ __forceinline__ long long load_index(const void* p, int i, bool is64) {
+  return is64 ? static_cast<const long long*>(p)[i] : static_cast<const int*>(p)[i];
 }
 
-// One online-softmax step of a warp for one cache position: the score of each
-// of the rep query heads against the row kf (times s_scale), then the value
-// row vf weighted by the probability times v_scale.
-template <int DPL>
-__device__ __forceinline__ void attend_row(const float (&qr)[kRepMax][DPL],
-                                           const float (&kf)[DPL], const float (&vf)[DPL],
-                                           float s_scale, float v_scale, int rep,
-                                           float (&acc)[kRepMax][DPL],
-                                           float (&m_r)[kRepMax], float (&l_r)[kRepMax]) {
-#pragma unroll
-  for (int r = 0; r < kRepMax; ++r) {
-    if (r >= rep) break;
-    float d = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) d = fmaf(qr[r][i], kf[i], d);
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) d += __shfl_xor_sync(0xffffffffu, d, o);
-    d *= s_scale;
-    const float m_new = fmaxf(m_r[r], d);
-    const float alpha = expf(m_r[r] - m_new);
-    const float pe = expf(d - m_new);
-    l_r[r] = l_r[r] * alpha + pe;
-    const float pv = pe * v_scale;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) acc[r][i] = fmaf(acc[r][i], alpha, pv * vf[i]);
-    m_r[r] = m_new;
-  }
+__device__ __forceinline__ float bf16_bits_to_float(uint32_t bits) {
+  return __uint_as_float(bits << 16);
 }
 
-// DPL: values per lane, D / 32.  INT8: k/v are packed words and ks/vs their
-// scales; otherwise k/v are bf16 rows and ks/vs are unused.  PAGED: k/v (and
-// ks/vs) are pools of pages of psz positions found through table [B, P];
-// otherwise psz == S and slot b is its own single page.
-// The int8 forms are held to four blocks an SM up to D = 128, so to 128
-// registers a thread: without the bound the linear one takes 135 and the paged
-// one 149, three blocks an SM, and on an H100 they run 15% behind at 7B shapes
-// (0.123 against 0.107 ms the linear op; the paged form spills 60 bytes under
-// the bound and is faster all the same).  The bf16 forms take 118 and 122
-// registers and need no bound.
-template <int DPL, bool INT8, bool PAGED>
-__global__ void __launch_bounds__(kWarps * 32, (INT8 && DPL <= 4) ? 4 : 1)
-attend_split_kernel(const __nv_bfloat16* __restrict__ q,
-                    const void* __restrict__ k_raw, const void* __restrict__ v_raw,
-                    const __nv_bfloat16* __restrict__ ks,
-                    const __nv_bfloat16* __restrict__ vs,
-                    const int* __restrict__ lengths, const int* __restrict__ table,
-                    float* __restrict__ part_o, float* __restrict__ part_m,
-                    float* __restrict__ part_l, int H, int Hkv, int S, int psz, int n_pages,
-                    int n_split, int split_len, int window, float scale) {
-  constexpr int D = DPL * 32;
-  __shared__ float sm_m[kWarps][kRepMax];
-  __shared__ float sm_l[kWarps][kRepMax];
-  __shared__ float sm_o[kWarps][kRepMax][D];
+__device__ __forceinline__ uint16_t new_scale_bits(const void* p, size_t i, bool f32) {
+  const __nv_bfloat16 s = f32 ? __float2bfloat16(static_cast<const float*>(p)[i])
+                              : static_cast<const __nv_bfloat16*>(p)[i];
+  return *reinterpret_cast<const uint16_t*>(&s);
+}
+
+// Byte j of each of the four words `w` replaced by the low byte of `n`.
+__device__ __forceinline__ uint4 merge_byte(uint4 w, int4 n, int j) {
+  const int sh = 8 * j;
+  const uint32_t keep = ~(0xffu << sh);
+  w.x = (w.x & keep) | ((static_cast<uint32_t>(n.x) & 0xffu) << sh);
+  w.y = (w.y & keep) | ((static_cast<uint32_t>(n.y) & 0xffu) << sh);
+  w.z = (w.z & keep) | ((static_cast<uint32_t>(n.z) & 0xffu) << sh);
+  w.w = (w.w & keep) | ((static_cast<uint32_t>(n.w) & 0xffu) << sh);
+  return w;
+}
+
+// D: head_dim.  REP: the largest GQA ratio the build takes (1, 2, 4, 8); the
+// call's rep <= REP.  INT8: k/v are packed words with scales.  PAGED: k/v are
+// page pools found through the table.
+template <int D, int REP, bool INT8, bool PAGED>
+__global__ void __launch_bounds__(kThreads)
+decode_attention_kernel(const Args a) {
+  constexpr int KS = D / 16;  // k16 steps of q k^T, and m16 tiles of the output
+  constexpr int ST = Ring<D, INT8>::kStages;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  Smem<D, REP, INT8>& sm = *reinterpret_cast<Smem<D, REP, INT8>*>(smem_raw);
+  __shared__ int s_last;
 
   const int sp = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int rep = H / Hkv;
-  const int len = min(max(lengths[b], 0), S);
-  const int lo = window > 0 ? max(0, len - window) : 0;
-  const int s0 = max(sp * split_len, lo);
-  const int s1 = min((sp + 1) * split_len, len);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int S = a.S, psz = a.psz, rep = a.rep, Hkv = a.Hkv;
+  const int len = static_cast<int>(
+      min(max(load_index(a.lengths, b, a.flags & kLen64), 0LL), static_cast<long long>(S)));
+  const int lo = a.window > 0 ? max(0, len - a.window) : 0;
+  const int split0 = sp * a.split_len;
+  const int s0 = max(split0, lo), s1 = min(split0 + a.split_len, len);
+  const int* table_row = PAGED ? a.table + static_cast<size_t>(b) * (S / psz) : nullptr;
+  const size_t bh = static_cast<size_t>(b) * Hkv + h;
 
-  float qr[kRepMax][DPL], acc[kRepMax][DPL], m_r[kRepMax], l_r[kRepMax];
-#pragma unroll
-  for (int r = 0; r < kRepMax; ++r) {
-    m_r[r] = kNegInf;
-    l_r[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) {
-      acc[r][i] = 0.f;
-      qr[r][i] = r < rep
-          ? __bfloat162float(q[(static_cast<size_t>(b) * H + h * rep + r) * D + lane * DPL + i])
-          : 0.f;
+  // (block of psz rows, row in it) of position p: a page of the pool, clamped,
+  // or the slot itself
+  auto locate = [&](int p, size_t* blk, int* row) {
+    if constexpr (PAGED) {
+      const int pi = p / psz;
+      *blk = static_cast<size_t>(min(max(table_row[pi], 0), a.n_pages - 1));
+      *row = p - pi * psz;
+    } else {
+      *blk = static_cast<size_t>(b);
+      *row = p;
+    }
+  };
+
+  // The append: pos >= 0 when this block writes row pos at (pos_blk, pos_row).
+  int pos = -1, pos_row = 0;
+  size_t pos_blk = 0;
+  if (a.k_new != nullptr) {
+    const long long p = load_index(a.positions, b, a.flags & kPos64);
+    if (p >= split0 && p < split0 + a.split_len && p < S) {
+      if constexpr (PAGED) {
+        const int e = table_row[p / psz];
+        if (e >= 0 && e < a.n_pages) {
+          pos = static_cast<int>(p);
+          pos_blk = static_cast<size_t>(e);
+          pos_row = pos % psz;
+        }
+      } else {
+        pos = static_cast<int>(p);
+        pos_blk = static_cast<size_t>(b);
+        pos_row = pos;
+      }
     }
   }
-
-  // positions [s0, s1), a page at a time: pi is the slot's page, blk the
-  // block of psz rows that holds it, [r0, r1) its rows of this split
-  const int page0 = s0 < s1 ? s0 / psz : 0, page1 = s0 < s1 ? (s1 - 1) / psz + 1 : 0;
-  for (int pi = page0; pi < page1; ++pi) {
-    int blk = b;
-    if constexpr (PAGED)
-      blk = min(max(table[static_cast<size_t>(b) * (S / psz) + pi], 0), n_pages - 1);
-    const int r0 = max(s0 - pi * psz, 0), r1 = min(s1 - pi * psz, psz);
+  const bool attended = pos >= s0 && pos < s1;
+  if (pos >= 0 && (!INT8 || !attended)) {
+    // written here; an attended int8 row is written by its tile's pass
     if constexpr (INT8) {
-      const uint32_t* k = static_cast<const uint32_t*>(k_raw);
-      const uint32_t* v = static_cast<const uint32_t*>(v_raw);
-      const int Sw = psz / 4;
-      const size_t head = (static_cast<size_t>(blk) * Hkv + h) * Sw;
-      // scales[blk, j, h, w]: the four positions of a word lie Hkv * Sw apart
-      const size_t sc_head = (static_cast<size_t>(blk) * 4 * Hkv + h) * Sw;
-      const size_t sc_j = static_cast<size_t>(Hkv) * Sw;
-      for (int w = r0 / 4 + warp; 4 * w < r1; w += kWarps) {
-        uint32_t kw[DPL], vw[DPL];
-        load_words<DPL>(k + (head + w) * D + lane * DPL, kw);
-        load_words<DPL>(v + (head + w) * D + lane * DPL, vw);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int p = 4 * w + j;
-          if (p < r0 || p >= r1) continue;  // warp-uniform
-          const float ksj = __bfloat162float(ks[sc_head + j * sc_j + w]);
-          const float vsj = __bfloat162float(vs[sc_head + j * sc_j + w]);
-          float kf[DPL], vf[DPL];
-#pragma unroll
-          for (int i = 0; i < DPL; ++i) {
-            kf[i] = static_cast<float>(static_cast<int>((kw[i] >> (8 * j)) & 0xffu) - 128);
-            vf[i] = static_cast<float>(static_cast<int>((vw[i] >> (8 * j)) & 0xffu) - 128);
-          }
-          attend_row<DPL>(qr, kf, vf, scale * ksj, vsj, rep, acc, m_r, l_r);
-        }
+      const size_t at = ((pos_blk * Hkv + h) * (psz / 4) + pos_row / 4) * D;
+      for (int i = tid; i < 2 * (D / 4); i += kThreads) {
+        const int which = i / (D / 4), c = i - which * (D / 4);
+        uint32_t* w = static_cast<uint32_t*>(which ? a.v : a.k) + at + 4 * c;
+        const int4 n = *reinterpret_cast<const int4*>(
+            static_cast<const int*>(which ? a.v_new : a.k_new) + bh * D + 4 * c);
+        *reinterpret_cast<uint4*>(w) = merge_byte(*reinterpret_cast<const uint4*>(w), n, pos_row & 3);
+      }
+      if (tid < 2) {
+        const size_t at_s = ((pos_blk * 4 + (pos_row & 3)) * Hkv + h) * (psz / 4) + pos_row / 4;
+        reinterpret_cast<uint16_t*>(tid ? a.vs : a.ks)[at_s] =
+            new_scale_bits(tid ? a.vs_new : a.ks_new, bh, a.flags & kNewScaleF32);
       }
     } else {
-      const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(k_raw);
-      const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(v_raw);
-      const size_t head = (static_cast<size_t>(blk) * Hkv + h) * psz;
-      for (int p = r0 + warp; p < r1; p += kWarps) {
-        const __nv_bfloat16* kp = k + (head + p) * D + lane * DPL;
-        const __nv_bfloat16* vp = v + (head + p) * D + lane * DPL;
-        float kf[DPL], vf[DPL];
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) {
-          kf[i] = __bfloat162float(kp[i]);
-          vf[i] = __bfloat162float(vp[i]);
-        }
-        attend_row<DPL>(qr, kf, vf, scale, 1.f, rep, acc, m_r, l_r);
+      const size_t at = ((pos_blk * Hkv + h) * psz + pos_row) * D;
+      for (int i = tid; i < 2 * (D / 8); i += kThreads) {
+        const int which = i / (D / 8), c = i - which * (D / 8);
+        *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(which ? a.v : a.k) + at + 8 * c) =
+            *reinterpret_cast<const uint4*>(
+                static_cast<const __nv_bfloat16*>(which ? a.v_new : a.k_new) + bh * D + 8 * c);
       }
     }
   }
 
-#pragma unroll
-  for (int r = 0; r < kRepMax; ++r) {
-    if (r >= rep) break;
-    if (lane == 0) {
-      sm_m[warp][r] = m_r[r];
-      sm_l[warp][r] = l_r[r];
-    }
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) sm_o[warp][r][lane * DPL + i] = acc[r][i];
+  // The live splits of the slot: [first, first + n_live)
+  const int first = lo / a.split_len;
+  const int n_live = len > lo ? (len - 1) / a.split_len - first + 1 : 0;
+  if (s0 >= s1) {  // no live position in this split
+    if (n_live == 0 && sp == 0)
+      for (int i = tid; i < rep * D; i += kThreads)
+        a.out[(static_cast<size_t>(b) * a.H + h * rep) * D + i] = __float2bfloat16(0.f);
+    return;
   }
+
+  // q as the B operand: lane 4g + t4 holds dims 2t4, 2t4 + 1 (and + 8) of head g
+  uint32_t qb[KS][2];
+#pragma unroll
+  for (int s = 0; s < KS; ++s) {
+    qb[s][0] = qb[s][1] = 0u;
+    if (g < rep) {
+      const __nv_bfloat16* qr = a.q + (static_cast<size_t>(b) * a.H + h * rep + g) * D + 16 * s + 2 * t4;
+      qb[s][0] = *reinterpret_cast<const uint32_t*>(qr);
+      qb[s][1] = *reinterpret_cast<const uint32_t*>(qr + 8);
+    }
+  }
+
+  const int t_begin = s0 - s0 % kBK;  // tiles start on a multiple of 64
+  const int n_tiles = (s1 - t_begin + kBK - 1) / kBK;
+  const bool tile_page = !PAGED || psz % kBK == 0;  // a tile lies in one page
+
+  // Queue the copies of tile t into its stage (positions outside [s0, s1) are
+  // zeros), and commit a group even when there is no tile t.
+  auto issue = [&](int t) {
+    if (t < n_tiles) {
+      const int tb = t_begin + t * kBK;
+      auto& st = sm.st[t % ST];
+      size_t tblk = 0;
+      int trow = 0;
+      if (tile_page) locate(tb, &tblk, &trow);  // the page, once a tile
+      if constexpr (INT8) {
+        const uint32_t* kw = static_cast<const uint32_t*>(a.k);
+        const uint32_t* vw = static_cast<const uint32_t*>(a.v);
+        for (int idx = tid; idx < (kBK / 4) * (D / 4); idx += kThreads) {
+          const int wr = idx / (D / 4), c = idx - wr * (D / 4);
+          const int p0 = tb + 4 * wr;  // a word row: positions p0 .. p0 + 3
+          const bool valid = p0 + 3 >= s0 && p0 < s1;
+          size_t at = 0;
+          if (valid) {
+            size_t blk = tblk;
+            int row = trow + 4 * wr;
+            if (!tile_page) locate(p0, &blk, &row);
+            at = ((blk * Hkv + h) * (psz / 4) + row / 4) * D + 4 * c;
+          }
+          if (attended && p0 == (pos & ~3)) {
+            // the word row that takes the new byte: merged on its way in
+            const size_t n_at = bh * D + 4 * c;
+            const uint4 km = merge_byte(*reinterpret_cast<const uint4*>(kw + at),
+                                        *reinterpret_cast<const int4*>(
+                                            static_cast<const int*>(a.k_new) + n_at), pos & 3);
+            const uint4 vm = merge_byte(*reinterpret_cast<const uint4*>(vw + at),
+                                        *reinterpret_cast<const int4*>(
+                                            static_cast<const int*>(a.v_new) + n_at), pos & 3);
+            *reinterpret_cast<uint4*>(&st.k[wr][4 * c]) = km;
+            *reinterpret_cast<uint4*>(&st.v[wr][4 * c]) = vm;
+            *reinterpret_cast<uint4*>(static_cast<uint32_t*>(a.k) + at) = km;
+            *reinterpret_cast<uint4*>(static_cast<uint32_t*>(a.v) + at) = vm;
+          } else {
+            xb::cp_async_16(&st.k[wr][4 * c], kw + at, valid);
+            xb::cp_async_16(&st.v[wr][4 * c], vw + at, valid);
+          }
+        }
+        // one scale a thread: k for the first 64, v for the rest
+        const int which = tid / kBK, i = tid - which * kBK, p = tb + i;
+        const bool valid = p >= s0 && p < s1;
+        if (valid && p == pos) {
+          const uint16_t bits = new_scale_bits(which ? a.vs_new : a.ks_new, bh,
+                                               a.flags & kNewScaleF32);
+          st.sc[which][i] = bits;
+          st.hi[which][i] = 0;
+          const size_t at_s = ((pos_blk * 4 + (pos_row & 3)) * Hkv + h) * (psz / 4) + pos_row / 4;
+          reinterpret_cast<uint16_t*>(which ? a.vs : a.ks)[at_s] = bits;
+        } else {
+          size_t at_s = 0;
+          if (valid) {
+            size_t blk = tblk;
+            int row = trow + i;
+            if (!tile_page) locate(p, &blk, &row);
+            at_s = ((blk * 4 + (row & 3)) * Hkv + h) * (psz / 4) + row / 4;
+          }
+          const uintptr_t src = reinterpret_cast<uintptr_t>((which ? a.vs : a.ks) + at_s);
+          xb::cp_async_4(&st.sc[which][i], reinterpret_cast<const void*>(src & ~uintptr_t{3}),
+                         valid);
+          st.hi[which][i] = valid ? static_cast<uint8_t>((src >> 1) & 1) : 0;
+        }
+      } else {
+        const __nv_bfloat16* kc = static_cast<const __nv_bfloat16*>(a.k);
+        const __nv_bfloat16* vc = static_cast<const __nv_bfloat16*>(a.v);
+        for (int idx = tid; idx < kBK * (D / 8); idx += kThreads) {
+          const int r = idx / (D / 8), c = idx - r * (D / 8);
+          const int p = tb + r;
+          const bool valid = p >= s0 && p < s1;
+          const __nv_bfloat16 *ksrc = kc, *vsrc = vc;
+          if (valid && p == pos) {  // the new row, from the inputs
+            ksrc = static_cast<const __nv_bfloat16*>(a.k_new) + bh * D + 8 * c;
+            vsrc = static_cast<const __nv_bfloat16*>(a.v_new) + bh * D + 8 * c;
+          } else if (valid) {
+            size_t blk = tblk;
+            int row = trow + r;
+            if (!tile_page) locate(p, &blk, &row);
+            const size_t at = ((blk * Hkv + h) * psz + row) * D + 8 * c;
+            ksrc = kc + at;
+            vsrc = vc + at;
+          }
+          xb::cp_async_16(&st.k[r][8 * c], ksrc, valid);
+          xb::cp_async_16(&st.v[r][8 * c], vsrc, valid);
+        }
+      }
+    }
+    xb::cp_async_commit();
+  };
+
+  // Per lane: the online softmax of heads 2t4 and 2t4 + 1 over the warp's
+  // positions, and o^T [D x 8 heads] as KS m16 tiles (c0, c2: head 2t4).
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+  float o[KS][4];
+#pragma unroll
+  for (int mt = 0; mt < KS; ++mt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[mt][e] = 0.f;
+
+#pragma unroll
+  for (int t = 0; t < ST - 1; ++t) issue(t);
+  for (int t = 0; t < n_tiles; ++t) {
+    xb::cp_async_wait<ST - 2>();
+    __syncthreads();  // tile t is in; every warp is done with tile t - 1
+    issue(t + ST - 1);
+    const int wb = t_begin + t * kBK + warp * kRowsW;  // the warp's first position
+    if (wb + kRowsW <= s0 || wb >= s1) continue;       // warp-uniform: nothing live
+    const auto& st = sm.st[t % ST];
+
+    // scores [16 positions x 8 heads] = k q^T
+    float sc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      uint32_t af[4];
+      if constexpr (INT8) {
+        // position g: word row g / 4, byte g % 4; position g + 8: two word rows on
+        const uint32_t* r0 = &st.k[4 * warp + (g >> 2)][16 * s + 2 * t4];
+        const uint32_t* r1 = r0 + 2 * (D + 8);
+        const uint2 x0 = *reinterpret_cast<const uint2*>(r0);
+        const uint2 x1 = *reinterpret_cast<const uint2*>(r1);
+        const uint2 x2 = *reinterpret_cast<const uint2*>(r0 + 8);
+        const uint2 x3 = *reinterpret_cast<const uint2*>(r1 + 8);
+        af[0] = xb::unpack_pair(x0.x, x0.y, g & 3);
+        af[1] = xb::unpack_pair(x1.x, x1.y, g & 3);
+        af[2] = xb::unpack_pair(x2.x, x2.y, g & 3);
+        af[3] = xb::unpack_pair(x3.x, x3.y, g & 3);
+      } else {
+        xb::ldmatrix_x4(af, &st.k[warp * kRowsW + (lane & 15)][16 * s + (lane >> 4) * 8]);
+      }
+      xb::mma_bf16(sc, af, qb[s][0], qb[s][1]);
+    }
+
+    // mask, one maximum and one rescale for the 16 positions: sc[e] is
+    // position g + 8 * (e >> 1), head 2t4 + (e & 1)
+    float ksc[2] = {1.f, 1.f}, vsc[2] = {1.f, 1.f};
+    if constexpr (INT8) {
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int i = warp * kRowsW + g + 8 * hf;
+        ksc[hf] = bf16_bits_to_float(st.hi[0][i] ? st.sc[0][i] >> 16 : st.sc[0][i] & 0xffffu);
+        vsc[hf] = bf16_bits_to_float(st.hi[1][i] ? st.sc[1][i] >> 16 : st.sc[1][i] & 0xffffu);
+      }
+    }
+    float x[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int p = wb + g + 8 * (e >> 1);
+      x[e] = p >= s0 && p < s1 ? sc[e] * a.scale * ksc[e >> 1] : kNegInf;
+    }
+    float mx[2] = {fmaxf(x[0], x[2]), fmaxf(x[1], x[3])};
+    float alpha[2];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1)
+        mx[n] = fmaxf(mx[n], __shfl_xor_sync(0xffffffffu, mx[n], off));
+      const float m_new = fmaxf(m_r[n], mx[n]);
+      alpha[n] = __expf(m_r[n] - m_new);
+      m_r[n] = m_new;
+    }
+    float pv[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float pe = x[e] > 0.5f * kNegInf ? __expf(x[e] - m_r[e & 1]) : 0.f;
+      x[e] = pe;
+      pv[e] = pe * vsc[e >> 1];  // int8: the v scale folded into p
+    }
+    l_r[0] = l_r[0] * alpha[0] + x[0] + x[2];  // this lane's positions; summed over g at the end
+    l_r[1] = l_r[1] * alpha[1] + x[1] + x[3];
+
+    // o^T += v^T p^T: p^T as the B operand, transposed from the score fragment
+    const uint32_t b0 = xb::movmatrix_trans(xb::pack_bf16(pv[0], pv[1]));
+    const uint32_t b1 = xb::movmatrix_trans(xb::pack_bf16(pv[2], pv[3]));
+#pragma unroll
+    for (int mt = 0; mt < KS; ++mt) {
+      o[mt][0] *= alpha[0];
+      o[mt][1] *= alpha[1];
+      o[mt][2] *= alpha[0];
+      o[mt][3] *= alpha[1];
+      uint32_t av[4];
+      if constexpr (INT8) {
+        // dim g (+ 8) of positions 2t4, 2t4 + 1 (+ 8): two bytes of one word
+        const uint32_t* r0 = &st.v[4 * warp + (t4 >> 1)][16 * mt + g];
+        const uint32_t* r1 = r0 + 2 * (D + 8);
+        const uint32_t sel = (t4 & 1) ? 0x0302u : 0x0100u;  // bytes 2(t4&1), +1 -> bits 0, 16
+        av[0] = xb::biased_bytes_to_bf162(__byte_perm(r0[0], 0u, sel));
+        av[1] = xb::biased_bytes_to_bf162(__byte_perm(r0[8], 0u, sel));
+        av[2] = xb::biased_bytes_to_bf162(__byte_perm(r1[0], 0u, sel));
+        av[3] = xb::biased_bytes_to_bf162(__byte_perm(r1[8], 0u, sel));
+      } else {
+        xb::ldmatrix_x4_trans(av, &st.v[warp * kRowsW + (lane & 7) + (lane >> 4) * 8]
+                                       [16 * mt + ((lane >> 3) & 1) * 8]);
+      }
+      xb::mma_bf16(o[mt], av, b0, b1);
+    }
+  }
+  xb::cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the warps merge through it
+
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int off = 4; off < 32; off <<= 1) l_r[n] += __shfl_xor_sync(0xffffffffu, l_r[n], off);
+#pragma unroll
+  for (int mt = 0; mt < KS; ++mt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int head = 2 * t4 + (e & 1);
+      if (head < rep) sm.mg.o[warp][head][16 * mt + g + 8 * (e >> 1)] = o[mt][e];
+    }
+  if (g == 0)
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+      if (2 * t4 + n < rep) {
+        sm.mg.m[warp][2 * t4 + n] = m_r[n];
+        sm.mg.l[warp][2 * t4 + n] = l_r[n];
+      }
   __syncthreads();
-  for (int idx = threadIdx.x; idx < rep * D; idx += kWarps * 32) {
-    const int r = idx / D, d = idx - (idx / D) * D;
+
+  const size_t part_rows = static_cast<size_t>(a.B) * Hkv * a.n_split * rep;
+  float* part_o = a.part;
+  float* part_m = a.part + part_rows * D;
+  float* part_l = part_m + part_rows;
+  __nv_bfloat16* out = a.out + (static_cast<size_t>(b) * a.H + h * rep) * D;
+  for (int i = tid; i < rep * D; i += kThreads) {
+    const int r = i / D, d = i - r * D;
     float mx = kNegInf;
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm_m[w][r]);
-    float l = 0.f, o = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, sm.mg.m[w][r]);
+    float l = 0.f, acc = 0.f;
+#pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float c = expf(sm_m[w][r] - mx);
-      l += sm_l[w][r] * c;
-      o += sm_o[w][r][d] * c;
+      const float c = __expf(sm.mg.m[w][r] - mx);
+      l += sm.mg.l[w][r] * c;
+      acc += sm.mg.o[w][r][d] * c;
     }
-    const size_t row = (static_cast<size_t>(b) * H + h * rep + r) * n_split + sp;
-    part_o[row * D + d] = o;
-    if (d == 0) {
-      part_m[row] = mx;
-      part_l[row] = l;
+    if (n_live == 1) {
+      out[i] = __float2bfloat16(acc / l);  // l > 0: the split holds a live position
+    } else {
+      const size_t row = (bh * a.n_split + sp) * rep + r;
+      part_o[row * D + d] = acc;
+      if (d == 0) {
+        part_m[row] = mx;
+        part_l[row] = l;
+      }
     }
   }
-}
+  if (n_live == 1) return;
 
-__global__ void combine_kernel(const float* __restrict__ part_o,
-                               const float* __restrict__ part_m,
-                               const float* __restrict__ part_l,
-                               __nv_bfloat16* __restrict__ out, int n_split, int D) {
-  const size_t bh = blockIdx.x;
-  const float* pm = part_m + bh * n_split;
-  const float* pl = part_l + bh * n_split;
-  float mx = kNegInf;
-  for (int s = 0; s < n_split; ++s) mx = fmaxf(mx, pm[s]);
-  float l = 0.f;
-  for (int s = 0; s < n_split; ++s) l += pl[s] * expf(pm[s] - mx);
-  const float inv = 1.f / fmaxf(l, 1e-30f);
-  for (int d = threadIdx.x; d < D; d += blockDim.x) {
-    float o = 0.f;
-    for (int s = 0; s < n_split; ++s)
-      o += part_o[(bh * n_split + s) * D + d] * expf(pm[s] - mx);
-    out[bh * D + d] = __float2bfloat16(o * inv);
+  __threadfence();  // the partial result is visible before the ticket is taken
+  __syncthreads();
+  if (tid == 0) s_last = atomicAdd(&a.counters[bh], 1) == n_live - 1;
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  // the last block of the (slot, kv head): the live splits, in split order
+  for (int i = tid; i < rep * D; i += kThreads) {
+    const int r = i / D, d = i - r * D;
+    const size_t row0 = (bh * a.n_split + first) * rep + r;
+    float mx = kNegInf;
+    for (int z = 0; z < n_live; ++z) mx = fmaxf(mx, __ldcg(part_m + row0 + z * rep));
+    float l = 0.f, acc = 0.f;
+    for (int z = 0; z < n_live; ++z) {
+      const size_t row = row0 + z * rep;
+      const float c = __expf(__ldcg(part_m + row) - mx);
+      l += __ldcg(part_l + row) * c;
+      acc += __ldcg(part_o + row * D + d) * c;
+    }
+    out[i] = __float2bfloat16(acc / l);
   }
+  if (tid == 0) a.counters[bh] = 0;  // ready for the next call
 }
 
-template <int DPL, bool INT8, bool PAGED>
-void launch_split(const dim3& grid, cudaStream_t st, const void* q, const void* k,
-                  const void* v, const void* ks, const void* vs, const void* lengths,
-                  const void* table, void* part_o, void* part_m, void* part_l, int H, int Hkv,
-                  int S, int psz, int n_pages, int n_split, int split_len, int window,
-                  float scale) {
-  attend_split_kernel<DPL, INT8, PAGED><<<grid, kWarps * 32, 0, st>>>(
-      static_cast<const __nv_bfloat16*>(q), k, v,
-      static_cast<const __nv_bfloat16*>(ks), static_cast<const __nv_bfloat16*>(vs),
-      static_cast<const int*>(lengths), static_cast<const int*>(table),
-      static_cast<float*>(part_o), static_cast<float*>(part_m), static_cast<float*>(part_l),
-      H, Hkv, S, psz, n_pages, n_split, split_len, window, scale);
+template <int D, int REP, bool INT8, bool PAGED>
+int launch(const Args& a, cudaStream_t st) {
+  auto kernel = decode_attention_kernel<D, REP, INT8, PAGED>;
+  const int smem = static_cast<int>(sizeof(Smem<D, REP, INT8>));
+  // above 48 KB shared memory is dynamic and has to be asked for
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(a.n_split, a.Hkv, a.B);
+  kernel<<<grid, kThreads, smem, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// table == nullptr: the linear cache of B slots of S rows.  Otherwise pools of
-// n_pages pages of psz rows and table [B, S / psz].  Returns
-// cudaErrorInvalidValue (1) for a head_dim, GQA ratio or page size it does not
-// take.
+template <int D, bool INT8, bool PAGED>
+int by_rep(const Args& a, cudaStream_t st) {
+  if (a.rep == 1) return launch<D, 1, INT8, PAGED>(a, st);
+  if (a.rep == 2) return launch<D, 2, INT8, PAGED>(a, st);
+  if (a.rep <= 4) return launch<D, 4, INT8, PAGED>(a, st);
+  return launch<D, 8, INT8, PAGED>(a, st);
+}
+
 template <bool INT8, bool PAGED>
-int decode_attention(const void* q, const void* k, const void* v, const void* ks,
-                     const void* vs, const void* lengths, const void* table, void* part_o,
-                     void* part_m, void* part_l, void* out, int B, int H, int Hkv, int S,
-                     int psz, int n_pages, int D, int n_split, int split_len, int window,
-                     float scale, void* stream) {
-  if (H % Hkv || H / Hkv > kRepMax) return static_cast<int>(cudaErrorInvalidValue);
-  if (INT8 && (S % 4 || split_len % 4)) return static_cast<int>(cudaErrorInvalidValue);
-  if (PAGED && (psz <= 0 || n_pages <= 0 || S % psz || (INT8 && psz % 4)))
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(n_split, Hkv, B);
+int by_dim(const Args& a, int D, cudaStream_t st) {
   switch (D) {
     case 64:
-      launch_split<2, INT8, PAGED>(grid, st, q, k, v, ks, vs, lengths, table, part_o, part_m,
-                                   part_l, H, Hkv, S, psz, n_pages, n_split, split_len, window,
-                                   scale);
-      break;
+      return by_rep<64, INT8, PAGED>(a, st);
     case 128:
-      launch_split<4, INT8, PAGED>(grid, st, q, k, v, ks, vs, lengths, table, part_o, part_m,
-                                   part_l, H, Hkv, S, psz, n_pages, n_split, split_len, window,
-                                   scale);
-      break;
+      return by_rep<128, INT8, PAGED>(a, st);
     case 256:
-      launch_split<8, INT8, PAGED>(grid, st, q, k, v, ks, vs, lengths, table, part_o, part_m,
-                                   part_l, H, Hkv, S, psz, n_pages, n_split, split_len, window,
-                                   scale);
-      break;
+      return by_rep<256, INT8, PAGED>(a, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  combine_kernel<<<B * H, 128, 0, st>>>(
-      static_cast<const float*>(part_o), static_cast<const float*>(part_m),
-      static_cast<const float*>(part_l), static_cast<__nv_bfloat16*>(out), n_split, D);
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-extern "C" int xb_decode_attention(const void* q, const void* k, const void* v,
-                                   const void* lengths, void* part_o, void* part_m,
-                                   void* part_l, void* out, int B, int H, int Hkv,
-                                   int S, int D, int n_split, int split_len,
-                                   int window, float scale, void* stream) {
-  return decode_attention<false, false>(q, k, v, nullptr, nullptr, lengths, nullptr, part_o,
-                                        part_m, part_l, out, B, H, Hkv, S, S, B, D, n_split,
-                                        split_len, window, scale, stream);
-}
-
-// The packed int8 cache: k/v are the words [B, Hkv, S/4, D] of one layer,
-// ks/vs its scales [B, 4, Hkv, S/4]; S counts positions.
-extern "C" int xb_decode_attention_int8(const void* q, const void* k, const void* v,
-                                        const void* ks, const void* vs,
-                                        const void* lengths, void* part_o, void* part_m,
-                                        void* part_l, void* out, int B, int H, int Hkv,
-                                        int S, int D, int n_split, int split_len,
-                                        int window, float scale, void* stream) {
-  return decode_attention<true, false>(q, k, v, ks, vs, lengths, nullptr, part_o, part_m,
-                                       part_l, out, B, H, Hkv, S, S, B, D, n_split, split_len,
-                                       window, scale, stream);
-}
-
-// The paged bf16 cache: k/v are the pools [n_pages, Hkv, psz, D] of one layer,
-// table int [B, P]; a slot's capacity is P * psz positions.
-extern "C" int xb_decode_attention_paged(const void* q, const void* k, const void* v,
-                                         const void* lengths, const void* table, void* part_o,
-                                         void* part_m, void* part_l, void* out, int B, int H,
-                                         int Hkv, int P, int psz, int n_pages, int D,
-                                         int n_split, int split_len, int window, float scale,
-                                         void* stream) {
-  return decode_attention<false, true>(q, k, v, nullptr, nullptr, lengths, table, part_o,
-                                       part_m, part_l, out, B, H, Hkv, P * psz, psz, n_pages,
-                                       D, n_split, split_len, window, scale, stream);
-}
-
-// The paged int8 cache: word pools [n_pages, Hkv, psz/4, D] and scale pools
-// [n_pages, 4, Hkv, psz/4]; psz counts positions.
-extern "C" int xb_decode_attention_int8_paged(const void* q, const void* k, const void* v,
-                                              const void* ks, const void* vs,
-                                              const void* lengths, const void* table,
-                                              void* part_o, void* part_m, void* part_l,
-                                              void* out, int B, int H, int Hkv, int P, int psz,
-                                              int n_pages, int D, int n_split, int split_len,
-                                              int window, float scale, void* stream) {
-  return decode_attention<true, true>(q, k, v, ks, vs, lengths, table, part_o, part_m, part_l,
-                                      out, B, H, Hkv, P * psz, psz, n_pages, D, n_split,
-                                      split_len, window, scale, stream);
+// q, out [B, H, D] bf16; k, v one layer of the cache: bf16 rows, or with
+// ks/vs int32 words and their bf16 scales; table null (linear: psz = S,
+// n_pages = B) or int [B, S / psz] (k/v/ks/vs pools of n_pages pages).
+// lengths, positions int32 or int64 [B] (flags 1, 2).  k_new null: no append;
+// else bf16 [B, Hkv, D] rows (int8: int32 biased bytes, and ks_new/vs_new
+// [B, Hkv] scales, f32 with flag 4, else bf16); positions [B] then.  part is
+// a workspace of B * H * n_split * (D + 2) floats, counters B * Hkv ints, all
+// 0 at the call and all 0 again when the kernel has run (calls that share
+// them must be ordered, as launches on one stream are).  New rows, q and
+// k_new must be 16-byte aligned.  Returns cudaErrorInvalidValue (1) for a
+// shape it does not take.
+extern "C" int xb_decode_attention(const void* q, void* k, void* v, void* ks, void* vs,
+                                   const void* lengths, const void* positions, const void* table,
+                                   const void* k_new, const void* v_new, const void* ks_new,
+                                   const void* vs_new, void* part, void* counters, void* out,
+                                   int B, int H, int Hkv, int S, int psz, int n_pages, int D,
+                                   int n_split, int split_len, int window, int flags, float scale,
+                                   void* stream) {
+  if (B == 0) return 0;
+  const bool int8 = ks != nullptr, paged = table != nullptr;
+  if (Hkv <= 0 || H % Hkv || H / Hkv > 8 || split_len % kBK || n_split * split_len < S ||
+      psz <= 0 || S % psz || n_pages <= 0 || (int8 && psz % 4) ||
+      (k_new != nullptr && (positions == nullptr || (int8 && (!ks_new || !vs_new)))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  Args a;
+  a.q = static_cast<const __nv_bfloat16*>(q);
+  a.k = k;
+  a.v = v;
+  a.ks = static_cast<__nv_bfloat16*>(ks);
+  a.vs = static_cast<__nv_bfloat16*>(vs);
+  a.lengths = lengths;
+  a.positions = positions;
+  a.table = static_cast<const int*>(table);
+  a.k_new = k_new;
+  a.v_new = v_new;
+  a.ks_new = ks_new;
+  a.vs_new = vs_new;
+  a.part = static_cast<float*>(part);
+  a.counters = static_cast<int*>(counters);
+  a.out = static_cast<__nv_bfloat16*>(out);
+  a.B = B;
+  a.H = H;
+  a.Hkv = Hkv;
+  a.rep = H / Hkv;
+  a.S = S;
+  a.psz = psz;
+  a.n_pages = n_pages;
+  a.n_split = n_split;
+  a.split_len = split_len;
+  a.window = window;
+  a.flags = flags;
+  a.scale = scale;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (int8)
+    return paged ? by_dim<true, true>(a, D, st) : by_dim<true, false>(a, D, st);
+  return paged ? by_dim<false, true>(a, D, st) : by_dim<false, false>(a, D, st);
 }

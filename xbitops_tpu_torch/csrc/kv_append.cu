@@ -8,8 +8,11 @@
 //
 // What bounds it: nothing on an H100 -- it moves B * Hkv * D * 2 values
 // (1 MB at 7B, B=8), so its time is the launch.  The TPU kernel rewrote a
-// 16-row slab per slot because of the TPU's tiling; here each thread block
-// copies exactly its slot's Hkv * D new values, nothing else.
+// 16-row slab per slot because of the TPU's tiling; here one small block a
+// (slot, kv head) moves exactly that row of k and of v, one 16-byte load and
+// store a thread, nothing else.  Decode writes its rows inside the attention
+// kernel (csrc/decode_attention.cu); this kernel serves the other one-row
+// writes.
 //
 // Row i goes to slot i.  It writes nothing when its position is outside
 // [0, S): padding and inactive slots carry position S.
@@ -43,41 +46,45 @@ namespace {
 // `rows` = S rows at row pos; a pool in block table[i, pos / rows] of `rows`
 // = psz rows at row pos % rows.  False: nothing is written.
 template <bool PAGED>
-__device__ __forceinline__ bool locate(int i, int pos, int rows, const int* __restrict__ table,
-                                       int P, int n_pages, int* block, int* row) {
+__device__ __forceinline__ bool locate(int i, long long pos, int rows,
+                                       const int* __restrict__ table, int P, int n_pages,
+                                       int* block, int* row) {
   if constexpr (PAGED) {
-    if (pos < 0 || pos >= P * rows) return false;
+    if (pos < 0 || pos >= static_cast<long long>(P) * rows) return false;
     const int page = table[static_cast<size_t>(i) * P + pos / rows];
     if (page < 0 || page >= n_pages) return false;
     *block = page;
-    *row = pos % rows;
+    *row = static_cast<int>(pos % rows);
   } else {
     if (pos < 0 || pos >= rows) return false;
     *block = i;
-    *row = pos;
+    *row = static_cast<int>(pos);
   }
   return true;
 }
 
+// Grid (Hkv, B), 2 * D / 8 threads: thread c < D / 8 moves 16 bytes of the k
+// row, the rest the v row.  positions int32, or int64 with pos64.
 template <bool PAGED>
-__global__ void kv_append_kernel(uint16_t* __restrict__ k, uint16_t* __restrict__ v,
-                                 const uint16_t* __restrict__ k_new,
-                                 const uint16_t* __restrict__ v_new,
-                                 const int* __restrict__ positions,
-                                 const int* __restrict__ table, int P, int n_pages,
-                                 int B, int Hkv, int S, int D) {
-  const int i = blockIdx.x;
-  if (i >= B) return;
+__global__ void kv_append_kernel(uint4* __restrict__ k, uint4* __restrict__ v,
+                                 const uint4* __restrict__ k_new,
+                                 const uint4* __restrict__ v_new,
+                                 const void* __restrict__ positions, int pos64,
+                                 const int* __restrict__ table, int P, int n_pages, int Hkv,
+                                 int S, int D) {
+  const int h = blockIdx.x, i = blockIdx.y;
+  const long long p = pos64 ? static_cast<const long long*>(positions)[i]
+                            : static_cast<const int*>(positions)[i];
   int blk, pos;
-  if (!locate<PAGED>(i, positions[i], S, table, P, n_pages, &blk, &pos)) return;
-  const int row = Hkv * D;
-  for (int e = threadIdx.x; e < row; e += blockDim.x) {
-    const int h = e / D, d = e - (e / D) * D;
-    const size_t dst = ((static_cast<size_t>(blk) * Hkv + h) * S + pos) * D + d;
-    const size_t src = static_cast<size_t>(i) * row + e;
-    k[dst] = k_new[src];
+  if (!locate<PAGED>(i, p, S, table, P, n_pages, &blk, &pos)) return;
+  const int chunks = D / 8;  // 16-byte pieces of a row
+  const int which = threadIdx.x / chunks, c = threadIdx.x - which * chunks;
+  const size_t dst = ((static_cast<size_t>(blk) * Hkv + h) * S + pos) * chunks + c;
+  const size_t src = (static_cast<size_t>(i) * Hkv + h) * chunks + c;
+  if (which)
     v[dst] = v_new[src];
-  }
+  else
+    k[dst] = k_new[src];
 }
 
 template <bool PAGED>
@@ -128,13 +135,14 @@ int append_packed(void* k, void* v, void* ks, void* vs, const void* kq, const vo
 
 template <bool PAGED>
 int append(void* k, void* v, const void* k_new, const void* v_new, const void* positions,
-           const void* table, int P, int n_pages, int B, int Hkv, int S, int D, void* stream) {
+           int pos64, const void* table, int P, int n_pages, int B, int Hkv, int S, int D,
+           void* stream) {
+  if (D % 8 || D > 512) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  kv_append_kernel<PAGED><<<B, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint16_t*>(k), static_cast<uint16_t*>(v),
-      static_cast<const uint16_t*>(k_new), static_cast<const uint16_t*>(v_new),
-      static_cast<const int*>(positions), static_cast<const int*>(table), P, n_pages, B, Hkv,
-      S, D);
+  kv_append_kernel<PAGED><<<dim3(Hkv, B), 2 * (D / 8), 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<uint4*>(k), static_cast<uint4*>(v), static_cast<const uint4*>(k_new),
+      static_cast<const uint4*>(v_new), positions, pos64, static_cast<const int*>(table), P,
+      n_pages, Hkv, S, D);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -148,10 +156,13 @@ extern "C" int xb_kv_append_packed(void* k, void* v, void* ks, void* vs, const v
                               B, Hkv, Sw, D, stream);
 }
 
+// k_new, v_new bf16 [B, Hkv, D], 16-byte aligned; positions int32 [B], or
+// int64 with pos64 = 1.
 extern "C" int xb_kv_append(void* k, void* v, const void* k_new, const void* v_new,
-                            const void* positions, int B, int Hkv, int S, int D,
+                            const void* positions, int pos64, int B, int Hkv, int S, int D,
                             void* stream) {
-  return append<false>(k, v, k_new, v_new, positions, nullptr, 0, 0, B, Hkv, S, D, stream);
+  return append<false>(k, v, k_new, v_new, positions, pos64, nullptr, 0, 0, B, Hkv, S, D,
+                       stream);
 }
 
 // The paged forms: k/v (and ks/vs) are the pools of one layer, table int
@@ -167,8 +178,9 @@ extern "C" int xb_kv_append_packed_paged(void* k, void* v, void* ks, void* vs, c
 }
 
 extern "C" int xb_kv_append_paged(void* k, void* v, const void* k_new, const void* v_new,
-                                  const void* positions, const void* table, int P,
+                                  const void* positions, int pos64, const void* table, int P,
                                   int n_pages, int B, int Hkv, int psz, int D, void* stream) {
   if (P <= 0 || n_pages <= 0 || psz <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  return append<true>(k, v, k_new, v_new, positions, table, P, n_pages, B, Hkv, psz, D, stream);
+  return append<true>(k, v, k_new, v_new, positions, pos64, table, P, n_pages, B, Hkv, psz, D,
+                      stream);
 }

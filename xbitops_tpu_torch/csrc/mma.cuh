@@ -1,6 +1,7 @@
 // Warp-level tensor-core pieces shared by the kernels that multiply on
-// mma.sync (qgemv_mma.cu, prefill_attention.cu): the bf16 m16n8k16 product,
-// ldmatrix, cp.async, and the exact decode of packed integers to bf16 pairs.
+// mma.sync (qgemv_mma.cu, qgemv_word.cu, prefill_attention.cu,
+// decode_attention.cu): the bf16 m16n8k16 product, ldmatrix, movmatrix,
+// cp.async, and the exact decode of packed integers to bf16 pairs.
 //
 // Fragment layout of mma.m16n8k16.row.col, lane = 4*g + t4 (g = 0..7, t4 = 0..3):
 //   A (16 x 16, row): a0 = (row g,   k 2t4, 2t4+1)   a1 = (row g+8, k 2t4, 2t4+1)
@@ -47,6 +48,15 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
                : "r"(smem_addr(row)));
+}
+
+// An 8 x 8 matrix of 16-bit values held as ldmatrix leaves it (lane 4g + t4:
+// row g, columns 2t4 and 2t4 + 1), transposed in registers: lane 4g + t4 then
+// holds rows 2t4 and 2t4 + 1 of column g.
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t a) {
+  uint32_t d;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(d) : "r"(a));
+  return d;
 }
 
 // 16 bytes from global to shared memory without passing registers; with
@@ -97,6 +107,23 @@ __device__ __forceinline__ uint32_t nibbles_to_bf162(uint32_t v) {
 // plus 16 times high nibble, one rounding-free fused multiply-add.
 __device__ __forceinline__ uint32_t bytes_to_bf162(uint32_t v) {
   return bf162_fma(nibbles_to_bf162(v >> 4), kBf16x2_16, nibbles_to_bf162(v));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
+  const __nv_bfloat162 t = __floats2bfloat162_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&t);
+}
+
+// The biased bytes (value + 128) in bits 0-7 and 16-23 of t as the bf16 pair
+// (byte - 128), exactly: the low seven bits go into the mantissa of 128.0,
+// and what comes off is 128 when the byte's top bit is set, else 256.
+__device__ __forceinline__ uint32_t biased_bytes_to_bf162(uint32_t t) {
+  return bf162_sub((t & 0x007F007Fu) | kBf16x2_128, (t & 0x00800080u) ^ 0x43804380u);
+}
+
+// Byte j of w0 and of w1 (the packed int8 cache), as a bf16 pair.
+__device__ __forceinline__ uint32_t unpack_pair(uint32_t w0, uint32_t w1, int j) {
+  return biased_bytes_to_bf162(__byte_perm(w0, w1, j | ((4 + j) << 8)));
 }
 
 }  // namespace xb

@@ -91,18 +91,8 @@ struct alignas(16) Smem {
   int hi, lo;         // largest and smallest live position of the tile
 };
 
-__device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
-  const __nv_bfloat162 t = __floats2bfloat162_rn(a, b);
-  return *reinterpret_cast<const uint32_t*>(&t);
-}
-
-// byte j of w0 and of w1, as the bf16 pair (byte - 128), exactly: the low
-// seven bits go into the mantissa of 128.0, and what comes off is 128 when
-// the byte's top bit is set, else 256.
-__device__ __forceinline__ uint32_t unpack_pair(uint32_t w0, uint32_t w1, int j) {
-  const uint32_t t = __byte_perm(w0, w1, j | ((4 + j) << 8));
-  return xb::bf162_sub((t & 0x007F007Fu) | xb::kBf16x2_128, (t & 0x00800080u) ^ 0x43804380u);
-}
+using xb::pack_bf16;
+using xb::unpack_pair;
 
 // The block of `rows` rows that holds row `r` of a slot, and the row inside
 // it.  Linear: the slot's own block.  Paged: page table_row[r / rows], clamped;

@@ -97,7 +97,8 @@ class Engine:
     ):
         """``kv_quant``: True for the packed int8 KV cache, False for bf16;
         None picks int8 for long contexts (``max_seq_len >=
-        AUTO_KV_QUANT_MIN_S``) where the cache allows it.  ``prefill_chunk``:
+        AUTO_KV_QUANT_MIN_S``) where the cache allows it, and bf16 for a paged
+        cache, as the JAX package does.  ``prefill_chunk``:
         the longest bucket, and the chunk length for longer prompts.
         ``seed`` seeds the engine's ``torch.Generator`` for sampled rows.
 
@@ -127,7 +128,8 @@ class Engine:
         ) or [self.prefill_chunk]
         if kv_quant is None:
             kv_quant = (
-                cache_dtype == torch.bfloat16
+                not paged  # the reference's rule; its `mesh is None` comes with `mesh`
+                and cache_dtype == torch.bfloat16
                 and cfg.max_seq_len % 4 == 0
                 and self.prefill_chunk % 4 == 0
                 and cfg.flash_decode and cfg.head_dim % 128 == 0

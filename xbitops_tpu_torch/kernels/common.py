@@ -37,11 +37,13 @@ NVCC_FLAGS = [
 # Launch counts per kernel, and calls of a plain version on CUDA tensors.
 # A wrapper adds one where it launches its kernel and nowhere else, so a run
 # can show that the main path went through the kernels.
-KERNELS = ("qgemv", "kv_append", "decode_attention", "prefill_attention",
-           "kv_append_packed", "decode_attention_int8", "dequant", "qgemv_a8",
-           "qgemv_a8_perchannel", "kv_append_paged", "kv_append_packed_paged",
-           "decode_attention_paged", "decode_attention_int8_paged", "prefill_attention_paged",
-           "qgemv_mma", "qgemv_cuda_core")
+# The decode-attention kernel appends the new rows itself: its launches with
+# ``kv_new`` count once more under the append form's name + "_fused".
+APPENDS = ("kv_append", "kv_append_packed", "kv_append_paged", "kv_append_packed_paged")
+KERNELS = ("qgemv", "decode_attention", "prefill_attention", "decode_attention_int8", "dequant",
+           "qgemv_a8", "qgemv_a8_perchannel", "decode_attention_paged",
+           "decode_attention_int8_paged", "prefill_attention_paged", "qgemv_mma",
+           "qgemv_cuda_core") + APPENDS + tuple(n + "_fused" for n in APPENDS)
 launches = dict.fromkeys(KERNELS, 0)
 plain_on_cuda = dict.fromkeys(KERNELS, 0)
 
@@ -67,16 +69,12 @@ _SIGNATURES = {
                      _I, _I, _VP, _VP, _I, _VP],
     "xb_qgemv_word": [_VP, _I, _I, _I, _I, _VP, _I, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP, _VP, _VP,
                       _I, _VP],
-    "xb_kv_append": [_VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _VP],
+    "xb_kv_append": [_VP] * 5 + [_I] * 5 + [_VP],
     "xb_kv_append_packed": [_VP] * 9 + [_I, _I, _I, _I, _VP],
-    "xb_decode_attention": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I,
-                            _I, _I, _I, _I, _I, ctypes.c_float, _VP],
-    "xb_decode_attention_int8": [_VP] * 10 + [_I] * 8 + [ctypes.c_float, _VP],
+    "xb_decode_attention": [_VP] * 15 + [_I] * 11 + [ctypes.c_float, _VP],
     "xb_prefill_attention": [_VP] * 8 + [_I] * 8 + [ctypes.c_float, _VP],
-    "xb_kv_append_paged": [_VP] * 6 + [_I] * 6 + [_VP],
+    "xb_kv_append_paged": [_VP] * 5 + [_I, _VP] + [_I] * 6 + [_VP],
     "xb_kv_append_packed_paged": [_VP] * 10 + [_I] * 6 + [_VP],
-    "xb_decode_attention_paged": [_VP] * 9 + [_I] * 10 + [ctypes.c_float, _VP],
-    "xb_decode_attention_int8_paged": [_VP] * 11 + [_I] * 10 + [ctypes.c_float, _VP],
     "xb_prefill_attention_paged": [_VP] * 9 + [_I] * 10 + [ctypes.c_float, _VP],
     "xb_dequant": [_I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP, _I, _I, _I, _I, _VP, _I, _VP],
     "xb_qgemv_a8": [_VP, _I, _I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP, _I, _I, _I, _I,
@@ -165,6 +163,14 @@ def check(err: int, name: str) -> None:
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def kernel_input(t: torch.Tensor, dtypes, device) -> torch.Tensor:
+    """``t`` as a kernel reads it: on ``device``, contiguous and starting on 16
+    bytes, in its own dtype where that is one of ``dtypes`` (then nothing at
+    all runs on the card), else cast to the first."""
+    t = t.to(device=device, dtype=t.dtype if t.dtype in dtypes else dtypes[0]).contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def require(cond: bool, msg: str) -> None:

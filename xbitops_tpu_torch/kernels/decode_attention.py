@@ -1,6 +1,6 @@
 """Length-aware one-token (decode) attention over the head-major cache, bf16
-or packed int8: the CUDA kernel (``csrc/decode_attention.cu``) and its plain
-PyTorch version.
+or packed int8, with the KV append fused in: the CUDA kernel
+(``csrc/decode_attention.cu``) and its plain PyTorch version.
 
 Replaces the Pallas kernels ``xbitops_tpu/kernels/decode_attention.py``
 ``_kernel_v2`` and ``_kernel`` (entry ``decode_attention``) for the dense bf16
@@ -10,10 +10,16 @@ their paged forms: with ``page_table`` int32 ``[B, P]`` the k/v operands are
 page pools ``[(L,) n_pages, Hkv, psz(/4), D]`` (scale pools
 ``[(L,) n_pages, 4, Hkv, psz/4]``) that the kernel reads in place, looking each
 page up as it walks a slot's positions.
+
+On the card one launch a layer writes the new rows (``kv_new``), attends and
+combines the splits, as the TPU kernel writes the new row inside itself.  The
+launch counts under its form's name (``common.launches["decode_attention*"]``)
+and, with ``kv_new``, under the fused append's (``"kv_append*_fused"``).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -21,6 +27,7 @@ import torch
 from xbitops_tpu_torch.kernels import common
 from xbitops_tpu_torch.kernels.kv_append import (
     _unpack_kv_words,
+    append_name,
     check_cache,
     check_pool,
     gather_pages,
@@ -30,11 +37,20 @@ from xbitops_tpu_torch.kernels.kv_append import (
 )
 
 NEG_INF = -1e30
-SPLIT_LEN = 256  # cache positions per thread block (split-KV)
+# Cache positions a thread block takes (split-KV), in tiles of TILE positions.
+# A multiple of TILE, and of 4, so that a packed int8 word lies in one split.
+SPLIT_LEN = 256
+TILE = 64
 
 
 def _kernel_name(int8: bool, paged: bool) -> str:
     return "decode_attention" + ("_int8" if int8 else "") + ("_paged" if paged else "")
+
+
+def n_splits(S: int) -> int:
+    """Blocks of the kernel's grid a (slot, kv head): splits of ``SPLIT_LEN``
+    positions over the slot's ``S``."""
+    return -(-S // SPLIT_LEN)
 
 
 def decode_attention_reference(q, k, v, lengths, window: Optional[int] = None,
@@ -113,25 +129,42 @@ def decode_attention(
     int8 = k_scale is not None
     k_all, v_all, ks_all, vs_all, li, window = stacked_view(
         k, v, k_scale, v_scale, layer_idx, window, page_table)
-    if kv_new is not None and int8:
-        kq, vq, ks_new, vs_new, positions = kv_new
-        kv_append_packed(k_all, v_all, ks_all, vs_all, kq, vq, ks_new, vs_new, positions, li,
-                         page_table)
-    elif kv_new is not None:
-        k_new, v_new, positions = kv_new
-        kv_append_dense(k_all, v_all, k_new, v_new, positions, li, page_table)
-    if not q.is_cuda:
+    if q.is_cuda:
+        out = _launch(q, k_all, v_all, ks_all, vs_all, lengths, li, window, page_table, kv_new)
+    else:
+        if kv_new is not None and int8:
+            kv_append_packed(k_all, v_all, ks_all, vs_all, *kv_new, li, page_table)
+        elif kv_new is not None:
+            kv_append_dense(k_all, v_all, *kv_new, li, page_table)
         scales = (ks_all[li], vs_all[li]) if int8 else (None, None)
         out = decode_attention_reference(q, k_all[li], v_all[li], lengths, window, *scales,
                                          page_table=page_table)
-    else:
-        out = _launch(q, k_all, v_all, ks_all, vs_all, lengths, li, window, page_table)
     if kv_new is None:
         return out
     return (out, k, v, k_scale, v_scale) if int8 else (out, k, v)
 
 
-def _launch(q, k, v, ks, vs, lengths, layer_idx, window, page_table=None):
+@functools.lru_cache(maxsize=32)
+def _stream_workspace(device: torch.device, stream: int, B: int, H: int, Hkv: int,
+                      n_split: int, D: int):
+    return (torch.empty(B * H * n_split * (D + 2), dtype=torch.float32, device=device),
+            torch.zeros(B * Hkv, dtype=torch.int32, device=device))
+
+
+def _workspace(q: torch.Tensor, B: int, H: int, Hkv: int, n_split: int, D: int):
+    """The split partials and the tickets of the combine: made once per
+    (device, stream, shape) and reused, since the kernel sets every counter
+    back to 0 and the calls of one stream are ordered; calls on different
+    streams may be in flight together and each stream has its own.  A call
+    that a CUDA graph captures may be replayed on any stream, so it makes a
+    workspace of its own inside the graph."""
+    if torch.cuda.is_current_stream_capturing():
+        return (torch.empty(B * H * n_split * (D + 2), dtype=torch.float32, device=q.device),
+                torch.zeros(B * Hkv, dtype=torch.int32, device=q.device))
+    return _stream_workspace(q.device, common.stream_ptr(q), B, H, Hkv, n_split, D)
+
+
+def _launch(q, k, v, ks, vs, lengths, layer_idx, window, page_table=None, kv_new=None):
     req = common.require
     int8, paged = ks is not None, page_table is not None
     B, H, D = q.shape
@@ -140,29 +173,49 @@ def _launch(q, k, v, ks, vs, lengths, layer_idx, window, page_table=None):
         S = P * psz
     else:
         L, Bc, Hkv, S, Dc = check_cache(k, v, ks, vs)
+        psz, n_pages = S, Bc
     req(Bc == B and Dc == D and k.device == q.device,
         f"q {tuple(q.shape)} does not match cache {tuple(k.shape)}")
     req(0 <= layer_idx < L, f"layer {layer_idx} outside [0, {L})")
     req(D in (64, 128, 256), f"head_dim {D} not in (64, 128, 256)")
     req(H % Hkv == 0 and H // Hkv <= 8, f"H={H}, Hkv={Hkv}: GQA ratio must be <= 8")
     req(q.dtype == torch.bfloat16, "q must be bf16")
-    q = q.contiguous()
     req(lengths.shape == (B,), "lengths must be [B]")
-    lens = lengths.to(device=q.device, dtype=torch.int32).contiguous()
-    n_split = -(-S // SPLIT_LEN)
-    part_o = torch.empty((B, H, n_split, D), dtype=torch.float32, device=q.device)
-    part_m = torch.empty((B, H, n_split), dtype=torch.float32, device=q.device)
-    part_l = torch.empty((B, H, n_split), dtype=torch.float32, device=q.device)
-    out = torch.empty((B, H, D), dtype=torch.bfloat16, device=q.device)
-    head = [q.data_ptr(), k[layer_idx].data_ptr(), v[layer_idx].data_ptr()]
-    if int8:
-        head += [ks[layer_idx].data_ptr(), vs[layer_idx].data_ptr()]
-    head += [lens.data_ptr()] + ([page_table.data_ptr()] if paged else [])
-    shape = (B, H, Hkv, P, psz, n_pages, D) if paged else (B, H, Hkv, S, D)
+    dev = q.device
+    inp = lambda t, dtypes: common.kernel_input(t, dtypes, dev)
+    idx = (torch.int64, torch.int32)  # the kernel reads either as it comes
+    q, lens = inp(q, (torch.bfloat16,)), inp(lengths, idx)
+    flags = int(lens.dtype == torch.int64)
+    new = [None] * 5  # positions, k_new, v_new, ks_new, vs_new
+    if kv_new is not None:
+        *rows, positions = kv_new
+        req(positions.shape == (B,), "positions must be [B]")
+        for t in rows[:2]:
+            req(t.shape == (B, Hkv, D) and not (int8 and t.dtype.is_floating_point),
+                f"new rows must be [{B}, {Hkv}, {D}]" + (", integers" if int8 else ""))
+        new[:3] = [inp(positions, idx)] + [inp(t, ((torch.int32,) if int8 else (torch.bfloat16,)))
+                                           for t in rows[:2]]
+        flags |= 2 * int(new[0].dtype == torch.int64)
+        if int8:
+            for t in rows[2:]:
+                req(t.shape == (B, Hkv), f"new scales must be [{B}, {Hkv}]")
+            # f32 or bf16 scales as they come: the kernel rounds f32 to bf16
+            bf16 = rows[2].dtype == rows[3].dtype == torch.bfloat16
+            new[3:] = [inp(t, (torch.bfloat16 if bf16 else torch.float32,)) for t in rows[2:]]
+            flags |= 4 * int(not bf16)
+    n_split = n_splits(S)
+    part, counters = _workspace(q, B, H, Hkv, n_split, D)
+    out = torch.empty((B, H, D), dtype=torch.bfloat16, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
     name = _kernel_name(int8, paged)
-    err = getattr(common.lib(), "xb_" + name)(
-        *head, part_o.data_ptr(), part_m.data_ptr(), part_l.data_ptr(), out.data_ptr(),
-        *shape, n_split, SPLIT_LEN, window or 0, float(D) ** -0.5, common.stream_ptr(q))
+    err = common.lib().xb_decode_attention(
+        q.data_ptr(), k[layer_idx].data_ptr(), v[layer_idx].data_ptr(),
+        ptr(ks[layer_idx]) if int8 else None, ptr(vs[layer_idx]) if int8 else None,
+        lens.data_ptr(), ptr(new[0]), ptr(page_table), *[ptr(t) for t in new[1:]],
+        part.data_ptr(), counters.data_ptr(), out.data_ptr(), B, H, Hkv, S, psz, n_pages, D,
+        n_split, SPLIT_LEN, window or 0, flags, float(D) ** -0.5, common.stream_ptr(q))
     common.check(err, name)
     common.launches[name] += 1
+    if kv_new is not None:
+        common.launches[append_name(int8, paged) + "_fused"] += 1
     return out

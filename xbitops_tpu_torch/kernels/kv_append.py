@@ -4,7 +4,9 @@ kernels (``csrc/kv_append.cu``) and their plain PyTorch versions.
 Replaces the Pallas kernels ``xbitops_tpu/kernels/kv_append.py:_kernel_dense``
 (entry ``kv_append_dense``) and ``:_kernel`` (entry ``kv_append_packed``).
 Unlike the JAX functions, which return new arrays, these write into the cache
-tensors in place.
+tensors in place.  A decode step through the decode-attention kernel writes
+its new rows inside that kernel (``kernels/decode_attention.py``, ``kv_new``);
+these serve the one-row writes of a step that attends eagerly.
 
 The packed int8 cache: words ``[L, B, Hkv, S/4, D]`` int32, byte ``j`` of word
 ``w`` holding position ``4w + j`` as its quantized value + 128, and per
@@ -151,11 +153,17 @@ def gather_pages(pool, page_table, scales: bool = False):
     return got.movedim(1, 2).reshape(n, pool.shape[1], -1, pool.shape[3])
 
 
+def append_name(int8: bool, paged: bool) -> str:
+    """The launch counter of an append form: ``kv_append``, ``kv_append_packed``,
+    and each with ``_paged``."""
+    return "kv_append" + ("_packed" if int8 else "") + ("_paged" if paged else "")
+
+
 def kv_append_dense_reference(
     k_all, v_all, k_new, v_new, positions, layer: int, page_table=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`kv_append_dense` (in place, same guards)."""
-    common.count_plain("kv_append" if page_table is None else "kv_append_paged", k_all)
+    common.count_plain(append_name(False, page_table is not None), k_all)
     L, B, Hkv, S, D = k_all.shape
     pos = positions.long()
     if page_table is None:
@@ -202,16 +210,16 @@ def kv_append_dense(
         req(t.shape == (B, Hkv, D) and t.device == k_all.device,
             f"new rows must be [{B}, {Hkv}, {D}] on the cache's device")
     req(positions.shape == (B,), "positions must be [B]")
-    k_new = k_new.to(torch.bfloat16).contiguous()
-    v_new = v_new.to(torch.bfloat16).contiguous()
-    pos = positions.to(device=k_all.device, dtype=torch.int32).contiguous()
+    req(D % 8 == 0, f"head_dim {D}: rows move in 16-byte pieces")
+    dev = k_all.device
+    k_new, v_new = (common.kernel_input(t, (torch.bfloat16,), dev) for t in (k_new, v_new))
+    pos = common.kernel_input(positions, (torch.int64, torch.int32), dev)  # read as it comes
     head = (k_all[layer].data_ptr(), v_all[layer].data_ptr(), k_new.data_ptr(),
-            v_new.data_ptr(), pos.data_ptr())
+            v_new.data_ptr(), pos.data_ptr(), int(pos.dtype == torch.int64))
+    name = append_name(False, page_table is not None)
     if page_table is None:
-        name = "kv_append"
         err = common.lib().xb_kv_append(*head, B, Hkv, S, D, common.stream_ptr(k_all))
     else:
-        name = "kv_append_paged"
         err = common.lib().xb_kv_append_paged(
             *head, page_table.data_ptr(), P, n_pages, B, Hkv, psz, D, common.stream_ptr(k_all))
     common.check(err, name)
@@ -251,8 +259,7 @@ def _rmw_packed(k_all, v_all, ks_all, vs_all, kq, vq, ks, vs, positions, layer, 
 def kv_append_packed_reference(k_all, v_all, ks_all, vs_all, kq, vq, ks, vs, positions,
                                layer: int, page_table=None):
     """Plain version of :func:`kv_append_packed` (in place, same guards)."""
-    common.count_plain(
-        "kv_append_packed" if page_table is None else "kv_append_packed_paged", k_all)
+    common.count_plain(append_name(True, page_table is not None), k_all)
     return _rmw_packed(k_all, v_all, ks_all, vs_all, kq, vq, ks, vs, positions, layer,
                        page_table=page_table)
 
@@ -304,12 +311,11 @@ def kv_append_packed(
     head = (k_all[layer].data_ptr(), v_all[layer].data_ptr(), ks_all[layer].data_ptr(),
             vs_all[layer].data_ptr(), kq.data_ptr(), vq.data_ptr(), ks.data_ptr(), vs.data_ptr(),
             pos.data_ptr())
+    name = append_name(True, page_table is not None)
     if page_table is None:
-        name = "kv_append_packed"
         err = common.lib().xb_kv_append_packed(*head, B, Hkv, S // 4, D,
                                                common.stream_ptr(k_all))
     else:
-        name = "kv_append_packed_paged"
         err = common.lib().xb_kv_append_packed_paged(
             *head, page_table.data_ptr(), P, n_pages, B, Hkv, S // 4, D,
             common.stream_ptr(k_all))
