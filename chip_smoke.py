@@ -12,7 +12,12 @@
    the larger of bytes moved once over 3.35 TB/s and operations over the
    H100's published dense rate for their type, 989 TFLOP/s in bf16 and 1,979
    TOP/s in int8) and, where one PyTorch call computes the same function,
-   that call's time (``library_ms``; the port never calls it).
+   that call's time (``library_ms``; the port never calls it).  The W4A8
+   matmul prints, for each case, its route (whole words or contiguous rows),
+   its K splits and its TOP/s; per channel it must equal its plain version
+   bit for bit.  Beside it, for information only, ``torch._int_mm`` on int8
+   operands of the same M, K and N: the card's own int8 GEMM, which reads no
+   packed plane and applies no scale (not ``library_ms``).
 2. Drives the serving path: a random 4-bit (g=128) Llama-2-7B at full width
    and depth through ``Engine.generate`` with 12 requests on 8 slots over the
    bf16 KV cache, then checks the outputs, that every kernel of that path
@@ -242,7 +247,9 @@ def kernels_quant(dev, timer, gen, shapes):
     from xbitops_tpu_torch.kernels import common
     from xbitops_tpu_torch.kernels.dequant_kernel import dequant_kernel, dequant_kernel_reference
     from xbitops_tpu_torch.kernels.qgemv_kernel import (
+        _sm_count,
         a8_per_channel,
+        a8_plan,
         qmatmul_kernel_a8,
         qmatmul_kernel_a8_reference,
     )
@@ -291,8 +298,8 @@ def kernels_quant(dev, timer, gen, shapes):
         a = torch.randn(M, qt.K_logical, device=dev, generator=gen).to(torch.bfloat16)
         a_pad = torch.nn.functional.pad(a.float(), (0, qt.K - qt.K_logical))
         aq, a_scale = quantize_activations(a_pad)
-        got = qmatmul_kernel_a8(aq, qt) * a_scale
-        ref = qmatmul_kernel_a8_reference(aq, qt) * a_scale
+        raw, raw_ref = qmatmul_kernel_a8(aq, qt), qmatmul_kernel_a8_reference(aq, qt)
+        got, ref = raw * a_scale, raw_ref * a_scale
         err = (got - ref).abs().max().item()
         top = ref.abs().max().item()
         worst[kname] = max(worst[kname], err)
@@ -300,22 +307,32 @@ def kernels_quant(dev, timer, gen, shapes):
             ok = torch.allclose(got, ref, rtol=1e-5, atol=3e-4)
             gate = "rel 1e-5 / abs 3e-4"
         else:  # integer sums and one rescale, f32 operation for f32 operation
-            ok = err <= 1e-4 * top
-            gate = "abs 1e-4 of the largest output"
+            ok = torch.equal(raw, raw_ref)
+            gate = "equality with the plain version"
         check(ok, f"{kname} {label} M={M}: max abs err {err:.3e} (largest output {top:.3e}) "
                   f"outside {gate}")
-        del got, ref
+        del got, ref, raw, raw_ref
+        plan = a8_plan(qt, M, _sm_count(dev.index))
         ms = timer(lambda: qmatmul_kernel_a8(aq, qt), iters=5)
         op_ms = timer(lambda: qmatmul(a, qt, a8=True), iters=5)
         plain_ms = timer(lambda: qmatmul_kernel_a8_reference(aq, qt), iters=1, warmup=1)
         bf16_ms = timer(lambda: qmatmul(a, qt), iters=3, warmup=1)
+        # for information only: the card's own int8 GEMM on int8 operands of
+        # the same M, K, N (it reads no packed plane and applies no scale;
+        # the port never calls it)
+        b8 = torch.randint(-128, 128, (qt.N, qt.K), dtype=torch.int8, device=dev, generator=gen)
+        int_mm_ms = timer(lambda: torch._int_mm(aq, b8.t()), iters=3, warmup=1)
+        del b8
         ops = 2 * M * qt.K * qt.N
         b = bound(qt.bytes_packed() + nbytes(aq) + 4 * M * qt.N, ops, INT8_OPS_PER_S)
-        print(f"{kname} {label} K={qt.K} N={qt.N} M={M}: max abs err {err:.2e} of {top:.2e}; "
+        print(f"{kname} {label} K={qt.K} N={qt.N} M={M} (route {plan.route}, "
+              f"{'whole words' if plan.route != 'rows' else 'contiguous rows'}, splits "
+              f"{plan.splits}): max abs err {err:.2e} of {top:.2e}; "
               f"kernel {ms:.4f} ms ({ops / ms / 1e9:.1f} TOP/s), op with the activation "
               f"quantization {op_ms:.4f} ms, plain {plain_ms:.2f} ms, bound {b['bound_ms']:.4f} ms "
-              f"by {b['bound_by']}; for information, the bf16 qmatmul here {bf16_ms:.4f} ms",
-              flush=True)
+              f"by {b['bound_by']}; for information, the bf16 qmatmul here {bf16_ms:.4f} ms, "
+              f"torch._int_mm on int8 operands {int_mm_ms:.4f} ms "
+              f"({ops / int_mm_ms / 1e9:.1f} TOP/s)", flush=True)
         if keep:
             res[kname] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, **b)
 

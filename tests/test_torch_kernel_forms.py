@@ -1,12 +1,14 @@
-"""The routing of the fused dequant-matmul's three kernel forms, their
-split-K arithmetic, the split plan of the fused decode-attention kernel, and
-numpy models of the order in which the whole-word
-kernels walk K (``csrc/qgemv_mma.cu``, ``csrc/qgemv_word.cu``): which K rows
-a word of each plane yields, which rows a sub-chunk or a slab covers, and the
-fold ``acc += s_g * dot_g - sz_g * asum_g`` over those pieces, against
-``unpack_planes_reference`` and the dense dequantized product.  The kernels
-themselves run only on the card (``tests/test_torch_kernels_gpu.py``); what
-surrounds them is held here.
+"""The routing of the fused dequant-matmul's three kernel forms and of the
+int8-activation kernel's three routes, their split-K arithmetic, the split
+plan of the fused decode-attention kernel, and numpy models of the order in
+which the whole-word kernels walk K (``csrc/qgemv_mma.cu``,
+``csrc/qgemv_word.cu``, ``csrc/qgemv_a8.cu``): which K rows a word of each
+plane yields, which rows a sub-chunk, a slab or a step covers, which K rows
+each B register carries after the kernel's byte permutes, and the fold
+``acc += s_g * dot_g - sz_g * asum_g`` over those pieces, against
+``unpack_planes_reference``, the dense dequantized product and the a8
+kernels' plain version.  The kernels themselves run only on the card
+(``tests/test_torch_kernels_gpu.py``); what surrounds them is held here.
 """
 
 import itertools
@@ -57,6 +59,50 @@ def test_qgemv_form(layout, precise, M):
     assert form == want
     assert qk.word_layout(qt) == (layout in ("paired", "eight"))
     assert qk.mma_whole_words(qt) == (layout == "paired")
+    # the int8-activation kernel: the paired plane in whole words; 8-bit with
+    # groups shorter than its K-tile, slot planes and several planes by rows
+    assert qk.a8_whole_words(qt) == (layout == "paired")
+
+
+# (bits, group, K, tile_k or None, route, C): the 7B layout (w_down's K pads
+# 11008 -> 11264, which the kernel reads whole like any other K), the paired
+# plane's edges, per channel (group = K), the 8-bit plane, and the layouts
+# that decode row by row: slot planes, 3-bit (two planes), 7-bit (three),
+# groups of 64 on the paired plane (a nibble's run would span two groups),
+# K-tiles of 256 (not whole 512-row word blocks) and a K-tile of 64 rows
+A8_ROUTES = {
+    "7b_wqkv": (4, 128, 4096, None, "paired", 1),
+    "7b_w_down_padded_k": (4, 128, 11008, None, "paired", 1),
+    "paired_tile512": (4, 128, 1024, 512, "paired", 1),
+    "paired_g256_tile1024": (4, 256, 2048, 1024, "paired", 2),
+    "paired_g256_tile2048": (4, 256, 4096, None, "paired", 2),
+    "paired_g256_tile512": (4, 256, 1024, 512, "paired", 1),
+    "paired_per_channel": (4, 4096, 4096, None, "paired", 1),
+    "bytes_per_channel": (8, 4096, 4096, None, "bytes", 1),
+    "bytes_per_channel_tile256": (8, 11008, 11008, None, "bytes", 1),
+    "bytes_one_group_a_tile": (8, 1024, 2048, 1024, "bytes", 1),
+    "eight_g128": (8, 128, 1024, None, "rows", 1),
+    "slot_g40": (4, 40, 640, None, "rows", 1),
+    "three_bit": (3, 128, 1024, None, "rows", 1),
+    "seven_bit": (7, 128, 1024, None, "rows", 1),
+    "paired_g64": (4, 64, 1024, 512, "rows", 1),
+    "paired_tile256": (4, 128, 1024, 256, "rows", 1),
+    "eight_tile64": (8, 16, 256, 64, "rows", 1),
+}
+
+
+@pytest.mark.parametrize("case", A8_ROUTES)
+def test_a8_route(case):
+    bits, g, K, tile_k, route, c = A8_ROUTES[case]
+    qt = _qt(bits, g, K, tile_k=tile_k)
+    assert qk.a8_route(qt) == route and qk._a8_c(qt) == c
+    assert qk.a8_whole_words(qt) == (route != "rows")
+    assert qk.A8_ROUTES.index(route) == {"paired": 0, "bytes": 1, "rows": 2}[route]
+    units, align = qk._units("a8", qt)
+    if route != "rows":  # steps of 128 K rows; a split holds whole word blocks
+        assert units * qk.A8_STEP == qt.K
+        assert align == (4 * c if route == "paired" else
+                         1 if qk.a8_per_channel(qt) else qt.tile_k // 128)
 
 
 def test_qgemv_form_odd_groups_stay_on_the_cuda_cores():
@@ -73,14 +119,17 @@ SHAPES = [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096), (4096, 3200
 
 @pytest.mark.parametrize("K,N", SHAPES)
 @pytest.mark.parametrize("M", [1, 8, 16, 32, 64, 256, 2560])
-@pytest.mark.parametrize("bits,g", [(4, 128), (8, 128), (4, 40), (3, 128)])
+@pytest.mark.parametrize("bits,g", [(4, 128), (8, 128), (4, 40), (3, 128), (8, None)])
 def test_k_splits_cover_k(K, N, M, bits, g):
     """For every form that takes the input: ``splits * per`` covers the
     form's units of K, ``per`` is a multiple of the unit's alignment (four
-    sub-chunks to a whole-word chunk), no split is empty, and the grid reaches
-    the target of blocks per SM unless K runs out first."""
-    qt = _qt(bits, g, K, N=8)
-    forms = {"cuda_core", qk.qgemv_form(M, False, qt)}
+    sub-chunks to a whole-word chunk; a8: whole word blocks and, grouped,
+    whole groups), no split is empty, and the grid reaches the target of
+    blocks per SM unless K runs out first.  The a8 split-K workspace holds
+    f32 partial outputs grouped and int32 partial sums (and row sums) per
+    channel (g None: one group over K)."""
+    qt = _qt(bits, g or K, K, N=8)
+    forms = {"cuda_core", "a8", qk.qgemv_form(M, False, qt)}
     if (qt.tile_k // qt.groups_per_tile) % 8 == 0:
         forms.add("mma")
     for form in forms:
@@ -98,6 +147,21 @@ def test_k_splits_cover_k(K, N, M, bits, g):
             assert units * qk.CHUNK >= qt.K > (units - 1) * qk.CHUNK
         elif form == "gemv":
             assert units * 16 * (32 // qt.bits) == qt.K  # slabs of 16 word rows
+        elif form == "a8":
+            g_tile = qt.tile_k // qt.groups_per_tile
+            steps = (qt.K // qk.A8_STEP if qk.a8_whole_words(qt)
+                     else qt.K // g_tile * -(-g_tile // qk.A8_STEP))
+            assert units == steps
+            plan = qk.a8_plan(qt, M, 132)  # at the weight's own N
+            assert plan.splits * plan.per >= units and plan.per % align == 0
+            if plan.splits == 1:
+                assert plan.part_dtype is None and plan.part_numel == 0
+            elif qk.a8_per_channel(qt):
+                assert plan.part_dtype == torch.int32
+                assert plan.part_numel == plan.splits * (M * qt.N + M)
+            else:
+                assert plan.part_dtype == torch.float32
+                assert plan.part_numel == plan.splits * M * qt.N
         elif qk.mma_whole_words(qt):
             assert units * qk.SUB == qt.K
 
@@ -177,20 +241,105 @@ def _pieces_gemv(qt):
             yield k0, rj, src
 
 
+def _prmt(x, y, sel):
+    """``__byte_perm(x, y, sel)`` on arrays of 32-bit words (held in int64)."""
+    src = [(x >> (8 * i)) & 0xFF for i in range(4)] + [(y >> (8 * i)) & 0xFF for i in range(4)]
+    return sum(src[(sel >> (4 * n)) & 7] << (8 * n) for n in range(4))
+
+
+def _pieces_a8(qt):
+    """The int8-activation kernel's walk (csrc/qgemv_a8.cu ``step_k0``,
+    ``load``, ``compute``), a step at a time, in order: ``rows [4, 32]``, the
+    K row of each byte of a k-step's A registers (natural order from the
+    staged tile; -1 past a short ROWS step, where the tile holds zeros);
+    ``b [4, 32, N]``, the value each byte of the B registers carries, made
+    from the raw words by the kernel's own register expressions (PAIRED: one
+    byte permute of words r and r + 1, a shift for odd nibbles, a mask;
+    BYTES: the 4 x 4 byte transpose of four word rows, as u8 per channel and
+    minus 128 grouped) or, on ROWS, as the block decodes them (width 8 minus
+    128); ``fold``: the step ends its scale group, whose int32 sums then fold
+    once; ``unsigned``: B enters the product as u8."""
+    route, c = qk.a8_route(qt), qk._a8_c(qt)
+    per_ch = qk.a8_per_channel(qt)
+    tile_k, P, K = qt.tile_k, qt.tile_k // 4, qt.K
+    g_tile = tile_k // qt.groups_per_tile
+    words = qt.planes[0].numpy().astype(np.int64) & 0xFFFFFFFF
+    wq = formats.unpack_planes_reference(qt.planes, qt.bits, tile_k, K, paired=qt.paired).numpy()
+    kap = np.arange(32)
+    for i in range(qk._units("a8", qt)[0]):
+        b = np.zeros((4, 32, qt.N), np.int64)
+        if route == "paired":
+            t, x = divmod(i, tile_k // 128)
+            blk, r = divmod(x, 4 * c)
+            j, part = divmod(r, c)
+            kl = j * P + blk * 128 * c + part * 128
+            rows = np.stack([t * tile_k + kl + 32 * ks + kap for ks in range(4)])
+            base = t * (tile_k // 8) + blk * 64 * c + part * 64
+            sel, sh = 0x6420 + (j >> 1) * 0x1111, 4 * (j & 1)
+            for ks, h, t4 in itertools.product(range(4), range(2), range(4)):
+                r0 = base + 16 * ks + 8 * h + 2 * t4
+                reg = (_prmt(words[r0], words[r0 + 1], sel) >> sh) & 0x0F0F0F0F
+                for k in range(4):
+                    b[ks, 16 * h + 4 * t4 + k] = (reg >> (8 * k)) & 0xFF
+            yield dict(rows=rows, b=b, fold=(kl + 128) % g_tile == 0, unsigned=False)
+        elif route == "bytes":
+            t, x = divmod(i, P // 32)
+            rows = np.stack([t * tile_k + j * P + 32 * x + kap for j in range(4)])
+            base = t * P + 32 * x
+            for h, t4 in itertools.product(range(2), range(4)):
+                x0, x1, x2, x3 = (words[base + 16 * h + 4 * t4 + q] for q in range(4))
+                lo01, lo23 = _prmt(x0, x1, 0x5140), _prmt(x2, x3, 0x5140)
+                hi01, hi23 = _prmt(x0, x1, 0x7362), _prmt(x2, x3, 0x7362)
+                regs = [_prmt(lo01, lo23, 0x5410), _prmt(lo01, lo23, 0x7632),
+                        _prmt(hi01, hi23, 0x5410), _prmt(hi01, hi23, 0x7632)]
+                for j, reg in enumerate(regs):
+                    for k in range(4):
+                        v = (reg >> (8 * k)) & 0xFF
+                        if not per_ch:  # the byte XOR 0x80, read as s8
+                            v = (v ^ 0x80) - 256 * ((v ^ 0x80) >= 128)
+                        b[j, 16 * h + 4 * t4 + k] = v
+            yield dict(rows=rows, b=b, fold=x == P // 32 - 1, unsigned=per_ch)
+        else:
+            cpg = -(-g_tile // 128)
+            u, part = divmod(i, cpg)
+            k0, kc = u * g_tile + 128 * part, min(128, g_tile - 128 * part)
+            off = np.stack([32 * ks + kap for ks in range(4)])
+            rows = np.where(off < kc, k0 + off, -1)
+            b[rows >= 0] = wq[rows[rows >= 0]] - (128 if qt.bits == 8 else 0)
+            yield dict(rows=rows, b=b, fold=part == cpg - 1, unsigned=False)
+
+
 @pytest.mark.parametrize("case,form", [
     (c, "mma") for c in ("paired", "paired_tile256", "eight", "eight_g16", "slot", "two_planes",
                          "long_groups")
-] + [(c, "gemv") for c in ("paired", "paired_tile256", "eight", "eight_g16")])
+] + [(c, "gemv") for c in ("paired", "paired_tile256", "eight", "eight_g16")] + [
+    (c, "a8") for c in ("paired", "paired_tile512_g256", "paired_g256", "paired_per_channel",
+                        "eight", "eight_per_channel", "eight_one_group_a_tile", "slot",
+                        "two_planes", "eight_short_tile_per_channel")
+])
 def test_kernel_walk_covers_k_inside_groups_and_folds_to_the_product(case, form):
     """Each piece of a form's walk is a run of consecutive K rows inside one
     scale group, the pieces cover K once, a whole-word piece's rows are where
     the kernel reads them, and folding the pieces with the TPU kernel's
-    algebra gives the dense product."""
+    algebra gives the dense product.  a8: every K row once, a grouped step
+    inside one group and each group folded once, each B register byte the
+    value of the K row its A byte holds; per channel the int32 sums and the
+    output equal the plain version bit for bit, grouped the folds hold it to
+    rel 1e-5 / abs 3e-4."""
     kw = {"paired": dict(bits=4, g=128, K=2048), "paired_tile256": dict(bits=4, g=64, K=1024, tile_k=256),
           "eight": dict(bits=8, g=128, K=1024), "eight_g16": dict(bits=8, g=16, K=256, tile_k=64),
           "slot": dict(bits=4, g=40, K=640), "two_planes": dict(bits=6, g=128, K=1024),
-          "long_groups": dict(bits=3, g=512, K=1024, tile_k=256)}[case]
+          "long_groups": dict(bits=3, g=512, K=1024, tile_k=256),
+          "paired_tile512_g256": dict(bits=4, g=256, K=1024, tile_k=512),
+          "paired_g256": dict(bits=4, g=256, K=2048, tile_k=1024),
+          "paired_per_channel": dict(bits=4, g=2048, K=2048),
+          "eight_per_channel": dict(bits=8, g=1024, K=1024),
+          "eight_one_group_a_tile": dict(bits=8, g=512, K=1024, tile_k=512),
+          "eight_short_tile_per_channel": dict(bits=8, g=96, K=96)}[case]
     qt = _qt(N=16, seed=3, **kw)
+    if form == "a8":
+        _a8_walk_folds_to_the_plain_version(qt)
+        return
     assert form == "mma" or qk.word_layout(qt)
     g_tile = qt.tile_k // qt.groups_per_tile
     wq = formats.unpack_planes_reference(qt.planes, qt.bits, qt.tile_k, qt.K, paired=qt.paired)
@@ -215,6 +364,57 @@ def test_kernel_walk_covers_k_inside_groups_and_folds_to_the_product(case, form)
     assert (seen == 1).all()
     want = a @ dequant_qtensor_reference(qt, torch.float64).numpy()
     np.testing.assert_allclose(acc, want, rtol=1e-9, atol=1e-9)
+
+
+def _a8_walk_folds_to_the_plain_version(qt):
+    route, per_ch = qk.a8_route(qt), qk.a8_per_channel(qt)
+    g_tile = qt.tile_k // qt.groups_per_tile
+    wq = formats.unpack_planes_reference(qt.planes, qt.bits, qt.tile_k, qt.K, paired=qt.paired)
+    wq = wq.numpy().astype(np.int64)
+    rng = np.random.default_rng(0)
+    aq_np = rng.integers(-127, 128, (5, qt.K)).astype(np.int8)
+    aq = torch.from_numpy(aq_np)
+    a = aq_np.astype(np.int64)
+    s, sz = qt.scales.float().numpy(), qt.scale_zeros.float().numpy()
+    seen, folds = np.zeros(qt.K, np.int64), {}
+    d = np.zeros((5, qt.N), np.int64)
+    asum = np.zeros((5, 1), np.int64)
+    acc = np.zeros((5, qt.N), np.float64)
+    group = None
+    for st in _pieces_a8(qt):
+        rows, valid = st["rows"], st["rows"] >= 0
+        seen[rows[valid]] += 1
+        want = np.where(valid[..., None], wq[np.where(valid, rows, 0)], 0)
+        off = 128 if qt.bits == 8 and not st["unsigned"] else 0
+        np.testing.assert_array_equal(st["b"], np.where(valid[..., None], want - off, 0))
+        if not per_ch:  # a grouped step lies inside one group, a group's steps in a row
+            gs = set((rows[valid] // g_tile).tolist())
+            assert len(gs) == 1
+            assert group in (None, *gs) or folds.get(group) == 1
+            group = gs.pop()
+        for ks in range(4):
+            a_ks = np.where(valid[ks], a[:, np.where(valid[ks], rows[ks], 0)], 0)
+            d += a_ks @ st["b"][ks]
+            asum += a_ks.sum(1, keepdims=True)
+        if st["fold"] and not per_ch:
+            folds[group] = folds.get(group, 0) + 1
+            t, gi = divmod(group, qt.groups_per_tile)
+            sv, zv = s[t, gi].astype(np.float64), sz[t, gi].astype(np.float64)
+            acc += d * sv - asum * (zv - (128 * sv if qt.bits == 8 else 0))
+            d[:], asum[:] = 0, 0
+    assert (seen == 1).all()
+    ref = qk.qmatmul_kernel_a8_reference(aq, qt)
+    if per_ch:
+        if qt.bits == 8 and route == "rows":  # minus 128 in the dot, 128 * asum back
+            d = d + 128 * asum
+        d_ref = (aq.double() @ torch.from_numpy(wq).double()).to(torch.int64)
+        assert torch.equal(torch.from_numpy(d), d_ref)
+        s0, z0 = qt.scales[0, 0].float(), qt.scale_zeros[0, 0].float()
+        out = torch.from_numpy(d).float() * s0 - torch.from_numpy(asum).float() * z0
+        assert torch.equal(out, ref)
+    else:
+        assert sorted(folds) == list(range(qt.K // g_tile)) and set(folds.values()) == {1}
+        np.testing.assert_allclose(acc, ref.double().numpy(), rtol=1e-5, atol=3e-4)
 
 
 def test_forced_form_is_checked_before_any_launch():

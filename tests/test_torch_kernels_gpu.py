@@ -44,6 +44,7 @@ from xbitops_tpu_torch.kernels.qgemv_kernel import (
     GEMV_MAX_M,
     _stream_counters,
     a8_per_channel,
+    a8_plan,
     mma_whole_words,
     qgemv_form,
     qmatmul_kernel,
@@ -437,11 +438,16 @@ def test_dequant_qtensor_f32_scales_act_order_padding(dev):
 
 
 # grouped: (bits, group_size, K, tile_k) with groups of one chunk, several
-# chunks, less than a chunk, not a multiple of 32 rows, and a padded K
+# chunks, less than a chunk, not a multiple of 32 rows, and a padded K; then
+# the whole-word layouts at their edges (kernels/qgemv_kernel.a8_route): the
+# paired plane with K-tiles of 1024 and 512 and groups of 128 and 256 (C = 2
+# where a run of a nibble is 256 rows; at tile 512 a group spans two nibbles),
+# and the 8-bit plane with one scale row a K-tile
 A8_GROUPED = [(2, 128, 512, None), (4, 128, 1024, None), (8, 128, 512, None),
               (3, 128, 512, None), (7, 64, 512, None), (4, 32, 256, None),
               (4, 40, 640, None), (4, 512, 1024, 256), (8, 256, 1000, None),
-              (5, 128, 200, None)]
+              (5, 128, 200, None), (4, 128, 1024, 512), (4, 256, 2048, 1024),
+              (4, 256, 1024, 512), (4, 128, 2048, 1024), (8, 1024, 2048, 1024)]
 
 
 @pytest.mark.parametrize("bits,g,K,tile_k", A8_GROUPED)
@@ -459,7 +465,8 @@ def test_a8_grouped_kernel_matches_plain(dev, bits, g, K, tile_k, M, N):
     torch.testing.assert_close(got, ref, rtol=1e-5, atol=3e-4)
 
 
-@pytest.mark.parametrize("bits,K", [(8, 512), (8, 1024), (4, 512), (3, 1024), (8, 4096)])
+@pytest.mark.parametrize("bits,K", [(8, 512), (8, 1024), (4, 512), (3, 1024), (8, 4096),
+                                    (4, 4096), (8, 11008), (8, 96)])
 @pytest.mark.parametrize("M,N", [(1, 160), (40, 130), (300, 384)])
 def test_a8_per_channel_kernel_equals_plain(dev, bits, K, M, N):
     gen = _gen(dev, bits * 1000 + M)
@@ -470,6 +477,52 @@ def test_a8_per_channel_kernel_equals_plain(dev, bits, K, M, N):
     got = qmatmul_kernel_a8(aq, qt)
     assert common.launches["qgemv_a8_perchannel"] == 1 and common.launches["qgemv_a8"] == 0
     assert torch.equal(got, qmatmul_kernel_a8_reference(aq, qt))
+
+
+# (per channel, bits, group, K, N, M, split): split K where the grid is
+# short (w_down's shape at M=256, grouped and per channel), a grid that needs
+# no split, ragged M and N (N = 4098: single-word loads and scale loads
+# without 16-byte copies; 4100: fp16 scale rows not on 16 bytes)
+A8_SPLITS = [(False, 4, 128, 11008, 4096, 256, True), (True, 8, 11008, 11008, 4096, 256, True),
+             (False, 4, 128, 4096, 4096, 2560, False), (False, 4, 128, 4096, 4098, 300, None),
+             (True, 8, 4096, 4096, 4100, 300, None), (True, 4, 4096, 4096, 4096, 256, True)]
+
+
+@pytest.mark.parametrize("per_channel,bits,g,K,N,M,split", A8_SPLITS)
+def test_a8_split_k_repeat_and_graph(dev, per_channel, bits, g, K, N, M, split):
+    """Split K and no split against the plain version (per channel equal,
+    grouped rel 1e-5 / abs 3e-4), one launch a call, and the same bits from a
+    second call on the stream and from a CUDA graph replay (the split-K
+    workspace is made anew each call, inside the graph when captured)."""
+    gen = _gen(dev, K + N + M)
+    qt = synth.random_qtensor(gen, K, N, bits, g)
+    assert a8_per_channel(qt) == per_channel
+    plan = a8_plan(qt, M, torch.cuda.get_device_properties(dev).multi_processor_count)
+    if split is not None:
+        assert (plan.splits > 1) == split
+    a = torch.nn.functional.pad(torch.randn(M, K, device=dev, generator=gen), (0, qt.K - K))
+    aq, _ = quantize_activations(a)
+    name = "qgemv_a8_perchannel" if per_channel else "qgemv_a8"
+    common.reset_counts()
+    got = qmatmul_kernel_a8(aq, qt)
+    assert common.launches[name] == 1 and sum(common.launches.values()) == 1
+    ref = qmatmul_kernel_a8_reference(aq, qt)
+    if per_channel:
+        assert torch.equal(got, ref)
+    else:
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=3e-4)
+    assert torch.equal(qmatmul_kernel_a8(aq, qt), got)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        qmatmul_kernel_a8(aq, qt)
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = qmatmul_kernel_a8(aq, qt)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
 
 
 def test_requantize_a8_and_qmatmul_a8_on_the_card(dev):

@@ -78,7 +78,7 @@ _SIGNATURES = {
     "xb_prefill_attention_paged": [_VP] * 9 + [_I] * 10 + [ctypes.c_float, _VP],
     "xb_dequant": [_I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP, _I, _I, _I, _I, _VP, _I, _VP],
     "xb_qgemv_a8": [_VP, _I, _I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP, _I, _I, _I, _I,
-                    _I, _VP, _VP],
+                    _I, _I, _I, _I, _I, _VP, _VP, _VP],
 }
 
 _lib = None

@@ -7,8 +7,9 @@ rows, every packed word read once), ``csrc/qgemv_mma.cu`` (the tensor-core
 tile for larger M) and ``csrc/qgemv.cu`` (f32 multiply-adds: ``precise`` and
 what the other two do not take); :func:`qgemv_form` chooses.
 ``csrc/qgemv_a8.cu`` replaces ``_kernel_a8`` and ``_kernel_a8_perchannel``
-(int8 activations, integer products).  The note at the top of each source says
-what bounds it on the card and how the design answers.
+(int8 activations, integer products; :func:`a8_route` says how it walks K).
+The note at the top of each source says what bounds it on the card and how the
+design answers.
 """
 
 from __future__ import annotations
@@ -60,7 +61,7 @@ SUB = 64  # K rows a sub-chunk of the tensor-core tile (csrc/qgemv_mma.cu KS)
 # 51.6 us against 36.7 / 19.9 / 60.7 / 33.8 / 64.6 at 1 and 34.3 / 19.8 / 48.2
 # / 40.6 / 54.2 at 4).  mma at M=32 and 256: 1, 2, 4 and 8 read within 10% of
 # each other; 2 is the blocks an SM holds.
-BLOCKS_PER_SM = {"cuda_core": 4, "gemv": 2, "mma": 2}
+BLOCKS_PER_SM = {"cuda_core": 4, "gemv": 2, "mma": 2, "a8": 2}
 # The largest M the few-rows form takes (its tile holds 16 activation rows),
 # and the smallest the tensor-core tile takes on layouts the few-rows form
 # does not decode.  `utils/qgemv_sweep.py`, same card: at M=16 the few-rows
@@ -140,10 +141,66 @@ def qgemv_form(M: int, precise: bool, qt: QTensor) -> str:
     return "cuda_core"
 
 
+A8_STEP = 128  # K rows a step of the int8-activation kernel (csrc/qgemv_a8.cu KA)
+A8_ROUTES = ("paired", "bytes", "rows")  # csrc/qgemv_a8.cu Route, in its order
+
+
+def a8_route(qt: QTensor) -> str:
+    """How the int8-activation kernel walks K on ``qt``:
+
+    - ``"paired"``: the paired 4-bit plane in whole-word order.  A block of
+      word rows stays in shared memory for the four nibbles j, each a run of
+      consecutive K rows ``tile_k / 4`` apart.  Takes K-tiles of whole 512
+      rows and, grouped, runs that keep a group's rows together: scale groups
+      of 128 rows, or of 256 where a run is 256 rows (C = 2), or a run of 128
+      rows inside longer groups (``tile_k = 512``);
+    - ``"bytes"``: the 8-bit plane in whole-word order (byte j of a word is
+      K row r + j * tile_k / 4): K-tiles of whole 128 rows, per channel or one
+      scale row a K-tile (all four bytes of a word in one group);
+    - ``"rows"``: every other layout, contiguous K rows decoded row by row.
+
+    K padding does not enter: the kernel reads all ``qt.K`` packed rows (the
+    op pads the activations with zeros)."""
+    if len(qt.planes) != 1:
+        return "rows"
+    g, P, pb = _g_tile(qt), qt.tile_k // 4, qt.plane_bits[0]
+    per_ch = a8_per_channel(qt)
+    if pb == 4 and qt.paired and qt.tile_k % 512 == 0:
+        m = min(g, P)
+        if per_ch or (m in (128, 256) and (P % g == 0 if g <= P else g % P == 0)):
+            return "paired"
+    if pb == 8 and qt.tile_k % A8_STEP == 0 and (per_ch or g == qt.tile_k):
+        return "bytes"
+    return "rows"
+
+
+def a8_whole_words(qt: QTensor) -> bool:
+    """Whether the int8-activation kernel reads ``qt``'s words whole (every
+    field of a word loaded is used): :func:`a8_route` is not ``"rows"``."""
+    return a8_route(qt) != "rows"
+
+
+def _a8_c(qt: QTensor) -> int:
+    """Steps of 128 K rows a nibble j of a PAIRED word block (1 or 2)."""
+    if a8_route(qt) != "paired" or a8_per_channel(qt):
+        return 1
+    return min(_g_tile(qt), qt.tile_k // 4) // A8_STEP
+
+
 def _units(form: str, qt: QTensor):
     """(units of K the form splits by, their alignment): chunks of 256 rows,
     sub-chunks of up to 64 rows inside a scale group (whole-word chunks are
-    four of them), or slabs of 16 word rows."""
+    four of them), slabs of 16 word rows, or (a8) steps of up to 128 K rows,
+    a split holding whole word blocks and, grouped, whole groups."""
+    if form == "a8":
+        route, g, P = a8_route(qt), _g_tile(qt), qt.tile_k // 4
+        one = a8_per_channel(qt)
+        if route == "paired":
+            return qt.K // A8_STEP, 4 * _a8_c(qt)
+        if route == "bytes":
+            return qt.K // A8_STEP, (1 if one else P // 32)
+        cpg = -(-g // A8_STEP)
+        return (qt.K // g) * cpg, (1 if one else cpg)
     if form == "cuda_core":
         return -(-qt.K // CHUNK), 1
     if form == "gemv":
@@ -164,6 +221,8 @@ def _blocks(form: str, M: int, N: int) -> int:
         tm, cols = (8, 128 if N % 4 == 0 else 32) if M <= 8 else (32, 32)
     elif form == "gemv":
         tm, cols = 16, 256
+    elif form == "a8":
+        tm, cols = 128, 128
     else:
         tm, cols = (64 if M <= 64 else 128), 64
     return -(-N // cols) * -(-M // tm)
@@ -290,6 +349,34 @@ def qmatmul_kernel_a8_reference(aq: torch.Tensor, qt: QTensor) -> torch.Tensor:
     return acc
 
 
+@dataclasses.dataclass(frozen=True)
+class A8Plan:
+    """What one int8-activation call launches: the route, its C (PAIRED
+    steps a nibble and word block), the K splits and steps a split, and the
+    split-K workspace (None without a split): f32 ``[splits, M, N]`` partial
+    outputs grouped, added in split order; per channel int32 partial sums
+    ``[splits, M, N]`` then ``[splits, M]`` of asum, added exactly before the
+    one rescale."""
+
+    route: str
+    c: int
+    splits: int
+    per: int
+    part_dtype: Optional[torch.dtype]
+    part_numel: int
+
+
+def a8_plan(qt: QTensor, M: int, sms: int) -> A8Plan:
+    units, align = _units("a8", qt)
+    splits, per = _k_splits("a8", M, qt.N, units, sms, align)
+    numel, dtype = 0, None
+    if splits > 1:
+        per_ch = a8_per_channel(qt)
+        dtype = torch.int32 if per_ch else torch.float32
+        numel = splits * (M * qt.N + (M if per_ch else 0))
+    return A8Plan(a8_route(qt), _a8_c(qt), splits, per, dtype, numel)
+
+
 def qmatmul_kernel_a8(aq: torch.Tensor, qt: QTensor) -> torch.Tensor:
     """``aq int8 (M, K)`` times the integer weight values of ``qt`` with the
     scales applied to the integer dots, f32 ``(M, N)``:
@@ -305,11 +392,18 @@ def qmatmul_kernel_a8(aq: torch.Tensor, qt: QTensor) -> torch.Tensor:
     req(K < 66000, "int32 sums over K need K < 66000")
     qargs = common.qtensor_args(qt, aq.device)
     aq = aq.contiguous()
+    if aq.data_ptr() % 16:  # a view that starts inside an allocation
+        aq = aq.clone()
     out = torch.empty((M, qt.N), dtype=torch.float32, device=aq.device)
     if M == 0:
         return out
+    plan = a8_plan(qt, M, _sm_count(aq.device.index))
+    part = None
+    if plan.splits > 1:
+        part = torch.empty(plan.part_numel, dtype=plan.part_dtype, device=aq.device)
     err = common.lib().xb_qgemv_a8(
-        aq.data_ptr(), M, K, qt.N, *qargs, int(a8_per_channel(qt)), out.data_ptr(),
+        aq.data_ptr(), M, K, qt.N, *qargs, int(a8_per_channel(qt)), A8_ROUTES.index(plan.route),
+        plan.c, plan.splits, plan.per, None if part is None else part.data_ptr(), out.data_ptr(),
         common.stream_ptr(aq))
     name = _a8_name(qt)
     common.check(err, name)

@@ -2,7 +2,7 @@
 card, to set the routing constants of ``kernels/qgemv_kernel.py``
 (``GEMV_MAX_M``, ``MMA_MIN_M``, ``BLOCKS_PER_SM``).
 
-    python3 -m xbitops_tpu_torch.utils.qgemv_sweep [--splits]
+    python3 -m xbitops_tpu_torch.utils.qgemv_sweep [--splits | --a8 [--a8-splits]]
 
 For the five Llama-2-7B projection shapes (4-bit, g=128) and M in 1, 8, 9,
 16, 32, 64, 128, 256, 2560 it prints one JSON line per (shape, M) with the
@@ -11,8 +11,13 @@ wrapper, the L2 cache flushed and a device sleep queued before each call, so
 the weights are cold and the wrapper's host time stays out.  The CUDA-core
 form is left out above M=256 (seconds a call).  With ``--splits`` it times
 the split-K target of the few-rows form and of the tile (blocks per SM 1, 2,
-4, 8) at M=8 and M=32, and an 8-bit and a 3-bit weight at 4096x4096.  It
-needs one CUDA device.
+4, 8) at M=8 and M=32, and an 8-bit and a 3-bit weight at 4096x4096.  With
+``--a8`` it times the int8-activation kernel instead, grouped (4-bit g=128)
+and per channel (8-bit), at M=256 and 2560 on the five shapes, beside the
+bf16 tile and ``torch._int_mm`` on int8 operands of the same shape (the card's
+own int8 GEMM, which reads no packed plane: for information); ``--a8-splits``
+adds its split-K target (blocks per SM 1, 2, 4, 8) at M=256.  It needs one
+CUDA device.
 """
 
 from __future__ import annotations
@@ -74,6 +79,8 @@ def main() -> int:
                               packed_MB=qt.bytes_packed() / 1e6,
                               **{f + "_ms": round(t, 5) for f, t in ms.items()})), flush=True)
 
+    if "--a8" in sys.argv[1:]:
+        return a8_rows(qk, synth, gen, dev, flush, shapes)
     if "--splits" not in sys.argv[1:]:
         for name, (K, N) in shapes.items():
             qt = synth.random_qtensor(gen, K, N, 4, 128)
@@ -98,6 +105,41 @@ def main() -> int:
         qt = synth.random_qtensor(gen, 4096, 4096, bits, 128)
         for M in (8, 32, 256):
             row(f"{bits}-bit wo", qt, M, forms_of(M, qt))
+    return 0
+
+
+def a8_rows(qk, synth, gen, dev, flush, shapes) -> int:
+    from xbitops_tpu_torch.ops.qmatmul import quantize_activations
+
+    default = dict(qk.BLOCKS_PER_SM)
+    sms = qk._sm_count(dev.index)
+    for name, (K, N) in shapes.items():
+        for label, qt in (("grouped", synth.random_qtensor(gen, K, N, 4, 128)),
+                          ("per_channel", synth.random_qtensor(gen, K, N, 8, K))):
+            for M in (256, 2560):
+                a = torch.randn(M, qt.K, device=dev, generator=gen)
+                aq, _ = quantize_activations(a)
+                plan = qk.a8_plan(qt, M, sms)
+                row = dict(case=name, form=label, K=qt.K, N=N, M=M, route=plan.route,
+                           splits=plan.splits)
+                row["a8_ms"] = round(timed(lambda: qk.qmatmul_kernel_a8(aq, qt), flush), 5)
+                row["a8_TOPs"] = round(2 * M * qt.K * N / row["a8_ms"] / 1e9, 1)
+                if label == "grouped":
+                    a16 = a.to(torch.bfloat16)
+                    row["bf16_tile_ms"] = round(timed(lambda: qk.qmatmul_kernel(
+                        a16, qt, form="mma"), flush), 5)
+                    b8 = torch.randint(-128, 128, (N, qt.K), dtype=torch.int8, device=dev,
+                                       generator=gen)
+                    row["int_mm_ms"] = round(timed(lambda: torch._int_mm(aq, b8.t()), flush), 5)
+                if M == 256 and "--a8-splits" in sys.argv[1:]:
+                    ms = {}
+                    for per_sm in (1, 2, 4, 8):
+                        qk.BLOCKS_PER_SM["a8"] = per_sm
+                        ms[per_sm] = round(timed(lambda: qk.qmatmul_kernel_a8(aq, qt), flush), 5)
+                    qk.BLOCKS_PER_SM.update(default)
+                    row["ms_by_blocks_per_sm"] = ms
+                print(json.dumps(row), flush=True)
+            del qt
     return 0
 
 
