@@ -12,7 +12,13 @@
    the larger of bytes moved once over 3.35 TB/s and operations over the
    H100's published dense rate for their type, 989 TFLOP/s in bf16 and 1,979
    TOP/s in int8) and, where one PyTorch call computes the same function,
-   that call's time (``library_ms``; the port never calls it).  The W4A8
+   that call's time (``library_ms``; the port never calls it).  The fused
+   matmul runs at widths 1, 2, 3, 5, 6 and 7 too (default packed storage,
+   g=128, the five 7B projection shapes at M=8 and 16): each case prints its
+   route and counter (the few-rows form's planes kernel), its op time,
+   packed-stream GB/s and bound, and the CUDA-core form's time in the same
+   run.  The standalone packed int8 append is timed on the linear cache and
+   on a pool, held bit-equal to its plain version.  The W4A8
    matmul prints, for each case, its route (whole words or contiguous rows),
    its K splits and its TOP/s; per channel it must equal its plain version
    bit for bit.  Beside it, for information only, ``torch._int_mm`` on int8
@@ -60,6 +66,12 @@
    linear cache and the plain path.  In the serving paths of phases 2-5 the
    decode-attention kernel appends itself; the ``kernels`` line gives an
    append form its own launches and, as ``fused_launches``, those appends.
+7. Drives the 3-bit slice: a random 3-bit (g=128, packed: planes of 2 and
+   1 bits) Llama-2-7B at full width and depth serves 6 greedy requests of 16
+   to 500 prompt tokens on 8 slots over the bf16 cache.  Checks: no launch of
+   the CUDA-core matmul, and one decode step launches the few-rows form's
+   planes kernel 129 times (every projection and lm_head); then the logits
+   of a 2-layer cut's decode step against the plain path (rel 2e-2).
 
 Any failed check raises, so the exit code is not 0.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
@@ -163,7 +175,7 @@ def phase_kernels(dev, timer):
     shapes = {"wqkv": (4096, 12288), "wo": (4096, 4096), "w_gateup": (4096, 22016),
               "w_down": (11008, 4096), "lm_head": (4096, 32000)}
     worst = 0.0
-    worst_abs = {"qgemv": 0.0, "qgemv_mma": 0.0, "qgemv_cuda_core": 0.0}
+    worst_abs = {"qgemv": 0.0, "qgemv_mma": 0.0, "qgemv_cuda_core": 0.0, "qgemv_planes": 0.0}
 
     def held(a, qt, label, precise=False):
         """The routed kernel against the plain version; returns the counter it raised."""
@@ -228,9 +240,51 @@ def phase_kernels(dev, timer):
             worst = max(worst, e)
             print(f"qmatmul {bits}-bit g={g} {K}x{N} M={M} ({qgemv_form(M, False, qt)}, "
                   f"paired {qt.paired}): rel err {e:.2e}", flush=True)
+    # every other width at default (packed) storage, g=128, on the five shapes at
+    # the decode batch (8) and the few-rows form's largest (16): the planes kernel
+    # (csrc/qgemv_word_planes.cu) beside the CUDA-core form it replaced there
+    from xbitops_tpu_torch.kernels.qgemv_kernel import counter, word_planes
+
+    widths = {}
+    for bits in (1, 2, 3, 5, 6, 7):
+        for name, (K, N) in shapes.items():
+            qt = synth.random_qtensor(gen, K, N, bits, 128)
+            check(word_planes(qt), f"{bits}-bit {name}: not the planes kernel's layout")
+            for M in (8, 16):
+                a = torch.randn(M, K, device=dev, generator=gen).to(torch.bfloat16)
+                form = qgemv_form(M, False, qt)
+                kname, e = held(a, qt, f"{bits}-bit {name} M={M}")
+                check(form == "gemv" and kname == counter(form, qt) == "qgemv_planes",
+                      f"{bits}-bit {name} M={M} took {form} ({kname})")
+                worst = max(worst, e)
+                ms = timer(lambda: qmatmul(a, qt), iters=5)
+                a_pad = torch.nn.functional.pad(a, (0, qt.K - K))
+                core_ms = timer(lambda: qmatmul_kernel(a_pad, qt, form="cuda_core"), iters=3)
+                b = bound(qt.bytes_packed() + nbytes(a) + 2 * M * N, 2 * M * K * N)
+                widths[(bits, name, M)] = dict(ms=ms, core_ms=core_ms, **b)
+                print(f"qmatmul {bits}-bit {name} K={qt.K} N={N} M={M} ({form}, counter "
+                      f"{kname}): op {ms:.4f} ms ({qt.bytes_packed() / ms / 1e6:.1f} GB/s packed "
+                      f"stream, {b['bound_ms'] / ms:.1%} of the bound), bound "
+                      f"{b['bound_ms']:.4f} ms by {b['bound_by']}; the CUDA-core form here "
+                      f"{core_ms:.4f} ms ({core_ms / ms:.2f}x); rel err {e:.2e}", flush=True)
+                if (bits, name, M) == (3, "w_gateup", 8):
+                    plain_ms = timer(lambda: qmatmul(a, qt, use_kernel=False), iters=2)
+                    res["qgemv_planes"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+            del qt
+    for M in (8, 16):
+        row = {bits: sum(v["ms"] for (b, _, m), v in widths.items() if b == bits and m == M)
+               for bits in (1, 2, 3, 5, 6, 7)}
+        core = {bits: sum(v["core_ms"] for (b, _, m), v in widths.items()
+                          if b == bits and m == M) for bits in row}
+        share = {bits: sum(v["bound_ms"] for (b, _, m), v in widths.items()
+                           if b == bits and m == M) / row[bits] for bits in row}
+        print(f"qmatmul planes kernel, M={M}, the five shapes summed, ms by width: "
+              f"{ {b: round(t, 4) for b, t in row.items()} }; CUDA-core form "
+              f"{ {b: round(t, 4) for b, t in core.items()} }; share of the bound "
+              f"{ {b: round(x, 3) for b, x in share.items()} }", flush=True)
     print(f"qmatmul: worst rel err {worst:.2e} (gate 2e-2), worst abs err {worst_abs}",
           flush=True)
-    for kname in ("qgemv", "qgemv_mma"):  # the CUDA-core form is on no serving path
+    for kname in ("qgemv", "qgemv_mma", "qgemv_planes"):  # the CUDA-core form: no serving path
         res[kname]["max_abs_err"] = worst_abs[kname]
 
     res.update(kernels_quant(dev, timer, gen, shapes))
@@ -1630,6 +1684,81 @@ def phase_eager_decode(dev, model):
     return {k: sum(ln[k] for ln in out_launches.values()) for k in out_launches["bf16"]}
 
 
+def phase_three_bit(dev, cfg):
+    """The 3-bit slice: a random 3-bit g=128 Llama-2-7B at default (packed)
+    storage, planes of 2 and 1 bits, serves greedy requests on the bf16
+    cache.  Every decode projection, lm_head included, runs on the few-rows
+    form's planes kernel (csrc/qgemv_word_planes.cu): 129 launches a decode
+    step and none of the CUDA-core form.  Then one decode step of a 2-layer
+    cut against the plain path."""
+    from xbitops_tpu_torch.engine import Engine, Request
+    from xbitops_tpu_torch.kernels import common
+    from xbitops_tpu_torch.kernels.qgemv_kernel import qgemv_form, word_planes
+    from xbitops_tpu_torch.models import llama
+    from xbitops_tpu_torch.utils import synth
+
+    t0 = time.perf_counter()
+    model = synth.random_llama_params(cfg, bits=3, group_size=128, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    wqkv = model.blocks[0].wqkv.qtensor
+    check(wqkv.bits == 3 and wqkv.plane_bits == (2, 1) and wqkv.tile_k == 4096
+          and word_planes(wqkv) and qgemv_form(8, False, wqkv) == "gemv",
+          f"3-bit layout: bits {wqkv.bits}, planes {wqkv.plane_bits}, tile_k {wqkv.tile_k}")
+    packed = sum(getattr(blk, n).qtensor.bytes_packed() for blk in model.blocks
+                 for n in ("wqkv", "wo", "w_gateup", "w_down"))
+    packed += model.lm_head.qtensor.bytes_packed()
+    print(f"3-bit 7B model built in {time.perf_counter() - t0:.1f} s ({packed / 1e9:.2f} GB "
+          f"packed: the matmuls' bound a decode step is {1e3 * packed / HBM_BYTES_PER_S:.3f} ms)",
+          flush=True)
+    eng = Engine(model, cfg, slots=8, decode_burst=8, kv_quant=False, seed=SEED)
+    rng = np.random.default_rng(SEED + 7)
+    lengths = np.linspace(16, 500, 6).astype(int)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n).tolist(), max_new_tokens=16)
+            for n in lengths]
+    common.reset_counts()
+    t0 = time.perf_counter()
+    out = eng.generate(reqs)
+    wall = time.perf_counter() - t0
+    launches, plain = dict(common.launches), dict(common.plain_on_cuda)
+    check(len(out) == 6 and all(len(c.tokens) == 16 and c.finish_reason == "length"
+                                and all(0 <= t < cfg.vocab_size for t in c.tokens) for c in out),
+          "3-bit serving: a request was cut or a token is out of range")
+    check(launches["qgemv_planes"] > 0 and launches["qgemv_cuda_core"] == 0
+          and not any(plain.values()),
+          f"3-bit serving: launches {launches}, plain versions on the card {plain}")
+    st = eng.loop_stats
+    ms_step = 1e3 * st["decode"] / st["decode_steps"]
+    tok_s = st["decode_tokens"] / st["decode"]
+
+    # one decode step alone: every projection on the planes kernel
+    tokens = torch.tensor([c.tokens[-1] for c in out] + [0] * (8 - len(out)), device=dev)
+    step_cache = clone_cache(eng.cache)
+    common.reset_counts()
+    logits, _ = llama.decode_step(model, tokens, step_cache)
+    torch.cuda.synchronize()
+    step = {k: v for k, v in common.launches.items() if v}
+    check(step.get("qgemv_planes") == 4 * cfg.num_layers + 1 and "qgemv_cuda_core" not in step
+          and "qgemv" not in step and "qgemv_mma" not in step,
+          f"3-bit decode step: launches {step}, want qgemv_planes {4 * cfg.num_layers + 1}")
+    check(torch.isfinite(logits.float()).all().item(), "3-bit decode step: non-finite logits")
+    del step_cache
+    # the 2-layer cut against the plain path, each on its own clone of the cache
+    cut = two_layer_cut(model)
+    a, b = clone_cache(eng.cache, 2), clone_cache(eng.cache, 2)
+    la, _ = llama.decode_step(cut, tokens, a)
+    lb, _ = llama.decode_step(cut, tokens, b, use_kernel=False)
+    err = rel_err(la, lb)
+    check(err <= 2e-2, f"3-bit decode_step (2-layer cut) logits rel err {err:.3e} > 2e-2")
+    print(f"3-bit serving (bf16 cache): 6 requests of 16-500 prompt tokens, 8 slots, burst 8, "
+          f"{wall:.2f} s wall; decode {st['decode_steps']:.0f} steps {ms_step:.2f} ms/step, "
+          f"{tok_s:.1f} tokens/s; a decode step launches {step.get('qgemv_planes', 0)} of qgemv_planes "
+          f"and no CUDA-core form; 2-layer cut vs plain: logits rel err {err:.2e}; launches "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    del eng, model, cut, a, b
+    torch.cuda.empty_cache()
+    return launches, dict(ms_step=ms_step, tok_s=tok_s)
+
+
 def clone_cache(cache, n_layers=None):
     """A copy of ``cache`` (of its first ``n_layers`` layers), its scales and
     page table included."""
@@ -1702,10 +1831,14 @@ def main() -> int:
     launches5, paged = phase_paged(dev, model)
     torch.cuda.empty_cache()
     launches6 = phase_eager_decode(dev, model)
+    del model
+    torch.cuda.empty_cache()
+    launches7, three_bit = phase_three_bit(dev, cfg)
     print(f"card: {card}; 7B 4-bit decode at B=8: bf16 cache, prompts to 500: "
           f"{serving['ms_step']:.2f} ms/step, {serving['tok_s']:.1f} tokens/s; int8 cache, "
-          f"prompts to 1500: {long_ctx['ms_step']:.2f} ms/step, {long_ctx['tok_s']:.1f} tokens/s",
-          flush=True)
+          f"prompts to 1500: {long_ctx['ms_step']:.2f} ms/step, {long_ctx['tok_s']:.1f} tokens/s; "
+          f"7B 3-bit decode at B=8, bf16 cache: {three_bit['ms_step']:.2f} ms/step, "
+          f"{three_bit['tok_s']:.1f} tokens/s", flush=True)
     rate = {k: w4a8[k]["rows"] / w4a8[k]["admit_s"] for k in ("a", "b", "bf16")}
     print(f"card: {card}; 7B admission, padded prompt rows/s: W4A8 4-bit g=128 {rate['a']:.0f} "
           f"({w4a8['a']['admit_s']:.3f} s), W4A8 8-bit per-channel {rate['b']:.0f} "
@@ -1726,6 +1859,7 @@ def main() -> int:
     src = {
         "qgemv": (csrc + "qgemv_word.cu", jk + "qgemv_kernel.py:51"),
         "qgemv_mma": (csrc + "qgemv_mma.cu", jk + "qgemv_kernel.py:51"),
+        "qgemv_planes": (csrc + "qgemv_word_planes.cu", jk + "qgemv_kernel.py:51"),
         "decode_attention": (csrc + "decode_attention.cu", jk + "decode_attention.py:176"),
         "kv_append": (csrc + "kv_append.cu", jk + "kv_append.py:92"),
         "prefill_attention": (csrc + "prefill_attention.cu", jk + "prefill_attention.py:188"),
@@ -1742,12 +1876,12 @@ def main() -> int:
         "kv_append_paged": (csrc + "kv_append.cu", jk + "kv_append.py:92"),
         "kv_append_packed_paged": (csrc + "kv_append.cu", jk + "kv_append.py:43"),
     }
-    # launches: each kernel's count over the runs of phases 2 to 6 (the counts
+    # launches: each kernel's count over the runs of phases 2 to 7 (the counts
     # were set to 0 just before each run and read just after it).  An append
     # row counts its own kernel's launches (phase 6: the eager decode), and
     # apart, as fused_launches, the decode-attention launches (csrc/
     # decode_attention.cu) that appended in its form on the serving paths
-    runs = (launches2, launches3, launches4, launches5, launches6)
+    runs = (launches2, launches3, launches4, launches5, launches6, launches7)
     count = lambda n: sum(ln[n] for ln in runs)
     kernels = [dict(name=n, route="cuda", source=src[n][0], replaces=src[n][1], launches=count(n),
                     **({"fused_launches": count(n + "_fused")} if n in common.APPENDS else {}),

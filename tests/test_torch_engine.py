@@ -205,3 +205,23 @@ def test_prefill_a8_engine_matches_jax_engine(jparams, model):
     l8, _ = llama.prefill_slot(model8, tokens, 50, 0, llama.KVCache.init(cfg8, 1, "cpu"))
     l16, _ = llama.prefill_slot(model, tokens, 50, 0, llama.KVCache.init(CFG, 1, "cpu"))
     assert not torch.equal(l8, l16)
+
+
+# A 3-bit model (planes of 2 and 1 bits, packed storage): JAX's init_params
+# quantizes random weights and io/convert carries them across.  Prompt seed 0
+# gives a greedy path with no near-tie between two tokens (see above); the two
+# prompts share a bucket, so the JAX engine compiles one admission.
+_three_rng = np.random.default_rng(0)
+THREE_BIT_PROMPTS = [_three_rng.integers(0, CFG.vocab_size, n).tolist() for n in (5, 12)]
+
+
+def test_three_bit_model_matches_jax_engine():
+    jp = jllama.init_params(jax.random.PRNGKey(3), JCFG, bits=3, group_size=128)
+    port = params_from_numpy(jax.tree.map(np.asarray, jp), CFG, "cpu")
+    qt = port.blocks[0].wo.qtensor
+    assert qt.bits == 3 and len(qt.planes) == 2
+    want = JEngine(jp, JCFG, slots=2, decode_burst=4, kv_quant=False).generate(
+        [JRequest(prompt=p, max_new_tokens=5) for p in THREE_BIT_PROMPTS])
+    got = Engine(port, CFG, slots=2, decode_burst=4, kv_quant=False).generate(
+        [Request(prompt=p, max_new_tokens=5) for p in THREE_BIT_PROMPTS])
+    _same_completions(got, want)

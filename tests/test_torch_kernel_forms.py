@@ -11,6 +11,7 @@ kernels' plain version.  The kernels themselves run only on the card
 (``tests/test_torch_kernels_gpu.py``); what surrounds them is held here.
 """
 
+import dataclasses
 import itertools
 
 import numpy as np
@@ -48,16 +49,18 @@ def test_qgemv_form(layout, precise, M):
     qt = _qt(**LAYOUTS[layout])
     form = qk.qgemv_form(M, precise, qt)
     assert qt.paired == (layout in ("paired", "three_planes"))  # width 7 pairs its 4-bit plane
+    whole = ("paired", "eight", "two_planes", "three_planes")
     if precise:
         want = "cuda_core"  # bf16 products cannot hold rel 1e-5
-    elif layout in ("paired", "eight") and M <= qk.GEMV_MAX_M:
+    elif layout in whole and M <= qk.GEMV_MAX_M:
         want = "gemv"  # the layouts whose words the few-rows form reads whole
     elif M >= qk.MMA_MIN_M:
         want = "mma"
     else:
         want = "cuda_core"
     assert form == want
-    assert qk.word_layout(qt) == (layout in ("paired", "eight"))
+    assert qk.word_layout(qt) == (layout in whole)
+    assert qk.word_planes(qt) == (layout in ("two_planes", "three_planes"))
     assert qk.mma_whole_words(qt) == (layout == "paired")
     # the int8-activation kernel: the paired plane in whole words; 8-bit with
     # groups shorter than its K-tile, slot planes and several planes by rows
@@ -114,12 +117,79 @@ def test_qgemv_form_odd_groups_stay_on_the_cuda_cores():
     assert not qk.word_layout(_qt(4, 16, 512, tile_k=64))  # a K-tile of half a slab
 
 
+def _meta(bits, g, K, N, storage_bits=None):
+    """A QTensor that holds a layout and no data (empty planes and scales):
+    what the routing reads, at any shape, without packing a weight."""
+    sb = formats.resolve_storage_bits(bits, storage_bits)
+    tile_k = formats.default_tile_k(K, g, sb)
+    empty = torch.empty((0, N), dtype=torch.int32)
+    scales = torch.empty(0, dtype=torch.float16)
+    return formats.QTensor(planes=(empty,) * len(PLANE_DECOMP[sb]), scales=scales,
+                           scale_zeros=scales, bits=sb, group_size=g, tile_k=tile_k,
+                           K=-(-K // tile_k) * tile_k, K_logical=K, value_bits=bits)
+
+
 SHAPES = [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096), (4096, 32000), (640, 160)]
+SHAPES_7B = SHAPES[:5]
+
+
+@pytest.mark.parametrize("bits", [1, 2, 3, 5, 6, 7])
+@pytest.mark.parametrize("g", [128, 32])
+def test_every_width_takes_the_few_rows_form(bits, g):
+    """At default (packed) storage, widths 1, 2, 3, 5, 6 and 7 take the few-rows
+    form's planes kernel at M <= 16 on the five 7B projection shapes (and on
+    groups of 32), the tile from M = 17, the CUDA cores with ``precise``.
+    Groups that cut a run of 16 K rows (40), f32 scales, N not a multiple of
+    8 (the kernel stages scales in 16-byte copies), and ``"auto"`` storage, which
+    pads 3 and 7 bits to the 4- and 8-bit planes of the other kernel, route
+    elsewhere."""
+    for K, N in SHAPES_7B:
+        qt = _meta(bits, g, K, N)
+        assert qt.bits == bits and qt.paired == (bits > 4)
+        assert qk.word_planes(qt) and qk.word_layout(qt)
+        for M in (1, 8, 16):
+            assert qk.qgemv_form(M, False, qt) == "gemv"
+            assert qk.counter("gemv", qt) == "qgemv_planes"
+            assert qk.qgemv_form(M, True, qt) == "cuda_core"
+        assert qk.qgemv_form(17, False, qt) == "mma"
+        units, align = qk._units("gemv", qt)
+        assert units * qk.RUN * qk.planes_runs(qt) == qt.K and align == 1
+        assert qk.planes_runs(qt) == 32 // min(PLANE_DECOMP[bits])
+        odd = _meta(bits, 40, K, N)
+        assert not qk.word_layout(odd) and qk.qgemv_form(8, False, odd) == "cuda_core"
+        f32 = dataclasses.replace(qt, scales=qt.scales.float(), scale_zeros=qt.scales.float())
+        for other in (f32, _meta(bits, g, K, N - 4)):  # f32 scales; N not a multiple of 8
+            assert not qk.word_layout(other) and qk.qgemv_form(8, False, other) == "cuda_core"
+        auto = _meta(bits, g, K, N, storage_bits="auto")
+        assert qk.word_layout(auto) and qk.word_planes(auto) == (bits not in (3, 7))
+        assert qk.counter("gemv", auto) == ("qgemv" if bits in (3, 7) else "qgemv_planes")
+
+
+def test_planes_kernel_group_rules():
+    """The planes kernel's scale groups: whole runs of 16 rows (each run's
+    fold reads its group's row, whatever the runs' stride ``tile_k / F``);
+    K-tiles of whole units."""
+    ok = [_qt(3, 32, 4096, N=8, tile_k=4096),  # stride 128, groups of 32
+          _qt(3, 128, 1024, N=8),  # tile 1024, stride 32: a group spans four runs
+          _qt(3, 32, 1536, N=8, tile_k=1536),  # stride 48, groups of 32
+          _qt(1, 1024, 1024, N=8),  # one group a K-tile
+          _qt(6, 64, 2048, N=8)]  # F = 16 at width 6
+    for qt in ok:
+        assert qk.word_planes(qt), (qt.bits, qt.group_size, qt.tile_k)
+    bad = [_qt(3, 512, 1024, N=8, tile_k=256),  # a K-tile of half a unit
+           _qt(2, 40, 640, N=8),  # groups of 40 cut a run
+           _qt(1, 24, 1536, N=8, tile_k=1536)]  # groups of 24 cut a run
+    for qt in bad:
+        assert not qk.word_planes(qt), (qt.bits, qt.group_size, qt.tile_k)
+        assert qk.qgemv_form(8, False, qt) == "cuda_core"
+    paired4 = _qt(4, 128, 1024, N=8)
+    assert not qk.word_planes(paired4) and qk.word_layout(paired4)
 
 
 @pytest.mark.parametrize("K,N", SHAPES)
 @pytest.mark.parametrize("M", [1, 8, 16, 32, 64, 256, 2560])
-@pytest.mark.parametrize("bits,g", [(4, 128), (8, 128), (4, 40), (3, 128), (8, None)])
+@pytest.mark.parametrize("bits,g", [(4, 128), (8, 128), (4, 40), (3, 128), (8, None), (1, 128),
+                                    (2, 128), (5, 128), (6, 128), (7, 128), (3, 32)])
 def test_k_splits_cover_k(K, N, M, bits, g):
     """For every form that takes the input: ``splits * per`` covers the
     form's units of K, ``per`` is a multiple of the unit's alignment (four
@@ -145,6 +215,9 @@ def test_k_splits_cover_k(K, N, M, bits, g):
             assert splits == 1 or blocks * (splits - 1) < target + blocks
         if form == "cuda_core":
             assert units * qk.CHUNK >= qt.K > (units - 1) * qk.CHUNK
+        elif form == "gemv" and qk.word_planes(qt):
+            # units of 16 word rows of the narrowest plane
+            assert units * 16 * qk.planes_runs(qt) == qt.K and align == 1
         elif form == "gemv":
             assert units * 16 * (32 // qt.bits) == qt.K  # slabs of 16 word rows
         elif form == "a8":
@@ -313,6 +386,10 @@ def _pieces_a8(qt):
     (c, "mma") for c in ("paired", "paired_tile256", "eight", "eight_g16", "slot", "two_planes",
                          "long_groups")
 ] + [(c, "gemv") for c in ("paired", "paired_tile256", "eight", "eight_g16")] + [
+    (c, "gemv") for c in ("one_bit", "two_bit", "three_bit", "five_bit", "six_bit", "seven_bit",
+                          "three_bit_tile1024", "three_bit_g32", "three_bit_g32_tile1536",
+                          "seven_bit_one_group")
+] + [
     (c, "a8") for c in ("paired", "paired_tile512_g256", "paired_g256", "paired_per_channel",
                         "eight", "eight_per_channel", "eight_one_group_a_tile", "slot",
                         "two_planes", "eight_short_tile_per_channel")
@@ -335,10 +412,23 @@ def test_kernel_walk_covers_k_inside_groups_and_folds_to_the_product(case, form)
           "paired_per_channel": dict(bits=4, g=2048, K=2048),
           "eight_per_channel": dict(bits=8, g=1024, K=1024),
           "eight_one_group_a_tile": dict(bits=8, g=512, K=1024, tile_k=512),
-          "eight_short_tile_per_channel": dict(bits=8, g=96, K=96)}[case]
+          "eight_short_tile_per_channel": dict(bits=8, g=96, K=96),
+          # the planes kernel: each width at its 7B K-tile (4096; 2048 at widths 2 and
+          # 6), a group spanning four runs, four groups a run's stride, one group
+          # a K-tile
+          "one_bit": dict(bits=1, g=128, K=4096), "two_bit": dict(bits=2, g=128, K=4096),
+          "three_bit": dict(bits=3, g=128, K=4096), "five_bit": dict(bits=5, g=128, K=4096),
+          "six_bit": dict(bits=6, g=128, K=4096), "seven_bit": dict(bits=7, g=128, K=4096),
+          "three_bit_tile1024": dict(bits=3, g=128, K=1024),
+          "three_bit_g32": dict(bits=3, g=32, K=4096, tile_k=4096),
+          "three_bit_g32_tile1536": dict(bits=3, g=32, K=3072, tile_k=1536),
+          "seven_bit_one_group": dict(bits=7, g=1024, K=2048)}[case]
     qt = _qt(N=16, seed=3, **kw)
     if form == "a8":
         _a8_walk_folds_to_the_plain_version(qt)
+        return
+    if qk.word_planes(qt):
+        _planes_walk_folds_to_the_product(qt)
         return
     assert form == "mma" or qk.word_layout(qt)
     g_tile = qt.tile_k // qt.groups_per_tile
@@ -361,6 +451,84 @@ def test_kernel_walk_covers_k_inside_groups_and_folds_to_the_product(case, form)
         t, gi = divmod(k0 // g_tile, qt.groups_per_tile)
         dot, asum = a[:, k0:k0 + rows] @ vals, a[:, k0:k0 + rows].sum(1, keepdims=True)
         acc += s[t, gi] * dot - sz[t, gi] * asum
+    assert (seen == 1).all()
+    want = a @ dequant_qtensor_reference(qt, torch.float64).numpy()
+    np.testing.assert_allclose(acc, want, rtol=1e-9, atol=1e-9)
+
+
+def _walk_planes(qt):
+    """The planes kernel's walk (csrc/qgemv_word_planes.cu), a run at a time
+    in its order: unit, plane 0's piece, field j, run of the piece.  Planes 1
+    and 2 of the unit are held as byte-permuted pairs (word rows 2e and
+    2e + 1 side by side); for each run every plane's field is moved to its
+    bit offset and joined into the weight's value, with the kernel's own
+    register expressions.  ``vals``: the 16 K rows x N values the run's A
+    registers carry; ``row``: the scale row its fold reads (tile, group), as
+    the kernel stages it (``(i * wt + r0) / g``)."""
+    pbs, F, tile_k = qt.plane_bits, qk.planes_runs(qt), qt.tile_k
+    wt, g = tile_k // F, qk._g_tile(qt)
+    words = [p.numpy().astype(np.int64) & 0xFFFFFFFF for p in qt.planes]
+    offs = np.cumsum((0,) + pbs[:-1])
+
+    def pairs(p, base):  # 16 word rows of a slot plane -> [lo/hi][8 pairs][N]
+        rows = words[p][base:base + 16]
+        return [[_prmt(rows[2 * e], rows[2 * e + 1], sel) for e in range(8)]
+                for sel in (0x5410, 0x7632)]
+
+    def halves(regs, mask):  # each register's two halves: K rows 2e and 2e + 1 -> [8, 2, N]
+        return np.stack([np.stack([r & mask, (r >> 16) & mask]) for r in regs])
+
+    for u in range(qt.K // (qk.RUN * F)):
+        t, r0 = divmod(u, wt // qk.RUN)
+        r0 *= qk.RUN
+        res = {p: [pairs(p, t * (tile_k * pb // 32) + q * wt + r0) for q in range(F * pb // 32)]
+               for p, pb in enumerate(pbs) if p > 0}
+        paired = qt.paired
+        fields0, c0 = (4, F // 4) if paired else (32 // pbs[0], F * pbs[0] // 32)
+        sr = 2 if paired else 1
+        mask0 = 0xF if paired else (1 << pbs[0]) - 1
+        for sq in range(c0 // sr):
+            pr0 = None if paired else pairs(0, t * (tile_k * pbs[0] // 32) + sq * wt + r0)
+            for j, s in itertools.product(range(fields0), range(sr)):
+                i = j * c0 + sr * sq + s
+                if paired:  # word row e holds K rows 2e (low half) and 2e + 1
+                    base = t * (tile_k // 8) + ((sr * sq + s) * wt + r0) // 2
+                    v = halves(list(words[0][base:base + 8] >> (4 * j)), mask0)
+                else:
+                    sh = pbs[0] * j
+                    v = halves([r >> (sh & 15) for r in pr0[sh >> 4]], mask0)
+                for p in res:  # plane p's field of run i, moved to bit off_p
+                    cp = F * pbs[p] // 32
+                    sh = pbs[p] * (i // cp)
+                    d = (sh & 15) - offs[p]
+                    moved = [((r >> d) if d >= 0 else (r << -d)) & 0xFFFFFFFF
+                             for r in res[p][i % cp][sh >> 4]]
+                    v = v | halves(moved, ((1 << pbs[p]) - 1) << offs[p])
+                yield dict(k0=t * tile_k + i * wt + r0, vals=v.reshape(16, -1),
+                           row=(t, (i * wt + r0) // g))
+
+
+def _planes_walk_folds_to_the_product(qt):
+    """Every K row once, each run's values those of ``unpack_planes_reference``,
+    each run inside the scale group whose row its fold reads, and the folds,
+    one a run (``s * dot - sz * asum``), give the dense product."""
+    g_tile = qk._g_tile(qt)
+    wq = formats.unpack_planes_reference(qt.planes, qt.bits, qt.tile_k, qt.K, paired=qt.paired)
+    wq = wq.numpy().astype(np.int64)
+    rng = np.random.default_rng(0)
+    a = rng.standard_normal((5, qt.K))
+    s, sz = qt.scales.double().numpy(), qt.scale_zeros.double().numpy()
+    acc = np.zeros((5, qt.N))
+    seen = np.zeros(qt.K, np.int64)
+    for run in _walk_planes(qt):
+        k0 = run["k0"]
+        seen[k0:k0 + 16] += 1
+        np.testing.assert_array_equal(run["vals"], wq[k0:k0 + 16])
+        t, gi = run["row"]
+        assert t == k0 // qt.tile_k and gi == (k0 % qt.tile_k) // g_tile  # the run's own group
+        assert (k0 + 15) // g_tile == k0 // g_tile
+        a_run = a[:, k0:k0 + 16]
+        acc += s[t, gi] * (a_run @ run["vals"]) - sz[t, gi] * a_run.sum(1, keepdims=True)
     assert (seen == 1).all()
     want = a @ dequant_qtensor_reference(qt, torch.float64).numpy()
     np.testing.assert_allclose(acc, want, rtol=1e-9, atol=1e-9)

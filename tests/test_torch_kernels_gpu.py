@@ -45,12 +45,14 @@ from xbitops_tpu_torch.kernels.qgemv_kernel import (
     _stream_counters,
     a8_per_channel,
     a8_plan,
+    counter,
     mma_whole_words,
     qgemv_form,
     qmatmul_kernel,
     qmatmul_kernel_a8,
     qmatmul_kernel_a8_reference,
     word_layout,
+    word_planes,
 )
 from xbitops_tpu_torch.ops.dequant import dequant_qtensor
 from xbitops_tpu_torch.ops.qmatmul import qmatmul, quantize_activations
@@ -125,7 +127,7 @@ def test_qmatmul_forms_match_plain(dev, bits, g, K, tile_k, M, N):
     for form in forms:
         common.reset_counts()
         got = qmatmul_kernel(a_pad, qt, out_dtype=torch.float32, form=form)
-        assert common.launches[COUNTER[form]] == 1
+        assert common.launches[counter(form, qt)] == 1
         assert sum(common.launches.values()) == 1 and not any(common.plain_on_cuda.values())
         assert (got - core).abs().max() <= 1e-4 * top, form
         got16 = qmatmul_kernel(a_pad, qt, form=form)
@@ -136,6 +138,52 @@ def test_qmatmul_forms_match_plain(dev, bits, g, K, tile_k, M, N):
     if "gemv" not in forms:
         with pytest.raises(ValueError):
             qmatmul_kernel(a_pad, qt, form="gemv")
+
+
+# the planes kernel of the few-rows form, every width at default storage:
+# (bits, group, K, N, tile_k): the 7B K-tiles (K split across blocks), a small
+# tile with groups over four runs (no split), K padded to its tile (4000 ->
+# 4096), groups of 32 at tiles of 4096 and 1536 (runs 128 and 48 rows
+# apart), one group a K-tile, and N that ends inside a block's 256 columns
+# (296, 264, 160)
+PLANES_CASES = [(b, 128, 4096, 512, None) for b in (1, 2, 3, 5, 6, 7)] + [
+    (b, 128, 512, 296, None) for b in (1, 2, 3, 5, 6, 7)] + [
+    (5, 128, 4000, 256, None), (3, 32, 4096, 264, 4096), (3, 32, 3072, 256, 1536),
+    (6, 64, 2048, 160, None), (7, 1024, 2048, 296, None)]
+
+
+@pytest.mark.parametrize("bits,g,K,N,tile_k", PLANES_CASES)
+@pytest.mark.parametrize("M", [1, 8, 13, 16])
+def test_few_rows_planes_kernel_matches_plain(dev, bits, g, K, N, tile_k, M):
+    """The few-rows form's planes kernel (widths 1, 2, 3, 5, 6, 7), routed by
+    ``qgemv_form``: one launch of ``qgemv_planes`` a call, against the plain
+    version (rel 2e-2 of the largest output, bf16 out) and against the
+    CUDA-core form in f32 (exact products, f32 sums in another order: rel
+    1e-4); the same bits from a second call and from a CUDA graph replay
+    (which zeroes split-K tickets of its own)."""
+    gen = _gen(dev, bits * 7 + K + N + M)
+    qt = synth.random_qtensor(gen, K, N, bits, g, tile_k=tile_k)
+    assert word_planes(qt) and qgemv_form(M, False, qt) == "gemv"
+    a = torch.randn(M, K, device=dev, generator=gen).to(torch.bfloat16)
+    ref = qmatmul(a, qt, out_dtype=torch.float32, use_kernel=False)
+    top = ref.abs().max()
+    a_pad = torch.nn.functional.pad(a, (0, qt.K - K))
+    core = qmatmul_kernel(a_pad, qt, out_dtype=torch.float32, form="cuda_core")
+    common.reset_counts()
+    got = qmatmul_kernel(a, qt, out_dtype=torch.float32)
+    assert common.launches == {**dict.fromkeys(common.launches, 0), "qgemv_planes": 1}
+    assert not any(common.plain_on_cuda.values())
+    assert (got - core).abs().max() <= 1e-4 * top
+    got16 = qmatmul(a, qt)
+    assert got16.dtype == torch.bfloat16
+    assert (got16.float() - ref).abs().max() <= 2e-2 * top
+    assert torch.equal(qmatmul_kernel(a, qt, out_dtype=torch.float32), got)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = qmatmul_kernel(a, qt, out_dtype=torch.float32)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
 
 
 @pytest.mark.parametrize("M", [(3, 5), (3, 50)], ids=["M15", "M150"])
@@ -792,3 +840,41 @@ def test_kv_append_kernel_equals_plain(dev, paged, D, pos_dtype):
     kv_append_dense_reference(*ref, *new, pos, 1, table)
     assert all(torch.equal(a, b) for a, b in zip(cache, ref))
     assert not torch.equal(cache[0], before[0]) and torch.equal(cache[0][0], before[0][0])
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["linear", "paged"])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("scale_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("pos_dtype", [torch.int32, torch.int64])
+def test_kv_append_packed_kernel_takes_its_inputs_as_they_come(dev, paged, D, scale_dtype,
+                                                               pos_dtype):
+    """The standalone packed int8 append, one block a (slot, kv head), equal
+    bit for bit to its plain version on the linear cache and on a pool; f32
+    scales (rounded to bf16 inside) or bf16 ones, int32 or int64 positions,
+    read as they come: the call allocates nothing and launches one kernel."""
+    gen = _gen(dev, D + 2 * paged)
+    L, B, Hkv, S = 2, 7, 3, 128
+    cache = list(_packed_cache(gen, L, B, Hkv, S, D))
+    # bytes 0-3 of a word, the last row, outside [0, S), and (paged) no page
+    pos = torch.tensor([0, 17, 34, 63, S - 1, S, -1], device=dev, dtype=pos_dtype)
+    table = None
+    if paged:
+        table, cache = synth.cut_pages(gen, cache, S // 16, torch.full((B,), S, device=dev))
+        table[1, 17 // 16] = -1  # no page for slot 1's row: nothing written
+    kq, vq, ks, vs = _new_packed_rows(gen, B, Hkv, D)
+    ks, vs = ks.to(scale_dtype), vs.to(scale_dtype)
+    ref = [t.clone() for t in cache]
+    before = [t.clone() for t in cache]
+    kv_append_packed(*cache, kq, vq, ks, vs, pos, 1, table)  # a first call builds and warms up
+    cache = [t.copy_(b) for t, b in zip(cache, before)]
+    torch.cuda.synchronize()
+    common.reset_counts()
+    allocated = torch.cuda.memory_stats(dev)["allocation.all.allocated"]
+    kv_append_packed(*cache, kq, vq, ks, vs, pos, 1, table)
+    assert torch.cuda.memory_stats(dev)["allocation.all.allocated"] == allocated
+    name = "kv_append_packed_paged" if paged else "kv_append_packed"
+    assert {k: n for k, n in common.launches.items() if n} == {name: 1}
+    kv_append_packed_reference(*ref, kq, vq, ks, vs, pos, 1, table)
+    assert all(torch.equal(a, b) for a, b in zip(cache, ref))
+    assert not torch.equal(cache[0], before[0]) and torch.equal(cache[0][0], before[0][0])
+    assert not torch.equal(cache[3], before[3])

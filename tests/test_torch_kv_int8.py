@@ -107,6 +107,30 @@ def test_kv_append_packed_matches_jax_exactly(layer):
     assert not np.array_equal(_np(got[0])[layer, 3], k[layer, 3])
 
 
+def test_kv_append_packed_takes_f32_scales_and_int64_positions_as_jax():
+    """The packed append as the decode path hands it its rows (``_new_row``:
+    int32 bytes, f32 scales) with int64 positions, as the engine's are: its
+    plain version writes what JAX's kernel writes, bit for bit (the f32
+    scales rounded to bf16 as JAX rounds them), the words of all four byte
+    lanes and a position past S (no write)."""
+    L, B, Hkv, S, D = 1, 5, 3, 16, 64
+    rng = np.random.default_rng(11)
+    k, v, ks, vs = _packed_cache(rng, L, B, Hkv, S, D)
+    kq = rng.integers(1, 256, (B, Hkv, D)).astype(np.int32)
+    vq = rng.integers(1, 256, (B, Hkv, D)).astype(np.int32)
+    ksn = rng.uniform(0.001, 0.05, (B, Hkv)).astype(np.float32)
+    vsn = rng.uniform(0.001, 0.05, (B, Hkv)).astype(np.float32)
+    pos = np.asarray([3, 6, 9, 12, S], np.int64)
+    want = jappend_packed(*map(jnp.asarray, (k, v, ks, vs, kq, vq, ksn, vsn)),
+                          jnp.asarray(pos.astype(np.int32)), jnp.int32(0), interpret=True)
+    got = [_t(a) for a in (k, v, ks, vs)]
+    new = [_t(a) for a in (kq, vq, ksn, vsn, pos)]
+    assert new[2].dtype == torch.float32 and new[4].dtype == torch.int64
+    kv_append_packed_reference(*got, *new, 0)
+    for g, w in zip(got, want):
+        _same_bits(g, w)
+
+
 def test_kv_append_packed_reference_guards():
     """Positions outside [0, S) write nothing, negative ones included."""
     rng = np.random.default_rng(5)

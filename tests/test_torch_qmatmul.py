@@ -39,11 +39,13 @@ def _pair(K, N, bits, g, seed, **kw):
 
 @pytest.fixture(scope="module")
 def weights():
-    return {bits: _pair(512, 256, bits, 128, seed=bits) for bits in (3, 4, 8)}
+    return {bits: _pair(512, 256, bits, 128, seed=bits) for bits in range(1, 9)}
 
 
-@pytest.mark.parametrize("bits", [3, 4, 8])
-@pytest.mark.parametrize("M", [1, 8, 33])
+# every width: one plane (1, 2, 4, 8 bits), two (3, 5, 6) and three (7);
+# widths 1, 2, 5, 6 and 7 at the decode batch of 8 rows
+@pytest.mark.parametrize("M,bits", [(m, b) for m in (1, 8, 33) for b in (3, 4, 8)]
+                         + [(8, b) for b in (1, 2, 5, 6, 7)])
 def test_qmatmul_matches_jax(weights, bits, M):
     jqt, qt = weights[bits]
     a = np.random.default_rng(M).standard_normal((M, 512), dtype=np.float32)

@@ -20,13 +20,18 @@
 // The packed int8 cache keeps four positions in one int32 word: words
 // [B, Hkv, S/4, D], byte j of word w = position 4w + j (value + 128), and
 // scales [B, 4, Hkv, S/4] bf16 with scales[b, j, h, w] for position 4w + j.
-// Its append reads each (head, dim) word of the target word row, replaces
-// byte pos % 4 and writes it back, Hkv * D words and 2 * Hkv scales a slot:
-// launch-bound like the bf16 one.  The TPU kernel moved an 8-row slab and a
-// 128-lane scale chunk through VMEM and picked the new scales with a one-hot
-// reduce, all for Mosaic's tiling; none of it is needed here.  The word is
-// handled as uint32_t, so byte 3 (the sign bits of the int32) shifts
-// logically.
+// Its append replaces byte pos % 4 of each (head, dim) word of the target
+// word row and sets the position's two scales: launch-bound like the bf16
+// one.  The TPU kernel moved an 8-row slab and a 128-lane scale chunk through
+// VMEM and picked the new scales with a one-hot reduce, all for Mosaic's
+// tiling; none of it is needed here.  Its first port here ran one block a
+// slot that walked Hkv * D words one at a time, behind casting passes of the
+// wrapper; it is now the bf16 one's shape: one block a (slot, kv head), a
+// thread read-modify-writing 4 adjacent words with one 16-byte load and
+// store, the new bytes read 16 bytes at a time, the new scales taken as they
+// come (f32, rounded to bf16 here as PyTorch rounds, or bf16) and the
+// positions as int32 or int64.  The word is handled as uint32_t, so byte 3
+// (the sign bits of the int32) shifts logically.
 //
 // The paged forms (entries xb_kv_append_paged, xb_kv_append_packed_paged) are
 // the same two kernels with another target: k/v are page pools
@@ -37,6 +42,7 @@
 // 0 <= p < P * psz and 0 <= table[i, p / psz] < n_pages, so a slot without a
 // page for its position (entry -1) writes nothing, as the JAX package's
 // dropped scatter does.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -87,49 +93,65 @@ __global__ void kv_append_kernel(uint4* __restrict__ k, uint4* __restrict__ v,
     k[dst] = k_new[src];
 }
 
+// A new scale as bf16 bits: f32 (s_f32) rounded to nearest even, or bf16.
+__device__ __forceinline__ uint16_t scale_bits(const void* p, size_t i, int s_f32) {
+  if (!s_f32) return static_cast<const uint16_t*>(p)[i];
+  const __nv_bfloat16 b = __float2bfloat16(static_cast<const float*>(p)[i]);
+  return *reinterpret_cast<const uint16_t*>(&b);
+}
+
+// Grid (Hkv, B), 2 * D / 4 threads: thread c < D / 4 replaces byte pos % 4 of
+// words 4c..4c + 3 of the k row, the rest of the v row; the first thread of
+// each also writes the scale.  kq/vq int32 [B, Hkv, D] (biased values, the
+// low byte is taken); positions int32, or int64 with pos64.
 template <bool PAGED>
-__global__ void kv_append_packed_kernel(uint32_t* __restrict__ k, uint32_t* __restrict__ v,
+__global__ void kv_append_packed_kernel(uint4* __restrict__ k, uint4* __restrict__ v,
                                         uint16_t* __restrict__ ks, uint16_t* __restrict__ vs,
-                                        const int* __restrict__ kq, const int* __restrict__ vq,
-                                        const uint16_t* __restrict__ ks_new,
-                                        const uint16_t* __restrict__ vs_new,
-                                        const int* __restrict__ positions,
+                                        const uint4* __restrict__ kq,
+                                        const uint4* __restrict__ vq,
+                                        const void* __restrict__ ks_new,
+                                        const void* __restrict__ vs_new, int s_f32,
+                                        const void* __restrict__ positions, int pos64,
                                         const int* __restrict__ table, int P, int n_pages,
-                                        int B, int Hkv, int Sw, int D) {
-  const int i = blockIdx.x;
-  if (i >= B) return;
+                                        int Hkv, int Sw, int D) {
+  const int h = blockIdx.x, i = blockIdx.y;
+  const long long p = pos64 ? static_cast<const long long*>(positions)[i]
+                            : static_cast<const int*>(positions)[i];
   int blk, pos;
-  if (!locate<PAGED>(i, positions[i], Sw * 4, table, P, n_pages, &blk, &pos)) return;
-  const int w = pos >> 2, j = pos & 3;
-  const int sh = 8 * j;
+  if (!locate<PAGED>(i, p, Sw * 4, table, P, n_pages, &blk, &pos)) return;
+  const int w = pos >> 2, sh = 8 * (pos & 3);
   const uint32_t keep = ~(0xffu << sh);
-  const int row = Hkv * D;
-  for (int e = threadIdx.x; e < row; e += blockDim.x) {
-    const int h = e / D, d = e - (e / D) * D;
-    const size_t dst = ((static_cast<size_t>(blk) * Hkv + h) * Sw + w) * D + d;
-    const size_t src = static_cast<size_t>(i) * row + e;
-    k[dst] = (k[dst] & keep) | ((static_cast<uint32_t>(kq[src]) & 0xffu) << sh);
-    v[dst] = (v[dst] & keep) | ((static_cast<uint32_t>(vq[src]) & 0xffu) << sh);
-  }
-  for (int h = threadIdx.x; h < Hkv; h += blockDim.x) {
-    const size_t dst = ((static_cast<size_t>(blk) * 4 + j) * Hkv + h) * Sw + w;
-    ks[dst] = ks_new[i * Hkv + h];
-    vs[dst] = vs_new[i * Hkv + h];
+  const int chunks = D / 4;  // 16-byte pieces of a word row
+  const int which = threadIdx.x / chunks, c = threadIdx.x - which * chunks;
+  uint4* words = which ? v : k;
+  const size_t dst = ((static_cast<size_t>(blk) * Hkv + h) * Sw + w) * chunks + c;
+  const uint4 q = (which ? vq : kq)[(static_cast<size_t>(i) * Hkv + h) * chunks + c];
+  uint4 o = words[dst];
+  o.x = (o.x & keep) | ((q.x & 0xffu) << sh);
+  o.y = (o.y & keep) | ((q.y & 0xffu) << sh);
+  o.z = (o.z & keep) | ((q.z & 0xffu) << sh);
+  o.w = (o.w & keep) | ((q.w & 0xffu) << sh);
+  words[dst] = o;
+  if (c == 0) {
+    const size_t sdst = ((static_cast<size_t>(blk) * 4 + (pos & 3)) * Hkv + h) * Sw + w;
+    (which ? vs : ks)[sdst] =
+        scale_bits(which ? vs_new : ks_new, static_cast<size_t>(i) * Hkv + h, s_f32);
   }
 }
 
 template <bool PAGED>
 int append_packed(void* k, void* v, void* ks, void* vs, const void* kq, const void* vq,
-                  const void* ks_new, const void* vs_new, const void* positions,
-                  const void* table, int P, int n_pages, int B, int Hkv, int Sw, int D,
+                  const void* ks_new, const void* vs_new, int s_f32, const void* positions,
+                  int pos64, const void* table, int P, int n_pages, int B, int Hkv, int Sw, int D,
                   void* stream) {
+  if (D % 4 || D > 1024) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  kv_append_packed_kernel<PAGED><<<B, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint32_t*>(k), static_cast<uint32_t*>(v), static_cast<uint16_t*>(ks),
-      static_cast<uint16_t*>(vs), static_cast<const int*>(kq), static_cast<const int*>(vq),
-      static_cast<const uint16_t*>(ks_new), static_cast<const uint16_t*>(vs_new),
-      static_cast<const int*>(positions), static_cast<const int*>(table), P, n_pages, B, Hkv,
-      Sw, D);
+  kv_append_packed_kernel<PAGED>
+      <<<dim3(Hkv, B), 2 * (D / 4), 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<uint4*>(k), static_cast<uint4*>(v), static_cast<uint16_t*>(ks),
+          static_cast<uint16_t*>(vs), static_cast<const uint4*>(kq),
+          static_cast<const uint4*>(vq), ks_new, vs_new, s_f32, positions, pos64,
+          static_cast<const int*>(table), P, n_pages, Hkv, Sw, D);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -148,12 +170,14 @@ int append(void* k, void* v, const void* k_new, const void* v_new, const void* p
 
 }  // namespace
 
+// kq, vq int32 [B, Hkv, D], 16-byte aligned; ks_new, vs_new [B, Hkv] f32
+// (s_f32 = 1) or bf16; positions int32 [B], or int64 with pos64 = 1.
 extern "C" int xb_kv_append_packed(void* k, void* v, void* ks, void* vs, const void* kq,
                                    const void* vq, const void* ks_new, const void* vs_new,
-                                   const void* positions, int B, int Hkv, int Sw, int D,
-                                   void* stream) {
-  return append_packed<false>(k, v, ks, vs, kq, vq, ks_new, vs_new, positions, nullptr, 0, 0,
-                              B, Hkv, Sw, D, stream);
+                                   int s_f32, const void* positions, int pos64, int B, int Hkv,
+                                   int Sw, int D, void* stream) {
+  return append_packed<false>(k, v, ks, vs, kq, vq, ks_new, vs_new, s_f32, positions, pos64,
+                              nullptr, 0, 0, B, Hkv, Sw, D, stream);
 }
 
 // k_new, v_new bf16 [B, Hkv, D], 16-byte aligned; positions int32 [B], or
@@ -169,12 +193,12 @@ extern "C" int xb_kv_append(void* k, void* v, const void* k_new, const void* v_n
 // [B, P], pszw / psz the word rows / rows of a page.
 extern "C" int xb_kv_append_packed_paged(void* k, void* v, void* ks, void* vs, const void* kq,
                                          const void* vq, const void* ks_new,
-                                         const void* vs_new, const void* positions,
-                                         const void* table, int P, int n_pages, int B, int Hkv,
-                                         int pszw, int D, void* stream) {
+                                         const void* vs_new, int s_f32, const void* positions,
+                                         int pos64, const void* table, int P, int n_pages, int B,
+                                         int Hkv, int pszw, int D, void* stream) {
   if (P <= 0 || n_pages <= 0 || pszw <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  return append_packed<true>(k, v, ks, vs, kq, vq, ks_new, vs_new, positions, table, P,
-                             n_pages, B, Hkv, pszw, D, stream);
+  return append_packed<true>(k, v, ks, vs, kq, vq, ks_new, vs_new, s_f32, positions, pos64,
+                             table, P, n_pages, B, Hkv, pszw, D, stream);
 }
 
 extern "C" int xb_kv_append_paged(void* k, void* v, const void* k_new, const void* v_new,

@@ -3,15 +3,21 @@
 //
 // The first form of the port of the Pallas kernel
 // xbitops_tpu/kernels/qgemv_kernel.py:_kernel (entry qmatmul_kernel,
-// qgemv_kernel.py:335).  With bf16 activations qgemv_word.cu (a few rows)
+// qgemv_kernel.py:335).  With bf16 activations qgemv_word.cu and
+// qgemv_word_planes.cu (a few rows: every width at default packed storage)
 // and qgemv_mma.cu (the tensor-core tile) have taken its place wherever they
 // decode the layout; this one keeps f32 activations (`precise`: bf16 products
-// cannot hold rel 1e-5), every width and layout at M <= 8 that the few-rows
-// form does not read whole, and scale groups that are not multiples of 8 rows.
+// cannot hold rel 1e-5) and, at M <= 8, the layouts the few-rows form turns
+// away: scale groups that cut a run of 16 K rows (not a multiple of 16; a
+// 4-bit weight then keeps the slot layout), K-tiles that are not whole units
+// of the walk, f32 scales or N not a multiple of 8 at widths 1-3 and 5-7; and
+// at any M scale groups that are not multiples of 8 rows.
 //
-// What bounds it on an H100: at M <= 8 the packed weight stream (4 bits a
-// weight) is the only large read, so the bound is device-memory bandwidth;
-// it reaches 8-13% of it, held back by an integer decode per weight from
+// What bounds it on an H100: at M <= 8 the packed weight stream is the only
+// large read, so the bound is device-memory bandwidth; it reaches 4-9% of it
+// at widths 1-7 (chip_smoke.py, H100 80GB HBM3, 700 W: the five 7B shapes at
+// M=8 sum to 0.43 ms at width 1, 0.92 at 3, 1.62 at 7, 2.7-4.7x the few-rows
+// form's planes kernel), held back by an integer decode per weight from
 // shared tables and by fetching a word again for each K row it holds.  Above
 // that the f32 multiply-adds bound it (67 TFLOP/s at most).
 //

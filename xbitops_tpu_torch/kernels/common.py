@@ -43,7 +43,7 @@ APPENDS = ("kv_append", "kv_append_packed", "kv_append_paged", "kv_append_packed
 KERNELS = ("qgemv", "decode_attention", "prefill_attention", "decode_attention_int8", "dequant",
            "qgemv_a8", "qgemv_a8_perchannel", "decode_attention_paged",
            "decode_attention_int8_paged", "prefill_attention_paged", "qgemv_mma",
-           "qgemv_cuda_core") + APPENDS + tuple(n + "_fused" for n in APPENDS)
+           "qgemv_cuda_core", "qgemv_planes") + APPENDS + tuple(n + "_fused" for n in APPENDS)
 launches = dict.fromkeys(KERNELS, 0)
 plain_on_cuda = dict.fromkeys(KERNELS, 0)
 
@@ -69,12 +69,14 @@ _SIGNATURES = {
                      _I, _I, _VP, _VP, _I, _VP],
     "xb_qgemv_word": [_VP, _I, _I, _I, _I, _VP, _I, _VP, _VP, _I, _I, _I, _I, _I, _I, _VP, _VP, _VP,
                       _I, _VP],
+    "xb_qgemv_word_planes": [_VP, _I, _I, _I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP, _I,
+                             _I, _I, _I, _I, _I, _VP, _VP, _VP, _I, _VP],
     "xb_kv_append": [_VP] * 5 + [_I] * 5 + [_VP],
-    "xb_kv_append_packed": [_VP] * 9 + [_I, _I, _I, _I, _VP],
+    "xb_kv_append_packed": [_VP] * 8 + [_I, _VP] + [_I] * 5 + [_VP],
     "xb_decode_attention": [_VP] * 15 + [_I] * 11 + [ctypes.c_float, _VP],
     "xb_prefill_attention": [_VP] * 8 + [_I] * 8 + [ctypes.c_float, _VP],
     "xb_kv_append_paged": [_VP] * 5 + [_I, _VP] + [_I] * 6 + [_VP],
-    "xb_kv_append_packed_paged": [_VP] * 10 + [_I] * 6 + [_VP],
+    "xb_kv_append_packed_paged": [_VP] * 8 + [_I, _VP, _I, _VP] + [_I] * 6 + [_VP],
     "xb_prefill_attention_paged": [_VP] * 9 + [_I] * 10 + [ctypes.c_float, _VP],
     "xb_dequant": [_I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP, _I, _I, _I, _I, _VP, _I, _VP],
     "xb_qgemv_a8": [_VP, _I, _I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP, _I, _I, _I, _I,

@@ -303,14 +303,19 @@ def kv_append_packed(
         req(t.shape == (B, Hkv) and t.device == dev,
             f"new scales must be [{B}, {Hkv}] on the cache's device")
     req(positions.shape == (B,), "positions must be [B]")
-    kq = kq.to(torch.int32).contiguous()
-    vq = vq.to(torch.int32).contiguous()
-    ks = ks.to(torch.bfloat16).contiguous()
-    vs = vs.to(torch.bfloat16).contiguous()
-    pos = positions.to(device=dev, dtype=torch.int32).contiguous()
+    req(D % 4 == 0, f"head_dim {D}: a word row moves in 16-byte pieces")
+    # as they come, where the kernel reads them so (as `_new_row` makes them,
+    # nothing runs on the card before the kernel): int32 values, f32 or bf16
+    # scales (rounded to bf16 inside), int32 or int64 positions
+    kq, vq = (common.kernel_input(t, (torch.int32,), dev) for t in (kq, vq))
+    bf16 = ks.dtype == vs.dtype == torch.bfloat16
+    ks, vs = (t.to(device=dev, dtype=torch.bfloat16 if bf16 else torch.float32).contiguous()
+              for t in (ks, vs))
+    pos = positions.to(device=dev, dtype=positions.dtype if positions.dtype in (
+        torch.int32, torch.int64) else torch.int64).contiguous()
     head = (k_all[layer].data_ptr(), v_all[layer].data_ptr(), ks_all[layer].data_ptr(),
             vs_all[layer].data_ptr(), kq.data_ptr(), vq.data_ptr(), ks.data_ptr(), vs.data_ptr(),
-            pos.data_ptr())
+            int(not bf16), pos.data_ptr(), int(pos.dtype == torch.int64))
     name = append_name(True, page_table is not None)
     if page_table is None:
         err = common.lib().xb_kv_append_packed(*head, B, Hkv, S // 4, D,

@@ -1,11 +1,13 @@
 """Fused dequantize + matmul ``a[M, K] @ dequant(qt)[K, N]``: the CUDA kernels
 and their plain PyTorch versions.
 
-Three sources replace the Pallas kernel
-``xbitops_tpu/kernels/qgemv_kernel.py:_kernel``: ``csrc/qgemv_word.cu`` (a few
-rows, every packed word read once), ``csrc/qgemv_mma.cu`` (the tensor-core
-tile for larger M) and ``csrc/qgemv.cu`` (f32 multiply-adds: ``precise`` and
-what the other two do not take); :func:`qgemv_form` chooses.
+Four sources replace the Pallas kernel
+``xbitops_tpu/kernels/qgemv_kernel.py:_kernel``: ``csrc/qgemv_word.cu`` and
+``csrc/qgemv_word_planes.cu`` (a few rows, every packed word read once: the
+paired 4-bit and the 8-bit plane, and widths 1, 2, 3, 5, 6 and 7),
+``csrc/qgemv_mma.cu`` (the tensor-core tile for larger M) and ``csrc/qgemv.cu``
+(f32 multiply-adds: ``precise`` and what the others do not take);
+:func:`qgemv_form` chooses.
 ``csrc/qgemv_a8.cu`` replaces ``_kernel_a8`` and ``_kernel_a8_perchannel``
 (int8 activations, integer products; :func:`a8_route` says how it walks K).
 The note at the top of each source says what bounds it on the card and how the
@@ -59,20 +61,25 @@ SUB = 64  # K rows a sub-chunk of the tensor-core tile (csrc/qgemv_mma.cu KS)
 # fewer partial sums.  gemv, the same sweep (`utils/qgemv_sweep.py --splits`):
 # 2, the blocks an SM holds, wins on every shape (30.2 / 19.8 / 42.8 / 33.1 /
 # 51.6 us against 36.7 / 19.9 / 60.7 / 33.8 / 64.6 at 1 and 34.3 / 19.8 / 48.2
-# / 40.6 / 54.2 at 4).  mma at M=32 and 256: 1, 2, 4 and 8 read within 10% of
-# each other; 2 is the blocks an SM holds.
+# / 40.6 / 54.2 at 4); its planes kernel at widths 1-7 on the five shapes
+# (`--widths --splits`): 2 sums to 1.448 ms against 1.498 / 1.460 / 1.482 at
+# 1 / 4 / 8.  mma at M=32 and 256: 1, 2, 4 and 8 read within 10% of each
+# other; 2 is the blocks an SM holds.
 BLOCKS_PER_SM = {"cuda_core": 4, "gemv": 2, "mma": 2, "a8": 2}
 # The largest M the few-rows form takes (its tile holds 16 activation rows),
 # and the smallest the tensor-core tile takes on layouts the few-rows form
 # does not decode.  `utils/qgemv_sweep.py`, same card: at M=16 the few-rows
 # form takes 0.049 / 0.030 / 0.066 / 0.055 / 0.081 ms at the five 7B shapes
 # and the tile 0.086 / 0.033 / 0.154 / 0.090 / 0.189; a 3-bit 4096x4096 weight
-# at M=8 takes 0.052 ms on the CUDA cores and 0.112 on the tile, at M=32 0.168
-# and 0.112.
+# (`chip_smoke.py`) takes 0.0198 ms at M=8 and 0.0246 at M=16 on the few-rows
+# form's planes kernel, 0.0515 and 0.1601 on the CUDA cores; the tile took
+# 0.112 ms at M=8 and at M=32.
 GEMV_MAX_M = 16
 MMA_MIN_M = 9
-# The launch counter of each form (`common.launches`).
+# The launch counter of each form (`common.launches`); the few-rows form
+# counts its planes kernel apart (`counter`).
 COUNTER = {"gemv": "qgemv", "mma": "qgemv_mma", "cuda_core": "qgemv_cuda_core"}
+RUN = 16  # K rows a run of the planes kernel's walk (csrc/qgemv_word_planes.cu kRun)
 
 
 @functools.lru_cache(maxsize=None)
@@ -104,15 +111,52 @@ def _g_tile(qt: QTensor) -> int:
     return qt.tile_k // qt.groups_per_tile
 
 
-def word_layout(qt: QTensor) -> bool:
-    """Whether the few-rows form decodes ``qt``: one plane, paired 4-bit or
-    8-bit, K-tiles of whole slabs (16 word rows) and scale groups that do not
-    cut a slab's run of 32 (8-bit: 16) consecutive K rows."""
+def _word_bytes(qt: QTensor) -> bool:
+    """Whether ``csrc/qgemv_word.cu`` decodes ``qt``: one plane, paired 4-bit
+    or 8-bit, K-tiles of whole slabs (16 word rows) and scale groups that do
+    not cut a slab's run of 32 (8-bit: 16) consecutive K rows."""
     if len(qt.planes) != 1:
         return False
     if qt.bits == 4 and qt.paired:
         return qt.tile_k % 128 == 0 and _g_tile(qt) % 32 == 0
     return qt.bits == 8 and qt.tile_k % 64 == 0 and _g_tile(qt) % 16 == 0
+
+
+def planes_runs(qt: QTensor) -> int:
+    """F, the runs of a unit of the planes kernel: the fields of a word of
+    the narrowest plane (32 at widths 1, 3, 5 and 7; 16 at 2 and 6)."""
+    return 32 // min(qt.plane_bits)
+
+
+def word_planes(qt: QTensor) -> bool:
+    """Whether ``csrc/qgemv_word_planes.cu`` decodes ``qt``: widths 1, 2, 3,
+    5, 6 and 7 (slot planes of 1 and 2 bits, and a 4-bit plane only paired);
+    fp16 scales (the default store) and N a multiple of 8, which it stages
+    in 16-byte copies; K-tiles of whole units (16 word rows of the narrowest
+    plane, runs of 16 K rows ``tile_k / F`` apart) and scale groups of whole
+    runs.  Default packed storage at any group that is a multiple of 16
+    meets this."""
+    pbs = qt.plane_bits
+    if max(pbs) > 4 or (4 in pbs and not qt.paired) or (len(pbs) == 1 and qt.paired):
+        return False
+    if qt.scales.dtype != torch.float16 or qt.N % 8:
+        return False
+    g = _g_tile(qt)
+    return qt.tile_k % (RUN * planes_runs(qt)) == 0 and qt.tile_k % g == 0 and g % RUN == 0
+
+
+def word_layout(qt: QTensor) -> bool:
+    """Whether the few-rows form decodes ``qt``: one of its two kernels,
+    ``csrc/qgemv_word.cu`` (:func:`_word_bytes`) or the planes kernel
+    (:func:`word_planes`), which take disjoint layouts, reads every word
+    whole."""
+    return _word_bytes(qt) or word_planes(qt)
+
+
+def counter(form: str, qt: QTensor) -> str:
+    """The launch counter of ``form`` on ``qt``: the few-rows form's planes
+    kernel counts as ``qgemv_planes``."""
+    return "qgemv_planes" if form == "gemv" and word_planes(qt) else COUNTER[form]
 
 
 def mma_whole_words(qt: QTensor) -> bool:
@@ -127,11 +171,17 @@ def qgemv_form(M: int, precise: bool, qt: QTensor) -> str:
     """Which kernel multiplies ``a[M, K]`` with ``qt``:
 
     - ``"gemv"``: a few rows (``M <= GEMV_MAX_M``) on a layout whose words it
-      reads whole (:func:`word_layout`), bf16 activations, tensor cores;
+      reads whole (:func:`word_layout`: every width at default packed storage,
+      fp16 scales and groups of a multiple of 16 rows), bf16 activations,
+      tensor cores;
     - ``"mma"``: the tensor-core tile, bf16 activations, any width;
     - ``"cuda_core"``: f32 multiply-adds: ``precise`` (bf16 products cannot
-      hold rel 1e-5), other layouts at ``M < MMA_MIN_M``, and scale groups
-      that are not a multiple of 8 rows (the tile's 16-byte copies)."""
+      hold rel 1e-5), and at ``M < MMA_MIN_M`` the layouts the few-rows form
+      turns away: scale groups that cut a run of 16 K rows (not a multiple of
+      16; 4-bit alone then keeps the slot layout), K-tiles that are not whole
+      units, f32 scales or N not a multiple of 8 at widths 1-3 and 5-7; and
+      scale groups that are not a multiple of 8 rows (the tile's 16-byte
+      copies) at any M."""
     if precise:
         return "cuda_core"
     if M <= GEMV_MAX_M and word_layout(qt):
@@ -203,6 +253,8 @@ def _units(form: str, qt: QTensor):
         return (qt.K // g) * cpg, (1 if one else cpg)
     if form == "cuda_core":
         return -(-qt.K // CHUNK), 1
+    if form == "gemv" and word_planes(qt):
+        return qt.K // (RUN * planes_runs(qt)), 1
     if form == "gemv":
         # four slabs fold together where a scale group holds their rows: the
         # splits then start on a stage (csrc/qgemv_word.cu LAZY)
@@ -299,10 +351,15 @@ def qmatmul_kernel(
         err = common.lib().xb_qgemv_mma(a.data_ptr(), M, K, Ka, N, *qargs, splits, per, *tail)
     else:
         counters = _split_counters(a, -(-N // 256)) if splits > 1 else None
-        err = common.lib().xb_qgemv_word(
-            a.data_ptr(), M, K, Ka, N, qargs[0], qt.bits, *qargs[7:], splits, per, tail[0],
-            None if counters is None else counters.data_ptr(), *tail[1:])
-    name = COUNTER[form]
+        cptr = None if counters is None else counters.data_ptr()
+        if word_planes(qt):
+            err = common.lib().xb_qgemv_word_planes(
+                a.data_ptr(), M, K, Ka, N, *qargs, splits, per, tail[0], cptr, *tail[1:])
+        else:
+            err = common.lib().xb_qgemv_word(
+                a.data_ptr(), M, K, Ka, N, qargs[0], qt.bits, *qargs[7:], splits, per, tail[0],
+                cptr, *tail[1:])
+    name = counter(form, qt)
     common.check(err, name)
     common.launches[name] += 1
     return out

@@ -1,7 +1,7 @@
 """Where a forward's time goes on the card: kernel time by name, launches,
 host ops and the device's busy share, from ``torch.profiler``.
 
-    python3 -m xbitops_tpu_torch.utils.profiling
+    python3 -m xbitops_tpu_torch.utils.profiling [--bits B]
 
 profiles, on a random 4-bit Llama-2-7B at full width and depth with 8 slots
 (S=2048): one decode step over the bf16 cache, one over the paged bf16 cache
@@ -9,8 +9,10 @@ profiles, on a random 4-bit Llama-2-7B at full width and depth with 8 slots
 cache, all slots at 1000 live positions, and one chunk forward of chunked admission
 (5 rows of 512 tokens at positions 512-1023, int8 cache) with bf16
 activations, with int8 activations (``prefill_a8``) and with int8 activations
-on the 8-bit per-channel requantization of the blocks.  It needs one CUDA
-device and prints one JSON object per case.
+on the 8-bit per-channel requantization of the blocks.  With ``--bits B``
+(another width, default packed storage, g=128) it profiles the decode step
+over the bf16 cache alone.  It needs one CUDA device and prints one JSON
+object per case.
 """
 
 from __future__ import annotations
@@ -79,12 +81,14 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0], flush=True)
     cfg = llama.LlamaConfig.llama2_7b()
-    model = synth.random_llama_params(cfg, bits=4, group_size=128, device=dev, seed=0)
+    bits = int(sys.argv[sys.argv.index("--bits") + 1]) if "--bits" in sys.argv else 4
+    model = synth.random_llama_params(cfg, bits=bits, group_size=128, device=dev, seed=0)
     gen = torch.Generator(device=dev).manual_seed(0)
     slots, live = 8, 1000
     tok = torch.randint(0, cfg.vocab_size, (slots,), generator=gen, device=dev)
     with torch.no_grad():
-        for quantized, paged in ((False, False), (False, True), (True, False)):
+        cases = ((False, False), (False, True), (True, False)) if bits == 4 else ((False, False),)
+        for quantized, paged in cases:
             if paged:
                 pages = cfg.max_seq_len // 256
                 cache = llama.KVCache.init_paged(cfg, slots, slots * pages, 256, device=dev)
@@ -99,8 +103,8 @@ def main() -> int:
 
             res = profile(step)
             kind = ("paged " if paged else "") + ("int8" if quantized else "bf16")
-            print(json.dumps(dict(case=f"decode step, {kind} cache, B={slots}, live={live}",
-                                  **res)), flush=True)
+            print(json.dumps(dict(case=f"decode step, {bits}-bit, {kind} cache, B={slots}, "
+                                       f"live={live}", **res)), flush=True)
             if quantized:
                 n, chunk = 5, 512
                 tokens = torch.randint(0, cfg.vocab_size, (n, chunk), generator=gen, device=dev)

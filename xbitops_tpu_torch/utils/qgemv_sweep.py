@@ -2,7 +2,7 @@
 card, to set the routing constants of ``kernels/qgemv_kernel.py``
 (``GEMV_MAX_M``, ``MMA_MIN_M``, ``BLOCKS_PER_SM``).
 
-    python3 -m xbitops_tpu_torch.utils.qgemv_sweep [--splits | --a8 [--a8-splits]]
+    python3 -m xbitops_tpu_torch.utils.qgemv_sweep [--splits | --widths | --a8 [--a8-splits]]
 
 For the five Llama-2-7B projection shapes (4-bit, g=128) and M in 1, 8, 9,
 16, 32, 64, 128, 256, 2560 it prints one JSON line per (shape, M) with the
@@ -16,8 +16,13 @@ the split-K target of the few-rows form and of the tile (blocks per SM 1, 2,
 and per channel (8-bit), at M=256 and 2560 on the five shapes, beside the
 bf16 tile and ``torch._int_mm`` on int8 operands of the same shape (the card's
 own int8 GEMM, which reads no packed plane: for information); ``--a8-splits``
-adds its split-K target (blocks per SM 1, 2, 4, 8) at M=256.  It needs one
-CUDA device.
+adds its split-K target (blocks per SM 1, 2, 4, 8) at M=256.  With
+``--widths`` it times widths 1, 2, 3, 5, 6 and 7 at default (packed) storage,
+g=128, on the five shapes at M = 1, 8 and 16: the routed form (the few-rows
+form's planes kernel) beside the CUDA-core form, with the packed stream's
+GB/s and the bound (bytes read and written once over 3.35 TB/s); with
+``--widths --splits`` the planes kernel's split-K target (blocks per SM 1, 2,
+4, 8) at M=8 instead.  It needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -81,6 +86,8 @@ def main() -> int:
 
     if "--a8" in sys.argv[1:]:
         return a8_rows(qk, synth, gen, dev, flush, shapes)
+    if "--widths" in sys.argv[1:]:
+        return width_rows(qk, synth, gen, dev, flush, shapes)
     if "--splits" not in sys.argv[1:]:
         for name, (K, N) in shapes.items():
             qt = synth.random_qtensor(gen, K, N, 4, 128)
@@ -105,6 +112,40 @@ def main() -> int:
         qt = synth.random_qtensor(gen, 4096, 4096, bits, 128)
         for M in (8, 32, 256):
             row(f"{bits}-bit wo", qt, M, forms_of(M, qt))
+    return 0
+
+
+def width_rows(qk, synth, gen, dev, flush, shapes) -> int:
+    splits = "--splits" in sys.argv[1:]
+    default = dict(qk.BLOCKS_PER_SM)
+    for bits in (1, 2, 3, 5, 6, 7):
+        for name, (K, N) in shapes.items():
+            qt = synth.random_qtensor(gen, K, N, bits, 128)
+            for M in ((8,) if splits else (1, 8, 16)):
+                a = torch.randn(M, K, device=dev, generator=gen).to(torch.bfloat16)
+                form = qk.qgemv_form(M, False, qt)
+                row = dict(bits=bits, case=name, K=qt.K, N=N, M=M, routed=form,
+                           counter=qk.counter(form, qt), units=qk._units(form, qt)[0])
+                if splits:
+                    ms = {}
+                    for per_sm in (1, 2, 4, 8):
+                        qk.BLOCKS_PER_SM["gemv"] = per_sm
+                        ms[per_sm] = round(timed(lambda: qk.qmatmul_kernel(a, qt), flush), 5)
+                    qk.BLOCKS_PER_SM.update(default)
+                    row["ms_by_blocks_per_sm"] = ms
+                    print(json.dumps(row), flush=True)
+                    continue
+                moved = qt.bytes_packed() + a.numel() * 2 + M * N * 2
+                row["ms"] = round(timed(lambda: qk.qmatmul_kernel(a, qt), flush), 5)
+                a_pad = torch.nn.functional.pad(a, (0, qt.K - K))
+                row["cuda_core_ms"] = round(timed(
+                    lambda: qk.qmatmul_kernel(a_pad, qt, form="cuda_core"), flush), 5)
+                row["packed_GBs"] = round(qt.bytes_packed() / row["ms"] / 1e6, 1)
+                row["bound_ms"] = round(1e3 * moved / 3.35e12, 5)
+                row["share_of_bound"] = round(row["bound_ms"] / row["ms"], 3)
+                row["x_cuda_core"] = round(row["cuda_core_ms"] / row["ms"], 2)
+                print(json.dumps(row), flush=True)
+            del qt
     return 0
 
 
