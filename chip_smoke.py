@@ -73,6 +73,28 @@
    planes kernel 129 times (every projection and lm_head); then the logits
    of a 2-layer cut's decode step against the plain path (rel 2e-2).
 
+8. Drives the entry points a user starts, on the same 4-bit model: (a) a
+   ``ServingEndpoint`` in front of the full-depth engine (bf16 cache, 8
+   slots, bursts of 8) answers 8 concurrent HTTP clients (prompts of 16-500
+   tokens, 32 new tokens each) with the tokens ``Engine.generate`` gives for
+   the same requests; (b) the same engine with ``max_restarts=1`` and a
+   ``torch.AcceleratorError`` injected before its third burst: one restart,
+   the graph captured again, the tokens emitted before the error equal the
+   clean run's, and any later token that parts from it parts at a near-tie
+   (the recomputed top two logits are the two runs' tokens); (c) a random
+   AutoGPTQ checkpoint at Llama-2-7B widths cut to 2 layers goes through
+   ``cli.main(["convert", ...])`` and ``["generate", ...]``, whose printed
+   tokens equal a direct ``load_autogptq`` and ``Engine``; (d)
+   ``cli.main(["bench"])``.
+
+In every serving phase each decode burst is a replay of a CUDA graph the
+engine captured (``loop_stats["graph_replays"]`` equals the bursts run); in
+phases 2, 3, 5 and 7 the same requests run again with the bursts eager (the
+engine's private ``_eager``): greedy tokens must be equal, and an eager
+burst's launches equal what a replay counts.  Host ms/step and tokens/s of
+both, the device time of a replayed step (CUDA events around each replay)
+and the capture time are printed.
+
 Any failed check raises, so the exit code is not 0.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it lists the kernels.
 Needs one CUDA device; without one it exits 2 and prints no result.
@@ -81,6 +103,7 @@ Needs one CUDA device; without one it exits 2 and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -1064,6 +1087,65 @@ def two_layer_cut(model):
     return model.with_config(dataclasses.replace(model.cfg, num_layers=2))
 
 
+def graph_rates(eng, label):
+    """Check that every decode burst of the engine's last run was a replay of
+    a captured CUDA graph, and return that run's rates: host ms/step and
+    tokens/s, device ms a step (CUDA events around each replay, over the
+    burst), the captures and their time."""
+    st = dict(eng.loop_stats)
+    bursts = st["decode_steps"] / eng.decode_burst
+    check(st["graph_replays"] == bursts > 0,
+          f"{label}: {st['graph_replays']:.0f} graph replays for {bursts:.0f} decode bursts")
+    return dict(ms_step=1e3 * st["decode"] / st["decode_steps"],
+                tok_s=st["decode_tokens"] / st["decode"],
+                device_ms_step=1e3 * st["graph_device"] / st["decode_steps"],
+                captures=st["graph_captures"], capture_s=st["graph_capture"],
+                replays=st["graph_replays"])
+
+
+def against_eager(eng, reqs, out, label):
+    """The engine's run that gave ``out`` was all graph replays: run the same
+    requests again with the bursts eager (the engine's private ``_eager``)
+    and require equal tokens for every greedy request, then one eager burst
+    (all slots inactive: it writes nothing) whose launches must equal what
+    each captured graph counts a replay.  Returns the graph run's rates and
+    the eager run's."""
+    from xbitops_tpu_torch.kernels import common
+
+    rates = graph_rates(eng, label)
+    eng._eager = True
+    try:
+        eager_out = eng.generate(reqs)
+        st = dict(eng.loop_stats)
+        eng._act_in.zero_()
+        common.reset_counts()
+        eng._burst(greedy=True)
+        torch.cuda.synchronize()
+    finally:
+        eng._eager = False
+    per_burst = {k: n for k, n in common.launches.items() if n}
+    check(st.get("graph_replays", 0) == 0, f"{label}: the eager run replayed a graph")
+    greedy = [i for i, r in enumerate(reqs) if r.temperature <= 0]
+    parted = [out[i].id for i in greedy if out[i].tokens != eager_out[i].tokens]
+    check(not parted, f"{label}: graph and eager greedy tokens differ in requests {parted}")
+    for greedy_prog, prog in eng._programs.items():
+        check(prog.launches == per_burst, f"{label}: a replay of the "
+              f"{'greedy' if greedy_prog else 'sampled'} graph counts {prog.launches}, an eager "
+              f"burst launches {per_burst}")
+    rates.update(eager_ms_step=1e3 * st["decode"] / st["decode_steps"],
+                 eager_tok_s=st["decode_tokens"] / st["decode"],
+                 launches_per_replay=sum(per_burst.values()))
+    same = sum(a == b for c, d in zip(out, eager_out) for a, b in zip(c.tokens, d.tokens))
+    print(f"{label}: decode through graphs {rates['ms_step']:.2f} ms/step, {rates['tok_s']:.1f} "
+          f"tokens/s (device {rates['device_ms_step']:.3f} ms a replayed step; "
+          f"{rates['captures']:.0f} captures in {rates['capture_s']:.2f} s, "
+          f"{rates['replays']:.0f} replays of {rates['launches_per_replay']} launches each); "
+          f"eager bursts {rates['eager_ms_step']:.2f} ms/step, {rates['eager_tok_s']:.1f} "
+          f"tokens/s; greedy tokens equal in all {len(greedy)} greedy requests ({same} of "
+          f"{sum(len(c.tokens) for c in out)} tokens equal, sampled included)", flush=True)
+    return rates
+
+
 def phase_serving(dev, model):
     from xbitops_tpu_torch.engine import Engine, Request
     from xbitops_tpu_torch.kernels import common
@@ -1091,12 +1173,13 @@ def phase_serving(dev, model):
     for name in BF16_PATH:
         check(launches[name] > 0, f"kernel {name} was not launched on the serving path")
     check(not any(plain.values()), f"plain versions ran on the card: {plain}")
-    st = eng.loop_stats
+    st = dict(eng.loop_stats)
     ms_step = 1e3 * st["decode"] / st["decode_steps"]
     tok_s = st["decode_tokens"] / st["decode"]
     print(f"serving (bf16 cache): 12 requests, 8 slots, burst 8, {wall:.2f} s wall; prefill "
           f"{st['admit_prefill']:.2f} s; decode {st['decode_steps']:.0f} steps "
           f"{ms_step:.2f} ms/step, {tok_s:.1f} tokens/s; launches {launches}", flush=True)
+    graphs = against_eager(eng, reqs, out, "serving (bf16 cache)")
 
     # One decode step through the kernels against the plain path, on clones
     # of the engine's cache.  Each op agrees to f32 rounding (~5e-7) before
@@ -1126,7 +1209,7 @@ def phase_serving(dev, model):
           f"plain: worst rel err {layer_errs[worst]:.2e} (block {worst})", flush=True)
     check(layer_errs[worst] <= 2e-2, f"block {worst}: rel err {layer_errs[worst]:.3e} > 2e-2")
     return launches, dict(ms_step=ms_step, tok_s=tok_s, admit_s=st["admit_prefill"],
-                          admit_rows=st["admit_rows"])
+                          admit_rows=st["admit_rows"], graphs=graphs)
 
 
 def phase_long_context(dev, model):
@@ -1161,7 +1244,7 @@ def phase_long_context(dev, model):
         check(launches[name] > 0, f"kernel {name} was not launched on the long-context path")
     check(not any(plain.values()), f"plain versions ran on the card: {plain}")
     check(eng.cache.lengths.tolist() == [n + 16 for n in lengths], "cache lengths")
-    st = eng.loop_stats
+    st = dict(eng.loop_stats)
     check(st["chunks"] == 3, f"{st['chunks']} chunk forwards, want 3")
     ms_step = 1e3 * st["decode"] / st["decode_steps"]
     tok_s = st["decode_tokens"] / st["decode"]
@@ -1170,6 +1253,7 @@ def phase_long_context(dev, model):
           f"{st['admit_prefill_chunks']:.2f} s in {st['chunks']:.0f} chunk forwards, bucketed "
           f"prefill {st['admit_prefill']:.2f} s; decode {st['decode_steps']:.0f} steps "
           f"{ms_step:.2f} ms/step, {tok_s:.1f} tokens/s; launches {launches}", flush=True)
+    graphs = against_eager(eng, reqs, out, "long-context serving (int8 cache)")
     del eng
     torch.cuda.empty_cache()
 
@@ -1231,7 +1315,7 @@ def phase_long_context(dev, model):
         gate = 1e-1 if quantized else 2e-2
         check(e_bucket <= gate, f"bucketed vs chunked logits rel err {e_bucket:.3e} > {gate}")
     return launches, dict(ms_step=ms_step, tok_s=tok_s, chunks=st["chunks"],
-                          chunk_s=st["admit_prefill_chunks"])
+                          chunk_s=st["admit_prefill_chunks"], graphs=graphs)
 
 
 def phase_w4a8(dev, model):
@@ -1264,6 +1348,7 @@ def phase_w4a8(dev, model):
             check(c.prompt_len == len(r.prompt), f"{label} request {c.id}: prompt_len")
             check(all(0 <= t < cfg8.vocab_size for t in c.tokens), f"{label} request {c.id}: range")
         check(eng.cache.lengths.tolist() == [n + new for n in lengths], f"{label}: cache lengths")
+        graph_rates(eng, label)
         st = eng.loop_stats
         check(st["chunks"] == 3, f"{label}: {st['chunks']} chunk forwards, want 3")
         rows, secs = st["admit_rows"] + st["chunk_rows"], st["admit_prefill"] + st["admit_prefill_chunks"]
@@ -1355,14 +1440,15 @@ PAGED_INT8_PATH = ("qgemv", "qgemv_mma", "kv_append_packed_paged_fused",
                    "decode_attention_int8_paged", "prefill_attention_paged")
 
 
-def first_splits(model, batch, out, lin_out, kind, quantized):
-    """Where the paged and the linear engine's greedy tokens part, a request
+def first_splits(model, batch, out, lin_out, kind, quantized, names=("paged", "linear")):
+    """Where two runs' greedy tokens part (``names``: the paged and the linear
+    engine's, unless given), a request
     at a time: the index of the first token that differs and, from a third
     computation of that step's logits (the prompt and the tokens both engines
     agreed on, admitted in chunks of 512 into a linear cache, all such
     requests as one batch), the two largest logits.  A near-tie shows as a gap
     far below the logits' scale with the two engines' tokens as the top two.
-    Printed, not gated."""
+    Printed; phase 8 gates a restart's splits on it."""
     from xbitops_tpu_torch.models import llama
 
     dev, rows = model.device, []
@@ -1371,7 +1457,7 @@ def first_splits(model, batch, out, lin_out, kind, quantized):
         if i is not None:
             rows.append((c.id, i, list(r.prompt) + c.tokens[:i], c.tokens[i], d.tokens[i]))
     if not rows:
-        print(f"paged {kind}: every token equals the linear engine's", flush=True)
+        print(f"{names[0]} {kind}: every token equals the {names[1]} run's", flush=True)
         return []
     n, C = len(rows), 512
     cache = llama.KVCache.init(model.cfg, n, dev, quantized=quantized)
@@ -1399,9 +1485,9 @@ def first_splits(model, batch, out, lin_out, kind, quantized):
         found.append(dict(request=rid, index=i, context=len(ctx), paged=tp, linear=tl, top2=ix,
                           gap=v[0] - v[1], gap_rel=(v[0] - v[1]) / scale,
                           top2_are_the_two=sorted(ix) == sorted((tp, tl))))
-        print(f"paged {kind} request {rid}: tokens part at index {i} (context {len(ctx)}): paged "
-              f"{tp}, linear {tl}; recomputed top two {ix} with logits {v[0]:.4f}, {v[1]:.4f}: gap "
-              f"{v[0] - v[1]:.4f}, {(v[0] - v[1]) / scale:.2e} of the largest |logit| "
+        print(f"{names[0]} {kind} request {rid}: tokens part at index {i} (context {len(ctx)}): "
+              f"{names[0]} {tp}, {names[1]} {tl}; recomputed top two {ix} with logits "
+              f"{v[0]:.4f}, {v[1]:.4f}: gap {v[0] - v[1]:.4f}, {(v[0] - v[1]) / scale:.2e} of the largest |logit| "
               f"{scale:.3f}; the top two are the engines' two tokens: "
               f"{found[-1]['top2_are_the_two']}", flush=True)
     del cache
@@ -1459,6 +1545,9 @@ def phase_paged(dev, model):
         check(not any(plain.values()), f"paged {kind}: plain versions ran on the card: {plain}")
         st = dict(eng.loop_stats)
         check(st["admission_waits"] > 0, f"paged {kind}: no admission waited for pages")
+        graphs = against_eager(eng, batch, out, f"paged serving ({kind} pool)")
+        check(sorted(eng._free_pages) == list(range(pool_pages)),
+              f"paged {kind}: pages are still held after the eager run")
         del eng
         torch.cuda.empty_cache()
 
@@ -1466,6 +1555,7 @@ def phase_paged(dev, model):
         lin_eng = Engine(model, cfg, kv_quant=kv_quant, **kw)
         lin_out = lin_eng.generate(batch)
         lst = dict(lin_eng.loop_stats)
+        graph_rates(lin_eng, f"linear serving ({kind} cache)")
         del lin_eng
         torch.cuda.empty_cache()
         same = sum(a == b for c, d in zip(out, lin_out) for a, b in zip(c.tokens, d.tokens))
@@ -1497,6 +1587,7 @@ def phase_paged(dev, model):
                      **kw)
         full_out = eng.generate(batch)
         waits = eng.loop_stats.get("admission_waits", 0)
+        graph_rates(eng, f"paged serving ({kind} pool of {full} pages)")
         del eng
         torch.cuda.empty_cache()
         same_full = sum(a == b for c, d in zip(full_out, lin_out)
@@ -1506,7 +1597,7 @@ def phase_paged(dev, model):
               f"{total}", flush=True)
         out_launches[kind] = launches
         stats[kind] = dict(paged=pg, linear=ln, equal_tokens=same, tokens=total, splits=splits,
-                           equal_tokens_full_pool=same_full)
+                           equal_tokens_full_pool=same_full, graphs=graphs)
 
     # Deferral: a pool of 4 pages.  The prompt of 250 takes one page and the
     # one of 700 three, so the pool is full at admission; the first needs its
@@ -1522,6 +1613,7 @@ def phase_paged(dev, model):
         launches, plain = dict(common.launches), dict(common.plain_on_cuda)
         st = dict(eng.loop_stats)
         check(st.get("deferred_slot_steps", 0) > 0, f"paged {kind}, pool of 4: no slot deferred")
+        graph_rates(eng, f"paged serving ({kind} pool of 4 pages)")
         check(all(len(c.tokens) == r.max_new_tokens and c.finish_reason == "length"
                   for c, r in zip(out, pair)), f"paged {kind}, pool of 4: a request was cut")
         check(sorted(eng._free_pages) == list(range(4))
@@ -1638,6 +1730,7 @@ def phase_eager_decode(dev, model):
               f"eager decode, {kind}: a request was cut")
         check(launches[EAGER_APPENDS[kind]] > 0,
               f"eager decode, {kind}: {EAGER_APPENDS[kind]} was not launched")
+        graph_rates(eng, f"eager decode, {kind}")  # the eager attention, replayed from a graph
         attn = {n: v for n, v in launches.items() if n.startswith("decode_attention") and v}
         check(not attn, f"eager decode, {kind}: the decode-attention kernel ran: {attn}")
         check(not any(plain.values()), f"eager decode, {kind}: plain versions ran: {plain}")
@@ -1726,9 +1819,10 @@ def phase_three_bit(dev, cfg):
     check(launches["qgemv_planes"] > 0 and launches["qgemv_cuda_core"] == 0
           and not any(plain.values()),
           f"3-bit serving: launches {launches}, plain versions on the card {plain}")
-    st = eng.loop_stats
+    st = dict(eng.loop_stats)
     ms_step = 1e3 * st["decode"] / st["decode_steps"]
     tok_s = st["decode_tokens"] / st["decode"]
+    graphs = against_eager(eng, reqs, out, "3-bit serving (bf16 cache)")
 
     # one decode step alone: every projection on the planes kernel
     tokens = torch.tensor([c.tokens[-1] for c in out] + [0] * (8 - len(out)), device=dev)
@@ -1756,7 +1850,220 @@ def phase_three_bit(dev, cfg):
           f"{ {k: v for k, v in launches.items() if v} }", flush=True)
     del eng, model, cut, a, b
     torch.cuda.empty_cache()
-    return launches, dict(ms_step=ms_step, tok_s=tok_s)
+    return launches, dict(ms_step=ms_step, tok_s=tok_s, graphs=graphs)
+
+
+def write_autogptq(path, cfg, layers: int, rng) -> None:
+    """A random AutoGPTQ checkpoint (4-bit, g=128, "gptq" format: zero - 1
+    stored, trivial g_idx) at ``cfg``'s widths with ``layers`` layers: the
+    projections' qweight, qzeros, scales and g_idx, fp16 embedding, norms and
+    a dense fp16 lm_head, as AutoGPTQ leaves it."""
+    import json as _json
+    from pathlib import Path
+
+    from safetensors import numpy as st_np
+
+    h, ffn, g = cfg.hidden_size, cfg.intermediate_size, 128
+    qdim, kvdim = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    tensors = {}
+    for i in range(layers):
+        pre = f"model.layers.{i}"
+        for name, k, n in (("self_attn.q_proj", h, qdim), ("self_attn.k_proj", h, kvdim),
+                           ("self_attn.v_proj", h, kvdim), ("self_attn.o_proj", qdim, h),
+                           ("mlp.gate_proj", h, ffn), ("mlp.up_proj", h, ffn),
+                           ("mlp.down_proj", ffn, h)):
+            # |q - z| <= 8 with q in 0..15 around z = 8: scales of k^-0.5 / 4.6
+            # give the weights a spread of about k^-0.5
+            scale = k ** -0.5 / 4.6
+            tensors[f"{pre}.{name}.qweight"] = rng.integers(
+                0, 2**32, (k // 8, n), dtype=np.uint32).view(np.int32)
+            tensors[f"{pre}.{name}.qzeros"] = np.full((k // g, n // 8), 0x77777777, np.int32)
+            tensors[f"{pre}.{name}.scales"] = rng.uniform(
+                0.8 * scale, 1.2 * scale, (k // g, n)).astype(np.float16)
+            tensors[f"{pre}.{name}.g_idx"] = (np.arange(k) // g).astype(np.int32)
+        tensors[f"{pre}.input_layernorm.weight"] = np.ones(h, np.float16)
+        tensors[f"{pre}.post_attention_layernorm.weight"] = np.ones(h, np.float16)
+    tensors["model.embed_tokens.weight"] = (
+        rng.standard_normal((cfg.vocab_size, h), dtype=np.float32) * 0.02).astype(np.float16)
+    tensors["model.norm.weight"] = np.ones(h, np.float16)
+    tensors["lm_head.weight"] = (
+        rng.standard_normal((cfg.vocab_size, h), dtype=np.float32) * h ** -0.5).astype(np.float16)
+    p = Path(path)
+    st_np.save_file(tensors, str(p / "model.safetensors"))
+    (p / "config.json").write_text(_json.dumps(dict(
+        model_type="llama", vocab_size=cfg.vocab_size, hidden_size=h, intermediate_size=ffn,
+        num_hidden_layers=layers, num_attention_heads=cfg.num_heads,
+        num_key_value_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+        rms_norm_eps=cfg.rms_eps, max_position_embeddings=4096)))
+    (p / "quantize_config.json").write_text(_json.dumps(dict(bits=4, group_size=g,
+                                                              desc_act=False)))
+
+
+def phase_entry_points(dev, model):
+    """The entry points a user starts: (a) the HTTP endpoint in front of the
+    full-depth engine (bf16 cache, 8 slots, bursts of 8) answers 8 concurrent
+    clients, whose tokens must equal ``Engine.generate``'s on the same
+    requests; (b) the same engine with ``max_restarts=1`` and a device error
+    injected before its third burst; (c) a random AutoGPTQ checkpoint at 7B
+    widths, cut to 2 layers, through ``cli.main(["convert", ...])`` and
+    ``["generate", ...]``, whose tokens must equal a direct ``load_autogptq``
+    and ``Engine``; (d) ``cli.main(["bench"])``."""
+    import contextlib
+    import io
+    import re
+    import tempfile
+    import threading
+    import urllib.request
+    from pathlib import Path
+
+    from xbitops_tpu_torch import cli
+    from xbitops_tpu_torch.engine import Engine, Request
+    from xbitops_tpu_torch.engine.server import ServingEndpoint
+    from xbitops_tpu_torch.io import load_autogptq
+    from xbitops_tpu_torch.kernels import common
+
+    cfg = model.cfg
+    rng = np.random.default_rng(SEED + 8)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in np.linspace(16, 500, 8).astype(int)]
+    new = 32
+    eng = Engine(model, cfg, slots=8, decode_burst=8, kv_quant=False, seed=SEED)
+    # one wave: the worker waits for 8 requests (its slots) or 5 s
+    ep = ServingEndpoint(eng, port=0, batch_window_s=5.0)
+    ep.start()
+    results = [None] * len(prompts)
+
+    def client(i):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{ep.port}/v1/completions",
+            data=json.dumps({"prompt": prompts[i], "max_tokens": new}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as r:
+            results[i] = (r.status, json.loads(r.read()))
+
+    common.reset_counts()
+    t0 = time.perf_counter()
+    threads = []
+    for i in range(len(prompts)):  # in order, so the wave's slots follow the clients
+        threads.append(threading.Thread(target=client, args=(i,)))
+        threads[-1].start()
+        time.sleep(0.05)
+    for th in threads:
+        th.join()
+    wall = time.perf_counter() - t0
+    launches_a, plain = dict(common.launches), dict(common.plain_on_cuda)
+    served = graph_rates(eng, "HTTP serving")
+    ep.shutdown()
+    check(all(r is not None and r[0] == 200 for r in results), f"HTTP answers: {results}")
+    http = [r[1]["choices"][0]["tokens"] for r in results]
+    for r, p in zip(results, prompts):
+        check(r[1]["usage"] == dict(prompt_tokens=len(p), completion_tokens=new,
+                                    total_tokens=len(p) + new), f"HTTP usage {r[1]['usage']}")
+    for name in BF16_PATH:
+        check(launches_a[name] > 0, f"kernel {name} was not launched behind the HTTP endpoint")
+    check(not any(plain.values()), f"HTTP serving: plain versions ran on the card: {plain}")
+    reqs = [Request(prompt=p, max_new_tokens=new) for p in prompts]
+    clean = eng.generate(reqs)
+    check([c.tokens for c in clean] == http,
+          "HTTP tokens differ from Engine.generate's on the same requests")
+    print(f"HTTP serving: 8 concurrent clients, prompts {len(prompts[0])}-{len(prompts[-1])} "
+          f"tokens, {new} tokens each, {wall:.2f} s from the first request to the last answer "
+          f"({8 * new / wall:.1f} tokens/s over HTTP; the engine's first wave, so the graph's "
+          f"capture, {served['capture_s']:.2f} s, is in it); decode {served['ms_step']:.2f} ms/step, "
+          f"{served['tok_s']:.1f} tokens/s, device {served['device_ms_step']:.3f} ms a replayed "
+          f"step; tokens equal Engine.generate's on the same requests", flush=True)
+
+    # (b) a device error before the third burst: the cache is rebuilt, the
+    # requests resume as prompt + the 17 tokens each has emitted, the greedy
+    # graph is captured again for the new cache
+    calls = []
+
+    def fault():
+        calls.append(1)
+        if len(calls) == 3:
+            raise torch.AcceleratorError("injected device error")
+
+    eng.max_restarts, eng._fault_hook = 1, fault
+    common.reset_counts()
+    out = eng.generate(reqs)
+    launches_b = dict(common.launches)
+    eng._fault_hook = None
+    st = dict(eng.loop_stats)
+    check(eng.restarts == 1 and st.get("graph_captures") == 1,
+          f"restart: {eng.restarts} restarts, {st.get('graph_captures')} captures in the run")
+    graph_rates(eng, "restarted serving")
+    check(all(len(c.tokens) == new and c.finish_reason == "length"
+              and c.prompt_len == len(r.prompt) for c, r in zip(out, reqs)),
+          "restart: a completion was cut or lost its prompt length")
+    before = 1 + 2 * eng.decode_burst  # the admission's token and two bursts
+    check(all(c.tokens[:before] == d.tokens[:before] for c, d in zip(out, clean)),
+          "restart: the tokens emitted before the error changed")
+    same = sum(a == b for c, d in zip(out, clean) for a, b in zip(c.tokens, d.tokens))
+    print(f"restart (device error before burst 3, max_restarts=1): {eng.restarts} restart, "
+          f"graph captured again ({st.get('graph_captures', 0):.0f} capture in the run); tokens equal "
+          f"to the clean run: {same} of {new * len(reqs)}", flush=True)
+    splits = first_splits(model, reqs, out, clean, "serving", False, ("restarted", "clean"))
+    check(all(sp["index"] >= before and sp["top2_are_the_two"] for sp in splits),
+          f"restart: tokens part from the clean run other than at a near-tie: {splits}")
+    del eng, ep
+    gc.collect()  # the endpoint and its HTTP server refer to each other
+    torch.cuda.empty_cache()
+
+    # (c) an AutoGPTQ checkpoint through the command line
+    root = Path(__file__).resolve().parent
+    gcfg = dataclasses.replace(cfg, num_layers=2)
+    gprompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (16, 90, 300, 700)]
+    with tempfile.TemporaryDirectory(dir=root, prefix="smoke_ckpt_") as tmp:
+        src, packed = Path(tmp) / "autogptq", Path(tmp) / "packed"
+        src.mkdir()
+        t0 = time.perf_counter()
+        write_autogptq(src, gcfg, 2, rng)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            check(cli.main(["convert", "--ckpt", str(src), "--out", str(packed), "--device",
+                            dev.type]) == 0, "cli convert failed")
+        t_convert = time.perf_counter() - t0
+        args = ["generate", "--ckpt", str(packed), "--max-tokens", "16", "--slots", "8",
+                "--device", dev.type]
+        for p in gprompts:
+            args += ["--prompt", " ".join(map(str, p))]
+        buf = io.StringIO()
+        common.reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            check(cli.main(args) == 0, "cli generate failed")
+        t_generate = time.perf_counter() - t0
+        launches_c, plain = dict(common.launches), dict(common.plain_on_cuda)
+        lines = [re.fullmatch(r"\[(\d+)\] \[(.*)\] \((\w+)\)", x)
+                 for x in buf.getvalue().splitlines()]
+        check(len(lines) == len(gprompts) and all(lines), f"cli generate printed {buf.getvalue()}")
+        printed = [[int(t) for t in m.group(2).split(", ")] for m in lines]
+        gmodel, gcfg_loaded = load_autogptq(str(src), device=dev)
+        direct = Engine(gmodel, gcfg_loaded, slots=8).generate(
+            [Request(prompt=p, max_new_tokens=16, id=i) for i, p in enumerate(gprompts)])
+        check(printed == [c.tokens for c in direct] and all(m.group(3) == "length" for m in lines),
+              "cli generate's tokens differ from load_autogptq + Engine's")
+        check(not any(plain.values()), f"cli generate: plain versions ran on the card: {plain}")
+        for name in ("qgemv", "qgemv_mma", "decode_attention_int8", "prefill_attention"):
+            check(launches_c[name] > 0, f"cli generate: kernel {name} was not launched")
+        print(f"AutoGPTQ checkpoint at Llama-2-7B widths cut to 2 of 32 layers (random 4-bit "
+              f"g=128, dense fp16 lm_head; S=4096, so the int8 cache): written in {t_write:.1f} "
+              f"s, `convert` {t_convert:.1f} s, `generate` of 4 prompts of 16-700 tokens "
+              f"{t_generate:.1f} s; tokens equal a direct load_autogptq + Engine", flush=True)
+        del gmodel
+        torch.cuda.empty_cache()
+
+    # (d) the fused matmul on the projection shapes, through the command line
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        check(cli.main(["bench", "--batch", "8"]) == 0, "cli bench failed")
+    rows = [json.loads(x) for x in buf.getvalue().splitlines()]
+    check(len(rows) == 4 and all(r["us"] > 0 for r in rows), f"cli bench printed {rows}")
+    print("cli bench (4-bit g=128, M=8, L2 flushed before each call): " + "; ".join(
+        f"{r['K']}x{r['N']} {r['us']:.1f} us, {r['gbps']:.0f} GB/s" for r in rows), flush=True)
+    launches = {k: launches_a[k] + launches_b[k] + launches_c[k] for k in launches_a}
+    return launches, dict(http=served, http_wall=wall, restart_equal=same, bench=rows)
 
 
 def clone_cache(cache, n_layers=None):
@@ -1831,6 +2138,8 @@ def main() -> int:
     launches5, paged = phase_paged(dev, model)
     torch.cuda.empty_cache()
     launches6 = phase_eager_decode(dev, model)
+    torch.cuda.empty_cache()
+    launches8, entry = phase_entry_points(dev, model)
     del model
     torch.cuda.empty_cache()
     launches7, three_bit = phase_three_bit(dev, cfg)
@@ -1846,6 +2155,16 @@ def main() -> int:
           f"{rate['bf16']:.0f} ({w4a8['bf16']['admit_s']:.3f} s), bf16 activations in phase 2 "
           f"{serving['admit_rows'] / serving['admit_s']:.0f} ({serving['admit_s']:.3f} s); "
           f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    for label, g in (("bf16 cache, prompts to 500 (phase 2)", serving["graphs"]),
+                     ("int8 cache, prompts to 1500 (phase 3)", long_ctx["graphs"]),
+                     ("paged bf16 pool (phase 5)", paged["bf16"]["graphs"]),
+                     ("paged int8 pool (phase 5)", paged["int8"]["graphs"]),
+                     ("3-bit, bf16 cache (phase 7)", three_bit["graphs"])):
+        print(f"card: {card}; 7B decode at B=8, {label}: graph {g['ms_step']:.2f} ms/step, "
+              f"{g['tok_s']:.1f} tokens/s, device {g['device_ms_step']:.3f} ms a replayed step, "
+              f"{g['launches_per_replay']} launches a replay of {8} steps, capture "
+              f"{g['capture_s']:.2f} s ({g['captures']:.0f}); eager {g['eager_ms_step']:.2f} "
+              f"ms/step, {g['eager_tok_s']:.1f} tokens/s", flush=True)
     for kind, st in paged.items():
         pg, ln = st["paged"], st["linear"]
         print(f"card: {card}; 7B paged serving, {kind} pool (24 pages of 256 for 8 slots) against "
@@ -1881,7 +2200,7 @@ def main() -> int:
     # row counts its own kernel's launches (phase 6: the eager decode), and
     # apart, as fused_launches, the decode-attention launches (csrc/
     # decode_attention.cu) that appended in its form on the serving paths
-    runs = (launches2, launches3, launches4, launches5, launches6, launches7)
+    runs = (launches2, launches3, launches4, launches5, launches6, launches7, launches8)
     count = lambda n: sum(ln[n] for ln in runs)
     kernels = [dict(name=n, route="cuda", source=src[n][0], replaces=src[n][1], launches=count(n),
                     **({"fused_launches": count(n + "_fused")} if n in common.APPENDS else {}),

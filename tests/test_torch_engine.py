@@ -6,7 +6,11 @@ options not ported yet raise (alone, and beside ``paged=True``, which is
 ported: ``tests/test_torch_paged.py``).  Long prompts (130-250 tokens at S=256, admitted
 in chunks of 128, which takes JAX through its flash-prefill kernel) and the
 packed int8 cache give identical greedy tokens too, alone and together; so does
-W4A8 admission (``prefill_a8``: prompts of 33-50 tokens, bucket 64)."""
+W4A8 admission (``prefill_a8``: prompts of 33-50 tokens, bucket 64).  Restarts
+(``max_restarts``): a device error injected before a decode dispatch or in an
+admission forward is recovered with the fault-free tokens (the port's and the
+JAX engine's), on the linear and the paged cache (every page given back); a
+Python error or a fault past ``max_restarts`` propagates."""
 
 import dataclasses
 
@@ -108,7 +112,7 @@ def test_finish_reasons(model):
 @pytest.mark.parametrize("kw", [
     dict(spec_tokens=2), dict(paged=True, pipeline=1), dict(paged=True, spec_tokens=2),
     dict(pipeline=1),
-    dict(mesh=object()), dict(draft_params={}), dict(max_restarts=1),
+    dict(mesh=object()), dict(draft_params={}),
 ])
 def test_unported_options_raise(model, kw):
     with pytest.raises(NotImplementedError):
@@ -225,3 +229,123 @@ def test_three_bit_model_matches_jax_engine():
     got = Engine(port, CFG, slots=2, decode_burst=4, kv_quant=False).generate(
         [Request(prompt=p, max_new_tokens=5) for p in THREE_BIT_PROMPTS])
     _same_completions(got, want)
+
+
+# Restarts (``max_restarts``), as ``tests/test_engine.py`` injects them: a
+# device error raised by ``_fault_hook`` before a decode dispatch, here
+# ``torch.AcceleratorError``.  The engine rebuilds the cache and requeues each
+# request as prompt + tokens emitted so far; greedy tokens equal a fault-free
+# run of the port and the JAX engine's.
+
+def _fault_at(*calls, exc=torch.AcceleratorError):
+    seen = []
+
+    def hook():
+        seen.append(1)
+        if len(seen) in calls:
+            raise exc("injected device error")
+    return hook
+
+
+@pytest.mark.parametrize("burst", [1, 4])
+def test_restart_recovers_the_clean_tokens(jax_greedy, model, burst):
+    reqs = [Request(prompt=p, max_new_tokens=6) for p in PROMPTS]
+    clean = Engine(model, CFG, slots=2, decode_burst=burst, kv_quant=False).generate(reqs)
+    eng = Engine(model, CFG, slots=2, decode_burst=burst, kv_quant=False, max_restarts=2)
+    eng._fault_hook = _fault_at(3)
+    got = eng.generate(reqs)
+    assert eng.restarts == 1 and eng.loop_stats["restarts"] == 1
+    _same_completions(got, clean)
+    _same_completions(got, jax_greedy)
+
+
+def test_restart_propagates_without_max_restarts(model):
+    reqs = [Request(prompt=p, max_new_tokens=6) for p in PROMPTS]
+    eng = Engine(model, CFG, slots=2, kv_quant=False)
+    eng._fault_hook = _fault_at(2)
+    with pytest.raises(torch.AcceleratorError):
+        eng.generate(reqs)
+    # a Python error is not a device error: it is not retried
+    eng = Engine(model, CFG, slots=2, kv_quant=False, max_restarts=3)
+    eng._fault_hook = _fault_at(2, exc=KeyError)
+    with pytest.raises(KeyError):
+        eng.generate(reqs)
+    assert eng.restarts == 0
+
+
+def test_restarts_run_out(jax_greedy, model):
+    """Two faults: one restart recovers the first, the second raises; with two
+    restarts both recover (out of memory counts as a device error too)."""
+    reqs = [Request(prompt=p, max_new_tokens=6) for p in PROMPTS]
+    eng = Engine(model, CFG, slots=2, kv_quant=False, max_restarts=1)
+    eng._fault_hook = _fault_at(2, 4)
+    with pytest.raises(torch.AcceleratorError):
+        eng.generate(reqs)
+    assert eng.restarts == 1
+    eng = Engine(model, CFG, slots=2, kv_quant=False, max_restarts=2)
+    eng._fault_hook = _fault_at(2, 4, exc=torch.OutOfMemoryError)
+    _same_completions(eng.generate(reqs), jax_greedy)
+    assert eng.restarts == 2
+
+
+def test_restart_during_admission_requeues_the_admitted(jax_greedy, model, monkeypatch):
+    """A device error in an admission forward: the requests being admitted go
+    back to the queue (none is lost or served twice)."""
+    calls = []
+    real = llama.prefill_slots
+
+    def failing(*args, **kw):
+        calls.append(1)
+        if len(calls) == 2:
+            raise torch.AcceleratorError("injected device error")
+        return real(*args, **kw)
+
+    monkeypatch.setattr(llama, "prefill_slots", failing)
+    eng = Engine(model, CFG, slots=2, decode_burst=4, kv_quant=False, max_restarts=1)
+    got = eng.generate([Request(prompt=p, max_new_tokens=6) for p in PROMPTS])
+    assert eng.restarts == 1 and len(calls) > 2
+    _same_completions(got, jax_greedy)
+
+
+def test_paged_restart_gives_every_page_back(jax_greedy, model):
+    """A paged engine's restart: a new pool with every page free, the table
+    reset on the host and the card; tokens equal the fault-free run's."""
+    reqs = [Request(prompt=p, max_new_tokens=6) for p in PROMPTS]
+    kw = dict(slots=2, decode_burst=2, paged=True, page_size=16, kv_quant=False)
+    clean = Engine(model, CFG, **kw).generate(reqs)
+    eng = Engine(model, CFG, max_restarts=1, **kw)
+    old = eng.cache
+    eng._fault_hook = _fault_at(3)
+    got = eng.generate(reqs)
+    assert eng.restarts == 1 and eng.cache is not old
+    _same_completions(got, clean)
+    _same_completions(got, jax_greedy)
+    n_pages = eng.cache.k.shape[1]
+    assert sorted(eng._free_pages) == list(range(n_pages)) and not any(eng._slot_pages)
+    assert (eng._table == -1).all() and bool((eng.cache.page_table == -1).all())
+
+
+def test_restart_does_not_serve_a_finished_request_twice(model256, monkeypatch):
+    """A long prompt that finishes at its chunked admission (one new token),
+    then a device error in the bucketed admission of the same loop: the
+    finished request keeps its one completion (the JAX engine would requeue
+    it and merge its tokens twice: ROADMAP.md, queue 3), the other resumes."""
+    reqs = [Request(prompt=LONG_PROMPTS[0], max_new_tokens=1),
+            Request(prompt=PROMPTS[0], max_new_tokens=4)]
+    kw = dict(slots=2, decode_burst=2, kv_quant=False, prefill_chunk=128)
+    clean = Engine(model256, CFG256, **kw).generate(reqs)
+    calls = []
+    real = llama.prefill_slots
+
+    def failing(*args, **kwargs):
+        calls.append(1)
+        if len(calls) == 1:
+            raise torch.AcceleratorError("injected device error")
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(llama, "prefill_slots", failing)
+    eng = Engine(model256, CFG256, max_restarts=1, **kw)
+    got = eng.generate(reqs)
+    assert eng.restarts == 1 and len(got) == 2
+    _same_completions(got, clean)
+    assert len(got[0].tokens) == 1

@@ -15,6 +15,10 @@ repeat the plain version's) and rel 1e-5 / abs 3e-4 grouped (the groups' f32
 folds may fuse their multiply-adds).  The paged forms of the two attention
 kernels and the two appends are held to their plain versions at the same
 tolerances, and to the linear kernels on the cache the pool was cut from.
+The engine's decode bursts, captured as CUDA graphs and replayed, give the
+eager bursts' greedy tokens exactly (bf16, int8, paged and eager-attention
+caches, a slot deferred), count an eager burst's launches a replay, and are
+captured again after a restart; sampled graphs are seeded and stay in top_k.
 """
 
 import dataclasses
@@ -878,3 +882,136 @@ def test_kv_append_packed_kernel_takes_its_inputs_as_they_come(dev, paged, D, sc
     assert all(torch.equal(a, b) for a, b in zip(cache, ref))
     assert not torch.equal(cache[0], before[0]) and torch.equal(cache[0][0], before[0][0])
     assert not torch.equal(cache[3], before[3])
+
+
+# --- the engine's decode bursts as CUDA graphs (engine/engine.py) ---
+#
+# A CUDA engine captures each program (greedy, sampled) once and replays it
+# for every burst; ``_eager`` runs the same burst body eagerly, which the
+# graphs are held to: equal greedy tokens (the same kernels on the same
+# inputs), the same launches a replay as an eager burst.
+
+GRAPH_CACHES = {
+    "bf16": dict(kv_quant=False),
+    "int8": dict(kv_quant=True),
+    "paged_bf16": dict(kv_quant=False, paged=True, page_size=64),
+    "paged_int8": dict(kv_quant=True, paged=True, page_size=64),
+    "eager_attention": dict(kv_quant=False, flash_decode=False),
+}
+
+
+def _graph_engine(dev, eager=False, slots=4, burst=4, flash_decode=True, seed=0, **kw):
+    from xbitops_tpu_torch.engine import Engine
+    from xbitops_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.LlamaConfig.tiny(seq=256), flash_decode=flash_decode)
+    model = synth.random_llama_params(cfg, bits=4, group_size=128, device=dev, seed=1)
+    eng = Engine(model, cfg, slots=slots, decode_burst=burst, prefill_chunk=64, seed=seed, **kw)
+    eng._eager = eager
+    return eng
+
+
+def _graph_requests(n=6, new=12, temperature=0.0, seed=0):
+    from xbitops_tpu_torch.engine import Request
+
+    gen = torch.Generator().manual_seed(seed)
+    lens = torch.linspace(5, 150, n).long().tolist()  # past 64: chunked admission
+    return [Request(prompt=torch.randint(0, 256, (k,), generator=gen).tolist(),
+                    max_new_tokens=new + i % 3, temperature=temperature)
+            for i, k in enumerate(lens)]
+
+
+@pytest.mark.parametrize("kind", list(GRAPH_CACHES))
+def test_graph_engine_greedy_tokens_equal_eager(dev, kind):
+    """Greedy tokens of the graph engine equal the eager engine's, request by
+    request; every burst is a replay, and one replay counts the launches of
+    one eager burst."""
+    reqs = _graph_requests()
+    eager = _graph_engine(dev, eager=True, **GRAPH_CACHES[kind])
+    want = eager.generate(reqs)
+    assert eager.loop_stats["graph_replays"] == 0
+    eng = _graph_engine(dev, **GRAPH_CACHES[kind])
+    common.reset_counts()
+    got = eng.generate(reqs)
+    st = eng.loop_stats
+    assert [c.tokens for c in got] == [c.tokens for c in want]
+    assert [c.finish_reason for c in got] == [c.finish_reason for c in want]
+    assert st["graph_captures"] == 1 and st["graph_replays"] == st["decode_steps"] / 4
+    assert not any(common.plain_on_cuda.values())
+    # one eager burst (all slots inactive: it writes nothing) launches what a replay counts
+    eng._act_in.zero_()
+    common.reset_counts()
+    eng._burst(greedy=True)
+    torch.cuda.synchronize()
+    per_burst = {k: n for k, n in common.launches.items() if n}
+    assert per_burst == eng._programs[True].launches and per_burst
+
+
+def test_graph_engine_sampled_is_seeded_and_within_top_k(dev):
+    """Two sampled graph engines with the same seed give the same tokens;
+    each token is among the top_k logits of its step, recomputed by one
+    forward over the prompt and the tokens before it; top_k=1 is greedy."""
+    from xbitops_tpu_torch.models import llama
+
+    reqs = _graph_requests(n=4, temperature=0.9, seed=3)
+    runs = [_graph_engine(dev, top_k=8, seed=5, kv_quant=False) for _ in range(2)]
+    outs = [e.generate(reqs) for e in runs]
+    assert [c.tokens for c in outs[0]] == [c.tokens for c in outs[1]]
+    # captured lazily: a sampled workload never captures the greedy program
+    assert runs[0].loop_stats["graph_captures"] == 1 and set(runs[0]._programs) == {False}
+    model = runs[0].model
+    for r, c in zip(reqs, outs[0]):
+        seq = torch.tensor(list(r.prompt) + c.tokens, device=dev)[None]
+        cache = llama.KVCache.init(model.cfg, 1, dev)
+        pos = torch.arange(seq.shape[1], device=dev)[None]
+        logits, _ = model(seq, cache, pos, self_attend=True)
+        top = logits[0, len(r.prompt) - 1 : -1].float().topk(8, dim=-1).indices
+        assert all(t in row for t, row in zip(c.tokens, top.tolist())), (r.id, c.tokens)
+    one = _graph_engine(dev, top_k=1, seed=5, kv_quant=False).generate(reqs)
+    greedy = _graph_engine(dev, kv_quant=False).generate(_graph_requests(n=4, seed=3))
+    assert [c.tokens for c in one] == [c.tokens for c in greedy]
+
+
+@pytest.mark.parametrize("paged", [False, True], ids=["linear", "paged"])
+def test_graph_engine_restart_captures_again(dev, paged):
+    """An injected device error at the third burst: the cache is rebuilt, the
+    requests resume, the tokens equal a clean run, and the greedy graph is
+    captured again for the new cache."""
+    kw = dict(kv_quant=False, paged=paged, page_size=64) if paged else dict(kv_quant=False)
+    reqs = _graph_requests()
+    clean = _graph_engine(dev, **kw).generate(reqs)
+    eng = _graph_engine(dev, max_restarts=1, **kw)
+    calls = []
+
+    def fault():
+        calls.append(1)
+        if len(calls) == 3:
+            raise torch.AcceleratorError("injected device error")
+
+    eng._fault_hook = fault
+    got = eng.generate(reqs)
+    assert eng.restarts == 1 and eng.loop_stats["graph_captures"] == 2
+    assert [c.tokens for c in got] == [c.tokens for c in clean]
+    assert [c.prompt_len for c in got] == [c.prompt_len for c in clean]
+    if paged:
+        assert sorted(eng._free_pages) == list(range(eng.cache.k.shape[1]))
+
+
+def test_graph_engine_replays_with_a_slot_deferred(dev):
+    """A paged pool of 4 pages of 64: the second request fills it, the first
+    sits bursts out (its row of the static mask is off) until pages free; the
+    tokens equal the eager engine's on the same pool."""
+    from xbitops_tpu_torch.engine import Request
+
+    gen = torch.Generator().manual_seed(7)
+    reqs = [Request(prompt=torch.randint(0, 256, (60,), generator=gen).tolist(),
+                    max_new_tokens=20),
+            Request(prompt=torch.randint(0, 256, (150,), generator=gen).tolist(),
+                    max_new_tokens=12)]
+    kw = dict(kv_quant=False, paged=True, page_size=64, pool_pages=4)
+    want = _graph_engine(dev, eager=True, **kw).generate(reqs)
+    eng = _graph_engine(dev, **kw)
+    got = eng.generate(reqs)
+    assert eng.loop_stats["deferred_slot_steps"] > 0 and eng.loop_stats["graph_replays"] > 0
+    assert [c.tokens for c in got] == [c.tokens for c in want]
+    assert all(len(c.tokens) == r.max_new_tokens for c, r in zip(got, reqs))

@@ -14,12 +14,21 @@
   allocator gives a slot the pages its prompt needs at admission and the
   pages of its next burst before each burst, and takes them back when the
   request finishes; a request waits while the pool cannot back its prompt,
-  and a slot the pool cannot serve sits a burst out.
+  and a slot the pool cannot serve sits a burst out;
+- ``max_restarts``: a device error rebuilds the cache and requeues every
+  request in flight as its prompt plus the tokens it has emitted.
 
-PyTorch runs eagerly, so there is nothing to compile or donate: the KV cache
-(bf16, or packed int8 with ``kv_quant``) is one set of tensors updated in
-place.  Not ported yet: speculative decoding, pipelined bursts, meshes and
-failure restarts.
+A burst is one Python function (:meth:`Engine._burst`) over static device
+buffers: the tokens, the ``active`` mask and the temperatures are copied in,
+and the ``[burst, slots]`` tokens come out of one buffer the host reads once.
+On a CUDA device each program (greedy, or sampled) is captured once as a CUDA
+graph, lazily at its first burst, and every burst is a replay of it: the
+counterpart of the JAX package's jitted ``lax.scan`` over the burst.  On the
+CPU the same function runs eagerly.  The KV cache (bf16, or packed int8 with
+``kv_quant``) is one set of tensors updated in place, and a replay writes the
+addresses it captured: nothing may rebind a cache tensor while a graph
+holds it, and a restart drops the graphs with the cache.  Not ported yet:
+speculative decoding, pipelined bursts and meshes.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ import numpy as np
 import torch
 
 from xbitops_tpu_torch.engine.sampling import sample_tokens
+from xbitops_tpu_torch.kernels import common
 from xbitops_tpu_torch.models import llama
 
 
@@ -68,6 +78,18 @@ def default_buckets(max_seq_len: int) -> List[int]:
 # value is the JAX package's, measured on a TPU v5e; it is kept for parity
 # until the H100 re-derives it.
 AUTO_KV_QUANT_MIN_S = 1024
+
+# The errors a restart recovers from: the device's, never a Python bug.
+DEVICE_ERRORS = (torch.AcceleratorError, torch.OutOfMemoryError)
+
+
+@dataclasses.dataclass
+class _Program:
+    """A captured burst: its graph and the kernel launches one replay makes
+    (the wrappers count when they run, and a replay runs none of them)."""
+
+    graph: "torch.cuda.CUDAGraph"
+    launches: dict
 
 
 class Engine:
@@ -107,11 +129,17 @@ class Engine:
         slots together hold ``pool_pages * page_size`` positions instead of
         ``slots * max_seq_len``; ``pool_pages`` defaults to the pages that
         would be, ``slots * max_seq_len // page_size``.  ``page_size=256`` is
-        the JAX package's default."""
+        the JAX package's default.
+
+        ``max_restarts`` > 0 recovers from device errors (``DEVICE_ERRORS``)
+        that many times: the cache is rebuilt and every request in flight is
+        requeued as its prompt plus the tokens it has emitted, which its
+        completion keeps.  Greedy requests resume with the tokens a fault-free
+        run gives; sampled ones draw anew from where they stopped."""
         unported = dict(
             spec_tokens=spec_tokens > 0,
             pipeline=bool(pipeline), mesh=mesh is not None,
-            draft_params=draft_params is not None, max_restarts=max_restarts > 0,
+            draft_params=draft_params is not None,
         )
         for name, used in unported.items():
             if used:
@@ -155,20 +183,40 @@ class Engine:
             if cfg.max_seq_len % page_size:
                 raise ValueError("max_seq_len must be a multiple of page_size")
             self.page_size = page_size
-            n_pages = pool_pages or slots * (cfg.max_seq_len // page_size)
-            self.cache = llama.KVCache.init_paged(
-                cfg, slots, n_pages, page_size, device=self.device, dtype=cache_dtype,
-                quantized=self.kv_quant)
-            self._free_pages = list(range(n_pages))
-            self._slot_pages: List[List[int]] = [[] for _ in range(slots)]
-            # the table lives on the host; the card's copy follows when it changed
-            self._table = np.full((slots, cfg.max_seq_len // page_size), -1, np.int32)
-            self._table_changed = False
-        else:
-            self.cache = llama.KVCache.init(cfg, slots, self.device, dtype=cache_dtype,
-                                            quantized=self.kv_quant)
+            self.pool_pages = pool_pages or slots * (cfg.max_seq_len // page_size)
+        self.cache_dtype = cache_dtype
+        self.cache = self._new_cache()
+        self.max_restarts = max(0, max_restarts)
+        self.restarts = 0
+        self._fault_hook = None  # tests inject device errors before a decode dispatch
+        # the burst's static buffers: what a captured graph reads and writes
+        dev = self.device
+        self._tok_in = torch.zeros(slots, dtype=torch.int32, device=dev)
+        self._act_in = torch.zeros(slots, dtype=torch.bool, device=dev)
+        self._temps_in = torch.zeros(slots, dtype=torch.float32, device=dev)
+        self._burst_out = torch.zeros((self.decode_burst, slots), dtype=torch.int32, device=dev)
+        self._programs: dict = {}  # greedy -> _Program, captured at its first burst
+        self._pool = None  # one memory pool for all of the engine's graphs
+        # True runs a CUDA engine's bursts eagerly, to hold the graphs to it
+        self._eager = False
         self._next_id = 0
         self.loop_stats = defaultdict(float)
+
+    def _new_cache(self) -> llama.KVCache:
+        """A new cache (the cache factory a restart calls), and for a paged one
+        an allocator with every page free."""
+        cfg, slots = self.cfg, self.slots
+        if not self.paged:
+            return llama.KVCache.init(cfg, slots, self.device, dtype=self.cache_dtype,
+                                      quantized=self.kv_quant)
+        self._free_pages = list(range(self.pool_pages))
+        self._slot_pages: List[List[int]] = [[] for _ in range(slots)]
+        # the table lives on the host; the card's copy follows when it changed
+        self._table = np.full((slots, cfg.max_seq_len // self.page_size), -1, np.int32)
+        self._table_changed = False
+        return llama.KVCache.init_paged(
+            cfg, slots, self.pool_pages, self.page_size, device=self.device,
+            dtype=self.cache_dtype, quantized=self.kv_quant)
 
     # --- the page allocator (host side) ---
 
@@ -212,6 +260,58 @@ class Engine:
             return logits.float().argmax(dim=-1).to(torch.int32)
         return sample_tokens(logits, self.generator, temps, self.top_k, self.top_p)
 
+    def _burst(self, greedy: bool) -> None:
+        """``decode_burst`` chained decode steps from the static inputs (tokens,
+        ``active`` mask, temperatures) into ``_burst_out``.  Slots that stop
+        mid-burst decode on (the host drops those tokens); inactive slots write
+        nothing and advance nothing.  A CUDA engine captures this function and
+        replays it; on the CPU it runs as it is."""
+        tok, act = self._tok_in, self._act_in
+        for i in range(self.decode_burst):
+            logits, _ = llama.decode_step(self.model, tok, self.cache, active=act)
+            tok = torch.where(act, self._sample(logits, self._temps_in, greedy), 0)
+            self._burst_out[i].copy_(tok)
+
+    def _program(self, greedy: bool) -> Optional[_Program]:
+        """The captured graph of a CUDA engine's greedy or sampled burst,
+        captured at its first use; None where bursts run eagerly (the CPU, or
+        ``_eager``).  A capture that fails raises: there is no eager fallback.
+
+        Before its capture the burst runs once with an all-False mask, which
+        writes nothing: the kernels are built and their lazily made state (the
+        library, function attributes, device properties) exists before the
+        capture starts.  Sampled graphs register the engine's generator, so
+        each replay draws new numbers."""
+        if self.device.type != "cuda" or self._eager:
+            return None
+        prog = self._programs.get(greedy)
+        if prog is not None:
+            return prog
+        lt = self.loop_stats
+        t0 = time.perf_counter()
+        dev = self.device
+        self._act_in.zero_()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            self._burst(greedy=True)  # the greedy body consumes no randomness
+        torch.cuda.current_stream(dev).wait_stream(side)
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        graph = torch.cuda.CUDAGraph()
+        if not greedy:
+            graph.register_generator_state(self.generator)
+        before = dict(common.launches)
+        # thread_local: a server captures on its worker thread while others wait
+        with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+            self._burst(greedy)
+        launches = {k: n - before[k] for k, n in common.launches.items() if n != before[k]}
+        common.launches.update(before)  # a capture records launches; it makes none
+        prog = self._programs[greedy] = _Program(graph, launches)
+        lt["graph_captures"] += 1
+        lt["graph_capture"] += time.perf_counter() - t0
+        return prog
+
     @torch.no_grad()
     def generate(
         self,
@@ -238,6 +338,13 @@ class Engine:
         active = np.zeros(self.slots, bool)
         done: List[Completion] = []
         lt = self.loop_stats = defaultdict(float)
+        # requests taken from the queue and not yet in slot_req: a device error
+        # during their admission requeues them
+        in_admission: List[Request] = []
+        resume_prefix: dict = {}  # id -> tokens emitted before a restart
+        orig_plen: dict = {}  # id -> the prompt length before a restart
+        if dev.type == "cuda":
+            ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
 
         def finish(b: int, reason: str):
             r = slot_req[b]
@@ -273,113 +380,183 @@ class Engine:
                 active[b] = True
                 accept(b, int(toks[i]))
 
-        while pending or active.any():
-            t_mark = time.perf_counter()
-            admit, longs = [], []
-            for b in range(self.slots):
-                if not active[b] and pending:
-                    # paged: a request is admitted only if the pool can back its
-                    # whole prompt and one more; else it waits for pages
-                    if self.paged and not self._pages_for(b, len(pending[0].prompt) + 1):
-                        lt["admission_waits"] += 1
-                        break
-                    r = pending.popleft()
-                    (admit if len(r.prompt) <= self.buckets[-1] else longs).append(
-                        (b, r, list(r.prompt)))
-            if self.paged:
-                if pending and not (admit or longs) and not active.any():
-                    need = -(-(len(pending[0].prompt) + 1) // self.page_size)
-                    raise RuntimeError(
-                        f"paged KV pool too small: request needs {need} pages, pool has "
-                        f"{len(self._free_pages)} free and nothing running to release more")
-                self._push_table()
-
-            if longs:
-                # every long prompt advances one chunk per forward; a row whose
-                # prompt is exhausted turns inert (length 0, slot out of range);
-                # only a prompt's final chunk is read back and sampled
-                C = self.prefill_chunk
-                n = len(longs)
-                n_chunks = -(-max(len(p) for _, _, p in longs) // C)
-                t_adm = [r.temperature for _, r, _ in longs]
-                temps_dev = torch.tensor(t_adm, device=dev)
-                last_tok = [0] * n
-                for ci in range(n_chunks):
-                    begin = ci * C
-                    tokens = np.zeros((n, C), np.int64)
-                    lens = np.zeros(n, np.int64)
-                    slots = np.full(n, self.slots, np.int64)
-                    for i, (b, _, prompt) in enumerate(longs):
-                        if begin < len(prompt):
-                            piece = prompt[begin : begin + C]
-                            tokens[i, : len(piece)] = piece
-                            lens[i], slots[i] = len(prompt), b
-                    logits, _ = llama.prefill_slots_chunk(
-                        self.model, torch.from_numpy(tokens).to(dev),
-                        torch.full((n,), begin, device=dev), torch.from_numpy(lens).to(dev),
-                        torch.from_numpy(slots).to(dev), self.cache,
-                        resets=torch.full((n,), ci == 0, device=dev))
-                    final = [i for i, (_, _, p) in enumerate(longs) if ci == (len(p) - 1) // C]
-                    if final:
-                        toks = self._sample(logits, temps_dev, greedy=max(t_adm) <= 0)
-                        toks = toks.cpu().numpy()
-                        for i in final:
-                            last_tok[i] = int(toks[i])
-                    lt["chunks"] += 1
-                    lt["chunk_rows"] += n * C
-                start(longs, last_tok)
-                lt["admit_prefill_chunks"] += time.perf_counter() - t_mark
+        def run_loop() -> None:
+            while pending or active.any():
                 t_mark = time.perf_counter()
-            if admit:
-                bucket = self._bucket(max(len(p) for _, _, p in admit))
-                tokens = np.zeros((len(admit), bucket), np.int64)
-                for i, (_, _, prompt) in enumerate(admit):
-                    tokens[i, : len(prompt)] = prompt
-                lens = torch.tensor([len(p) for _, _, p in admit], device=dev)
-                slots = torch.tensor([b for b, _, _ in admit], device=dev)
-                t_adm = [r.temperature for _, r, _ in admit]
-                logits, _ = llama.prefill_slots(
-                    self.model, torch.from_numpy(tokens).to(dev), lens, slots, self.cache)
-                toks = self._sample(logits, torch.tensor(t_adm, device=dev),
-                                    greedy=max(t_adm) <= 0).cpu().numpy()
-                start(admit, toks)
-                lt["admit_prefill"] += time.perf_counter() - t_mark
-                lt["admit_rows"] += len(admit) * bucket
-            if not active.any():
-                continue
+                admit, longs = [], []
+                for b in range(self.slots):
+                    if not active[b] and pending:
+                        # paged: a request is admitted only if the pool can back its
+                        # whole prompt and one more; else it waits for pages
+                        if self.paged and not self._pages_for(b, len(pending[0].prompt) + 1):
+                            lt["admission_waits"] += 1
+                            break
+                        r = pending.popleft()
+                        in_admission.append(r)
+                        (admit if len(r.prompt) <= self.buckets[-1] else longs).append(
+                            (b, r, list(r.prompt)))
+                if self.paged:
+                    if pending and not (admit or longs) and not active.any():
+                        need = -(-(len(pending[0].prompt) + 1) // self.page_size)
+                        raise RuntimeError(
+                            f"paged KV pool too small: request needs {need} pages, pool has "
+                            f"{len(self._free_pages)} free and nothing running to release more")
+                    self._push_table()
 
-            t_mark = time.perf_counter()
-            step_active = active.copy()
-            if self.paged:
-                # a slot about to write needs the pages of this burst's positions;
-                # one the pool cannot serve sits the burst out and resumes later
-                for b in range(self.slots):
-                    if active[b] and not self._pages_for(
-                            b, min(int(slot_len[b]) + self.decode_burst, S)):
-                        step_active[b] = False
-                        lt["deferred_slot_steps"] += self.decode_burst
-                if not step_active.any():
-                    raise RuntimeError("paged KV pool exhausted: every active slot is blocked")
-                self._push_table()
-            act_dev = torch.from_numpy(step_active).to(dev)
-            temps_dev = torch.from_numpy(temps).to(dev)
-            greedy = not (temps[step_active] > 0).any()
-            tok_dev = torch.from_numpy(cur_tok).to(dev)
-            seq = []
-            for _ in range(self.decode_burst):
-                logits, _ = llama.decode_step(self.model, tok_dev, self.cache, active=act_dev)
-                tok_dev = torch.where(act_dev, self._sample(logits, temps_dev, greedy), 0)
-                seq.append(tok_dev)
-            toks = torch.stack(seq).cpu().numpy()  # [burst, slots]; syncs
-            lt["decode"] += time.perf_counter() - t_mark
-            lt["decode_steps"] += self.decode_burst
-            for step in range(toks.shape[0]):
-                for b in range(self.slots):
-                    if step_active[b] and active[b]:
-                        accept(b, int(toks[step, b]))
-                        lt["decode_tokens"] += 1
+                if longs:
+                    # every long prompt advances one chunk per forward; a row whose
+                    # prompt is exhausted turns inert (length 0, slot out of range);
+                    # only a prompt's final chunk is read back and sampled
+                    C = self.prefill_chunk
+                    n = len(longs)
+                    n_chunks = -(-max(len(p) for _, _, p in longs) // C)
+                    t_adm = [r.temperature for _, r, _ in longs]
+                    temps_dev = torch.tensor(t_adm, device=dev)
+                    last_tok = [0] * n
+                    for ci in range(n_chunks):
+                        begin = ci * C
+                        tokens = np.zeros((n, C), np.int64)
+                        lens = np.zeros(n, np.int64)
+                        slots = np.full(n, self.slots, np.int64)
+                        for i, (b, _, prompt) in enumerate(longs):
+                            if begin < len(prompt):
+                                piece = prompt[begin : begin + C]
+                                tokens[i, : len(piece)] = piece
+                                lens[i], slots[i] = len(prompt), b
+                        logits, _ = llama.prefill_slots_chunk(
+                            self.model, torch.from_numpy(tokens).to(dev),
+                            torch.full((n,), begin, device=dev), torch.from_numpy(lens).to(dev),
+                            torch.from_numpy(slots).to(dev), self.cache,
+                            resets=torch.full((n,), ci == 0, device=dev))
+                        final = [i for i, (_, _, p) in enumerate(longs)
+                                 if ci == (len(p) - 1) // C]
+                        if final:
+                            toks = self._sample(logits, temps_dev, greedy=max(t_adm) <= 0)
+                            toks = toks.cpu().numpy()
+                            for i in final:
+                                last_tok[i] = int(toks[i])
+                        lt["chunks"] += 1
+                        lt["chunk_rows"] += n * C
+                    start(longs, last_tok)
+                    lt["admit_prefill_chunks"] += time.perf_counter() - t_mark
+                    t_mark = time.perf_counter()
+                if admit:
+                    bucket = self._bucket(max(len(p) for _, _, p in admit))
+                    tokens = np.zeros((len(admit), bucket), np.int64)
+                    for i, (_, _, prompt) in enumerate(admit):
+                        tokens[i, : len(prompt)] = prompt
+                    lens = torch.tensor([len(p) for _, _, p in admit], device=dev)
+                    slots = torch.tensor([b for b, _, _ in admit], device=dev)
+                    t_adm = [r.temperature for _, r, _ in admit]
+                    logits, _ = llama.prefill_slots(
+                        self.model, torch.from_numpy(tokens).to(dev), lens, slots, self.cache)
+                    toks = self._sample(logits, torch.tensor(t_adm, device=dev),
+                                        greedy=max(t_adm) <= 0).cpu().numpy()
+                    start(admit, toks)
+                    lt["admit_prefill"] += time.perf_counter() - t_mark
+                    lt["admit_rows"] += len(admit) * bucket
+                in_admission.clear()
                 if not active.any():
-                    break  # the rest of the burst is garbage for every slot
+                    continue
+
+                if self._fault_hook is not None:
+                    self._fault_hook()  # tests inject device errors here
+                t_mark = time.perf_counter()
+                step_active = active.copy()
+                if self.paged:
+                    # a slot about to write needs the pages of this burst's positions;
+                    # one the pool cannot serve sits the burst out and resumes later
+                    for b in range(self.slots):
+                        if active[b] and not self._pages_for(
+                                b, min(int(slot_len[b]) + self.decode_burst, S)):
+                            step_active[b] = False
+                            lt["deferred_slot_steps"] += self.decode_burst
+                    if not step_active.any():
+                        raise RuntimeError("paged KV pool exhausted: every active slot is blocked")
+                    self._push_table()
+                greedy = not (temps[step_active] > 0).any()
+                captured = lt["graph_capture"]
+                prog = self._program(greedy)
+                captured = lt["graph_capture"] - captured  # kept apart from decode time
+                self._tok_in.copy_(torch.from_numpy(cur_tok))
+                self._act_in.copy_(torch.from_numpy(step_active))
+                self._temps_in.copy_(torch.from_numpy(temps))
+                if prog is None:
+                    self._burst(greedy)
+                else:
+                    ev0.record()
+                    prog.graph.replay()
+                    ev1.record()
+                    for k, n in prog.launches.items():
+                        common.launches[k] += n
+                    lt["graph_replays"] += 1
+                toks = self._burst_out.cpu().numpy()  # [burst, slots]; syncs
+                if prog is not None:
+                    lt["graph_device"] += 1e-3 * ev0.elapsed_time(ev1)
+                lt["decode"] += time.perf_counter() - t_mark - captured
+                lt["decode_steps"] += self.decode_burst
+                for step in range(toks.shape[0]):
+                    for b in range(self.slots):
+                        if step_active[b] and active[b]:
+                            accept(b, int(toks[step, b]))
+                            lt["decode_tokens"] += 1
+                    if not active.any():
+                        break  # the rest of the burst is garbage for every slot
+
+        while True:
+            try:
+                run_loop()
+                break
+            except DEVICE_ERRORS:
+                if self.restarts >= self.max_restarts:
+                    raise
+                self.restarts += 1
+                lt["restarts"] += 1
+                # requeue the slots' requests as prompt + emitted so far (the
+                # JAX package's order: the last slot's request first), then the
+                # requests caught in admission
+                requeued = {c.id for c in done}
+                for b in range(self.slots):
+                    r = slot_req[b]
+                    if r is None:
+                        continue
+                    requeued.add(r.id)
+                    orig_plen.setdefault(r.id, len(r.prompt))
+                    resume_prefix[r.id] = resume_prefix.get(r.id, []) + slot_gen[b]
+                    remaining = r.max_new_tokens - len(slot_gen[b])
+                    if remaining <= 0:
+                        done.append(Completion(r.id, orig_plen[r.id], [], "length"))
+                    else:
+                        pending.appendleft(dataclasses.replace(
+                            r, prompt=list(r.prompt) + slot_gen[b], max_new_tokens=remaining))
+                    slot_req[b] = None
+                    slot_gen[b] = []
+                for r in in_admission:
+                    if r.id not in requeued and all(p.id != r.id for p in pending):
+                        pending.appendleft(r)
+                in_admission.clear()
+                active[:] = False
+                slot_len[:] = 0
+                cur_tok[:] = 0
+                temps[:] = 0
+                # the graphs hold the old cache's addresses: drop both, then
+                # capture again at the next burst
+                self._programs.clear()
+                self.cache = None
+                self.cache = self._new_cache()
+
+        if resume_prefix:  # merge the tokens emitted before a restart
+            merged = {}
+            for c in done:
+                if c.id in merged:
+                    prev = merged[c.id]
+                    merged[c.id] = Completion(c.id, prev.prompt_len, prev.tokens + c.tokens,
+                                              c.finish_reason)
+                else:
+                    merged[c.id] = Completion(c.id, orig_plen.get(c.id, c.prompt_len),
+                                              resume_prefix.get(c.id, []) + c.tokens,
+                                              c.finish_reason)
+            done[:] = merged.values()
         if self.paged:
             self._push_table()  # every page is back: the card's table says so too
         return sorted(done, key=lambda c: c.id)

@@ -1,6 +1,10 @@
 """Token sampling: greedy / temperature / top-k / top-p (port of
 ``xbitops_tpu/engine/sampling.py``).  Randomness comes from an explicit
-``torch.Generator``; it gives other draws than JAX's keys for the same seed."""
+``torch.Generator``; it gives other draws than JAX's keys for the same seed.
+A row is drawn by the exponential race, argmax of p / E with E ~ Exp(1): the
+draw ``torch.multinomial`` makes for one sample, from the same generator, but
+without its host-side checks of the probabilities, which read them back and
+so cannot run inside a CUDA graph."""
 
 from __future__ import annotations
 
@@ -33,5 +37,6 @@ def sample_tokens(
         keep[:, 0] = True
         cutoff = torch.where(keep, sorted_logits, torch.inf).amin(dim=-1, keepdim=True)
         scaled = torch.where(scaled < cutoff, -torch.inf, scaled)
-    sampled = torch.multinomial(torch.softmax(scaled, dim=-1), 1, generator=generator)[:, 0]
+    probs = torch.softmax(scaled, dim=-1)
+    sampled = (probs / torch.empty_like(probs).exponential_(1, generator=generator)).argmax(dim=-1)
     return torch.where(temperature <= 0, greedy, sampled).to(torch.int32)

@@ -53,6 +53,7 @@ __all__ = [
     "tile_scales",
     "make_qtensor",
     "from_gptq",
+    "concat_qtensors",
     "dequant_qtensor_reference",
 ]
 
@@ -546,6 +547,45 @@ def from_gptq(
     return make_qtensor(
         wq, scales, zeros, bits, group_size, add_zero_bias, tile_k=tile_k, perm=perm,
         scale_store_dtype=scale_store_dtype, storage_bits=storage_bits)
+
+
+def concat_qtensors(qts: Sequence[QTensor], order: Optional[np.ndarray] = None) -> QTensor:
+    """Concatenate QTensors along N (one K): fuses q/k/v, or gate/up, into one
+    matmul.  Their static metadata must match, and act-order tensors (each with
+    its own row permutation) cannot fuse.  The fused N pads to a multiple of
+    128 as :func:`make_qtensor` pads it (scale 1, scale-zero 0).  ``order``,
+    the column permutation that interleaves shards for tensor parallelism,
+    waits for the port of ``parallel/``."""
+    if order is not None:
+        raise NotImplementedError("concat_qtensors(order=...) waits for tensor parallelism")
+    first = qts[0]
+    for qt in qts[1:]:
+        same = (qt.bits == first.bits and qt.group_size == first.group_size
+                and qt.tile_k == first.tile_k and qt.K == first.K
+                and qt.K_logical == first.K_logical and qt.value_bits == first.value_bits)
+        if not same:
+            raise ValueError("concat_qtensors: mismatched quantization metadata")
+        if qt.perm is not None or first.perm is not None:
+            raise ValueError("concat_qtensors: act-order tensors cannot be fused")
+
+    def cat(get):
+        return torch.cat([get(qt)[..., : qt.shape[1]] for qt in qts], dim=-1)
+
+    planes = tuple(cat(lambda q, i=i: q.planes[i]) for i in range(len(first.planes)))
+    scales = cat(lambda q: q.scales)
+    scale_zeros = cat(lambda q: q.scale_zeros)
+    N = planes[0].shape[-1]
+    Np = _round_up(N, 128)
+    if Np != N:
+        pad = (0, Np - N)
+        planes = tuple(torch.nn.functional.pad(p, pad) for p in planes)
+        scales = torch.nn.functional.pad(scales, pad, value=1)
+        scale_zeros = torch.nn.functional.pad(scale_zeros, pad)
+    return QTensor(
+        planes=planes, scales=scales, scale_zeros=scale_zeros, bits=first.bits,
+        group_size=first.group_size, tile_k=first.tile_k, K=first.K,
+        K_logical=first.K_logical, N_logical=N if Np != N else None,
+        value_bits=first.value_bits)
 
 
 def _expand_tiled_scales(ts: torch.Tensor, qt: QTensor) -> torch.Tensor:

@@ -11,8 +11,11 @@ cache, all slots at 1000 live positions, and one chunk forward of chunked admiss
 activations, with int8 activations (``prefill_a8``) and with int8 activations
 on the 8-bit per-channel requantization of the blocks.  With ``--bits B``
 (another width, default packed storage, g=128) it profiles the decode step
-over the bf16 cache alone.  It needs one CUDA device and prints one JSON
-object per case.
+over the bf16 cache alone.  Each decode step is profiled twice: called from
+Python as an eager step, and as a CUDA graph of 8 such steps replayed (the
+engine's burst), whose numbers are given a step (``replayed``, with
+``event_ms``: CUDA events around each replay).  It needs one CUDA device and
+prints one JSON object per case.
 """
 
 from __future__ import annotations
@@ -66,6 +69,31 @@ def profile(fn: Callable[[], object], steps: int = 4, warmup: int = 3, top: int 
     )
 
 
+def replayed(step: Callable[[], object], burst: int = 8) -> Dict:
+    """``burst`` calls of ``step`` captured as one CUDA graph, as the engine
+    captures a decode burst, and profiled a replay at a time: the numbers of
+    :func:`profile`, and ``event_ms`` (CUDA events around each replay), given
+    a step."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(burst):
+            step()
+    res = profile(graph.replay)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    ms = 0.0
+    for _ in range(4):
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        ms += start.elapsed_time(end)
+    del graph
+    out = {k: res[k] / burst for k in ("wall_ms", "device_ms", "launches", "host_ops")}
+    out.update(busy=res["busy"], event_ms=ms / 4 / burst,
+               top={name: [t / burst, n / burst] for name, (t, n) in res["top"].items()})
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("profiling: no CUDA device; nothing run", file=sys.stderr)
@@ -102,6 +130,7 @@ def main() -> int:
                 llama.decode_step(model, tok, cache)
 
             res = profile(step)
+            res["replayed"] = replayed(step)
             kind = ("paged " if paged else "") + ("int8" if quantized else "bf16")
             print(json.dumps(dict(case=f"decode step, {bits}-bit, {kind} cache, B={slots}, "
                                        f"live={live}", **res)), flush=True)
