@@ -87,6 +87,26 @@
    tokens equal a direct ``load_autogptq`` and ``Engine``; (d)
    ``cli.main(["bench"])``.
 
+9. Drives speculative decoding and pipelined bursts: (a) the fused matmul
+   at a verify's M = 8 x (γ + 1) = 16, 32 and 40 on the five 7B shapes (op,
+   plain and bound); on a 2-layer cut of the random model, over each cache form
+   (bf16 / int8, linear / paged), slots at positions 0-3 mod 4 near live 1000,
+   a chain across S, one into a page of -1 and an inactive slot: the unaligned
+   write (``_write_unaligned``: 5 append launches a layer) byte-equal to its
+   plain version and timed, prefill attention at T = 5 against its plain
+   version and SDPA, and the verify forward's logits within rel 2e-2 of the
+   plain path; (b) the copy-model (``synth.copy_llama_params``, period 8) at
+   full width and depth serves 8 requests (prompts of 16-500 tokens, 64 new)
+   with n-gram speculation (γ = 4) on the bf16 and the int8 cache: tokens equal
+   the plain graph engine's (the cycle), acceptance >= 0.9, every verify step
+   one graph replay, equal to the eager steps' tokens, an eager step's launches
+   a replay's count; then γ = 1 and 3 (the verify at M = 16 and 32), and a
+   draft model (a 2-layer cut of the copy-model) whose chain runs inside the
+   verify's graph; (c) the random model: pipeline=0, 1 and 2 (bursts of 8) on 8
+   requests give equal tokens, and n-gram speculation's acceptance (near 0).
+   Printed: the verify step's device time at each γ, tokens/s against plain
+   graph decode, the launches of a verify replay.
+
 In every serving phase each decode burst is a replay of a CUDA graph the
 engine captured (``loop_stats["graph_replays"]`` equals the bursts run); in
 phases 2, 3, 5 and 7 the same requests run again with the bursts eager (the
@@ -2066,6 +2086,350 @@ def phase_entry_points(dev, model):
     return launches, dict(http=served, http_wall=wall, restart_equal=same, bench=rows)
 
 
+def follows_cycle(c, prompt, period: int) -> bool:
+    """The copy-model's greedy stream: each token the successor of the one before."""
+    prev = [prompt[-1]] + c.tokens[:-1]
+    return all(t == (p + 1) % period for p, t in zip(prev, c.tokens))
+
+
+def phase_spec(dev, model):
+    """Speculative decoding and pipelined bursts (phase 9): the verify's
+    kernels at its shapes, then the engine at full depth."""
+    from xbitops_tpu_torch.engine import Engine, Request
+    from xbitops_tpu_torch.kernels import common
+    from xbitops_tpu_torch.kernels.kv_append import _unpack_kv_words, gather_pages, paged_rows
+    from xbitops_tpu_torch.kernels.prefill_attention import (
+        prefill_attention,
+        prefill_attention_reference,
+    )
+    from xbitops_tpu_torch.kernels.qgemv_kernel import qgemv_form
+    from xbitops_tpu_torch.models import llama
+    from xbitops_tpu_torch.ops.qmatmul import qmatmul
+    from xbitops_tpu_torch.utils import synth
+
+    cfg = model.cfg
+    H, Hkv, D, S = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.max_seq_len
+    B, T = 8, 5  # 8 slots, γ = 4
+    gen = torch.Generator(device=dev).manual_seed(SEED + 9)
+    timer = Timer(dev)
+    res = {}
+
+    # (a) the fused matmul at a verify's M = B (γ + 1): 16 (γ = 1), 32 (3), 40 (4)
+    b0 = model.blocks[0]
+    weights = dict(wqkv=b0.wqkv.qtensor, wo=b0.wo.qtensor, w_gateup=b0.w_gateup.qtensor,
+                   w_down=b0.w_down.qtensor, lm_head=model.lm_head.qtensor)
+    for M in (16, 32, 40):
+        total = 0.0
+        for name, qt in weights.items():
+            K, N = qt.K_logical, qt.shape[1]
+            a = torch.randn(M, K, device=dev, generator=gen).to(torch.bfloat16)
+            form = qgemv_form(M, False, qt)
+            e = rel_err(qmatmul(a, qt), qmatmul(a, qt, out_dtype=torch.float32, use_kernel=False))
+            check(e <= 2e-2, f"verify matmul {name} M={M}: rel err {e:.3e} > 2e-2")
+            ms = timer(lambda: qmatmul(a, qt), iters=5)
+            plain_ms = timer(lambda: qmatmul(a, qt, use_kernel=False), iters=2, warmup=1)
+            b = bound(qt.bytes_packed() + nbytes(a) + 2 * M * N, 2 * M * K * N)
+            total += ms * (1 if name == "lm_head" else cfg.num_layers)
+            print(f"verify matmul {name} K={K} N={N} M={M} ({form}): op {ms:.4f} ms "
+                  f"({qt.bytes_packed() / ms / 1e6:.1f} GB/s packed), plain {plain_ms:.4f} ms, "
+                  f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}, rel err {e:.2e}; library: "
+                  f"none exists", flush=True)
+        res[f"matmul_ms_M{M}"] = total
+        print(f"verify matmul at M={M}: the 129 projections of a 32-layer forward sum to "
+              f"{total:.3f} ms of op time", flush=True)
+
+    # (b) on a 2-layer cut, each cache form: the unaligned write (T appends a
+    # layer) byte-equal to its plain version, prefill attention at T = 5, and
+    # the verify forward's logits within rel 2e-2 of the plain path.  Slots at
+    # positions 0-3 mod 4 around live 1000, one chain across S, one into a page
+    # of -1 (paged), slot 7 inactive.
+    cut = two_layer_cut(model)
+    lens = torch.tensor([1000, 1001, 1002, 1003, 1022, 2045, 999, 998], device=dev)
+    active = torch.tensor([True] * 7 + [False], device=dev)
+    pos = torch.where(active[:, None], lens[:, None] + torch.arange(T, device=dev), S)
+    pos = pos.clamp(max=S)
+    held = (lens + T).clamp(max=S)
+    held[4] = 1024  # slot 4's chain 1022..1026 runs into its page 4, which it does not hold
+    valid = pos < S
+    tokens = torch.randint(0, cfg.vocab_size, (B, T), device=dev, generator=gen)
+    rows = [torch.randn(B, T, Hkv, D, device=dev, generator=gen).to(torch.bfloat16)
+            for _ in range(2)]
+    q = torch.randn(B, T, H, D, device=dev, generator=gen).to(torch.bfloat16)
+    slots = torch.arange(B, device=dev)
+    s_idx = torch.arange(S, device=dev)
+    for int8 in (False, True):
+        if int8:
+            linear = list(packed_cache(gen, 2, B, Hkv, S, D))
+        else:
+            linear = [torch.randn(2, B, Hkv, S, D, device=dev, generator=gen).to(torch.bfloat16)
+                      for _ in range(2)]
+        for paged in (False, True):
+            kind = ("paged " if paged else "") + ("int8" if int8 else "bf16")
+            table, parts = synth.cut_pages(gen, linear, S // 256, held) if paged else (None, linear)
+            names = ("k", "v", "k_scale", "v_scale")[: len(parts)]
+
+            def make():
+                return llama.KVCache(**dict(zip(names, (t.clone() for t in parts))),
+                                     lengths=lens.to(torch.int32), page_table=table)
+
+            a, b = make(), make()
+            common.reset_counts()
+            for li in range(2):
+                llama._write_unaligned(a, li, *rows, pos, use_kernel=True)
+            name = "kv_append" + ("_packed" if int8 else "") + ("_paged" if paged else "")
+            launched = {k: n for k, n in common.launches.items() if n}
+            check(launched == {name: 2 * T}, f"unaligned write ({kind}): launches {launched}")
+            for li in range(2):
+                llama._write_unaligned(b, li, *rows, pos, use_kernel=False)
+            same = all(torch.equal(getattr(a, n), getattr(b, n)) for n in names)
+            check(same, f"unaligned write ({kind}): the cache differs from the plain write's")
+            # timed as the verify runs it, inside a CUDA graph: eagerly its ~100
+            # small PyTorch ops (the int8 rows' quantization) outlast the Timer's
+            # head start, and the host's time to queue them would be counted
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph):
+                llama._write_unaligned(a, 0, *rows, pos, use_kernel=True)
+            ms = timer(graph.replay)
+            del graph
+            plain_ms = timer(lambda: llama._write_unaligned(b, 0, *rows, pos, use_kernel=False),
+                             iters=3)
+            n_rows = int(valid.sum()) * Hkv * D  # elements of k (or v) written
+            if paged:
+                ok, blk, row = paged_rows(table, slots, pos, 256, parts[0].shape[1])
+            else:
+                ok, blk, row = valid, slots[:, None].expand_as(pos), pos
+            ok = ok & valid
+            n_rows = int(ok.sum()) * Hkv * D
+            library_ms = None
+            if not int8:  # one index_put_ of the rows for k, one for v (no call writes a byte
+                # of a packed word)
+                h = torch.arange(Hkv, device=dev)
+                idx = (blk[ok][:, None], h[None, :], row[ok][:, None])
+                kr, vr = rows[0][ok], rows[1][ok]
+                library_ms = timer(lambda: (b.k[0].index_put_(idx, kr), b.v[0].index_put_(idx, vr)))
+            wb = bound(2 * n_rows * 2 + 2 * n_rows * (1 if int8 else 2)
+                       + (2 * 2 * n_rows // D if int8 else 0), 0)
+            lib = "none exists" if library_ms is None else f"(2 index_put_) {library_ms:.4f} ms"
+            print(f"unaligned write ({kind}), one layer, {T} appends of B={B} Hkv={Hkv}: "
+                  f"byte-equal to plain {same}, op {ms:.4f} ms (a graph replay), plain "
+                  f"{plain_ms:.4f} ms, library {lib}, bound {wb['bound_ms']:.5f} ms by "
+                  f"{wb['bound_by']}", flush=True)
+            res[f"write_{kind}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **wb)
+
+            # prefill attention at T = 5 queries a slot, after the write (layer 0)
+            scales = dict(k_scale=a.k_scale, v_scale=a.v_scale) if int8 else {}
+            got = prefill_attention(q, a.k, a.v, pos, slots, layer_idx=0, page_table=table,
+                                    **scales)
+            sc0 = (a.k_scale[0], a.v_scale[0]) if int8 else (None, None)
+            ref = prefill_attention_reference(q, a.k[0], a.v[0], pos, slots, *sc0,
+                                              page_table=table)
+            e = (got.float() - ref.float()).abs().max().item()
+            check(e <= 2e-2, f"prefill attention T={T} ({kind}): abs err {e:.3e} > 2e-2")
+            ms = timer(lambda: prefill_attention(q, a.k, a.v, pos, slots, layer_idx=0,
+                                                 page_table=table, **scales))
+            plain_ms = timer(lambda: prefill_attention_reference(
+                q, a.k[0], a.v[0], pos, slots, *sc0, page_table=table), iters=3)
+            kc, vc = a.k[0], a.v[0]
+            if paged:
+                kc, vc = gather_pages(kc, table), gather_pages(vc, table)
+                if int8:
+                    kd = _unpack_kv_words(kc, gather_pages(a.k_scale[0], table, scales=True))
+                    vd = _unpack_kv_words(vc, gather_pages(a.v_scale[0], table, scales=True))
+            elif int8:
+                kd, vd = _unpack_kv_words(kc, a.k_scale[0]), _unpack_kv_words(vc, a.v_scale[0])
+            if not int8:
+                kd, vd = kc, vc
+            kd, vd = kd.to(torch.bfloat16), vd.to(torch.bfloat16)
+            mask = (s_idx[None, None] <= pos[:, :, None])[:, None] & valid[:, None, :, None]
+            qh = q.transpose(1, 2)
+            lib = sdpa(qh, kd, vd, mask).transpose(1, 2)
+            check((lib[valid].float() - ref[valid].float()).abs().max().item() <= 2e-2,
+                  "the SDPA yardstick differs from the plain prefill attention")
+            library_ms = timer(lambda: sdpa(qh, kd, vd, mask))
+            del kd, vd, mask, lib
+            seen = int(((pos + 1) * valid).sum())  # keys each valid query attends
+            span = int(torch.where(valid, pos + 1, 0).amax(dim=1).sum())  # rows read a head
+            cache_bytes = 2 * span * Hkv * D * (1 if int8 else 2) + (4 * span * Hkv if int8 else 0)
+            pb = bound(cache_bytes + nbytes(q, got), 4 * H * D * seen)
+            print(f"prefill_attention ({kind}) N={B} T={T} H={H} Hkv={Hkv} S={S}, live ~1000: "
+                  f"max abs err {e:.2e}, op {ms:.4f} ms, plain {plain_ms:.4f} ms, library (SDPA, "
+                  f"boolean mask, rows as bf16) {library_ms:.4f} ms, bound {pb['bound_ms']:.4f} "
+                  f"ms by {pb['bound_by']}", flush=True)
+            res[f"prefill_T5_{kind}"] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **pb)
+            del got, ref
+
+            # the verify forward of the cut, kernels against the plain path
+            a, b = make(), make()
+            la, _ = cut(tokens, a, pos, kv_unaligned=True)
+            lb, _ = cut(tokens, b, pos, kv_unaligned=True, use_kernel=False)
+            check(torch.isfinite(la.float()).all().item(), "non-finite verify logits")
+            # a query at S (an inactive slot, a chain's tail past S) is padding: the
+            # kernel returns zeros for it, the eager path attends every row
+            e = rel_err(la[valid], lb[valid])
+            print(f"verify forward, 2 layers, {kind} cache, T={T}: logits rel err {e:.2e} "
+                  f"(kernels vs plain)", flush=True)
+            check(e <= 2e-2, f"verify forward ({kind}) logits rel err {e:.3e} > 2e-2")
+            check(a.lengths.tolist() == b.lengths.tolist(), f"verify forward ({kind}): lengths")
+            del a, b, la, lb
+        del linear, parts
+        torch.cuda.empty_cache()
+    del timer
+
+    # (c) the engine at full depth, 8 slots: the copy-model (its greedy stream is
+    # the cycle 0..7, so speculative and plain tokens must be equal), then the
+    # random model of the phases before, then pipelined bursts
+    launches = dict.fromkeys(common.launches, 0)
+
+    def run(eng, reqs, label):
+        """One run of the phase's main path: the counts set to 0 just before
+        and read just after."""
+        common.reset_counts()
+        out = eng.generate(reqs)
+        for k, n in common.launches.items():
+            launches[k] += n
+        got = {k: n for k, n in common.launches.items() if n}
+        check(not any(common.plain_on_cuda.values()),
+              f"{label}: plain versions ran on the card: {common.plain_on_cuda}")
+        return out, got, graph_rates(eng, label)
+
+    def spec_line(eng, rates, label, plain_rates):
+        st = eng.spec_stats
+        prog = eng._programs["spec"].launches
+        gain = rates["tok_s"] / plain_rates["tok_s"]
+        print(f"{label}: acceptance {st['accepted']}/{st['drafted']} = "
+              f"{st['accepted'] / st['drafted']:.3f}; {rates['tok_s']:.1f} tokens/s, "
+              f"{rates['ms_step']:.2f} ms a verify step, device {rates['device_ms_step']:.3f} ms a "
+              f"replayed step ({rates['replays']:.0f} replays, capture "
+              f"{rates['capture_s']:.2f} s); plain graph decode (bursts of 8) "
+              f"{plain_rates['tok_s']:.1f} tokens/s, {plain_rates['ms_step']:.2f} ms/step "
+              f"({gain:.2f}x); a replay launches {sum(prog.values())}: {prog}", flush=True)
+
+    cp = synth.copy_llama_params(torch.Generator(device=dev).manual_seed(SEED), cfg, 4, 128,
+                                 period=8)
+    lengths = np.linspace(16, 500, 8).astype(int)
+    creqs = [Request(prompt=[(j + i) % 8 for i in range(n)], max_new_tokens=64)
+             for j, n in enumerate(lengths)]
+    copies = {}
+    for kv_quant in (False, True):
+        cache = "int8" if kv_quant else "bf16"
+        plain, _, plain_rates = run(Engine(cp, cfg, slots=8, decode_burst=8, kv_quant=kv_quant),
+                                    creqs, f"copy-model, {cache} cache, plain")
+        check(all(follows_cycle(c, r.prompt, 8) and len(c.tokens) == 64
+                  for c, r in zip(plain, creqs)), f"copy-model ({cache}): not the cycle")
+        eng = Engine(cp, cfg, slots=8, spec_tokens=4, kv_quant=kv_quant)
+        out, got, rates = run(eng, creqs, f"copy-model, {cache} cache, spec γ=4")
+        check([c.tokens for c in out] == [c.tokens for c in plain],
+              f"copy-model ({cache}): speculative tokens differ from plain greedy")
+        rate = eng.spec_stats["accepted"] / eng.spec_stats["drafted"]
+        check(rate >= 0.9, f"copy-model ({cache}): acceptance {rate:.3f} < 0.9")
+        path = ["qgemv_mma", "prefill_attention", "kv_append_packed" if kv_quant else "kv_append"]
+        check(all(got.get(k, 0) > 0 for k in path), f"spec ({cache}): launches {got}")
+        spec_line(eng, rates, f"copy-model, {cache} cache, n-gram spec γ=4", plain_rates)
+        prog = eng._programs["spec"].launches
+        copies[cache] = dict(rates=rates, plain=plain_rates, rate=rate, launches=prog,
+                             tokens=[c.tokens for c in plain])
+        # the same requests with each verify step eager: equal tokens, and one
+        # eager step launches what a replay counts
+        eng._eager = True
+        try:
+            eager = eng.generate(creqs)
+            eager_rates = dict(eng.loop_stats)
+            eng._act_in.zero_()
+            common.reset_counts()
+            eng._spec()
+            torch.cuda.synchronize()
+        finally:
+            eng._eager = False
+        per_step = {k: n for k, n in common.launches.items() if n}
+        check([c.tokens for c in eager] == [c.tokens for c in out],
+              f"copy-model ({cache}): graph and eager speculative tokens differ")
+        check(per_step == prog, f"spec ({cache}): a replay counts {prog}, an eager step "
+              f"launches {per_step}")
+        print(f"copy-model, {cache} cache: eager verify steps "
+              f"{1e3 * eager_rates['decode'] / eager_rates['decode_steps']:.2f} ms/step, tokens "
+              f"equal to the graph's", flush=True)
+        del eng
+    # the verify step at γ = 1 and 3 (M = 16 and 32) beside γ = 4 (M = 40)
+    verify = {4: copies["bf16"]["rates"]}
+    for g in (1, 3):
+        eng = Engine(cp, cfg, slots=8, spec_tokens=g, kv_quant=False)
+        out, _, verify[g] = run(eng, creqs, f"copy-model, spec γ={g}")
+        check([c.tokens for c in out] == copies["bf16"]["tokens"],
+              f"copy-model, γ={g}: speculative tokens differ from plain greedy")
+        spec_line(eng, verify[g], f"copy-model, bf16 cache, n-gram spec γ={g}",
+                  copies["bf16"]["plain"])
+        del eng
+    # the draft model: a 2-layer cut of the copy-model, its chain in the graph
+    eng = Engine(cp, cfg, slots=8, spec_tokens=4, kv_quant=False, draft_params=two_layer_cut(cp))
+    out, got, rates = run(eng, creqs, "copy-model, draft model")
+    check([c.tokens for c in out] == copies["bf16"]["tokens"],
+          "copy-model with the draft model: tokens differ from plain greedy")
+    check(got.get("decode_attention", 0) > 0 and got.get("kv_append_fused", 0) > 0,
+          f"the draft chain launched {got}")
+    spec_line(eng, rates, "copy-model, bf16 cache, draft-model spec γ=4 (2-layer cut)",
+              copies["bf16"]["plain"])
+    copies["draft"] = dict(rates=rates, rate=eng.spec_stats["accepted"] / eng.spec_stats["drafted"])
+    del eng
+    # pipelined bursts with sampled requests admitted while other slots decode:
+    # the sampled graph is captured with bursts in flight, and the continuing
+    # slots must still chain from their newest burst (top_k=1: on the
+    # copy-model a sampled row is the greedy one, so every stream is the cycle)
+    mreqs = [Request(prompt=[(j + i) % 8 for i in range(n)], max_new_tokens=16 + 8 * j)
+             for j, n in enumerate(lengths)]
+    mreqs += [Request(prompt=[(j + i) % 8 for i in range(40)], max_new_tokens=24,
+                      temperature=0.8) for j in range(4)]
+    for depth in (0, 1, 2):
+        eng = Engine(cp, cfg, slots=8, decode_burst=8, kv_quant=False, top_k=1, pipeline=depth)
+        out, _, _ = run(eng, mreqs, f"copy-model, greedy and sampled, pipeline={depth}")
+        check(eng.loop_stats["graph_captures"] == 2,
+              f"pipeline={depth}, greedy and sampled: {eng.loop_stats['graph_captures']:.0f} "
+              f"captures, not 2")
+        check(all(follows_cycle(c, r.prompt, 8) and len(c.tokens) == r.max_new_tokens
+                  for c, r in zip(out, mreqs)),
+              f"pipeline={depth}, greedy and sampled: a stream left the cycle")
+        if depth == 0:
+            mixed = out
+        check([c.tokens for c in out] == [c.tokens for c in mixed],
+              f"pipeline={depth}, greedy and sampled: tokens differ from pipeline=0")
+        del eng
+    print("copy-model, 8 greedy requests then 4 sampled (top_k=1) admitted mid-flight: "
+          "pipeline=0, 1 and 2 each capture both graphs, every stream the cycle, tokens "
+          "equal", flush=True)
+    del cp
+    torch.cuda.empty_cache()
+
+    # random weights: acceptance near 0, and pipelined bursts on the same requests
+    rng = np.random.default_rng(SEED + 9)
+    rreqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n).tolist(), max_new_tokens=32)
+             for n in lengths]
+    pipe = {}
+    for depth in (0, 1, 2):
+        eng = Engine(model, cfg, slots=8, decode_burst=8, kv_quant=False, pipeline=depth)
+        pout, _, pipe[depth] = run(eng, rreqs, f"pipeline={depth}")
+        if depth == 0:
+            sync = pout
+        check([c.tokens for c in pout] == [c.tokens for c in sync],
+              f"pipeline={depth}: tokens differ from the synchronous engine's")
+        del eng
+    print(f"pipelined bursts, random 7B, bf16 cache, bursts of 8: tokens/s "
+          f"{ {d: round(r['tok_s'], 1) for d, r in pipe.items()} }, ms/step "
+          f"{ {d: round(r['ms_step'], 3) for d, r in pipe.items()} }, device ms a replayed step "
+          f"{ {d: round(r['device_ms_step'], 3) for d, r in pipe.items()} }; tokens equal to "
+          f"pipeline=0", flush=True)
+    eng = Engine(model, cfg, slots=8, spec_tokens=4, kv_quant=False)
+    out, _, rates = run(eng, rreqs, "random weights, spec γ=4")
+    equal = sum(a == b for c, d in zip(out, sync) for a, b in zip(c.tokens, d.tokens))
+    spec_line(eng, rates, "random 7B, bf16 cache, n-gram spec γ=4", pipe[0])
+    print(f"random 7B, spec against plain greedy: {equal} of {sum(len(c.tokens) for c in sync)} "
+          f"tokens equal (the verify rounds otherwise than one-row decode: near-ties may part)",
+          flush=True)
+    res.update(copies=copies, verify=verify, pipe=pipe, random=dict(
+        rates=rates, rate=eng.spec_stats["accepted"] / eng.spec_stats["drafted"]))
+    del eng
+    torch.cuda.empty_cache()
+    return launches, res
+
+
 def clone_cache(cache, n_layers=None):
     """A copy of ``cache`` (of its first ``n_layers`` layers), its scales and
     page table included."""
@@ -2140,6 +2504,8 @@ def main() -> int:
     launches6 = phase_eager_decode(dev, model)
     torch.cuda.empty_cache()
     launches8, entry = phase_entry_points(dev, model)
+    torch.cuda.empty_cache()
+    launches9, spec = phase_spec(dev, model)
     del model
     torch.cuda.empty_cache()
     launches7, three_bit = phase_three_bit(dev, cfg)
@@ -2174,6 +2540,26 @@ def main() -> int:
               f"{st['equal_tokens']} of {st['tokens']} ({st['equal_tokens_full_pool']} with a pool "
               f"that makes no request wait)", flush=True)
 
+    v, cp = spec["verify"], spec["copies"]
+    print(f"card: {card}; 7B verify step, 8 slots, bf16 cache (copy-model), device ms a replayed "
+          f"step: γ=1 (M=16) {v[1]['device_ms_step']:.3f}, γ=3 (M=32) {v[3]['device_ms_step']:.3f}"
+          f", γ=4 (M=40) {v[4]['device_ms_step']:.3f}, against a plain decode step "
+          f"{cp['bf16']['plain']['device_ms_step']:.3f}; the 129 projections of a forward, op ms: "
+          f"M=16 {spec['matmul_ms_M16']:.3f}, M=32 {spec['matmul_ms_M32']:.3f}, M=40 "
+          f"{spec['matmul_ms_M40']:.3f}; a γ=4 replay launches {cp['bf16']['launches']}",
+          flush=True)
+    print(f"card: {card}; 7B speculative decoding γ=4, 8 slots, tokens/s against plain graph "
+          f"decode in bursts of 8: copy-model bf16 cache {cp['bf16']['rates']['tok_s']:.1f} vs "
+          f"{cp['bf16']['plain']['tok_s']:.1f} (acceptance {cp['bf16']['rate']:.3f}), int8 cache "
+          f"{cp['int8']['rates']['tok_s']:.1f} vs {cp['int8']['plain']['tok_s']:.1f} (acceptance "
+          f"{cp['int8']['rate']:.3f}), draft model (2-layer cut) "
+          f"{cp['draft']['rates']['tok_s']:.1f} (acceptance {cp['draft']['rate']:.3f}); random "
+          f"weights {spec['random']['rates']['tok_s']:.1f} vs {spec['pipe'][0]['tok_s']:.1f} "
+          f"(acceptance {spec['random']['rate']:.3f}); pipeline=0/1/2 on the random model "
+          f"{spec['pipe'][0]['tok_s']:.1f} / {spec['pipe'][1]['tok_s']:.1f} / "
+          f"{spec['pipe'][2]['tok_s']:.1f} tokens/s; total {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
     csrc, jk = "xbitops_tpu_torch/csrc/", "xbitops_tpu/kernels/"
     src = {
         "qgemv": (csrc + "qgemv_word.cu", jk + "qgemv_kernel.py:51"),
@@ -2195,12 +2581,13 @@ def main() -> int:
         "kv_append_paged": (csrc + "kv_append.cu", jk + "kv_append.py:92"),
         "kv_append_packed_paged": (csrc + "kv_append.cu", jk + "kv_append.py:43"),
     }
-    # launches: each kernel's count over the runs of phases 2 to 7 (the counts
+    # launches: each kernel's count over the runs of phases 2 to 9 (the counts
     # were set to 0 just before each run and read just after it).  An append
     # row counts its own kernel's launches (phase 6: the eager decode), and
     # apart, as fused_launches, the decode-attention launches (csrc/
     # decode_attention.cu) that appended in its form on the serving paths
-    runs = (launches2, launches3, launches4, launches5, launches6, launches7, launches8)
+    runs = (launches2, launches3, launches4, launches5, launches6, launches7, launches8,
+            launches9)
     count = lambda n: sum(ln[n] for ln in runs)
     kernels = [dict(name=n, route="cuda", source=src[n][0], replaces=src[n][1], launches=count(n),
                     **({"fused_launches": count(n + "_fused")} if n in common.APPENDS else {}),

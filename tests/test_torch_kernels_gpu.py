@@ -19,6 +19,10 @@ The engine's decode bursts, captured as CUDA graphs and replayed, give the
 eager bursts' greedy tokens exactly (bf16, int8, paged and eager-attention
 caches, a slot deferred), count an eager burst's launches a replay, and are
 captured again after a restart; sampled graphs are seeded and stay in top_k.
+A speculative engine replays each verify step (a draft model's chain inside
+it) as one graph with the eager steps' tokens and ``spec_stats``; pipelined
+bursts give the synchronous engine's tokens; the unaligned write (T append
+launches a layer) leaves each cache form as its plain version does.
 """
 
 import dataclasses
@@ -1015,3 +1019,154 @@ def test_graph_engine_replays_with_a_slot_deferred(dev):
     assert eng.loop_stats["deferred_slot_steps"] > 0 and eng.loop_stats["graph_replays"] > 0
     assert [c.tokens for c in got] == [c.tokens for c in want]
     assert all(len(c.tokens) == r.max_new_tokens for c, r in zip(got, reqs))
+
+
+# --- speculative decoding and pipelined bursts on the card ---
+#
+# ``forward(kv_unaligned=True)`` writes T rows a slot in T append launches a
+# layer (``models/llama._write_unaligned``); a CUDA engine replays each verify
+# step, with a draft model's chain inside it, as one graph, and pipelined
+# bursts chain through the newest burst's tokens on the device.
+
+
+def packed_cache_gpu(gen, L, B, Hkv, S, D):
+    """A packed int8 cache of random bytes and scales."""
+    dev = gen.device
+    words = [torch.randint(-2**31, 2**31, (L, B, Hkv, S // 4, D), device=dev, generator=gen,
+                           dtype=torch.int64).to(torch.int32) for _ in range(2)]
+    scales = [torch.empty(L, B, 4, Hkv, S // 4, device=dev).uniform_(0.001, 0.03, generator=gen)
+              .to(torch.bfloat16) for _ in range(2)]
+    return words[0], words[1], scales[0], scales[1]
+
+
+UNALIGNED_FORMS = [(False, False), (True, False), (False, True), (True, True)]
+
+
+@pytest.mark.parametrize("int8,paged", UNALIGNED_FORMS,
+                         ids=["bf16", "int8", "bf16paged", "int8paged"])
+def test_unaligned_write_kernels_equal_plain(dev, int8, paged):
+    """Chains of 5 positions from 0, 1, 2, 3 mod 4 (two share a word), one
+    across S, an inactive slot and, paged, a chain into a page of -1: every
+    cache tensor equal to the plain write's, 5 append launches a layer."""
+    from xbitops_tpu_torch.models import llama
+
+    gen = _gen(dev, 31)
+    cfg = llama.LlamaConfig.tiny(seq=256)
+    B, T, L, Hkv, D, S = 6, 5, cfg.num_layers, cfg.num_kv_heads, cfg.head_dim, 256
+    if int8:
+        k, v, ks, vs = packed_cache_gpu(gen, L, B, Hkv, S, D)
+        linear = [k, v, ks, vs]
+    else:
+        linear = [torch.randn(L, B, Hkv, S, D, device=dev, generator=gen).to(torch.bfloat16)
+                  for _ in range(2)]
+    lens = torch.tensor([4, 13, 30, 251, 7, 62], device=dev)
+    active = torch.tensor([True, True, True, True, False, True], device=dev)
+    if paged:  # pages of 64; slot 5's chain 62..66 runs into its page 1, which is -1
+        table, parts = synth.cut_pages(gen, linear, 4, torch.tensor(
+            [64, 64, 64, 256, 256, 64], device=dev))
+    else:
+        table, parts = None, linear
+    fields = dict(k=parts[0], v=parts[1], lengths=lens.to(torch.int32), page_table=table)
+    if int8:
+        fields.update(k_scale=parts[2], v_scale=parts[3])
+    a = llama.KVCache(**fields)
+    b = llama.KVCache(**{n: (t.clone() if isinstance(t, torch.Tensor) else t)
+                         for n, t in fields.items()})
+    pos = torch.where(active[:, None], lens[:, None] + torch.arange(T, device=dev), S).clamp(max=S)
+    rows = [torch.randn(B, T, Hkv, D, device=dev, generator=gen).to(torch.bfloat16)
+            for _ in range(2)]
+    before = a.k.clone()
+    common.reset_counts()
+    for li in range(L):
+        llama._write_unaligned(a, li, *rows, pos, use_kernel=True)
+    name = "kv_append" + ("_packed" if int8 else "") + ("_paged" if paged else "")
+    assert {k: n for k, n in common.launches.items() if n} == {name: L * T}
+    for li in range(L):
+        llama._write_unaligned(b, li, *rows, pos, use_kernel=False)
+    for n in ("k", "v", "k_scale", "v_scale"):
+        if fields.get(n) is not None:
+            assert torch.equal(getattr(a, n), getattr(b, n)), n
+    assert not torch.equal(a.k, before)
+
+
+SPEC_CASES = {
+    "ngram_bf16": dict(kv_quant=False),
+    "ngram_int8": dict(kv_quant=True),
+    "ngram_paged": dict(kv_quant=False, paged=True, page_size=64),
+    "draft_model": dict(kv_quant=False, draft=True),
+}
+
+
+@pytest.mark.parametrize("kind", list(SPEC_CASES))
+def test_graph_spec_engine_equals_eager(dev, kind):
+    """Each verify step (with a draft model: its chain too) is one replay;
+    greedy tokens and ``spec_stats`` equal the eager engine's, and one replay
+    counts the launches of one eager step."""
+    kw = dict(SPEC_CASES[kind])
+    reqs = _graph_requests(n=5, new=10)
+    engines = []
+    for eager in (True, False):
+        eng = _graph_engine(dev, eager=eager, burst=1, spec_tokens=3, **{
+            k: v for k, v in kw.items() if k != "draft"})
+        if kw.get("draft"):  # a 1-layer cut of the target: its drafts are often right
+            eng = _graph_engine(dev, eager=eager, burst=1, spec_tokens=3, kv_quant=False,
+                                draft_params=eng.model.with_config(
+                                    dataclasses.replace(eng.cfg, num_layers=1)))
+        engines.append(eng)
+    want = engines[0].generate(reqs)
+    common.reset_counts()
+    got = engines[1].generate(reqs)
+    st = engines[1].loop_stats
+    assert [c.tokens for c in got] == [c.tokens for c in want]
+    assert engines[1].spec_stats == engines[0].spec_stats
+    assert st["graph_captures"] == 1 and st["graph_replays"] == st["decode_steps"] > 0
+    assert not any(common.plain_on_cuda.values())
+    launched = {k for k, n in common.launches.items() if n}
+    assert {"qgemv", "prefill_attention" + ("_paged" if "paged" in kw else "")} <= launched
+    eng = engines[1]
+    eng._act_in.zero_()
+    common.reset_counts()
+    eng._spec()
+    torch.cuda.synchronize()
+    per_step = {k: n for k, n in common.launches.items() if n}
+    assert per_step == eng._programs["spec"].launches and per_step
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_graph_pipeline_equals_sync(dev, depth):
+    """Pipelined graph bursts give the synchronous graph engine's tokens."""
+    reqs = _graph_requests()
+    want = _graph_engine(dev, kv_quant=False).generate(reqs)
+    eng = _graph_engine(dev, kv_quant=False, pipeline=depth)
+    got = eng.generate(reqs)
+    assert [c.tokens for c in got] == [c.tokens for c in want]
+    assert [c.finish_reason for c in got] == [c.finish_reason for c in want]
+    assert eng.loop_stats["graph_replays"] == eng.loop_stats["decode_steps"] / 4
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+def test_graph_pipeline_admits_a_sampled_request_mid_flight(dev, depth):
+    """A sampled request admitted into a freed slot while the others decode:
+    the pipelined engine captures its sampled graph with bursts in flight, and
+    the continuing slots still take their newest burst's last tokens.  On the
+    copy-model with top_k=1 a sampled row is the greedy one, so every stream
+    is the cycle and equals the synchronous graph engine's."""
+    from xbitops_tpu_torch.engine import Engine, Request
+    from xbitops_tpu_torch.models import llama
+
+    cfg = llama.LlamaConfig.tiny(seq=256)
+    cp = synth.copy_llama_params(_gen(dev, 3), cfg, 4, 128, period=8)
+    reqs = [Request(prompt=[(j + i) % 8 for i in range(9 + 5 * j)], max_new_tokens=8 + 6 * j)
+            for j in range(4)]
+    reqs += [Request(prompt=[(j + i) % 8 for i in range(12)], max_new_tokens=10,
+                     temperature=0.8) for j in range(2)]
+    runs = {}
+    for d in (0, depth):
+        eng = Engine(cp, cfg, slots=4, decode_burst=4, prefill_chunk=64, top_k=1, pipeline=d)
+        runs[d] = eng.generate(reqs)
+        assert eng.loop_stats["graph_captures"] == 2
+    for c, r in zip(runs[depth], reqs):
+        prev = [r.prompt[-1]] + c.tokens[:-1]
+        assert c.tokens == [(p + 1) % 8 for p in prev] and len(c.tokens) == r.max_new_tokens
+    assert [c.tokens for c in runs[depth]] == [c.tokens for c in runs[0]]
+    assert [c.finish_reason for c in runs[depth]] == [c.finish_reason for c in runs[0]]

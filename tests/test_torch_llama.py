@@ -150,8 +150,8 @@ def test_use_kernel_false_matches_default(model):
 
 
 def test_unported_paths_raise(model):
-    """Unaligned (speculative) writes are not ported; the paged cache is: a
-    forward on it equals the forward on the linear cache."""
+    """The paged cache is ported: a forward on it equals the forward on the
+    linear cache.  (Unaligned writes are too: ``tests/test_torch_spec.py``.)"""
     paged = llama.KVCache.init_paged(CFG, 1, 4, 16, device="cpu")
     assert paged.paged and paged.S == CFG.max_seq_len and paged.k.shape[1:4] == (4, 2, 16)
     paged.page_table[0, 0] = 3
@@ -159,9 +159,6 @@ def test_unported_paths_raise(model):
     lp, _ = llama.prefill(model, tokens, paged)
     ll, _ = llama.prefill(model, tokens, llama.KVCache.init(CFG, 1, "cpu"))
     assert torch.equal(lp, ll) and paged.k[:, 3].abs().sum() > 0 and paged.k[:, :3].abs().sum() == 0
-    with pytest.raises(NotImplementedError):
-        model(torch.zeros(1, 2, dtype=torch.long), llama.KVCache.init(CFG, 1, "cpu"),
-              torch.arange(2)[None], kv_unaligned=True)
 
 
 JCFG256 = jllama.LlamaConfig.tiny(seq=256)

@@ -16,19 +16,33 @@
   request finishes; a request waits while the pool cannot back its prompt,
   and a slot the pool cannot serve sits a burst out;
 - ``max_restarts``: a device error rebuilds the cache and requeues every
-  request in flight as its prompt plus the tokens it has emitted.
+  request in flight as its prompt plus the tokens it has emitted;
+- ``spec_tokens=γ``: speculative decoding, greedy only.  Each step drafts γ
+  tokens a slot, from the slot's own history (n-gram) or from a small draft
+  model (``draft_params``, with a bf16 cache of its own that every admission
+  prefills beside the target's), and verifies them in one forward of γ + 1
+  rows a slot (``llama.spec_verify_step``): the emitted stream is the plain
+  greedy one, and each accepted draft saves a step;
+- ``pipeline=N``: up to N bursts in flight; the host takes a burst's tokens
+  while the next ones run, and continuing slots take their next input from
+  the newest burst's last tokens on the device.
 
 A burst is one Python function (:meth:`Engine._burst`) over static device
 buffers: the tokens, the ``active`` mask and the temperatures are copied in,
 and the ``[burst, slots]`` tokens come out of one buffer the host reads once.
-On a CUDA device each program (greedy, or sampled) is captured once as a CUDA
-graph, lazily at its first burst, and every burst is a replay of it: the
-counterpart of the JAX package's jitted ``lax.scan`` over the burst.  On the
-CPU the same function runs eagerly.  The KV cache (bf16, or packed int8 with
+A speculative step is another such function (:meth:`Engine._spec`): the
+tokens to verify ``[slots, γ + 1]`` and the mask in, the verified tokens, the
+model's greedy tokens and the accepted counts out of one buffer; with a draft
+model its chain runs inside it, so drafts reach the host only once verified.
+On a CUDA device each program (greedy, sampled, or speculative) is captured
+once as a CUDA graph, lazily at its first use, and every burst or step is a
+replay of it: the counterpart of the JAX package's jitted programs.  On the
+CPU the same functions run eagerly.  The KV cache (bf16, or packed int8 with
 ``kv_quant``) is one set of tensors updated in place, and a replay writes the
 addresses it captured: nothing may rebind a cache tensor while a graph
-holds it, and a restart drops the graphs with the cache.  Not ported yet:
-speculative decoding, pipelined bursts and meshes.
+holds it, and a restart drops the graphs with the caches.  Host inputs go up
+through pinned memory without blocking, and a burst's tokens come back the
+same way, so that pipelined bursts overlap the host.  Not ported yet: meshes.
 """
 
 from __future__ import annotations
@@ -85,11 +99,30 @@ DEVICE_ERRORS = (torch.AcceleratorError, torch.OutOfMemoryError)
 
 @dataclasses.dataclass
 class _Program:
-    """A captured burst: its graph and the kernel launches one replay makes
-    (the wrappers count when they run, and a replay runs none of them)."""
+    """A captured burst or speculative step: its graph and the kernel launches
+    one replay makes (the wrappers count when they run, and a replay runs none
+    of them)."""
 
     graph: "torch.cuda.CUDAGraph"
     launches: dict
+
+
+@dataclasses.dataclass
+class _InFlight:
+    """A burst on its way to the host: its tokens' copy (pinned host memory
+    on a CUDA engine) with the event that completes it, CUDA events around
+    its replay, and the slots it ran with the occupants it ran them for."""
+
+    toks: torch.Tensor
+    done: Optional["torch.cuda.Event"]
+    events: Optional[tuple]
+    step_active: np.ndarray
+    epochs: np.ndarray
+
+    def wait(self) -> np.ndarray:
+        if self.done is not None:
+            self.done.synchronize()
+        return self.toks.numpy()
 
 
 class Engine:
@@ -114,7 +147,8 @@ class Engine:
         page_size: int = 256,
         pipeline: int = 0,
         mesh=None,
-        draft_params=None,
+        draft_params: Optional[llama.Llama] = None,
+        draft_cfg: Optional[llama.LlamaConfig] = None,
         max_restarts: int = 0,
     ):
         """``kv_quant``: True for the packed int8 KV cache, False for bf16;
@@ -135,17 +169,55 @@ class Engine:
         that many times: the cache is rebuilt and every request in flight is
         requeued as its prompt plus the tokens it has emitted, which its
         completion keeps.  Greedy requests resume with the tokens a fault-free
-        run gives; sampled ones draw anew from where they stopped."""
-        unported = dict(
-            spec_tokens=spec_tokens > 0,
-            pipeline=bool(pipeline), mesh=mesh is not None,
-            draft_params=draft_params is not None,
-        )
-        for name, used in unported.items():
-            if used:
-                raise NotImplementedError(f"Engine({name}=...) is not ported yet")
+        run gives; sampled ones draw anew from where they stopped.
+
+        ``spec_tokens=γ`` > 0 decodes speculatively: each step drafts γ tokens
+        a slot and verifies them in one forward; ``spec_stats`` counts the
+        drafted and accepted tokens.  The draft continues the most recent
+        earlier occurrence of the slot's last two tokens in its own history
+        (n-gram), or with ``draft_params`` comes from γ greedy steps of that
+        draft model (a :class:`~llama.Llama` of the target's ``max_seq_len``
+        and at least its vocabulary; not with ``paged``).  ``draft_cfg`` is
+        redundant, since the draft carries its config: it is taken for the
+        JAX package's signature and, where given, must equal it.  Greedy requests only, and exclusive with
+        ``decode_burst > 1`` and ``pipeline``.  The stream is the plain greedy
+        one up to the bf16 rounding of a forward of γ + 1 rows against one row.
+
+        ``pipeline=N`` keeps up to N bursts in flight: the host accepts one
+        burst's tokens while the next run, and a slot's bookkeeping trails its
+        device state by up to N bursts (a finished slot may decode N more
+        bursts, whose tokens are dropped).  The tokens are the synchronous
+        engine's.  It is kept for parity: on one H100 replayed bursts leave
+        the host little to overlap, and it has measured slower than
+        ``pipeline=0`` (``PERF.md``)."""
+        if mesh is not None:
+            raise NotImplementedError("Engine(mesh=...) is not ported yet")
         if cfg != model.cfg:
             raise ValueError("cfg differs from the model's config")
+        self.spec_tokens = max(0, spec_tokens)
+        self.pipeline = int(pipeline)  # bursts in flight (0: synchronous)
+        if self.spec_tokens and decode_burst > 1:
+            raise ValueError("spec_tokens and decode_burst > 1 are exclusive")
+        if self.spec_tokens and self.pipeline:
+            raise ValueError("spec_tokens and pipeline are exclusive")
+        self.draft = draft_params
+        if draft_params is not None:
+            if not self.spec_tokens:
+                raise ValueError("draft_params requires spec_tokens > 0")
+            if draft_cfg is not None and draft_cfg != draft_params.cfg:
+                raise ValueError("draft_cfg differs from the draft model's config")
+            if paged:
+                raise ValueError("draft-model speculation supports paged=False")
+            if draft_params.cfg.vocab_size < cfg.vocab_size:
+                raise ValueError("draft model must cover the target vocab")
+            if draft_params.cfg.max_seq_len != cfg.max_seq_len:
+                raise ValueError("the draft model's max_seq_len must equal the target's (the "
+                                 "draft cache mirrors the target's positions)")
+        self.spec_stats = {
+            "drafted": 0, "accepted": 0,
+            "draft_source": (("model" if self.draft is not None else "ngram")
+                             if self.spec_tokens else None),
+        }
         self.model = model
         self.cfg = cfg
         self.slots = slots
@@ -194,8 +266,16 @@ class Engine:
         self._tok_in = torch.zeros(slots, dtype=torch.int32, device=dev)
         self._act_in = torch.zeros(slots, dtype=torch.bool, device=dev)
         self._temps_in = torch.zeros(slots, dtype=torch.float32, device=dev)
+        self._cont_in = torch.zeros(slots, dtype=torch.bool, device=dev)
         self._burst_out = torch.zeros((self.decode_burst, slots), dtype=torch.int32, device=dev)
-        self._programs: dict = {}  # greedy -> _Program, captured at its first burst
+        # a speculative step's: the tokens to verify in; those, the greedy
+        # tokens and the accepted counts out of one buffer (one read-back)
+        g = self.spec_tokens
+        self._spec_in = torch.zeros((slots, g + 1), dtype=torch.int32, device=dev)
+        self._spec_out = torch.zeros((slots, 2 * g + 3), dtype=torch.int32, device=dev)
+        # True (greedy burst), False (sampled) or "spec" -> _Program, captured
+        # at its first use
+        self._programs: dict = {}
         self._pool = None  # one memory pool for all of the engine's graphs
         # True runs a CUDA engine's bursts eagerly, to hold the graphs to it
         self._eager = False
@@ -203,9 +283,13 @@ class Engine:
         self.loop_stats = defaultdict(float)
 
     def _new_cache(self) -> llama.KVCache:
-        """A new cache (the cache factory a restart calls), and for a paged one
-        an allocator with every page free."""
+        """A new cache (the cache factory a restart calls), a new draft cache
+        with a draft model, and for a paged one an allocator with every page
+        free."""
         cfg, slots = self.cfg, self.slots
+        if self.draft is not None:
+            self._draft_cache = None
+            self._draft_cache = llama.KVCache.init(self.draft.cfg, slots, self.device)
         if not self.paged:
             return llama.KVCache.init(cfg, slots, self.device, dtype=self.cache_dtype,
                                       quantized=self.kv_quant)
@@ -246,8 +330,47 @@ class Engine:
         queued behind the forwards already on the stream and the host does not
         wait for it."""
         if self._table_changed:
-            self.cache.page_table.copy_(torch.from_numpy(self._table), non_blocking=True)
+            self._upload(self.cache.page_table, self._table)
             self._table_changed = False
+
+    @staticmethod
+    def _upload(dst: torch.Tensor, arr: np.ndarray) -> None:
+        """Copy a host array into a device buffer, queued on the stream: on a
+        CUDA device through pinned memory, which the caching host allocator
+        keeps until the copy has run, so the host neither waits nor may
+        overwrite what the copy reads."""
+        src = torch.from_numpy(arr)
+        if dst.is_cuda:
+            src = src.pin_memory()
+        dst.copy_(src, non_blocking=True)
+
+    @staticmethod
+    def _fetch(src: torch.Tensor):
+        """Start copying a device buffer to the host; returns the host tensor
+        and, on a CUDA device, the event after which it holds the values."""
+        if not src.is_cuda:
+            return src.clone(), None
+        host = torch.empty(src.shape, dtype=src.dtype, pin_memory=True)
+        host.copy_(src, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return host, done
+
+    @staticmethod
+    def _draft(hist, gamma):
+        """n-gram (prompt-lookup) draft: continue from the most recent earlier
+        occurrence of the trailing bigram in the slot's own history; pad with
+        the last token.  Wrong drafts only cost the already-paid verify slot."""
+        out = []
+        if len(hist) >= 2:
+            a, b = hist[-2], hist[-1]
+            for j in range(len(hist) - 3, -1, -1):
+                if hist[j] == a and hist[j + 1] == b:
+                    out = list(hist[j + 2 : j + 2 + gamma])
+                    break
+        while len(out) < gamma:
+            out.append(hist[-1] if hist else 0)
+        return np.asarray(out[:gamma], np.int32)
 
     def _bucket(self, n: int) -> int:
         for b in self.buckets:
@@ -272,21 +395,54 @@ class Engine:
             tok = torch.where(act, self._sample(logits, self._temps_in, greedy), 0)
             self._burst_out[i].copy_(tok)
 
-    def _program(self, greedy: bool) -> Optional[_Program]:
-        """The captured graph of a CUDA engine's greedy or sampled burst,
-        captured at its first use; None where bursts run eagerly (the CPU, or
+    def _spec(self) -> None:
+        """One speculative step from the static inputs (``_spec_in``: each
+        slot's current token, then its γ drafts; the ``active`` mask) into
+        ``_spec_out``.  With a draft model the drafts are made here: its cache
+        takes the target's lengths, then γ + 1 greedy draft steps from the
+        current token (the last one's token is not used, but its write keeps
+        the draft cache whole when every draft is accepted).  Then the target
+        verifies.  A CUDA engine captures this function and replays it."""
+        g = self.spec_tokens
+        toks, act = self._spec_in, self._act_in
+        if self.draft is not None:
+            d = self._draft_cache
+            d.lengths.copy_(torch.where(act, self.cache.lengths, d.lengths))
+            tok = toks[:, 0]
+            for i in range(g + 1):
+                logits, _ = llama.decode_step(self.draft, tok, d, active=act)
+                tok = torch.where(act, logits.float().argmax(dim=-1).to(torch.int32), 0)
+                if i < g:
+                    # a draft past the target's vocabulary could never be
+                    # accepted; clamped, it is a token the target can embed
+                    toks[:, i + 1].copy_(tok.clamp(max=self.cfg.vocab_size - 1))
+        greedy, accepted, _ = llama.spec_verify_step(self.model, toks, self.cache, active=act)
+        self._spec_out.copy_(torch.cat((toks, greedy, accepted[:, None]), dim=1))
+
+    def _program(self, key) -> Optional[_Program]:
+        """The captured graph of a CUDA engine's greedy (``key`` True) or
+        sampled (False) burst, or of its speculative step ("spec"), captured
+        at its first use; None where they run eagerly (the CPU, or
         ``_eager``).  A capture that fails raises: there is no eager fallback.
 
-        Before its capture the burst runs once with an all-False mask, which
-        writes nothing: the kernels are built and their lazily made state (the
+        Before its capture the function runs once with an all-False mask,
+        so that the kernels are built and their lazily made state (the
         library, function attributes, device properties) exists before the
-        capture starts.  Sampled graphs register the engine's generator, so
-        each replay draws new numbers."""
+        capture starts.  That run writes nothing to the caches, but it zeros
+        ``_act_in`` and the program's outputs (``_burst_out``; ``_spec_out``
+        and a draft model's columns of ``_spec_in``): a caller that reads
+        them, as a pipelined burst reads ``_burst_out``, does so before this
+        call, and sets the inputs after it.  Sampled graphs register the
+        engine's generator, so each replay draws new numbers."""
         if self.device.type != "cuda" or self._eager:
             return None
-        prog = self._programs.get(greedy)
+        prog = self._programs.get(key)
         if prog is not None:
             return prog
+        if key == "spec":
+            body = warm_up = self._spec
+        else:  # the greedy body consumes no randomness
+            body, warm_up = (lambda: self._burst(key)), (lambda: self._burst(True))
         lt = self.loop_stats
         t0 = time.perf_counter()
         dev = self.device
@@ -294,20 +450,20 @@ class Engine:
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):
-            self._burst(greedy=True)  # the greedy body consumes no randomness
+            warm_up()
         torch.cuda.current_stream(dev).wait_stream(side)
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
-        if not greedy:
+        if key is False:
             graph.register_generator_state(self.generator)
         before = dict(common.launches)
         # thread_local: a server captures on its worker thread while others wait
         with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
-            self._burst(greedy)
+            body()
         launches = {k: n - before[k] for k, n in common.launches.items() if n != before[k]}
         common.launches.update(before)  # a capture records launches; it makes none
-        prog = self._programs[greedy] = _Program(graph, launches)
+        prog = self._programs[key] = _Program(graph, launches)
         lt["graph_captures"] += 1
         lt["graph_capture"] += time.perf_counter() - t0
         return prog
@@ -328,6 +484,9 @@ class Engine:
             self._next_id = max(self._next_id, r.id + 1)
             if len(r.prompt) >= S:
                 raise ValueError(f"prompt length {len(r.prompt)} >= max_seq_len {S}")
+            if self.spec_tokens and r.temperature > 0:
+                raise ValueError("speculative decoding verifies greedily; temperature > 0 "
+                                 "requests need spec_tokens=0")
             pending.append(r)
 
         slot_req: List[Optional[Request]] = [None] * self.slots
@@ -336,6 +495,11 @@ class Engine:
         cur_tok = np.zeros(self.slots, np.int32)
         temps = np.zeros(self.slots, np.float32)
         active = np.zeros(self.slots, bool)
+        # bursts whose tokens have not reached the host yet, oldest first, and
+        # each slot's admission count: a recycled slot never takes the tokens
+        # of a burst that ran for its previous occupant
+        inflight: deque = deque()
+        slot_epoch = np.zeros(self.slots, np.int64)
         done: List[Completion] = []
         lt = self.loop_stats = defaultdict(float)
         # requests taken from the queue and not yet in slot_req: a device error
@@ -343,8 +507,6 @@ class Engine:
         in_admission: List[Request] = []
         resume_prefix: dict = {}  # id -> tokens emitted before a restart
         orig_plen: dict = {}  # id -> the prompt length before a restart
-        if dev.type == "cuda":
-            ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
 
         def finish(b: int, reason: str):
             r = slot_req[b]
@@ -378,10 +540,111 @@ class Engine:
                 slot_len[b] = len(prompt)
                 temps[b] = r.temperature
                 active[b] = True
+                slot_epoch[b] += 1
                 accept(b, int(toks[i]))
 
+        def replay(prog: _Program):
+            """Replay a captured program; returns CUDA events around it."""
+            ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            ev0.record()
+            prog.graph.replay()
+            ev1.record()
+            for k, n in prog.launches.items():
+                common.launches[k] += n
+            lt["graph_replays"] += 1
+            return ev0, ev1
+
+        def dispatch(step_active) -> None:
+            """Queue one decode burst for the slots of ``step_active``; continuing
+            slots take their input from the newest burst in flight, on the device."""
+            t_mark = time.perf_counter()
+            greedy = not (temps[step_active] > 0).any()
+            self._upload(self._tok_in, cur_tok)
+            if inflight:  # host tokens lag the bursts in flight
+                newest = inflight[-1]
+                self._upload(self._cont_in, newest.step_active & (slot_epoch == newest.epochs))
+                self._tok_in.copy_(torch.where(self._cont_in, self._burst_out[-1], self._tok_in))
+            # only now: a first capture's warm-up overwrites _burst_out and _act_in
+            captured = lt["graph_capture"]
+            prog = self._program(greedy)
+            captured = lt["graph_capture"] - captured  # kept apart from decode time
+            self._upload(self._act_in, step_active)
+            self._upload(self._temps_in, temps)
+            if prog is None:
+                self._burst(greedy)
+                events = None
+            else:
+                events = replay(prog)
+            # copied out before the next burst overwrites it (the stream orders both)
+            toks, fetched = self._fetch(self._burst_out)
+            inflight.append(_InFlight(toks, fetched, events, step_active.copy(),
+                                      slot_epoch.copy()))
+            lt["decode"] += time.perf_counter() - t_mark - captured
+            lt["decode_steps"] += self.decode_burst
+
+        def drain() -> None:
+            """Accept the oldest burst in flight, step by step, for the slots it
+            ran that still hold the request it ran for (blocks until it is done)."""
+            burst = inflight.popleft()
+            t_mark = time.perf_counter()
+            toks = burst.wait()  # [burst, slots]
+            if burst.events is not None:
+                lt["graph_device"] += 1e-3 * burst.events[0].elapsed_time(burst.events[1])
+            lt["decode"] += time.perf_counter() - t_mark
+            sa, epochs = burst.step_active, burst.epochs
+            for step in range(toks.shape[0]):
+                for b in range(self.slots):
+                    if sa[b] and active[b] and slot_epoch[b] == epochs[b]:
+                        accept(b, int(toks[step, b]))
+                        lt["decode_tokens"] += 1
+                if not active.any():
+                    break  # the rest of the burst is garbage for every slot
+
+        def spec_step(step_active) -> None:
+            """One speculative step: draft (n-gram here, or the draft model's
+            chain inside the program), verify, accept."""
+            t_mark = time.perf_counter()
+            g = self.spec_tokens
+            toks = np.zeros((self.slots, g + 1), np.int32)
+            toks[:, 0] = cur_tok
+            if self.draft is None:
+                for b in range(self.slots):
+                    if step_active[b]:
+                        toks[b, 1:] = self._draft(list(slot_req[b].prompt) + slot_gen[b], g)
+            captured = lt["graph_capture"]
+            prog = self._program("spec")
+            captured = lt["graph_capture"] - captured
+            self._upload(self._spec_in, toks)
+            self._upload(self._act_in, step_active)
+            if prog is None:
+                self._spec()
+                events = None
+            else:
+                events = replay(prog)
+            out, fetched = self._fetch(self._spec_out)
+            if fetched is not None:
+                fetched.synchronize()
+            out = out.numpy()
+            if events is not None:
+                lt["graph_device"] += 1e-3 * events[0].elapsed_time(events[1])
+            lt["decode"] += time.perf_counter() - t_mark - captured
+            lt["decode_steps"] += 1
+            toks, greedy, accepted = out[:, : g + 1], out[:, g + 1 : 2 * g + 2], out[:, -1]
+            for b in range(self.slots):
+                if not step_active[b]:
+                    continue
+                a = int(accepted[b])
+                self.spec_stats["drafted"] += g
+                self.spec_stats["accepted"] += a
+                emitted = list(toks[b, 1 : 1 + a]) + [greedy[b, a]]
+                # the verify wrote nothing past the capacity: neither is emitted
+                for tok in emitted[: max(0, S - int(slot_len[b]))]:
+                    if active[b]:
+                        accept(b, int(tok))
+                        lt["decode_tokens"] += 1
+
         def run_loop() -> None:
-            while pending or active.any():
+            while pending or active.any() or inflight:
                 t_mark = time.perf_counter()
                 admit, longs = [], []
                 for b in range(self.slots):
@@ -423,11 +686,15 @@ class Engine:
                                 piece = prompt[begin : begin + C]
                                 tokens[i, : len(piece)] = piece
                                 lens[i], slots[i] = len(prompt), b
-                        logits, _ = llama.prefill_slots_chunk(
-                            self.model, torch.from_numpy(tokens).to(dev),
-                            torch.full((n,), begin, device=dev), torch.from_numpy(lens).to(dev),
-                            torch.from_numpy(slots).to(dev), self.cache,
-                            resets=torch.full((n,), ci == 0, device=dev))
+                        args = (torch.from_numpy(tokens).to(dev),
+                                torch.full((n,), begin, device=dev),
+                                torch.from_numpy(lens).to(dev), torch.from_numpy(slots).to(dev))
+                        resets = torch.full((n,), ci == 0, device=dev)
+                        logits, _ = llama.prefill_slots_chunk(self.model, *args, self.cache,
+                                                              resets=resets)
+                        if self.draft is not None:
+                            llama.prefill_slots_chunk(self.draft, *args, self._draft_cache,
+                                                      resets=resets)
                         final = [i for i, (_, _, p) in enumerate(longs)
                                  if ci == (len(p) - 1) // C]
                         if final:
@@ -448,8 +715,10 @@ class Engine:
                     lens = torch.tensor([len(p) for _, _, p in admit], device=dev)
                     slots = torch.tensor([b for b, _, _ in admit], device=dev)
                     t_adm = [r.temperature for _, r, _ in admit]
-                    logits, _ = llama.prefill_slots(
-                        self.model, torch.from_numpy(tokens).to(dev), lens, slots, self.cache)
+                    tokens = torch.from_numpy(tokens).to(dev)
+                    logits, _ = llama.prefill_slots(self.model, tokens, lens, slots, self.cache)
+                    if self.draft is not None:
+                        llama.prefill_slots(self.draft, tokens, lens, slots, self._draft_cache)
                     toks = self._sample(logits, torch.tensor(t_adm, device=dev),
                                         greedy=max(t_adm) <= 0).cpu().numpy()
                     start(admit, toks)
@@ -457,51 +726,40 @@ class Engine:
                     lt["admit_rows"] += len(admit) * bucket
                 in_admission.clear()
                 if not active.any():
+                    if inflight:
+                        drain()
                     continue
 
                 if self._fault_hook is not None:
                     self._fault_hook()  # tests inject device errors here
-                t_mark = time.perf_counter()
                 step_active = active.copy()
                 if self.paged:
-                    # a slot about to write needs the pages of this burst's positions;
-                    # one the pool cannot serve sits the burst out and resumes later
+                    # a slot about to write needs the pages of its next positions; the
+                    # host's lengths lag the bursts in flight, so cover theirs too (the
+                    # JAX engine covers `pipeline` bursts whether in flight or not).  A
+                    # slot the pool cannot serve sits the burst out and resumes later
+                    writes = self.spec_tokens + 1 if self.spec_tokens else self.decode_burst
+                    ahead = writes * (len(inflight) + 1)
                     for b in range(self.slots):
-                        if active[b] and not self._pages_for(
-                                b, min(int(slot_len[b]) + self.decode_burst, S)):
+                        if active[b] and not self._pages_for(b, min(int(slot_len[b]) + ahead, S)):
                             step_active[b] = False
-                            lt["deferred_slot_steps"] += self.decode_burst
+                    sitting = int((step_active != active).sum())
+                    if inflight and sitting:
+                        # a slot that sits out must resume from its true last token, which
+                        # may be in a burst still in flight: take them all in first
+                        while inflight:
+                            drain()
+                        continue
+                    lt["deferred_slot_steps"] += sitting * (1 if self.spec_tokens else writes)
                     if not step_active.any():
                         raise RuntimeError("paged KV pool exhausted: every active slot is blocked")
                     self._push_table()
-                greedy = not (temps[step_active] > 0).any()
-                captured = lt["graph_capture"]
-                prog = self._program(greedy)
-                captured = lt["graph_capture"] - captured  # kept apart from decode time
-                self._tok_in.copy_(torch.from_numpy(cur_tok))
-                self._act_in.copy_(torch.from_numpy(step_active))
-                self._temps_in.copy_(torch.from_numpy(temps))
-                if prog is None:
-                    self._burst(greedy)
-                else:
-                    ev0.record()
-                    prog.graph.replay()
-                    ev1.record()
-                    for k, n in prog.launches.items():
-                        common.launches[k] += n
-                    lt["graph_replays"] += 1
-                toks = self._burst_out.cpu().numpy()  # [burst, slots]; syncs
-                if prog is not None:
-                    lt["graph_device"] += 1e-3 * ev0.elapsed_time(ev1)
-                lt["decode"] += time.perf_counter() - t_mark - captured
-                lt["decode_steps"] += self.decode_burst
-                for step in range(toks.shape[0]):
-                    for b in range(self.slots):
-                        if step_active[b] and active[b]:
-                            accept(b, int(toks[step, b]))
-                            lt["decode_tokens"] += 1
-                    if not active.any():
-                        break  # the rest of the burst is garbage for every slot
+                if self.spec_tokens:
+                    spec_step(step_active)
+                    continue
+                dispatch(step_active)
+                while len(inflight) > self.pipeline:  # block only on the oldest
+                    drain()
 
         while True:
             try:
@@ -512,6 +770,7 @@ class Engine:
                     raise
                 self.restarts += 1
                 lt["restarts"] += 1
+                inflight.clear()
                 # requeue the slots' requests as prompt + emitted so far (the
                 # JAX package's order: the last slot's request first), then the
                 # requests caught in admission
@@ -539,8 +798,9 @@ class Engine:
                 slot_len[:] = 0
                 cur_tok[:] = 0
                 temps[:] = 0
-                # the graphs hold the old cache's addresses: drop both, then
-                # capture again at the next burst
+                slot_epoch[:] += 1
+                # the graphs hold the old caches' addresses: drop them all,
+                # then capture again at the next burst
                 self._programs.clear()
                 self.cache = None
                 self.cache = self._new_cache()

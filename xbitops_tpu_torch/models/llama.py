@@ -17,8 +17,18 @@ rows and the eager attention are plain PyTorch, as the JAX package left them
 to XLA.  Decode (one token per slot) attends through the decode-attention
 kernel, which appends the new k/v rows first; a chunk of a long prompt
 attends its slot's cache through the prefill-attention kernel; both read a
-paged cache in place through its table.  Not ported yet: unaligned
-(speculative) writes and MoE layers.
+paged cache in place through its table.  Not ported yet: MoE layers.
+
+Speculative verify (:func:`spec_verify_step`, ``forward(kv_unaligned=True)``)
+writes T rows a slot that may start at any position, also off an int8 word.
+They go in T one-row appends, position t by position t, as the JAX package's
+per-t read-modify-write does (on the card the append kernel, #4 or #8, once a
+t: two positions of a chain may share a packed word, which #8 rewrites whole
+in one thread).  The forward then attends through the prefill-attention kernel
+on the card, where the JAX package attends eagerly over every row of the
+slots: its Pallas kernel needs T % 128 == 0, while the CUDA kernel takes any T
+and masks each query by its own position.  Off the card the eager attention
+runs, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -390,6 +400,27 @@ def _append_row(cache: KVCache, li: int, new, use_kernel: bool) -> None:
         append(cache.k, cache.v, *new, li, cache.page_table)
 
 
+def _write_unaligned(cache: KVCache, li: int, k, v, positions, use_kernel: bool) -> None:
+    """Write k/v [B, T, Hkv, D] at ``positions`` [B, T] (row i -> slot i) that
+    may start anywhere: one :func:`_append_row` a position t, never one launch
+    for all T (two positions may share an int8 word, which the append kernel
+    rewrites whole).  A position outside ``[0, S)``, or without a page, writes
+    nothing, so a chain that runs past S loses only its tail.  No step reads
+    anything back to the host: a CUDA graph can capture it.  The rows are laid
+    out T-major once, and the int8 ones quantized in one pass over all T, so
+    that each append takes contiguous slices."""
+    kv = torch.stack((k.transpose(0, 1), v.transpose(0, 1)))  # [2, T, B, Hkv, D]
+    pos = positions.t().contiguous()
+    if cache.quantized:
+        q, s = _quant_kv(kv)  # k and v in one pass
+    for t in range(pos.shape[0]):
+        if cache.quantized:
+            new = q[0, t], q[1, t], s[0, t], s[1, t], pos[t]
+        else:
+            new = kv[0, t], kv[1, t], pos[t]
+        _append_row(cache, li, new, use_kernel)
+
+
 def _slot_rows(cache: KVCache, li: int, slot_ids):
     """Head-major k, v [n, Hkv, S, D] of layer ``li`` for the eager attention:
     every slot, or the slots ``slot_ids`` (clamped into range: an inert row
@@ -429,12 +460,12 @@ class LlamaBlock(nn.Module):
 
     def forward(self, x, positions, rope, cache: KVCache, li: int, mask, slot_ids=None,
                 self_attend: bool = False, use_kernel: bool = True,
-                flash_prefill: bool = False):
+                flash_prefill: bool = False, kv_unaligned: bool = False):
         """x [B, T, hidden] at ``positions`` [B, T] (``rope``: their
-        :func:`rope_tables`); writes layer ``li`` of ``cache`` in place.
-        ``mask`` None means a kernel attends: the prefill-attention kernel
-        with ``flash_prefill``, else decode through the decode-attention
-        kernel."""
+        :func:`rope_tables`); writes layer ``li`` of ``cache`` in place
+        (``kv_unaligned``: by :func:`_write_unaligned`).  ``mask`` None means
+        a kernel attends: the prefill-attention kernel with ``flash_prefill``,
+        else decode through the decode-attention kernel."""
         cfg = self.cfg
         B, T, _ = x.shape
         H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -476,6 +507,8 @@ class LlamaBlock(nn.Module):
         else:
             if one_row:
                 _append_row(cache, li, new, use_kernel)
+            elif kv_unaligned:
+                _write_unaligned(cache, li, k, v, positions, use_kernel)
             else:
                 _write_rows(cache, li, k, v, positions, slot_ids)
             if self_attend:  # a fresh request attends only its own rows
@@ -544,9 +577,11 @@ class Llama(nn.Module):
         in place.  Rows attend the cache rows of their slot (``slot_ids``,
         default row i -> slot i) up to their position, or with
         ``self_attend`` (a fresh request) only their own new rows.
+        ``kv_unaligned``: the T > 1 rows of a slot may start at any position
+        (speculative verify; row i -> slot i), see the module docstring.
         ``use_kernel=False`` runs every kernel's plain version."""
-        if kv_unaligned:
-            raise NotImplementedError("unaligned (speculative) writes are not ported yet")
+        if kv_unaligned and (slot_ids is not None or self_attend):
+            raise ValueError("kv_unaligned writes row i to slot i: no slot_ids, no self_attend")
         cfg = self.cfg
         B, T = tokens.shape
         S = cache.S
@@ -577,7 +612,7 @@ class Llama(nn.Module):
                            cfg.rope_scaling_factor)
         for li, block in enumerate(self.blocks):
             x = block(x, positions, rope, cache, li, mask, slot_ids, self_attend, use_kernel,
-                      flash_prefill)
+                      flash_prefill, kv_unaligned)
 
         x = rms_norm(x, self.ln_final, cfg.rms_eps)
         if logits_rows is not None:
@@ -649,6 +684,39 @@ def decode_step(model: Llama, tokens, cache: KVCache, active=None, use_kernel: b
         positions = torch.where(active[:, None], positions, cache.S)
     logits, cache = model(tokens[:, None], cache, positions, use_kernel=use_kernel)
     return logits[:, -1, :], cache
+
+
+def spec_verify_step(model: Llama, tokens, cache: KVCache, active=None,
+                     use_kernel: bool = True):
+    """Speculative-decoding verify (port of ``models.llama.spec_verify_step``):
+    each slot's current token ``tokens[:, 0]`` and ``T - 1`` drafted tokens
+    [B, T] go through ONE forward at positions ``lengths + t`` (inactive slots
+    at S, every position capped at S), which writes their rows
+    (``kv_unaligned``); the longest prefix of drafts that the model's greedy
+    choice agrees with is accepted, and the lengths roll back to it.
+
+    Returns ``(greedy [B, T], accepted [B], cache)``: slot b emits the drafts
+    ``tokens[b, 1 : 1 + accepted[b]]`` and then ``greedy[b, accepted[b]]``,
+    capped at its capacity (``lengths`` advance by ``min(accepted + 1,
+    S - lengths)``; inactive slots keep theirs).  Rows past the new length
+    stay written, unseen, until a later write replaces them.  Tensor ops
+    only, with no read-back to the host, so a CUDA graph can capture it."""
+    B, T = tokens.shape
+    S = cache.S
+    old = cache.lengths.clone()
+    positions = old.long()[:, None] + torch.arange(T, device=tokens.device)[None]
+    if active is not None:
+        positions = torch.where(active[:, None], positions, S)
+    positions = positions.clamp(max=S)  # drafts past the capacity are inert
+    logits, cache = model(tokens, cache, positions, kv_unaligned=True, use_kernel=use_kernel)
+    greedy = logits.argmax(dim=-1).to(torch.int32)
+    match = (greedy[:, :-1] == tokens[:, 1:]).to(torch.int32)
+    accepted = match.cumprod(dim=1).sum(dim=1).to(torch.int32)
+    new = old + torch.minimum(accepted + 1, (S - old).clamp(min=0))
+    if active is not None:
+        new = torch.where(active, new, old)
+    cache.lengths.copy_(new)
+    return greedy, accepted, cache
 
 
 def prefill_slots(model: Llama, tokens, true_lens, slots, cache: KVCache,

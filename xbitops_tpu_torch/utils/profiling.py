@@ -6,7 +6,8 @@ host ops and the device's busy share, from ``torch.profiler``.
 profiles, on a random 4-bit Llama-2-7B at full width and depth with 8 slots
 (S=2048): one decode step over the bf16 cache, one over the paged bf16 cache
 (pages of 256 positions, shuffled through the pool) and one over the int8
-cache, all slots at 1000 live positions, and one chunk forward of chunked admission
+cache, all slots at 1000 live positions, on each cache a speculative verify
+step of 5 rows a slot (``spec_verify_step``, γ = 4), and one chunk forward of chunked admission
 (5 rows of 512 tokens at positions 512-1023, int8 cache) with bf16
 activations, with int8 activations (``prefill_a8``) and with int8 activations
 on the 8-bit per-channel requantization of the blocks.  With ``--bits B``
@@ -14,7 +15,8 @@ on the 8-bit per-channel requantization of the blocks.  With ``--bits B``
 over the bf16 cache alone.  Each decode step is profiled twice: called from
 Python as an eager step, and as a CUDA graph of 8 such steps replayed (the
 engine's burst), whose numbers are given a step (``replayed``, with
-``event_ms``: CUDA events around each replay).  It needs one CUDA device and
+``event_ms``: CUDA events around each replay); a verify step is replayed as a
+graph of one step, as the engine replays it.  It needs one CUDA device and
 prints one JSON object per case.
 """
 
@@ -134,6 +136,16 @@ def main() -> int:
             kind = ("paged " if paged else "") + ("int8" if quantized else "bf16")
             print(json.dumps(dict(case=f"decode step, {bits}-bit, {kind} cache, B={slots}, "
                                        f"live={live}", **res)), flush=True)
+            drafts = torch.randint(0, cfg.vocab_size, (slots, 5), generator=gen, device=dev)
+
+            def verify():
+                cache.lengths.fill_(live)
+                llama.spec_verify_step(model, drafts, cache)
+
+            res = profile(verify)
+            res["replayed"] = replayed(verify, burst=1)
+            print(json.dumps(dict(case=f"verify step, 5 rows a slot, {bits}-bit, {kind} cache, "
+                                       f"B={slots}, live={live}", **res)), flush=True)
             if quantized:
                 n, chunk = 5, 512
                 tokens = torch.randint(0, cfg.vocab_size, (n, chunk), generator=gen, device=dev)

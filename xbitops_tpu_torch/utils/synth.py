@@ -15,7 +15,8 @@ import torch
 
 from xbitops_tpu_torch import formats
 from xbitops_tpu_torch.formats import PLANE_DECOMP, QTensor
-from xbitops_tpu_torch.models.llama import Llama, LlamaBlock, LlamaConfig
+from xbitops_tpu_torch.models.llama import Llama, LlamaBlock, LlamaConfig, QLinear
+from xbitops_tpu_torch.ops.quantize import quantize_array
 
 
 def random_qtensor(
@@ -64,6 +65,12 @@ def random_llama_params(
     """A random packed Llama on ``device``: fused q|k|v and gate|up
     projections (``fuse``) or split ones, bf16 embedding, unit norms."""
     gen = torch.Generator(device=device).manual_seed(seed)
+    return _random_llama(gen, cfg, bits, group_size, fuse)
+
+
+def _random_llama(gen: torch.Generator, cfg: LlamaConfig, bits: int, group_size: int,
+                  fuse: bool = True) -> Llama:
+    device = gen.device
     h, ffn = cfg.hidden_size, cfg.intermediate_size
     qdim = cfg.num_heads * cfg.head_dim
     kvdim = cfg.num_kv_heads * cfg.head_dim
@@ -85,6 +92,41 @@ def random_llama_params(
         blocks.append(LlamaBlock(cfg, proj, ones(), ones()))
     embed = (torch.randn((cfg.vocab_size, h), generator=gen, device=device) * 0.02)
     return Llama(cfg, embed.to(torch.bfloat16), blocks, ones(), q(h, cfg.vocab_size))
+
+
+def copy_llama_params(
+    gen: torch.Generator,
+    cfg: LlamaConfig,
+    bits: int = 4,
+    group_size: int = 128,
+    period: int = 8,
+) -> Llama:
+    """A "copy-model" on ``gen``'s device (port of
+    ``utils.synth.copy_llama_params``): greedy decode follows the cycle
+    ``0, 1, .., period-1, 0, ..`` at the bytes of a real packed model.
+
+    ``wo`` and ``w_down`` carry weights of scale ~1e-4, so the residual stream
+    stays near the current token's embedding (scale 0.02), and lm_head column
+    ``(v + 1) % period`` is embedding row ``v``: ``argmax(logits) = (token + 1)
+    % period`` by a wide margin over the other random columns.  Speculative
+    decoding's favourable case (the n-gram draft accepts nearly every token)
+    at the full cost of every projection; random weights (acceptance ~0) are
+    the other bracket."""
+    if period > cfg.vocab_size:
+        raise ValueError(f"period {period} > vocab_size {cfg.vocab_size}")
+    model = _random_llama(gen, cfg, bits, group_size)
+    h, ffn = cfg.hidden_size, cfg.intermediate_size
+    qdim = cfg.num_heads * cfg.head_dim
+    for block in model.blocks:
+        block.wo = QLinear(random_qtensor(gen, qdim, h, bits, group_size,
+                                          scale_lo=1e-5, scale_hi=2e-5))
+        block.w_down = QLinear(random_qtensor(gen, ffn, h, bits, group_size,
+                                              scale_lo=1e-5, scale_hi=2e-5))
+    W = torch.randn((h, cfg.vocab_size), generator=gen, device=gen.device) * 0.02
+    succ = (torch.arange(period, device=gen.device) + 1) % period
+    W[:, succ] = model.embed[:period].float().T
+    model.lm_head = QLinear(quantize_array(W, bits, group_size))
+    return model
 
 
 def scatter_pages(linear, page_table, n_pages: int, scales: bool = False):
