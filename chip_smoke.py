@@ -23,7 +23,12 @@
    its K splits and its TOP/s; per channel it must equal its plain version
    bit for bit.  Beside it, for information only, ``torch._int_mm`` on int8
    operands of the same M, K and N: the card's own int8 GEMM, which reads no
-   packed plane and applies no scale (not ``library_ms``).
+   packed plane and applies no scale (not ``library_ms``).  At Mixtral-8x7B's
+   shapes: the fused matmul at M=8 on q|k|v (4096x6144), wo and, through a
+   ``layer(e)`` view of a stacked QTensor of 8 experts, expert gate|up
+   (4096x28672) and expert down (14336x4096); decode attention with its
+   append and prefill attention at H=32, Hkv=8 (GQA rep 4), bf16 and int8,
+   each beside its plain version, its bound and SDPA.
 2. Drives the serving path: a random 4-bit (g=128) Llama-2-7B at full width
    and depth through ``Engine.generate`` with 12 requests on 8 slots over the
    bf16 KV cache, then checks the outputs, that every kernel of that path
@@ -106,6 +111,29 @@
    requests give equal tokens, and n-gram speculation's acceptance (near 0).
    Printed: the verify step's device time at each γ, tokens/s against plain
    graph decode, the launches of a verify replay.
+
+10. Drives Mixtral and GPTQ: (a) a random 4-bit (g=128) Mixtral-8x7B
+   (``MoeConfig.mixtral_like``, no-drop: 32 layers, 8 experts top-2, 32/8
+   heads) at full width and depth, built on the card from random bits (its
+   resident bytes printed), serves 8 greedy requests (prompts of 16-500, 32
+   new tokens) on 8 slots in bursts of 8 over the bf16 and then the int8
+   cache, tokens equal to eager bursts; the decode step's device time beside
+   its bound (every packed weight and the live k/v once) and its launches;
+   on a 2-layer cut each MoE block against the plain path from the same input
+   (rel 2e-2 over the tokens routed alike; a token whose routes differ must
+   sit at a router near-tie) and the share of routes that agree; then γ=4
+   n-gram speculation on the model's copy-model form (tokens equal plain
+   greedy); (b) a structured dense model (``utils/structured.py``) at
+   Llama-2-7B widths cut to 2 layers, written as a HF checkpoint, through
+   ``cli.main(["quantize", ...])`` (4-bit g=128, 16x512 structured
+   calibration rows; the solver's seconds by shape) and ``["generate",
+   ...]`` (the successor walk); an identity Hessian equal to round-to-nearest
+   bit for bit at 4096x12288; dense against quantized NLL on held-out
+   structured text; γ=4 speculation on the quantized model (tokens equal plain
+   greedy, acceptance printed, with prompts that hold the walk and with
+   one-token prompts); (c) a random AutoGPTQ Mixtral checkpoint at full
+   widths cut to 1 layer through ``convert`` and ``generate``: its logits
+   equal, bit for bit, those of the same weights built directly.
 
 In every serving phase each decode burst is a replay of a CUDA graph the
 engine captured (``loop_stats["graph_replays"]`` equals the bursts run); in
@@ -334,6 +362,11 @@ def phase_kernels(dev, timer):
     res.update(kernels_decode(dev, timer, gen))
     res.update(kernels_prefill(dev, timer, gen))
     res.update(kernels_paged(dev, timer, gen))
+    res["mixtral"] = kernels_mixtral(dev, timer, gen)
+    for v in res["mixtral"].values():  # the matmul held at Mixtral's shapes too
+        if v.get("kernel") in ("qgemv", "qgemv_mma"):
+            row = res[v["kernel"]]
+            row["max_abs_err"] = max(row["max_abs_err"], v["max_abs_err"])
     return res
 
 
@@ -489,11 +522,11 @@ def packed_cache(gen, L, B, Hkv, S, D):
 
 def sdpa(q, k, v, mask):
     """The yardstick: one PyTorch attention call.  q [B, H, Tq, D]; k/v
-    [B, Hkv, S, D] bf16; mask bool, broadcastable to [B, H, Tq, S]."""
-    rep = q.shape[1] // k.shape[1]
-    if rep > 1:
-        k, v = k.repeat_interleave(rep, dim=1), v.repeat_interleave(rep, dim=1)
-    return torch.nn.functional.scaled_dot_product_attention(q, k, v, attn_mask=mask)
+    [B, Hkv, S, D] bf16 (``enable_gqa`` where Hkv < H: each kv head serves
+    H / Hkv query heads, with no copy of the cache); mask bool,
+    broadcastable to [B, H, Tq, S]."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=k.shape[1] < q.shape[1])
 
 
 def fused_once(call, name: str, append: str, cache):
@@ -789,6 +822,212 @@ def kernels_prefill(dev, timer, gen):
             del k, v, out, ref
     # the long-context serving path runs the int8 form
     res["prefill_attention"] = dict(res["prefill_attention_int8"], max_abs_err=worst)
+    return res
+
+
+def kernels_mixtral(dev, timer, gen):
+    """Phase 1 at Mixtral-8x7B's shapes: the fused matmul at M = 8 (a decode
+    step of 8 slots: the few-rows form), 40 (a γ=4 verify) and 2560 (a chunk
+    forward of 5 x 512; both the tile) on q|k|v (4096x6144), wo (4096x4096)
+    and, through a ``layer(e)`` view of a stacked QTensor of 8 experts (a
+    storage offset), expert gate|up (4096x28672) and expert down (14336x4096,
+    112 groups);
+    decode attention with its append and prefill attention at H=32, Hkv=8
+    (GQA rep 4), D=128, S=2048, 8 slots, bf16 and int8, beside SDPA."""
+    from xbitops_tpu_torch.kernels import common
+    from xbitops_tpu_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_reference,
+    )
+    from xbitops_tpu_torch.kernels.kv_append import (
+        _unpack_kv_words,
+        kv_append_dense_reference,
+        kv_append_packed_reference,
+    )
+    from xbitops_tpu_torch.kernels.prefill_attention import (
+        prefill_attention,
+        prefill_attention_reference,
+    )
+    from xbitops_tpu_torch.kernels.qgemv_kernel import qgemv_form
+    from xbitops_tpu_torch.models.moe import stack_experts
+    from xbitops_tpu_torch.ops.qmatmul import qmatmul
+    from xbitops_tpu_torch.utils import synth
+
+    res = {}
+    for name, (K, N, experts) in {"wqkv": (4096, 6144, 0), "wo": (4096, 4096, 0),
+                                  "expert_gateup": (4096, 28672, 8),
+                                  "expert_down": (14336, 4096, 8)}.items():
+        if experts:
+            stacked = stack_experts([synth.random_qtensor(gen, K, N, 4, 128)
+                                     for _ in range(experts)])
+            qt = stacked.layer(5)
+            check(qt.planes[0].storage_offset() > 0, f"{name}: the expert view has no offset")
+        else:
+            qt = synth.random_qtensor(gen, K, N, 4, 128)
+        # M = 8: a decode step of 8 slots (the few-rows form); 40: the γ=4
+        # verify of 8 slots, and 2560: a chunk forward of 5 x 512, every
+        # expert at C = N rows in no-drop mode (both the tensor-core tile)
+        for M in (8, 40, 2560):
+            a = torch.randn(M, K, device=dev, generator=gen).to(torch.bfloat16)
+            form = qgemv_form(M, False, qt)
+            kname = "qgemv" if M == 8 else "qgemv_mma"
+            common.reset_counts()
+            got = qmatmul(a, qt)
+            check({k: n for k, n in common.launches.items() if n} == {kname: 1}
+                  and form == ("gemv" if M == 8 else "mma")
+                  and not any(common.plain_on_cuda.values()),
+                  f"Mixtral {name} M={M}: {form}, launches {dict(common.launches)}")
+            ref = qmatmul(a, qt, out_dtype=torch.float32, use_kernel=False)
+            e, e_abs = rel_err(got, ref), (got.float() - ref).abs().max().item()
+            check(e <= 2e-2, f"Mixtral {name} M={M}: rel err {e:.3e} > 2e-2")
+            del got, ref
+            ms = timer(lambda: qmatmul(a, qt))
+            plain_ms = timer(lambda: qmatmul(a, qt, use_kernel=False), iters=2)
+            b = bound(qt.bytes_packed() + nbytes(a) + 2 * M * N, 2 * M * K * N)
+            print(f"Mixtral qmatmul 4-bit {name} K={K} (packed {qt.K}) N={N} M={M} ({form}"
+                  f"{', expert view' if experts else ''}): op {ms:.4f} ms "
+                  f"({qt.bytes_packed() / ms / 1e6:.1f} GB/s packed stream, "
+                  f"{2 * M * K * N / ms / 1e9:.1f} TFLOP/s, {b['bound_ms'] / ms:.1%} of the "
+                  f"bound), plain {plain_ms:.4f} ms, rel err {e:.2e}, max abs err {e_abs:.2e}; "
+                  f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}; library: none exists",
+                  flush=True)
+            res[f"qgemv_{name}" + ("" if M == 8 else f"_M{M}")] = dict(
+                kernel=kname, ms=ms, plain_ms=plain_ms, library_ms=None, max_abs_err=e_abs, **b)
+            del a
+        del qt
+        if experts:
+            del stacked
+
+    # decode attention with its append, GQA rep 4, ragged: 7 live slots and one at S
+    S, D, H, Hkv = 2048, 128, 32, 8
+    lens_live = [1, 7, 128, 1000, 2047, 2048, 513]
+    B = len(lens_live) + 1
+    pos = torch.tensor([n - 1 for n in lens_live] + [S], device=dev)
+    lens = torch.clamp(pos + 1, max=S)
+    s_idx = torch.arange(S, device=dev)
+    mask = (s_idx[None] < lens[:, None])[:, None, None, :]
+    q = torch.randn(B, H, D, device=dev, generator=gen).to(torch.bfloat16)
+    live_rows = int(lens.sum()) * Hkv * D
+    act = pos < S
+    rows = ((torch.arange(B, device=dev)[:, None] * Hkv
+             + torch.arange(Hkv, device=dev)[None]) * S + pos[:, None])[act].reshape(-1)
+    k = torch.randn(2, B, Hkv, S, D, device=dev, generator=gen).to(torch.bfloat16)
+    v = torch.randn(2, B, Hkv, S, D, device=dev, generator=gen).to(torch.bfloat16)
+    kn = torch.randn(B, Hkv, D, device=dev, generator=gen).to(torch.bfloat16)
+    vn = torch.randn(B, Hkv, D, device=dev, generator=gen).to(torch.bfloat16)
+    k_ref, v_ref = k.clone(), v.clone()
+    out, after = fused_once(lambda: decode_attention(q, k, v, lens, layer_idx=1,
+                                                     kv_new=(kn, vn, pos)),
+                            "decode_attention", "kv_append", (k, v))
+    kv_append_dense_reference(k_ref, v_ref, kn, vn, pos, 1)
+    ref = decode_attention_reference(q, k_ref[1], v_ref[1], lens)
+    same = all(torch.equal(x, y) for x, y in zip(after, (k_ref, v_ref)))
+    e = (out.float() - ref.float()).abs().max().item()
+    check(same and e <= 2e-2, f"Mixtral decode attention bf16: rows exact {same}, err {e:.3e}")
+    e_lib = (sdpa(q[:, :, None], k_ref[1], v_ref[1], mask)[:-1, :, 0].float()
+             - ref[:-1].float()).abs().max().item()
+    check(e_lib <= 2e-2, f"Mixtral: the SDPA yardstick differs from the plain one: {e_lib}")
+    del after
+    ms = timer(lambda: decode_attention(q, k, v, lens, layer_idx=1, kv_new=(kn, vn, pos)))
+    plain_ms = timer(lambda: (kv_append_dense_reference(k, v, kn, vn, pos, 1),
+                              decode_attention_reference(q, k[1], v[1], lens)), iters=3)
+    kf1, vf1 = k[1].view(-1, D), v[1].view(-1, D)
+    kr1, vr1 = kn[act].reshape(-1, D), vn[act].reshape(-1, D)
+    library_ms = timer(lambda: (kf1.index_copy_(0, rows, kr1), vf1.index_copy_(0, rows, vr1),
+                                sdpa(q[:, :, None], k[1], v[1], mask)))
+    b = bound(2 * 2 * live_rows + nbytes(q, out, kn, vn), 4 * H * D * int(lens.sum()))
+    print(f"Mixtral decode_attention+append bf16 B={B} H={H} Hkv={Hkv} (rep 4) S={S}: op "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (2 index_copy_ + SDPA, GQA) "
+          f"{library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}; rows exact, "
+          f"max abs err {e:.2e}", flush=True)
+    res["decode_attention_bf16"] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                        max_abs_err=e, **b)
+    del k, v, k_ref, v_ref
+    cache = packed_cache(gen, 2, B, Hkv, S, D)
+    kq, vq = (torch.randint(1, 256, (B, Hkv, D), generator=gen, device=dev, dtype=torch.int32)
+              for _ in range(2))
+    ksn, vsn = (torch.empty((B, Hkv), device=dev).uniform_(0.005, 0.02, generator=gen)
+                for _ in range(2))
+    new = (kq, vq, ksn, vsn, pos)
+    ref_cache = [t.clone() for t in cache]
+    out, after = fused_once(lambda: decode_attention(
+        q, cache[0], cache[1], lens, layer_idx=1, k_scale=cache[2], v_scale=cache[3],
+        kv_new=new), "decode_attention_int8", "kv_append_packed", cache)
+    kv_append_packed_reference(*ref_cache, *new, 1)
+    ref = decode_attention_reference(q, ref_cache[0][1], ref_cache[1][1], lens, None,
+                                     ref_cache[2][1], ref_cache[3][1])
+    same = all(torch.equal(x, y) for x, y in zip(after, ref_cache))
+    e = (out.float() - ref.float()).abs().max().item()
+    check(same and e <= 2e-2, f"Mixtral decode attention int8: words exact {same}, err {e:.3e}")
+    del after, ref_cache
+    k8, v8, ks8, vs8 = cache
+    ms = timer(lambda: decode_attention(q, k8, v8, lens, layer_idx=1, k_scale=ks8, v_scale=vs8,
+                                        kv_new=new))
+    plain_ms = timer(lambda: (kv_append_packed_reference(k8, v8, ks8, vs8, *new, 1),
+                              decode_attention_reference(q, k8[1], v8[1], lens, None, ks8[1],
+                                                         vs8[1])), iters=3)
+    kd = _unpack_kv_words(k8[1], ks8[1]).to(torch.bfloat16)
+    vd = _unpack_kv_words(v8[1], vs8[1]).to(torch.bfloat16)
+    library_ms = timer(lambda: sdpa(q[:, :, None], kd, vd, mask))
+    del kd, vd
+    b = bound(2 * (live_rows + 2 * int(lens.sum()) * Hkv) + nbytes(q, out, kq, vq),
+              4 * H * D * int(lens.sum()))
+    print(f"Mixtral decode_attention+append int8 B={B} H={H} Hkv={Hkv} S={S}: op {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, library (SDPA on bf16 rows, no append) {library_ms:.4f} ms, "
+          f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}; words exact, max abs err {e:.2e}",
+          flush=True)
+    res["decode_attention_int8"] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                        max_abs_err=e, **b)
+    del cache, k8, v8, ks8, vs8
+
+    # prefill attention: 8 rows of 512 queries, ragged starts, one inert row
+    N, T = 8, 512
+    starts = torch.tensor([0, 512, 1024, 1536, 1024, 0, 512, 0], device=dev)
+    plens = torch.tensor([512, 1024, 1536, 2048, 1324, 100, 900, 0], device=dev)
+    slots = torch.tensor([3, 0, 7, 1, 5, 2, 6, B], device=dev)
+    ppos = starts[:, None] + torch.arange(T, device=dev)[None]
+    ppos = torch.where(ppos < plens[:, None], ppos, S)
+    live = ppos < S
+    flops = 4 * H * D * int((ppos[live] + 1).sum())
+    rows_read = int((torch.minimum(plens, starts + T)).clamp(min=0).sum()) * Hkv * D
+    pq = torch.randn(N, T, H, D, device=dev, generator=gen).to(torch.bfloat16)
+    pmask = (s_idx[None, None] <= ppos[:, :, None])[:, None] & live[:, None, :, None]
+    qh = pq.transpose(1, 2)
+    srows = slots.clamp(0, B - 1)
+    for int8 in (False, True):
+        if int8:
+            k, v, ks, vs = (t[0] for t in packed_cache(gen, 1, B, Hkv, S, D))
+            scales = dict(k_scale=ks, v_scale=vs)
+            kd = _unpack_kv_words(k[srows], ks[srows]).to(torch.bfloat16)
+            vd = _unpack_kv_words(v[srows], vs[srows]).to(torch.bfloat16)
+            cache_bytes = 2 * rows_read + 2 * 2 * rows_read // D
+        else:
+            k, v = (torch.randn(B, Hkv, S, D, device=dev, generator=gen).to(torch.bfloat16)
+                    for _ in range(2))
+            scales = {}
+            kd, vd = k[srows], v[srows]
+            cache_bytes = 2 * 2 * rows_read
+        out = prefill_attention(pq, k, v, ppos, slots, **scales)
+        ref = prefill_attention_reference(pq, k, v, ppos, slots, **scales)
+        e = (out.float() - ref.float()).abs().max().item()
+        check(e <= 2e-2 and bool((out[~live] == 0).all()),
+              f"Mixtral prefill attention ({'int8' if int8 else 'bf16'}): err {e:.3e}")
+        e_lib = (sdpa(qh, kd, vd, pmask).transpose(1, 2)[live].float()
+                 - ref[live].float()).abs().max().item()
+        check(e_lib <= 2e-2, f"Mixtral: the SDPA yardstick differs from the plain one: {e_lib}")
+        ms = timer(lambda: prefill_attention(pq, k, v, ppos, slots, **scales))
+        plain_ms = timer(lambda: prefill_attention_reference(pq, k, v, ppos, slots, **scales),
+                         iters=2)
+        library_ms = timer(lambda: sdpa(qh, kd, vd, pmask))
+        b = bound(cache_bytes + nbytes(pq, out), flops)
+        name = "int8" if int8 else "bf16"
+        print(f"Mixtral prefill_attention {name} N={N} T={T} H={H} Hkv={Hkv} S={S}: op {ms:.4f} "
+              f"ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, library (SDPA on "
+              f"bf16 rows) {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}; "
+              f"max abs err {e:.2e}", flush=True)
+        res["prefill_attention_" + name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                                max_abs_err=e, **b)
+        del k, v, kd, vd, out, ref
     return res
 
 
@@ -2430,6 +2669,487 @@ def phase_spec(dev, model):
     return launches, res
 
 
+def model_bytes(model) -> int:
+    """Device bytes of a model's buffers (its resident weights)."""
+    return sum(t.numel() * t.element_size() for t in model.buffers())
+
+
+def moe_block_errs(model, tokens, cache=None):
+    """Each MoE block through the kernels and through the plain versions on
+    the same input (the kernel path's output of the block before), with the
+    routes each path's router gives the same block input: one decode step
+    (``tokens`` [B], on clones of ``cache``) or a chunk forward (``tokens``
+    [N, T]: N fresh prompts from position 0 into slots 0..N-1 of new caches;
+    the kernel path attends through the prefill-attention kernel, the plain
+    one eagerly over the slots' rows), as :func:`block_errs`.  A token whose
+    top-k experts differ between the paths is excluded from its block's rel
+    err, and allowed only at a near-tie: the plain path's k-th and (k+1)-th
+    router logits within 2e-2 of the token's largest logit, which is as far
+    as the router's input may move between the paths (the blocks' bf16
+    gate).  Returns each block's rel err and the counts of tokens routed
+    alike and of tokens in all."""
+    from xbitops_tpu_torch.models import llama, moe
+
+    cfg = model.cfg
+    k = cfg.experts_per_token
+    dev = tokens.device
+    if tokens.dim() == 1:
+        a, b = clone_cache(cache, cfg.num_layers), clone_cache(cache, cfg.num_layers)
+        positions = cache.lengths[:, None].long()
+        x = model.embed[tokens.long()][:, None].to(torch.bfloat16)
+        kernel_kw, plain_kw = {}, {}
+    else:
+        N, T = tokens.shape
+        a, b = (llama.KVCache.init(cfg, N, dev) for _ in range(2))
+        positions = torch.arange(T, device=dev)[None].expand(N, T)
+        x = model.embed[tokens.long()].to(torch.bfloat16)
+        slots = torch.arange(N, device=dev)
+        mask = torch.arange(a.S, device=dev)[None, None] <= positions[:, :, None]
+        kernel_kw = dict(slot_ids=slots, flash_prefill=True)
+        plain_kw = dict(slot_ids=slots, mask=mask)
+    rope = llama.rope_tables(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling_type,
+                             cfg.rope_scaling_factor)
+    errs, alike, total = [], 0, 0
+    for li, block in enumerate(model.blocks):
+        seen = []
+        hook = block.moe.register_forward_hook(lambda mod, inp, out: seen.append(inp[0]))
+        try:
+            got = block(x, positions, rope, a, li, **{"mask": None, **kernel_kw})
+            want = block(x, positions, rope, b, li, **{"mask": None, **plain_kw},
+                         use_kernel=False)
+        finally:
+            hook.remove()
+        check(torch.isfinite(got.float()).all().item(), f"block {li}: non-finite output")
+        router = block.moe.router
+        routes = [moe.route(h.reshape(-1, h.shape[-1]), router, k)[0].sort(dim=1).values
+                  for h in seen]
+        same = (routes[0] == routes[1]).all(dim=1)
+        logits = seen[1].reshape(-1, seen[1].shape[-1]).float() @ router.float()
+        top = logits.topk(k + 1, dim=1).values
+        gap = (top[:, k - 1] - top[:, k]) / logits.abs().amax(dim=1)
+        flips = (~same).nonzero()[:, 0].tolist()
+        check(all(gap[n].item() <= 2e-2 for n in flips),
+              f"block {li}: a route flipped away from a near-tie (gaps {gap[~same].tolist()})")
+        g, w = got.reshape(-1, got.shape[-1])[same], want.reshape(-1, want.shape[-1])[same]
+        errs.append(rel_err(g, w))
+        alike += int(same.sum())
+        total += same.numel()
+        x = got
+    return errs, alike, total
+
+
+def phase_mixtral(dev):
+    """Phase 10a: Mixtral-8x7B (``MoeConfig.mixtral_like``, no-drop) at full
+    width and depth, random packed 4-bit g=128 weights: serving on 8 slots in
+    bursts of 8 on the bf16 and the int8 cache (graph tokens equal eager),
+    n-gram speculation (γ=4) on its copy-model form (tokens equal plain
+    greedy), each MoE block of a 2-layer cut against the plain path."""
+    from xbitops_tpu_torch.engine import Engine, Request
+    from xbitops_tpu_torch.kernels import common
+    from xbitops_tpu_torch.models.moe import MoeConfig
+    from xbitops_tpu_torch.utils import synth
+
+    cfg = MoeConfig.mixtral_like(capacity_factor=None)
+    t0 = time.perf_counter()
+    model = synth.random_moe_params(cfg, bits=4, group_size=128, device=dev, seed=SEED)
+    torch.cuda.synchronize()
+    resident = model_bytes(model)
+    experts = sum(model_bytes(b.moe) for b in model.blocks)
+    print(f"Mixtral-8x7B (32 layers, 8 experts top-2 of ffn 14336, 32/8 heads of 128, vocab "
+          f"32000, no-drop) built in {time.perf_counter() - t0:.1f} s: {resident / 1e9:.2f} GB "
+          f"resident ({experts / 1e9:.2f} GB of experts)", flush=True)
+    check(20e9 < resident < 30e9, f"Mixtral resident bytes {resident}")
+    launches = dict.fromkeys(common.launches, 0)
+    rng = np.random.default_rng(SEED)
+    lengths = np.linspace(16, 500, 8).astype(int)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab_size, n).tolist(), max_new_tokens=32)
+            for n in lengths]
+
+    def run(eng, reqs, label):
+        common.reset_counts()
+        out = eng.generate(reqs)
+        for k, n in common.launches.items():
+            launches[k] += n
+        check(not any(common.plain_on_cuda.values()),
+              f"{label}: plain versions ran on the card: {common.plain_on_cuda}")
+        check(all(len(c.tokens) == r.max_new_tokens for c, r in zip(out, reqs)),
+              f"{label}: a request was cut short")
+        return out, {k: n for k, n in common.launches.items() if n}
+
+    res = {}
+    for kv_quant in (False, True):
+        label = f"Mixtral, {'int8' if kv_quant else 'bf16'} cache"
+        eng = Engine(model, cfg, slots=8, decode_burst=8, kv_quant=kv_quant, seed=SEED)
+        out, got = run(eng, reqs, label)
+        for name in (INT8_PATH if kv_quant else BF16_PATH):
+            if name != "prefill_attention":  # bucketed admission attends eagerly here
+                check(got.get(name, 0) > 0, f"{label}: kernel {name} was not launched")
+        st = dict(eng.loop_stats)
+        rates = against_eager(eng, reqs, out, label)
+        per_step = {k: n / eng.decode_burst for k, n in eng._programs[True].launches.items()}
+        # the step's bound: every packed weight (all experts run at no-drop) and
+        # the live k/v rows of the last step read once
+        kv = sum(len(r.prompt) + 31 for r in reqs) * cfg.num_layers * cfg.num_kv_heads \
+            * cfg.head_dim * 2 * (1 + 2 / cfg.head_dim if kv_quant else 2)
+        b = bound(resident - model.embed.numel() * 2 + kv, 0)
+        print(f"{label}: admission {st['admit_prefill']:.2f} s ({st['admit_rows']:.0f} padded "
+              f"rows); decode {rates['ms_step']:.2f} ms/step, {rates['tok_s']:.1f} tokens/s, "
+              f"device {rates['device_ms_step']:.3f} ms a replayed step against a bound of "
+              f"{b['bound_ms']:.3f} ms (weights and live k/v once); launches a step "
+              f"{per_step}", flush=True)
+        res["int8" if kv_quant else "bf16"] = dict(rates=rates, bound_ms=b["bound_ms"],
+                                                   per_step=per_step,
+                                                   admit_s=st["admit_prefill"])
+        if not kv_quant:  # the 2-layer cut, each MoE block against the plain path
+            tokens = torch.tensor([c.tokens[-1] for c in out], device=dev)
+            cut = two_layer_cut(model)
+            errs, alike, total = moe_block_errs(cut, tokens, eng.cache)
+            print(f"Mixtral decode step, 2-layer cut, each block on the same input, kernels vs "
+                  f"plain: rel err {[f'{x:.2e}' for x in errs]} over the tokens routed alike; "
+                  f"routes agree for {alike} of {total} tokens ({alike / total:.3f})", flush=True)
+            check(max(errs) <= 2e-2, f"Mixtral block rel err {max(errs):.3e} > 2e-2")
+            res["routes"] = (alike, total)
+            res["block_err"] = max(errs)
+            # a chunk forward of 5 x 512: every expert at C = 2560 rows (the tile)
+            chunk = torch.randint(0, cfg.vocab_size, (5, 512), device=dev,
+                                  generator=torch.Generator(device=dev).manual_seed(SEED))
+            common.reset_counts()
+            errs, alike, total = moe_block_errs(cut, chunk)
+            # the kernel path: q|k|v, wo and every expert's two on the tile, and
+            # the prefill-attention kernel, in each of the 2 blocks
+            check(common.launches["qgemv_mma"] == 2 * (2 + 2 * cfg.n_experts)
+                  and common.launches["prefill_attention"] == 2,
+                  f"Mixtral chunk forward: launches {dict(common.launches)}")
+            print(f"Mixtral chunk forward of 5 x 512, 2-layer cut, each block on the same input, "
+                  f"kernels vs plain: rel err {[f'{x:.2e}' for x in errs]} over the tokens routed "
+                  f"alike; routes agree for {alike} of {total} tokens ({alike / total:.4f})",
+                  flush=True)
+            check(max(errs) <= 2e-2, f"Mixtral chunk block rel err {max(errs):.3e} > 2e-2")
+            res["chunk_routes"] = (alike, total)
+            res["chunk_block_err"] = max(errs)
+            del cut
+        del eng
+        torch.cuda.empty_cache()
+
+    # speculative decoding on the copy-model form of the same model (its greedy
+    # stream is the cycle 0..7, so the verify's other rounding cannot part it)
+    synth.make_copy_model(model, torch.Generator(device=dev).manual_seed(SEED), period=8)
+    creqs = [Request(prompt=[(j + i) % 8 for i in range(n)], max_new_tokens=32)
+             for j, n in enumerate(lengths)]
+    plain_eng = Engine(model, cfg, slots=8, decode_burst=8, kv_quant=False)
+    plain, _ = run(plain_eng, creqs, "Mixtral copy-model, plain")
+    plain_rates = graph_rates(plain_eng, "Mixtral copy-model, plain")
+    check(all(follows_cycle(c, r.prompt, 8) for c, r in zip(plain, creqs)),
+          "Mixtral copy-model: not the cycle")
+    del plain_eng
+    eng = Engine(model, cfg, slots=8, spec_tokens=4, kv_quant=False)
+    out, got = run(eng, creqs, "Mixtral copy-model, spec γ=4")
+    check([c.tokens for c in out] == [c.tokens for c in plain],
+          "Mixtral: speculative tokens differ from plain greedy")
+    rates = graph_rates(eng, "Mixtral copy-model, spec γ=4")
+    st = eng.spec_stats
+    rate = st["accepted"] / st["drafted"]
+    prog = eng._programs["spec"].launches
+    print(f"Mixtral copy-model, n-gram spec γ=4: tokens equal plain greedy; acceptance "
+          f"{st['accepted']}/{st['drafted']} = {rate:.3f}; {rates['tok_s']:.1f} tokens/s, "
+          f"{rates['ms_step']:.2f} ms a verify step, device {rates['device_ms_step']:.3f} ms a "
+          f"replayed step; plain graph decode {plain_rates['tok_s']:.1f} tokens/s, "
+          f"{plain_rates['ms_step']:.2f} ms/step, device {plain_rates['device_ms_step']:.3f} ms; "
+          f"a verify replay launches {prog}", flush=True)
+    check(rate >= 0.5, f"Mixtral copy-model: acceptance {rate:.3f}")
+    res["spec"] = dict(rates=rates, plain=plain_rates, rate=rate, launches=prog)
+    del eng, model
+    torch.cuda.empty_cache()
+    return launches, res
+
+
+def phase_gptq(dev):
+    """Phase 10b: a structured dense model at Llama-2-7B widths cut to 2
+    layers (cycle 8) through ``write_hf_dense_checkpoint``, CLI ``quantize``
+    (4-bit g=128, 16 structured rows of 512) and ``generate``; the identity
+    Hessian against round-to-nearest at 4096x12288; dense against quantized
+    NLL on held-out structured text; n-gram speculation on the quantized
+    model."""
+    import contextlib
+    import io
+    import re
+    import tempfile
+    from pathlib import Path
+
+    from xbitops_tpu_torch import cli
+    from xbitops_tpu_torch.engine import Engine, Request
+    from xbitops_tpu_torch.io.checkpoint import load_llama
+    from xbitops_tpu_torch.kernels import common
+    from xbitops_tpu_torch.models import llama
+    from xbitops_tpu_torch.ops import gptq
+    from xbitops_tpu_torch.ops.quantize import quantize_array
+    from xbitops_tpu_torch.utils import structured
+    from xbitops_tpu_torch.utils.evaluate import sequence_nll
+
+    res = {}
+    # identity Hessian == round-to-nearest, bit for bit, on the card
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    w = torch.randn((4096, 12288), generator=gen, device=dev) * 0.02
+    t0 = time.perf_counter()
+    qt = gptq.gptq_quantize_array(w, torch.eye(4096, device=dev), 4, 128)
+    torch.cuda.synchronize()
+    t_eye = time.perf_counter() - t0
+    rtn = quantize_array(w, 4, 128)
+    exact = (all(torch.equal(a, b) for a, b in zip(qt.planes, rtn.planes))
+             and torch.equal(qt.scales, rtn.scales) and torch.equal(qt.scale_zeros, rtn.scale_zeros))
+    print(f"GPTQ with an identity Hessian at 4096x12288 on the card: equal to round-to-nearest "
+          f"bit for bit: {exact} (solver {t_eye:.2f} s)", flush=True)
+    check(exact, "GPTQ with an identity Hessian differs from round-to-nearest")
+    del w, qt, rtn
+
+    cycle = 8
+    cfg = dataclasses.replace(llama.LlamaConfig.llama2_7b(), num_layers=2)
+    root = Path(__file__).resolve().parent
+    launches = dict.fromkeys(common.launches, 0)
+    with tempfile.TemporaryDirectory(dir=root, prefix="smoke_ckpt_") as tmp:
+        dense_dir, packed = Path(tmp) / "dense", Path(tmp) / "packed"
+        t0 = time.perf_counter()
+        dense = structured.structured_dense_params(cfg, cycle=cycle, seed=SEED, device=dev)
+        structured.write_hf_dense_checkpoint(dense, cfg, str(dense_dir))
+        t_write = time.perf_counter() - t0
+        calib = structured.structured_calib_tokens(cfg, cycle, n_rows=16, seq_len=512)
+        np.save(Path(tmp) / "calib.npy", calib)
+        held = torch.from_numpy(structured.structured_calib_tokens(cfg, cycle, 4, 64,
+                                                                   seed=7)).to(dev)
+        nll_d = float(sequence_nll(dense, held).mean())
+        del dense
+        torch.cuda.empty_cache()
+        buf, err = io.StringIO(), io.StringIO()
+        common.reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+            check(cli.main(["quantize", "--ckpt", str(dense_dir), "--out", str(packed),
+                            "--bits", "4", "--group-size", "128", "--seq-len", "512",
+                            "--calib-npy", str(Path(tmp) / "calib.npy"),
+                            "--device", dev.type]) == 0, "cli quantize failed")
+        t_quant = time.perf_counter() - t0
+        for k, n in common.launches.items():
+            launches[k] += n
+        check(common.launches["qgemv_mma"] > 0, "quantize: the calibration forward ran no tile")
+        solver = [x for x in err.getvalue().splitlines() if x.startswith("gptq solver")]
+        print(f"structured dense model at Llama-2-7B widths cut to 2 layers (cycle {cycle}): "
+              f"built on the card and written (f32 safetensors) in {t_write:.1f} s; `quantize` "
+              f"(4-bit g=128, 16x512 structured calibration rows) {t_quant:.1f} s; "
+              f"{'; '.join(solver)}", flush=True)
+        start = 21
+        args = ["generate", "--ckpt", str(packed), "--prompt", str(start), "--max-tokens", "16",
+                "--slots", "1", "--device", dev.type]
+        buf = io.StringIO()
+        common.reset_counts()
+        with contextlib.redirect_stdout(buf):
+            check(cli.main(args) == 0, "cli generate failed")
+        for k, n in common.launches.items():
+            launches[k] += n
+        m = re.search(r"\[0\] \[(.*)\]", buf.getvalue())
+        printed = [int(t) for t in m.group(1).split(", ")] if m else []
+        want = [int(t) for t in structured.successor_stream(start, 16, cycle)]
+        print(f"`generate` on the quantized model from {start}: {printed} (the walk: "
+              f"{printed == want})", flush=True)
+        check(printed == want, f"the quantized model does not walk its cycle: {printed}")
+        qmodel = load_llama(str(packed), cfg, device=dev)
+        nll_q = float(sequence_nll(qmodel, held).mean())
+        print(f"held-out structured text (4x64): dense NLL {nll_d:.4f}, quantized NLL "
+              f"{nll_q:.4f} (gate: dense < 0.1, quantized < dense + 0.05)", flush=True)
+        check(nll_d < 0.1, f"the dense structured model at 4096 wide does not walk: {nll_d:.4f}")
+        check(nll_q < nll_d + 0.05, f"quantized NLL {nll_q:.4f} vs dense {nll_d:.4f}")
+        prompts = [list(range(16 + 8 * j, 24 + 8 * j)) * 2 + list(range(16 + 8 * j, 19 + 8 * j))
+                   for j in range(8)]
+        reqs = [Request(prompt=p, max_new_tokens=32, id=i) for i, p in enumerate(prompts)]
+        plain = Engine(qmodel, cfg, slots=8, kv_quant=False).generate(reqs)
+        eng = Engine(qmodel, cfg, slots=8, spec_tokens=4, kv_quant=False)
+        common.reset_counts()
+        out = eng.generate(reqs)
+        for k, n in common.launches.items():
+            launches[k] += n
+        check([c.tokens for c in out] == [c.tokens for c in plain],
+              "quantized structured model: speculative tokens differ from plain greedy")
+        st = eng.spec_stats
+        rate = st["accepted"] / st["drafted"]
+        walks = all(c.tokens == list(structured.successor_stream(p[-1], 32, cycle))
+                    for c, p in zip(out, prompts))
+        print(f"quantized structured model, n-gram spec γ=4 on 8 slots: tokens equal plain "
+              f"greedy, the walk {walks}; acceptance {st['accepted']}/{st['drafted']} = "
+              f"{rate:.3f}", flush=True)
+        check(rate > 0.5, f"structured model acceptance {rate:.3f}")
+        # prompts of one token: the n-gram draft finds nothing to look up until
+        # the walk has come round once, so part of the drafts miss
+        reqs1 = [Request(prompt=[16 + 8 * j + j % 8], max_new_tokens=32, id=j) for j in range(8)]
+        plain1 = Engine(qmodel, cfg, slots=8, kv_quant=False).generate(reqs1)
+        eng1 = Engine(qmodel, cfg, slots=8, spec_tokens=4, kv_quant=False)
+        out1 = eng1.generate(reqs1)
+        check([c.tokens for c in out1] == [c.tokens for c in plain1],
+              "quantized structured model (1-token prompts): speculative tokens differ")
+        st1 = eng1.spec_stats
+        rate1 = st1["accepted"] / st1["drafted"]
+        print(f"the same with prompts of one token (the draft has no history for the first "
+              f"cycle): tokens equal plain greedy; acceptance {st1['accepted']}/{st1['drafted']} "
+              f"= {rate1:.3f}", flush=True)
+        res.update(nll_d=nll_d, nll_q=nll_q, rate=rate, rate1=rate1, t_quant=t_quant,
+                   solver=solver, t_write=t_write)
+        del eng1
+        del qmodel, eng
+        torch.cuda.empty_cache()
+    return launches, res
+
+
+def write_autogptq_mixtral(path, cfg, layers: int, rng) -> None:
+    """:func:`write_autogptq`'s Mixtral twin: a random AutoGPTQ Mixtral
+    checkpoint (4-bit, g=128, "gptq" format) at ``cfg``'s widths with
+    ``layers`` layers: attention and each expert's w1/w2/w3 packed, the router
+    (``block_sparse_moe.gate``) and the lm_head dense fp16."""
+    import json as _json
+    from pathlib import Path
+
+    from safetensors import numpy as st_np
+
+    h, ffn, g = cfg.hidden_size, cfg.intermediate_size, 128
+    qdim, kvdim = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+    tensors = {}
+
+    def packed(name, k, n):
+        scale = k ** -0.5 / 4.6
+        tensors[f"{name}.qweight"] = rng.integers(0, 2**32, (k // 8, n),
+                                                  dtype=np.uint32).view(np.int32)
+        tensors[f"{name}.qzeros"] = np.full((k // g, n // 8), 0x77777777, np.int32)
+        tensors[f"{name}.scales"] = rng.uniform(0.8 * scale, 1.2 * scale,
+                                                (k // g, n)).astype(np.float16)
+        tensors[f"{name}.g_idx"] = (np.arange(k) // g).astype(np.int32)
+
+    for i in range(layers):
+        pre = f"model.layers.{i}"
+        for name, k, n in (("q_proj", h, qdim), ("k_proj", h, kvdim), ("v_proj", h, kvdim),
+                           ("o_proj", qdim, h)):
+            packed(f"{pre}.self_attn.{name}", k, n)
+        tensors[f"{pre}.block_sparse_moe.gate.weight"] = (
+            rng.standard_normal((cfg.n_experts, h), dtype=np.float32) * h ** -0.5
+        ).astype(np.float16)
+        for e in range(cfg.n_experts):
+            ep = f"{pre}.block_sparse_moe.experts.{e}"
+            packed(f"{ep}.w1", h, ffn)
+            packed(f"{ep}.w3", h, ffn)
+            packed(f"{ep}.w2", ffn, h)
+        tensors[f"{pre}.input_layernorm.weight"] = np.ones(h, np.float16)
+        tensors[f"{pre}.post_attention_layernorm.weight"] = np.ones(h, np.float16)
+    tensors["model.embed_tokens.weight"] = (
+        rng.standard_normal((cfg.vocab_size, h), dtype=np.float32) * 0.02).astype(np.float16)
+    tensors["model.norm.weight"] = np.ones(h, np.float16)
+    tensors["lm_head.weight"] = (
+        rng.standard_normal((cfg.vocab_size, h), dtype=np.float32) * h ** -0.5).astype(np.float16)
+    p = Path(path)
+    st_np.save_file(tensors, str(p / "model.safetensors"))
+    (p / "config.json").write_text(_json.dumps(dict(
+        model_type="mixtral", vocab_size=cfg.vocab_size, hidden_size=h, intermediate_size=ffn,
+        num_hidden_layers=layers, num_attention_heads=cfg.num_heads,
+        num_key_value_heads=cfg.num_kv_heads, head_dim=cfg.head_dim, rope_theta=cfg.rope_theta,
+        rms_norm_eps=cfg.rms_eps, max_position_embeddings=2048,
+        num_local_experts=cfg.n_experts, num_experts_per_tok=cfg.experts_per_token)))
+    (p / "quantize_config.json").write_text(_json.dumps(dict(bits=4, group_size=g,
+                                                              desc_act=False)))
+
+
+def phase_mixtral_loader(dev):
+    """Phase 10c: a random AutoGPTQ Mixtral checkpoint at full widths cut to
+    1 layer through CLI ``convert`` and ``generate``; the logits of the loaded
+    model equal, bit for bit, those of the same weights built directly
+    (``formats.from_gptq`` per tensor, ``moe.stack_experts``), and
+    ``generate``'s tokens equal an ``Engine`` on that model."""
+    import contextlib
+    import io
+    import re
+    import tempfile
+    from pathlib import Path
+
+    from safetensors import numpy as st_np
+
+    from xbitops_tpu_torch import cli, formats
+    from xbitops_tpu_torch.engine import Engine, Request
+    from xbitops_tpu_torch.io.checkpoint import load_llama
+    from xbitops_tpu_torch.io.gptq_loader import llama_config_from_hf
+    from xbitops_tpu_torch.kernels import common
+    from xbitops_tpu_torch.models import llama
+    from xbitops_tpu_torch.models.moe import MoeConfig, stack_experts
+
+    cfg = MoeConfig.mixtral_like(capacity_factor=None, num_layers=1)
+    rng = np.random.default_rng(SEED)
+    root = Path(__file__).resolve().parent
+    launches = dict.fromkeys(common.launches, 0)
+    with tempfile.TemporaryDirectory(dir=root, prefix="smoke_ckpt_") as tmp:
+        src, packed = Path(tmp) / "autogptq", Path(tmp) / "packed"
+        src.mkdir()
+        t0 = time.perf_counter()
+        write_autogptq_mixtral(src, cfg, 1, rng)
+        t_write = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            check(cli.main(["convert", "--ckpt", str(src), "--out", str(packed), "--device",
+                            dev.type]) == 0, "cli convert (Mixtral) failed")
+        t_convert = time.perf_counter() - t0
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (16, 90, 300)]
+        args = ["generate", "--ckpt", str(packed), "--max-tokens", "8", "--slots", "4",
+                "--device", dev.type]
+        for p in prompts:
+            args += ["--prompt", " ".join(map(str, p))]
+        buf = io.StringIO()
+        common.reset_counts()
+        with contextlib.redirect_stdout(buf):
+            check(cli.main(args) == 0, "cli generate (Mixtral) failed")
+        for k, n in common.launches.items():
+            launches[k] += n
+        lines = [re.fullmatch(r"\[(\d+)\] \[(.*)\] \((\w+)\)", x)
+                 for x in buf.getvalue().splitlines()]
+        check(len(lines) == len(prompts) and all(lines), f"generate printed {buf.getvalue()}")
+        printed = [[int(t) for t in m.group(2).split(", ")] for m in lines]
+
+        # the same weights built directly, tensor by tensor
+        t = st_np.load_file(str(src / "model.safetensors"))
+        hf = json.loads((src / "config.json").read_text())
+        lcfg = llama_config_from_hf(hf)
+
+        def g(name):
+            return torch.from_numpy(t[name]).to(dev)
+
+        def qt(prefix, k):
+            return formats.from_gptq(g(f"{prefix}.qweight"), g(f"{prefix}.scales"),
+                                     g(f"{prefix}.qzeros"), 4, 128, k, add_zero_bias=1)
+
+        h, ffn = cfg.hidden_size, cfg.intermediate_size
+        pre = "model.layers.0"
+        wqkv = formats.concat_qtensors([qt(f"{pre}.self_attn.{n}_proj", h) for n in "qkv"])
+        gus = [formats.concat_qtensors([qt(f"{pre}.block_sparse_moe.experts.{e}.w1", h),
+                                        qt(f"{pre}.block_sparse_moe.experts.{e}.w3", h)])
+               for e in range(cfg.n_experts)]
+        downs = [qt(f"{pre}.block_sparse_moe.experts.{e}.w2", ffn) for e in range(cfg.n_experts)]
+        proj = dict(wqkv=wqkv, wo=qt(f"{pre}.self_attn.o_proj", cfg.num_heads * cfg.head_dim),
+                    router=g(f"{pre}.block_sparse_moe.gate.weight").T.float().contiguous(),
+                    w_experts_gateup=stack_experts(gus), w_experts_down=stack_experts(downs))
+        block = llama.LlamaBlock(lcfg, proj, g(f"{pre}.input_layernorm.weight").float(),
+                                 g(f"{pre}.post_attention_layernorm.weight").float())
+        direct = llama.Llama(lcfg, g("model.embed_tokens.weight").to(torch.bfloat16), [block],
+                             g("model.norm.weight").float(),
+                             g("lm_head.weight").T.to(torch.bfloat16).contiguous())
+        loaded = load_llama(str(packed), lcfg, device=dev)
+        toks = torch.tensor([p[:16] for p in prompts], device=dev)
+        la, _ = llama.prefill(loaded, toks, llama.KVCache.init(lcfg, 3, dev))
+        lb, _ = llama.prefill(direct, toks, llama.KVCache.init(lcfg, 3, dev))
+        check(torch.equal(la, lb), "the converted Mixtral's logits differ from the direct build's")
+        eng_out = Engine(direct, lcfg, slots=4).generate(
+            [Request(prompt=p, max_new_tokens=8, id=i) for i, p in enumerate(prompts)])
+        check(printed == [c.tokens for c in eng_out],
+              "generate's tokens differ from an Engine on the direct build")
+        print(f"AutoGPTQ Mixtral checkpoint at full widths cut to 1 layer (8 experts, random "
+              f"4-bit g=128, dense fp16 router and lm_head): written in {t_write:.1f} s, "
+              f"`convert` {t_convert:.1f} s; logits of the converted model equal the direct "
+              f"build's bit for bit; `generate`'s tokens equal an Engine on it", flush=True)
+        del loaded, direct, block, proj, gus, downs, t
+        torch.cuda.empty_cache()
+    return launches, dict(t_write=t_write, t_convert=t_convert)
+
+
 def clone_cache(cache, n_layers=None):
     """A copy of ``cache`` (of its first ``n_layers`` layers), its scales and
     page table included."""
@@ -2509,6 +3229,10 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     launches7, three_bit = phase_three_bit(dev, cfg)
+    torch.cuda.empty_cache()
+    launches10a, mixtral = phase_mixtral(dev)
+    launches10b, gptq_res = phase_gptq(dev)
+    launches10c, _ = phase_mixtral_loader(dev)
     print(f"card: {card}; 7B 4-bit decode at B=8: bf16 cache, prompts to 500: "
           f"{serving['ms_step']:.2f} ms/step, {serving['tok_s']:.1f} tokens/s; int8 cache, "
           f"prompts to 1500: {long_ctx['ms_step']:.2f} ms/step, {long_ctx['tok_s']:.1f} tokens/s; "
@@ -2560,6 +3284,31 @@ def main() -> int:
           f"{spec['pipe'][2]['tok_s']:.1f} tokens/s; total {time.perf_counter() - t_start:.1f} s",
           flush=True)
 
+    mk = res["mixtral"]
+    print(f"card: {card}; Mixtral-8x7B 4-bit g=128, no-drop, decode at B=8 (8 requests, prompts "
+          f"16-500, 32 new tokens): bf16 cache {mixtral['bf16']['rates']['ms_step']:.2f} ms/step, "
+          f"{mixtral['bf16']['rates']['tok_s']:.1f} tokens/s, device "
+          f"{mixtral['bf16']['rates']['device_ms_step']:.3f} ms a replayed step (bound "
+          f"{mixtral['bf16']['bound_ms']:.3f}); int8 cache "
+          f"{mixtral['int8']['rates']['ms_step']:.2f} ms/step, "
+          f"{mixtral['int8']['rates']['tok_s']:.1f} tokens/s, device "
+          f"{mixtral['int8']['rates']['device_ms_step']:.3f} ms; eager bf16 "
+          f"{mixtral['bf16']['rates']['eager_ms_step']:.2f} ms/step; copy-model spec γ=4 "
+          f"{mixtral['spec']['rates']['tok_s']:.1f} tokens/s against "
+          f"{mixtral['spec']['plain']['tok_s']:.1f} (acceptance {mixtral['spec']['rate']:.3f}, "
+          f"device {mixtral['spec']['rates']['device_ms_step']:.3f} ms a verify step); routes "
+          f"alike {mixtral['routes'][0]}/{mixtral['routes'][1]} a decode step, "
+          f"{mixtral['chunk_routes'][0]}/{mixtral['chunk_routes'][1]} a chunk forward (blocks "
+          f"within rel {mixtral['block_err']:.1e} / {mixtral['chunk_block_err']:.1e}); kernels at "
+          f"its shapes, op ms: "
+          + ", ".join(f"{n} {v['ms']:.4f} (bound {v['bound_ms']:.4f})" for n, v in mk.items()),
+          flush=True)
+    print(f"card: {card}; GPTQ at Llama-2-7B widths, 2 layers: `quantize` "
+          f"{gptq_res['t_quant']:.1f} s; NLL dense {gptq_res['nll_d']:.4f}, quantized "
+          f"{gptq_res['nll_q']:.4f}; spec γ=4 acceptance {gptq_res['rate']:.3f} (prompts of "
+          f"one token: {gptq_res['rate1']:.3f}); "
+          f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+
     csrc, jk = "xbitops_tpu_torch/csrc/", "xbitops_tpu/kernels/"
     src = {
         "qgemv": (csrc + "qgemv_word.cu", jk + "qgemv_kernel.py:51"),
@@ -2581,13 +3330,13 @@ def main() -> int:
         "kv_append_paged": (csrc + "kv_append.cu", jk + "kv_append.py:92"),
         "kv_append_packed_paged": (csrc + "kv_append.cu", jk + "kv_append.py:43"),
     }
-    # launches: each kernel's count over the runs of phases 2 to 9 (the counts
+    # launches: each kernel's count over the runs of phases 2 to 10 (the counts
     # were set to 0 just before each run and read just after it).  An append
     # row counts its own kernel's launches (phase 6: the eager decode), and
     # apart, as fused_launches, the decode-attention launches (csrc/
     # decode_attention.cu) that appended in its form on the serving paths
     runs = (launches2, launches3, launches4, launches5, launches6, launches7, launches8,
-            launches9)
+            launches9, launches10a, launches10b, launches10c)
     count = lambda n: sum(ln[n] for ln in runs)
     kernels = [dict(name=n, route="cuda", source=src[n][0], replaces=src[n][1], launches=count(n),
                     **({"fused_launches": count(n + "_fused")} if n in common.APPENDS else {}),

@@ -5,12 +5,14 @@ equal bit for bit to the JAX loader's tree after ``params_from_numpy`` (fused
 and unfused, with the act-order gate and the desc_act checkpoint's down-proj
 fold); a projection's dequantized weight equal to the interchange oracle;
 prefill logits within rel 2e-2 of JAX's; the packed round trip, whose
-directory the JAX loader reads back to its own tree.  ``concat_qtensors``
+directory the JAX loader reads back to its own tree.  Mixtral, AutoGPTQ and
+dense: the config, every tensor bit-equal to the JAX loader's (stacked
+experts), and the AutoGPTQ model's prefill logits within rel 2e-2.  ``concat_qtensors``
 equals JAX's bit for bit where the fused N needs no lane padding; where it
 does (N not a multiple of 128) the JAX function raises (it pads the 3-D
 scales with a 2-D pad list), so the port's result is held to the parts'
 dequantized weights side by side, and its padding to ``make_qtensor``'s
-(scale 1, scale-zero 0).  Mixtral and ``tp=2`` raise ``NotImplementedError``."""
+(scale 1, scale-zero 0).  ``tp=2`` raises ``NotImplementedError``."""
 
 import dataclasses
 
@@ -258,9 +260,54 @@ def test_concat_qtensors_refuses():
 
 
 def test_mixtral_and_tp_raise(mixtral_ckpt_dir, ckpt_dir):
-    with pytest.raises(NotImplementedError):
-        load_autogptq(str(mixtral_ckpt_dir), device="cpu")
-    with pytest.raises(NotImplementedError):
-        llama_config_from_hf({**HF_CONFIGS["llama"], "model_type": "mixtral"})
-    with pytest.raises(NotImplementedError):
-        load_autogptq(str(ckpt_dir[0]), tp=2, device="cpu")
+    """A Mixtral config is a no-drop ``MoeConfig`` now; ``tp > 1`` still
+    raises, for Mixtral too."""
+    from xbitops_tpu_torch.models.moe import MoeConfig
+
+    cfg = llama_config_from_hf({**HF_CONFIGS["llama"], "model_type": "mixtral",
+                                "num_local_experts": 4})
+    assert isinstance(cfg, MoeConfig) and cfg.n_experts == 4 and cfg.capacity_factor is None
+    for d in (mixtral_ckpt_dir, ckpt_dir[0]):
+        with pytest.raises(NotImplementedError):
+            load_autogptq(str(d), tp=2, device="cpu")
+
+
+def test_load_mixtral_autogptq_equals_jax_loader(mixtral_ckpt_dir):
+    """``tests/test_io.py``'s AutoGPTQ Mixtral (2 experts, top-2): the config
+    field by field, every tensor bit-equal to the JAX loader's (router f32,
+    w1|w3 fused per expert, experts stacked), and the prefill logits within
+    rel 2e-2 of JAX's."""
+    from xbitops_tpu_torch.models.moe import MoeConfig
+
+    model, cfg = load_autogptq(str(mixtral_ckpt_dir), max_seq_len=32, device="cpu")
+    jparams, jcfg = jloader.load_autogptq(str(mixtral_ckpt_dir), max_seq_len=32)
+    assert isinstance(cfg, MoeConfig)
+    for f in dataclasses.fields(cfg):
+        assert getattr(cfg, f.name) == getattr(jcfg, f.name), f.name
+    _same_model(model, params_from_numpy(jax.tree.map(np.asarray, jparams), cfg, "cpu"))
+    w = model.blocks[0].weights()
+    assert set(w) >= {"router", "w_experts_gateup", "w_experts_down"} and "w_down" not in w
+    assert w["w_experts_gateup"].planes[0].shape[0] == 2 and w["router"].dtype == torch.float32
+    tokens = np.asarray([[1, 5, 9], [2, 4, 0]])
+    jlog, _ = jllama.prefill(jparams, jcfg, jnp.asarray(tokens, jnp.int32),
+                             jllama.KVCache.init(jcfg, 2))
+    log, _ = llama.prefill(model, torch.from_numpy(tokens), llama.KVCache.init(cfg, 2, "cpu"))
+    _logits_close(log, jlog)
+
+
+def test_load_mixtral_dense_equals_jax_loader(tmp_path):
+    """A dense Mixtral checkpoint (the quantizer's input, written by
+    ``utils/structured.py``) loads as stacked dense experts ``[E, K, N]``,
+    bit-equal to the JAX loader's tree."""
+    from xbitops_tpu_torch.models.moe import MoeConfig
+    from xbitops_tpu_torch.utils import structured
+
+    cfg = dataclasses.replace(MoeConfig.tiny_moe(vocab=64, seq=32), num_layers=1,
+                              hidden_size=128, intermediate_size=128)
+    structured.write_hf_mixtral_checkpoint(structured.structured_moe_params(cfg), cfg,
+                                           str(tmp_path))
+    model, lcfg = load_autogptq(str(tmp_path), device="cpu")
+    jparams, _ = jloader.load_autogptq(str(tmp_path))
+    _same_model(model, params_from_numpy(jax.tree.map(np.asarray, jparams), lcfg, "cpu"))
+    gu = model.blocks[0].weights()["w_experts_gateup"]
+    assert gu.shape == (cfg.n_experts, 128, 256) and gu.dtype == torch.bfloat16

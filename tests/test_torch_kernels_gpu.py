@@ -22,7 +22,10 @@ captured again after a restart; sampled graphs are seeded and stay in top_k.
 A speculative engine replays each verify step (a draft model's chain inside
 it) as one graph with the eager steps' tokens and ``spec_stats``; pipelined
 bursts give the synchronous engine's tokens; the unaligned write (T append
-launches a layer) leaves each cache form as its plain version does.
+launches a layer) leaves each cache form as its plain version does.  A tiny
+MoE model's graph-replayed bursts (bf16 and int8 cache) and γ=2 verify steps
+give the eager engine's tokens; GPTQ with an identity Hessian equals
+round-to-nearest bit for bit on the card, and its Hessian is a true-f32 sum.
 """
 
 import dataclasses
@@ -1170,3 +1173,68 @@ def test_graph_pipeline_admits_a_sampled_request_mid_flight(dev, depth):
         assert c.tokens == [(p + 1) % 8 for p in prev] and len(c.tokens) == r.max_new_tokens
     assert [c.tokens for c in runs[depth]] == [c.tokens for c in runs[0]]
     assert [c.finish_reason for c in runs[depth]] == [c.finish_reason for c in runs[0]]
+
+
+def _moe_engine(dev, eager=False, **kw):
+    """A tiny random MoE model (``MoeConfig.tiny_moe``, 4 experts top-2,
+    no-drop) in an engine: 4 slots, prompts past 64 admitted in chunks."""
+    from xbitops_tpu_torch.engine import Engine
+    from xbitops_tpu_torch.models.moe import MoeConfig
+
+    cfg = MoeConfig.tiny_moe(seq=256)
+    model = synth.random_moe_params(cfg, bits=4, group_size=128, device=dev, seed=1)
+    eng = Engine(model, cfg, slots=4, prefill_chunk=64, **kw)
+    eng._eager = eager
+    return eng
+
+
+@pytest.mark.parametrize("kv_quant", [False, True], ids=["bf16", "int8"])
+def test_moe_graph_engine_greedy_tokens_equal_eager(dev, kv_quant):
+    """A MoE model's decode bursts capture as graphs (the expert loop, the
+    slot cumsum and the index_copy_ dispatch have no host read-back): replayed
+    greedy tokens equal the eager bursts', and a replay counts an eager
+    burst's launches."""
+    reqs = _graph_requests()
+    want = _moe_engine(dev, eager=True, decode_burst=4, kv_quant=kv_quant).generate(reqs)
+    eng = _moe_engine(dev, decode_burst=4, kv_quant=kv_quant)
+    common.reset_counts()
+    got = eng.generate(reqs)
+    st = eng.loop_stats
+    assert [c.tokens for c in got] == [c.tokens for c in want]
+    assert st["graph_captures"] == 1 and st["graph_replays"] == st["decode_steps"] / 4
+    assert not any(common.plain_on_cuda.values())
+    eng._act_in.zero_()
+    common.reset_counts()
+    eng._burst(greedy=True)
+    torch.cuda.synchronize()
+    per_burst = {k: n for k, n in common.launches.items() if n}
+    assert per_burst == eng._programs[True].launches and per_burst["qgemv"] > 0
+
+
+def test_moe_graph_spec_verify_equals_eager(dev):
+    """A MoE model's γ=2 verify step, replayed as one graph, gives the eager
+    steps' tokens and ``spec_stats``."""
+    reqs = _graph_requests(n=5, new=10)
+    want_eng = _moe_engine(dev, eager=True, spec_tokens=2, kv_quant=False)
+    want = want_eng.generate(reqs)
+    eng = _moe_engine(dev, spec_tokens=2, kv_quant=False)
+    got = eng.generate(reqs)
+    assert [c.tokens for c in got] == [c.tokens for c in want]
+    assert eng.spec_stats == want_eng.spec_stats
+    assert eng.loop_stats["graph_replays"] == eng.loop_stats["decode_steps"] > 0
+
+
+def test_gptq_identity_hessian_is_rtn_on_card(dev):
+    """With H = I GPTQ rounds to nearest: on the card too its packed weight
+    equals ``quantize_array``'s bit for bit (true f32 inside the solver)."""
+    from xbitops_tpu_torch.ops import gptq
+    from xbitops_tpu_torch.ops.quantize import quantize_array
+
+    w = torch.randn((512, 384), generator=_gen(dev, 4), device=dev) * 0.05
+    qt = gptq.gptq_quantize_array(w, torch.eye(512, device=dev), 4, 128)
+    rtn = quantize_array(w, 4, 128)
+    assert all(torch.equal(a, b) for a, b in zip(qt.planes, rtn.planes))
+    assert torch.equal(qt.scales, rtn.scales) and torch.equal(qt.scale_zeros, rtn.scale_zeros)
+    x = torch.randn((256, 512), generator=_gen(dev, 5), device=dev)
+    h = gptq.hessian_from_inputs(x)
+    assert torch.allclose(h, 2 * (x.double().T @ x.double()).float(), rtol=1e-5, atol=1e-3)

@@ -4,6 +4,7 @@
     python -m xbitops_tpu_torch generate --ckpt <dir> --prompt "1 2 3" [--max-tokens N]
     python -m xbitops_tpu_torch serve    --ckpt <dir> [--slots 8] [--burst 8] [--port 8000]
     python -m xbitops_tpu_torch bench    [--bits 4] [--batch 4]
+    python -m xbitops_tpu_torch quantize --ckpt <dense_hf_dir> --out <packed_dir> [--bits 4]
 
 ``convert`` packs an AutoGPTQ safetensors checkpoint once, offline, with its
 ``config.json`` carried along; ``generate`` runs the engine on a packed or an
@@ -11,8 +12,11 @@ AutoGPTQ directory; ``serve`` puts the HTTP endpoint in front of it; ``bench``
 times the fused matmul on the model's four projection shapes with CUDA events.
 The engine and the model run on ``cuda`` unless ``--device cpu`` is given.
 Prompts are token ids separated by spaces unless a tokenizer loads from the
-checkpoint directory (``transformers``).  Not ported yet: ``quantize`` (it
-needs the GPTQ solver) and ``--tp`` above 1.
+checkpoint directory (``transformers``).  ``quantize`` GPTQ-quantizes a dense
+HF-layout Llama, Mistral or Mixtral checkpoint layer by layer on calibration
+tokens (``--calib-npy``, else random ids from a seeded generator) and writes a
+packed directory that ``generate`` and ``serve`` read.  Not ported yet:
+``--tp`` above 1.
 """
 
 from __future__ import annotations
@@ -121,7 +125,39 @@ def cmd_serve(args) -> int:
 
 
 def cmd_quantize(args) -> int:
-    raise NotImplementedError("quantize needs the GPTQ solver (ops/gptq.py), not ported yet")
+    import numpy as np
+    import torch
+
+    from xbitops_tpu_torch.io import load_autogptq, save_packed
+    from xbitops_tpu_torch.ops.gptq import quantize_model_gptq
+
+    t0 = time.time()
+    # a dense checkpoint loads with every projection dense
+    model, cfg = load_autogptq(args.ckpt, max_seq_len=args.seq_len, device=args.device)
+    if args.calib_npy:
+        calib = torch.from_numpy(np.load(args.calib_npy)[:, : args.seq_len].astype(np.int64))
+        print(f"calibrating on {calib.shape[0]}x{calib.shape[1]} tokens from {args.calib_npy}",
+              file=sys.stderr)
+    else:
+        rows = max(1, args.calib_tokens // args.seq_len)
+        gen = torch.Generator().manual_seed(0)
+        calib = torch.randint(0, cfg.vocab_size, (rows, args.seq_len), generator=gen)
+        print(f"calibrating on {rows}x{args.seq_len} random tokens "
+              "(pass real text with --calib-npy for production use)", file=sys.stderr)
+    timings: dict = {}
+    qmodel = quantize_model_gptq(model, cfg, calib, bits=args.bits, group_size=args.group_size,
+                                 act_order=args.act_order, verbose=True, timings=timings)
+    del model
+    print("gptq solver s by weight shape (K, N): " + ", ".join(
+        f"{k[0]}x{k[1]} {sum(v) / len(v):.2f} x{len(v)}" for k, v in timings.items()),
+        file=sys.stderr)
+    save_packed(qmodel, args.out)
+    src = Path(args.ckpt)
+    for name in ("config.json", "tokenizer.json", "tokenizer.model", "tokenizer_config.json"):
+        if (src / name).exists():
+            shutil.copy(src / name, Path(args.out) / name)
+    print(f"gptq {args.bits}-bit packed -> {args.out} in {time.time() - t0:.1f}s")
+    return 0
 
 
 def cmd_bench(args) -> int:
@@ -215,11 +251,18 @@ def main(argv=None) -> int:
     s.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     s.set_defaults(fn=cmd_serve)
 
-    q = sub.add_parser("quantize", help="GPTQ-quantize a dense checkpoint (not ported yet)")
-    q.add_argument("--ckpt", required=True)
+    q = sub.add_parser("quantize", help="GPTQ-quantize a dense HF Llama/Mixtral checkpoint")
+    q.add_argument("--ckpt", required=True, help="dense safetensors dir (HF layout)")
     q.add_argument("--out", required=True)
     q.add_argument("--bits", type=int, default=4)
     q.add_argument("--group-size", type=int, default=128)
+    q.add_argument("--act-order", action="store_true")
+    q.add_argument("--calib-tokens", type=int, default=2048,
+                   help="total calibration tokens (random ids if no --calib-npy)")
+    q.add_argument("--calib-npy", default=None,
+                   help=".npy of int token ids [rows, seq] to calibrate on")
+    q.add_argument("--seq-len", type=int, default=512)
+    q.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     q.set_defaults(fn=cmd_quantize)
 
     args = ap.parse_args(argv)

@@ -31,11 +31,8 @@ _QT_FIELDS = ("bits", "group_size", "tile_k", "K", "K_logical", "N_logical", "va
 
 def _tree(model: Llama) -> dict:
     """The parameter tree of a model, in the JAX package's per-layer layout."""
-    layers = []
-    for block in model.blocks:
-        layer = {name: linear_weight(child) for name, child in block.named_children()}
-        layer.update(ln_attn=block.ln_attn, ln_mlp=block.ln_mlp)
-        layers.append(layer)
+    layers = [dict(block.weights(), ln_attn=block.ln_attn, ln_mlp=block.ln_mlp)
+              for block in model.blocks]
     return {"embed": model.embed, "layers": layers, "ln_final": model.ln_final,
             "lm_head": linear_weight(model.lm_head)}
 

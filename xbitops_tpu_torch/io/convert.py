@@ -17,7 +17,8 @@ import torch
 from xbitops_tpu_torch.formats import QTensor
 from xbitops_tpu_torch.models.llama import KVCache, Llama, LlamaBlock, LlamaConfig
 
-_PROJECTIONS = ("wqkv", "wq", "wk", "wv", "wo", "w_gateup", "w_gate", "w_up", "w_down")
+_PROJECTIONS = ("wqkv", "wq", "wk", "wv", "wo", "w_gateup", "w_gate", "w_up", "w_down",
+                "router", "w_experts_gateup", "w_experts_down")
 
 
 def _is_qtensor(x: Any) -> bool:
@@ -69,7 +70,10 @@ def params_from_numpy(params: dict, cfg: LlamaConfig, device) -> Llama:
     """JAX Llama params (numpy leaves) -> :class:`Llama` on ``device``.
 
     Takes the per-layer list layout and the stacked (``stack_layers``) one; a
-    stacked tree becomes per-layer modules that view one stacked tensor."""
+    stacked tree becomes per-layer modules that view one stacked tensor.  A
+    MoE layer (``models.moe``: ``router``, QTensors or dense tensors with a
+    leading expert axis) carries across as it is; ``cfg`` is then a
+    ``MoeConfig``."""
     layers = params["layers"]
     if isinstance(layers, (list, tuple)):
         per_layer = [{k: _weight(v, device) for k, v in layer.items()} for layer in layers]

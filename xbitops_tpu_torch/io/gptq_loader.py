@@ -12,8 +12,15 @@ Zero points: AutoGPTQ's "gptq" format stores ``zero - 1`` in ``qzeros``
 (``add_zero_bias=1``); "gptq_v2" stores true zeros.  ``add_zero_bias=None``
 reads it from ``quantize_config.json``.
 
-Not ported yet: Mixtral checkpoints (they wait for the port of
-``models/moe.py``) and ``tp > 1`` (it waits for ``parallel/``).
+A Mixtral checkpoint (``model_type == "mixtral"``) gives a
+:class:`~xbitops_tpu_torch.models.moe.MoeConfig` in no-drop mode
+(``capacity_factor=None``) and blocks with a ``router`` and each expert's
+w1 (gate) | w3 (up) fused, then stacked on a leading expert axis, w2 (down)
+stacked likewise: quantized experts as stacked QTensors, dense ones (the
+quantizer's input) as ``[E, K, N]`` tensors.
+
+Not ported yet: ``tp > 1`` (it waits for ``parallel/``; a Mixtral checkpoint
+would shard over the expert axis, not by rows).
 """
 
 from __future__ import annotations
@@ -44,17 +51,17 @@ def _load_safetensors_dir(path: Path) -> dict:
 
 
 def llama_config_from_hf(cfg: dict, max_seq_len: Optional[int] = None) -> LlamaConfig:
-    """The :class:`LlamaConfig` of a HuggingFace ``config.json`` (as a dict).
-    ``max_seq_len`` defaults to ``max_position_embeddings``, at most 4096."""
-    if cfg.get("model_type") == "mixtral":
-        raise NotImplementedError("Mixtral configs wait for the port of models/moe.py")
+    """The :class:`LlamaConfig` of a HuggingFace ``config.json`` (as a dict),
+    a :class:`~xbitops_tpu_torch.models.moe.MoeConfig` in no-drop mode for
+    Mixtral.  ``max_seq_len`` defaults to ``max_position_embeddings``, at most
+    4096."""
     heads = cfg["num_attention_heads"]
     # HF rope_scaling: {"type"|"rope_type": "linear"|"dynamic", "factor": f};
     # "dynamic" is NTK-aware scaling
     rs = cfg.get("rope_scaling") or {}
     rs_type = {"linear": "linear", "dynamic": "ntk", "ntk": "ntk"}.get(
         rs.get("type", rs.get("rope_type")))
-    return LlamaConfig(
+    fields = dict(
         vocab_size=cfg["vocab_size"],
         hidden_size=cfg["hidden_size"],
         intermediate_size=cfg["intermediate_size"],
@@ -70,6 +77,15 @@ def llama_config_from_hf(cfg: dict, max_seq_len: Optional[int] = None) -> LlamaC
         # Mistral-v0.1's sliding window (null or absent: full attention)
         sliding_window=cfg.get("sliding_window"),
     )
+    if cfg.get("model_type") == "mixtral":
+        from xbitops_tpu_torch.models.moe import MoeConfig
+
+        # real Mixtral inference drops no route: checkpoint loads run the
+        # exact no-drop dispatch (capacity = token count)
+        return MoeConfig(**fields, n_experts=cfg.get("num_local_experts", 8),
+                         experts_per_token=cfg.get("num_experts_per_tok", 2),
+                         capacity_factor=None)
+    return LlamaConfig(**fields)
 
 
 def _detect_zero_bias(qcfg: dict) -> int:
@@ -112,8 +128,9 @@ def load_autogptq(
     storage_bits=None,
     device=None,
 ) -> Tuple[Llama, LlamaConfig]:
-    """Load an AutoGPTQ Llama or Mistral checkpoint directory into ``(model,
-    config)`` on ``device`` (default: the CUDA device), where the packing runs.
+    """Load an AutoGPTQ Llama, Mistral or Mixtral checkpoint directory into
+    ``(model, config)`` on ``device`` (default: the CUDA device), where the
+    packing runs.
 
     ``fuse`` merges q|k|v and gate|up into single matmuls where they can
     fuse (per layer: not across act-order or dense projections).  A projection
@@ -132,7 +149,7 @@ def load_autogptq(
     group_size = qcfg.get("group_size", 128)
     if add_zero_bias is None:
         add_zero_bias = _detect_zero_bias(qcfg)
-    cfg = llama_config_from_hf(hf_cfg, max_seq_len)  # raises for Mixtral
+    cfg = llama_config_from_hf(hf_cfg, max_seq_len)
     tensors = _load_safetensors_dir(p)
     h = cfg.hidden_size
 
@@ -154,7 +171,30 @@ def load_autogptq(
     def norm(name: str) -> torch.Tensor:
         return t(name).float()
 
+    def moe_entries(pre: str) -> dict:
+        """Mixtral's block_sparse_moe: the router, each expert's w1 (gate) |
+        w3 (up) fused and w2 (down), stacked on a leading expert axis."""
+        from xbitops_tpu_torch.models.moe import stack_experts
+
+        gus, downs = [], []
+        for e in range(cfg.n_experts):
+            ep = f"{pre}.block_sparse_moe.experts.{e}"
+            w1, w3 = q(f"{ep}.w1", h), q(f"{ep}.w3", h)
+            if isinstance(w1, formats.QTensor):
+                gu = _try_fuse([w1, w3])
+                if gu is None:
+                    raise NotImplementedError(
+                        "Mixtral experts must be quantized and non-act-order "
+                        "(the stacked expert matmul fuses w1|w3)")
+            else:  # a dense checkpoint (the quantizer's input)
+                gu = torch.cat([w1, w3], dim=1)
+            gus.append(gu)
+            downs.append(q(f"{ep}.w2", cfg.intermediate_size))
+        return dict(router=t(f"{pre}.block_sparse_moe.gate.weight").T.float().contiguous(),
+                    w_experts_gateup=stack_experts(gus), w_experts_down=stack_experts(downs))
+
     qdim = cfg.num_heads * cfg.head_dim
+    is_moe = hf_cfg.get("model_type") == "mixtral"
     blocks = []
     for i in range(cfg.num_layers):
         pre = f"model.layers.{i}"
@@ -162,6 +202,13 @@ def load_autogptq(
         qkv = [q(f"{pre}.self_attn.{n}_proj", h) for n in "qkv"]
         wqkv = _try_fuse(qkv) if fuse else None
         proj.update(dict(wqkv=wqkv) if wqkv is not None else dict(zip(("wq", "wk", "wv"), qkv)))
+        # a desc_act o_proj keeps its runtime perm: its sort crosses the heads
+        proj["wo"] = q(f"{pre}.self_attn.o_proj", qdim)
+        ln = (norm(f"{pre}.input_layernorm.weight"),
+              norm(f"{pre}.post_attention_layernorm.weight"))
+        if is_moe:
+            blocks.append(LlamaBlock(cfg, dict(proj, **moe_entries(pre)), *ln))
+            continue
         # desc_act down_proj: its row sort folds into gate/up's output columns
         # (a column permutation commutes with silu(g) * u), so down runs with
         # no gather of its activations
@@ -175,11 +222,7 @@ def load_autogptq(
         gu = _try_fuse([gate, up]) if fuse else None
         proj.update(dict(w_gateup=gu) if gu is not None else dict(w_gate=gate, w_up=up))
         proj["w_down"] = q(down, cfg.intermediate_size, fold=col_perm is not None)
-        # a desc_act o_proj keeps its runtime perm: its sort crosses the heads
-        proj["wo"] = q(f"{pre}.self_attn.o_proj", qdim)
-        blocks.append(LlamaBlock(
-            cfg, proj, norm(f"{pre}.input_layernorm.weight"),
-            norm(f"{pre}.post_attention_layernorm.weight")))
+        blocks.append(LlamaBlock(cfg, proj, *ln))
     embed = t("model.embed_tokens.weight").to(dtype)
     if "lm_head.weight" in tensors or "lm_head.qweight" in tensors:
         lm_head = q("lm_head", h)

@@ -17,7 +17,10 @@ rows and the eager attention are plain PyTorch, as the JAX package left them
 to XLA.  Decode (one token per slot) attends through the decode-attention
 kernel, which appends the new k/v rows first; a chunk of a long prompt
 attends its slot's cache through the prefill-attention kernel; both read a
-paged cache in place through its table.  Not ported yet: MoE layers.
+paged cache in place through its table.  A block whose weights hold a
+``router`` runs the routed expert FFN of :mod:`~xbitops_tpu_torch.models.moe`
+(Mixtral) in place of the MLP, through the same fused matmul on each expert's
+view; the engine needs no branch of its own for it.
 
 Speculative verify (:func:`spec_verify_step`, ``forward(kv_unaligned=True)``)
 writes T rows a slot that may start at any position, also off an int8 word.
@@ -447,16 +450,32 @@ def _slot_rows(cache: KVCache, li: int, slot_ids):
 class LlamaBlock(nn.Module):
     """One transformer block: attention with a fused ``wqkv`` or split
     ``wq/wk/wv`` projection, then a SiLU MLP with fused ``w_gateup`` or split
-    ``w_gate/w_up`` projections."""
+    ``w_gate/w_up`` projections, or, where ``proj`` holds a ``router``, the
+    routed expert FFN of :mod:`~xbitops_tpu_torch.models.moe` (``router``,
+    ``w_experts_gateup``, ``w_experts_down``)."""
 
     def __init__(self, cfg: LlamaConfig, proj: Dict[str, Union[QTensor, torch.Tensor]],
                  ln_attn: torch.Tensor, ln_mlp: torch.Tensor):
         super().__init__()
         self.cfg = cfg
+        proj = dict(proj)
+        if "router" in proj:
+            from xbitops_tpu_torch.models.moe import MoeFFN
+
+            self.moe = MoeFFN(cfg, proj.pop("router"), proj.pop("w_experts_gateup"),
+                              proj.pop("w_experts_down"))
         for name, w in proj.items():
             self.add_module(name, _linear(w))
         self.register_buffer("ln_attn", ln_attn)
         self.register_buffer("ln_mlp", ln_mlp)
+
+    def weights(self) -> Dict[str, Union[QTensor, torch.Tensor]]:
+        """The block's weights by the JAX package's layer-dict names (the
+        norms apart): what :class:`LlamaBlock` is built from."""
+        out = {}
+        for name, child in self.named_children():
+            out.update(child.weights() if name == "moe" else {name: linear_weight(child)})
+        return out
 
     def forward(self, x, positions, rope, cache: KVCache, li: int, mask, slot_ids=None,
                 self_attend: bool = False, use_kernel: bool = True,
@@ -523,6 +542,8 @@ class LlamaBlock(nn.Module):
         x = x + self.wo(att.reshape(B, T, qdim), use_kernel, a8)
 
         hx = rms_norm(x, self.ln_mlp, cfg.rms_eps)
+        if hasattr(self, "moe"):
+            return x + self.moe(hx, use_kernel, a8)
         if hasattr(self, "w_gateup"):
             gu = self.w_gateup(hx, use_kernel, a8)
             gate, up = gu[..., : cfg.intermediate_size], gu[..., cfg.intermediate_size :]
@@ -554,11 +575,8 @@ class Llama(nn.Module):
         option (``prefill_a8``), or the first ``cfg.num_layers`` blocks.  The
         JAX package passes the config with every call; here a model holds
         it."""
-        blocks = [
-            LlamaBlock(cfg, {n: linear_weight(c) for n, c in b.named_children()},
-                       b.ln_attn, b.ln_mlp)
-            for b in list(self.blocks)[: cfg.num_layers]
-        ]
+        blocks = [LlamaBlock(cfg, b.weights(), b.ln_attn, b.ln_mlp)
+                  for b in list(self.blocks)[: cfg.num_layers]]
         return Llama(cfg, self.embed, blocks, self.ln_final, linear_weight(self.lm_head))
 
     def forward(

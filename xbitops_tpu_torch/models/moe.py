@@ -1,0 +1,231 @@
+"""Mixtral-style sparse Mixture-of-Experts FFN (port of ``xbitops_tpu/models/moe.py``).
+
+- Expert weights are ONE stacked :class:`~xbitops_tpu_torch.formats.QTensor`
+  per projection with a leading expert axis (or a dense ``[E, K, N]`` tensor);
+  expert ``e`` is read in place through ``QTensor.layer(e)`` (views, no copy),
+  so the fused matmul runs each expert's packed weight where it lies.
+- Dispatch is scatter/gather: token ``n``'s j-th route lands in slot
+  ``e * C + position_among_e`` of a buffer of ``E * C`` rows (positions
+  counted row-major over (n, k)); a route past an expert's capacity ``C``
+  drops.  The JAX package scatters a dropped route to row ``E * C`` with
+  ``mode="drop"`` and gathers it back as zeros; an index of ``E * C`` is an
+  out-of-range device assert in PyTorch, so the buffers here hold one spare
+  row: dropped routes write there and read the spare row of the expert
+  outputs, which is zero.
+- The expert loop is a Python loop over ``E`` views and every step is a tensor
+  op with no read-back to the host (no ``nonzero``, no ``.item()``, no boolean
+  indexing), so a decode step with MoE layers captures into a CUDA graph.
+
+Routing ties: the top-k routes are taken by k rounds of ``argmax`` (which
+returns the FIRST maximal index), so among equal logits the lower expert index
+comes first, as ``jax.lax.top_k`` orders them.
+
+Not ported yet: expert parallelism (``expert_pspecs``, ``ep_decode_step``,
+``ep_prefill_slots``); it waits for the port of ``parallel/``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable, Dict, List, Optional, Sequence, Union
+
+import torch
+from torch import nn
+
+from xbitops_tpu_torch.formats import QTensor
+from xbitops_tpu_torch.models.llama import LlamaConfig, _linear, linear_weight
+from xbitops_tpu_torch.ops.qmatmul import qmatmul
+from xbitops_tpu_torch.ops.quantize import quantize_array
+
+__all__ = ["MoeConfig", "MoeFFN", "stack_experts", "init_moe_params", "moe_ffn",
+           "moe_capacity", "route"]
+
+Weight = Union[QTensor, torch.Tensor]
+
+
+@dataclasses.dataclass(frozen=True)
+class MoeConfig(LlamaConfig):
+    n_experts: int = 8
+    experts_per_token: int = 2
+    # capacity per expert = ceil(tokens * k / E * capacity_factor); routes past
+    # an expert's capacity drop (the token keeps its other routes).  None =
+    # no-drop (capacity = token count: a token's k routes go to k distinct
+    # experts, so an expert sees at most N routes), the exact inference
+    # semantics; checkpoint loads use it (io/gptq_loader.py).
+    capacity_factor: Optional[float] = 2.0
+
+    @staticmethod
+    def mixtral_like(**kw) -> "MoeConfig":
+        """Mixtral-8x7B-shaped: Llama-7B attention widths with 8 kv heads, 8
+        experts of ffn 14336, top-2."""
+        return MoeConfig(intermediate_size=14336, num_kv_heads=8, n_experts=8,
+                         experts_per_token=2, **kw)
+
+    @staticmethod
+    def tiny_moe(vocab: int = 256, seq: int = 64) -> "MoeConfig":
+        return MoeConfig(
+            vocab_size=vocab, hidden_size=256, intermediate_size=512,
+            num_layers=2, num_heads=4, num_kv_heads=2, head_dim=128,
+            max_seq_len=seq, n_experts=4, experts_per_token=2,
+        )
+
+
+def stack_experts(ws: Sequence[Weight]) -> Weight:
+    """Stack per-expert weights on a leading expert axis: QTensors field by
+    field (read back through ``QTensor.layer(e)``), dense ``[K, N]`` tensors
+    into ``[E, K, N]``."""
+    if not isinstance(ws[0], QTensor):
+        return torch.stack(list(ws))
+    first = ws[0]
+    return dataclasses.replace(
+        first,
+        planes=tuple(torch.stack([w.planes[i] for w in ws]) for i in range(len(first.planes))),
+        scales=torch.stack([w.scales for w in ws]),
+        scale_zeros=torch.stack([w.scale_zeros for w in ws]),
+        perm=None if first.perm is None else torch.stack([w.perm for w in ws]),
+    )
+
+
+def n_stacked(w: Weight) -> int:
+    return w.planes[0].shape[0] if isinstance(w, QTensor) else w.shape[0]
+
+
+def moe_capacity(cfg: MoeConfig, n_tokens: int) -> int:
+    """Rows an expert takes in a forward of ``n_tokens`` tokens."""
+    if cfg.capacity_factor is None:
+        return n_tokens
+    return max(1, math.ceil(n_tokens * cfg.experts_per_token * cfg.capacity_factor
+                            / cfg.n_experts))
+
+
+def route(x: torch.Tensor, router: torch.Tensor, k: int):
+    """Router logits in f32 of ``x [N, h]``, the top ``k`` experts of each
+    token (ties: the lower index first) and the softmax over their ``k``
+    logits.  Returns ``(idx int64 [N, k], probs f32 [N, k])``."""
+    logits = x.float() @ router.float()  # [N, E]
+    idx, gate = [], []
+    for _ in range(k):
+        i = logits.argmax(dim=-1, keepdim=True)
+        idx.append(i)
+        gate.append(torch.gather(logits, 1, i))
+        logits = logits.scatter(1, i, float("-inf"))
+    return torch.cat(idx, dim=1), torch.softmax(torch.cat(gate, dim=1), dim=-1)
+
+
+def _dense(a: torch.Tensor, w: torch.Tensor, out_dtype) -> torch.Tensor:
+    """A dense expert's product as the JAX package computes it: the weight in
+    the activations' dtype, exact products summed in f32."""
+    return (a.float() @ w.to(a.dtype).float()).to(out_dtype)
+
+
+def moe_ffn(hx: torch.Tensor, layer: Dict[str, Weight], cfg: MoeConfig, a8: bool = False,
+            use_kernel: bool = True) -> torch.Tensor:
+    """Top-k routed expert FFN of ``hx [B, T, h]`` (the post-norm residual
+    input); returns ``[B, T, h]`` in ``hx``'s dtype.
+
+    ``layer`` holds ``router`` f32 ``[h, E]`` and the stacked
+    ``w_experts_gateup`` (``[h, 2 * ffn]`` an expert) and ``w_experts_down``
+    (``[ffn, h]``).  gate|up comes out in ``hx``'s dtype, SiLU times up runs in
+    f32 and is cast back, down comes out in f32, and the k contributions are
+    weighted and summed in f32 before the final cast.  ``a8`` goes to every
+    expert's :func:`qmatmul`; ``use_kernel=False`` runs the plain versions."""
+    B, T, h = hx.shape
+    E, k, ffn = cfg.n_experts, cfg.experts_per_token, cfg.intermediate_size
+    w_gu, w_down = layer["w_experts_gateup"], layer["w_experts_down"]
+    if n_stacked(w_gu) != E or n_stacked(w_down) != E:
+        raise ValueError(f"expert weights stack {n_stacked(w_gu)} experts, config says {E}")
+    dense = not isinstance(w_gu, QTensor)
+    N = B * T
+    C = moe_capacity(cfg, N)
+    x = hx.reshape(N, h)
+    idx, probs = route(x, layer["router"], k)
+    # slot of each route: the j-th route (row-major over (n, k)) to expert e
+    # takes slot e * C + j; past the capacity it goes to the spare row E * C
+    onehot = (idx[..., None] == torch.arange(E, device=x.device)).reshape(N * k, E).long()
+    pos = ((torch.cumsum(onehot, dim=0) - onehot) * onehot).sum(dim=1).reshape(N, k)
+    slot = torch.where(pos < C, idx * C + pos, E * C).reshape(N * k)
+    xe = x.new_zeros((E * C + 1, h))
+    xe.index_copy_(0, slot, x[:, None, :].expand(N, k, h).reshape(N * k, h))
+    ye = []
+    for e in range(E):
+        xs = xe[e * C : (e + 1) * C]
+        if dense:
+            gu = _dense(xs, w_gu[e], hx.dtype)
+        else:
+            gu = qmatmul(xs, w_gu.layer(e), out_dtype=hx.dtype, use_kernel=use_kernel, a8=a8)
+        act = (torch.nn.functional.silu(gu[:, :ffn].float()) * gu[:, ffn:].float()).to(hx.dtype)
+        if dense:
+            ye.append(_dense(act, w_down[e], torch.float32))
+        else:
+            ye.append(qmatmul(act, w_down.layer(e), out_dtype=torch.float32,
+                              use_kernel=use_kernel, a8=a8))
+    ye.append(ye[0].new_zeros((1, h)))  # the spare row: a dropped route adds 0
+    y = torch.cat(ye)[slot].reshape(N, k, h)
+    return (y * probs[..., None]).sum(dim=1).reshape(B, T, h).to(hx.dtype)
+
+
+class MoeFFN(nn.Module):
+    """The MoE FFN of a block: the ``router`` f32 ``[h, E]`` as a buffer and
+    the stacked experts ``w_experts_gateup`` / ``w_experts_down`` held as
+    projection modules (their arrays as buffers, read through expert views)."""
+
+    def __init__(self, cfg: MoeConfig, router: torch.Tensor, w_gateup: Weight, w_down: Weight):
+        super().__init__()
+        self.cfg = cfg
+        self.register_buffer("router", router)
+        self.w_experts_gateup = _linear(w_gateup)
+        self.w_experts_down = _linear(w_down)
+
+    def weights(self) -> Dict[str, Weight]:
+        return dict(router=self.router,
+                    w_experts_gateup=linear_weight(self.w_experts_gateup),
+                    w_experts_down=linear_weight(self.w_experts_down))
+
+    def forward(self, hx: torch.Tensor, use_kernel: bool = True, a8: bool = False) -> torch.Tensor:
+        return moe_ffn(hx, self.weights(), self.cfg, a8=a8, use_kernel=use_kernel)
+
+
+def init_moe_params(
+    gen: torch.Generator,
+    cfg: MoeConfig,
+    bits: Optional[int] = 4,
+    group_size: int = 128,
+    dtype=torch.bfloat16,
+    weight: Optional[Callable[[int, int, float], Weight]] = None,
+):
+    """A random MoE model on ``gen``'s device: Llama attention (fused q|k|v),
+    a f32 router of scale ``hidden ** -0.5`` and ``E`` experts a layer
+    (gate|up ``[hidden, 2 * ffn]``, down ``[ffn, hidden]``, stacked by
+    :func:`stack_experts`), a ``dtype`` embedding of scale 0.02, unit norms
+    (port of ``models.moe.init_moe_params``; the two packages draw different
+    numbers from a seed).  Each projection is ``weight(K, N, scale)``; by
+    default normal weights of scale ``fan_in ** -0.5`` quantized by
+    :func:`quantize_array` (``bits=None``: dense in ``dtype``)."""
+    from xbitops_tpu_torch.models.llama import Llama, LlamaBlock
+
+    dev = gen.device
+    h, ffn, E = cfg.hidden_size, cfg.intermediate_size, cfg.n_experts
+    qdim = cfg.num_heads * cfg.head_dim
+    kvdim = cfg.num_kv_heads * cfg.head_dim
+    s = h ** -0.5
+
+    def normal(kdim, ndim, scale):
+        w = torch.randn((kdim, ndim), generator=gen, device=dev) * scale
+        return w.to(dtype) if bits is None else quantize_array(w, bits, group_size)
+
+    q = weight or normal
+
+    def ones():
+        return torch.ones(h, dtype=torch.float32, device=dev)
+
+    blocks: List[LlamaBlock] = []
+    for _ in range(cfg.num_layers):
+        gu = stack_experts([q(h, 2 * ffn, s) for _ in range(E)])
+        down = stack_experts([q(ffn, h, ffn ** -0.5) for _ in range(E)])
+        proj = dict(wqkv=q(h, qdim + 2 * kvdim, s), wo=q(qdim, h, s),
+                    router=torch.randn((h, E), generator=gen, device=dev) * s,
+                    w_experts_gateup=gu, w_experts_down=down)
+        blocks.append(LlamaBlock(cfg, proj, ones(), ones()))
+    embed = (torch.randn((cfg.vocab_size, h), generator=gen, device=dev) * 0.02).to(dtype)
+    return Llama(cfg, embed, blocks, ones(), q(h, cfg.vocab_size, s))

@@ -1,7 +1,7 @@
 """Where a forward's time goes on the card: kernel time by name, launches,
 host ops and the device's busy share, from ``torch.profiler``.
 
-    python3 -m xbitops_tpu_torch.utils.profiling [--bits B]
+    python3 -m xbitops_tpu_torch.utils.profiling [--bits B | --moe]
 
 profiles, on a random 4-bit Llama-2-7B at full width and depth with 8 slots
 (S=2048): one decode step over the bf16 cache, one over the paged bf16 cache
@@ -12,7 +12,10 @@ step of 5 rows a slot (``spec_verify_step``, γ = 4), and one chunk forward of c
 activations, with int8 activations (``prefill_a8``) and with int8 activations
 on the 8-bit per-channel requantization of the blocks.  With ``--bits B``
 (another width, default packed storage, g=128) it profiles the decode step
-over the bf16 cache alone.  Each decode step is profiled twice: called from
+over the bf16 cache alone.  With ``--moe`` the model is a random 4-bit
+Mixtral-8x7B (``MoeConfig.mixtral_like``, no-drop): the decode and verify
+steps on the bf16 and the int8 cache and one chunk forward with bf16
+activations (every expert on all 2,560 rows of the chunk).  Each decode step is profiled twice: called from
 Python as an eager step, and as a CUDA graph of 8 such steps replayed (the
 engine's burst), whose numbers are given a step (``replayed``, with
 ``event_ms``: CUDA events around each replay); a verify step is replayed as a
@@ -71,7 +74,7 @@ def profile(fn: Callable[[], object], steps: int = 4, warmup: int = 3, top: int 
     )
 
 
-def replayed(step: Callable[[], object], burst: int = 8) -> Dict:
+def replayed(step: Callable[[], object], burst: int = 8, top: int = 8) -> Dict:
     """``burst`` calls of ``step`` captured as one CUDA graph, as the engine
     captures a decode burst, and profiled a replay at a time: the numbers of
     :func:`profile`, and ``event_ms`` (CUDA events around each replay), given
@@ -80,7 +83,7 @@ def replayed(step: Callable[[], object], burst: int = 8) -> Dict:
     with torch.cuda.graph(graph):
         for _ in range(burst):
             step()
-    res = profile(graph.replay)
+    res = profile(graph.replay, top=top)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     ms = 0.0
     for _ in range(4):
@@ -110,14 +113,27 @@ def main() -> int:
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0], flush=True)
-    cfg = llama.LlamaConfig.llama2_7b()
     bits = int(sys.argv[sys.argv.index("--bits") + 1]) if "--bits" in sys.argv else 4
-    model = synth.random_llama_params(cfg, bits=bits, group_size=128, device=dev, seed=0)
+    moe = "--moe" in sys.argv
+    if moe:
+        from xbitops_tpu_torch.models.moe import MoeConfig
+
+        cfg = MoeConfig.mixtral_like(capacity_factor=None)
+        model = synth.random_moe_params(cfg, bits=bits, group_size=128, device=dev, seed=0)
+        name = "Mixtral-8x7B"
+    else:
+        cfg = llama.LlamaConfig.llama2_7b()
+        model = synth.random_llama_params(cfg, bits=bits, group_size=128, device=dev, seed=0)
+        name = "Llama-2-7B"
     gen = torch.Generator(device=dev).manual_seed(0)
     slots, live = 8, 1000
     tok = torch.randint(0, cfg.vocab_size, (slots,), generator=gen, device=dev)
+    top = 12 if moe else 8
     with torch.no_grad():
-        cases = ((False, False), (False, True), (True, False)) if bits == 4 else ((False, False),)
+        if moe:
+            cases = ((False, False), (True, False))
+        else:
+            cases = ((False, False), (False, True), (True, False)) if bits == 4 else ((False, False),)
         for quantized, paged in cases:
             if paged:
                 pages = cfg.max_seq_len // 256
@@ -131,10 +147,10 @@ def main() -> int:
                 cache.lengths.fill_(live)  # every call decodes at the same position
                 llama.decode_step(model, tok, cache)
 
-            res = profile(step)
-            res["replayed"] = replayed(step)
+            res = profile(step, top=top)
+            res["replayed"] = replayed(step, top=top)
             kind = ("paged " if paged else "") + ("int8" if quantized else "bf16")
-            print(json.dumps(dict(case=f"decode step, {bits}-bit, {kind} cache, B={slots}, "
+            print(json.dumps(dict(case=f"{name} decode step, {bits}-bit, {kind} cache, B={slots}, "
                                        f"live={live}", **res)), flush=True)
             drafts = torch.randint(0, cfg.vocab_size, (slots, 5), generator=gen, device=dev)
 
@@ -142,11 +158,21 @@ def main() -> int:
                 cache.lengths.fill_(live)
                 llama.spec_verify_step(model, drafts, cache)
 
-            res = profile(verify)
-            res["replayed"] = replayed(verify, burst=1)
-            print(json.dumps(dict(case=f"verify step, 5 rows a slot, {bits}-bit, {kind} cache, "
-                                       f"B={slots}, live={live}", **res)), flush=True)
-            if quantized:
+            res = profile(verify, top=top)
+            res["replayed"] = replayed(verify, burst=1, top=top)
+            print(json.dumps(dict(case=f"{name} verify step, 5 rows a slot, {bits}-bit, {kind} "
+                                       f"cache, B={slots}, live={live}", **res)), flush=True)
+            if moe and not quantized:  # every expert runs all 2,560 rows of the chunk
+                n, chunk = 5, 512
+                tokens = torch.randint(0, cfg.vocab_size, (n, chunk), generator=gen, device=dev)
+                res = profile(lambda: llama.prefill_slots_chunk(
+                    model, tokens, torch.full((n,), chunk, device=dev),
+                    torch.full((n,), 2 * chunk, device=dev), torch.arange(n, device=dev), cache),
+                    steps=1, warmup=1, top=top)
+                print(json.dumps(dict(case=f"{name} chunk forward, bf16 activations, bf16 cache, "
+                                           f"{n} rows of {chunk} at positions {chunk}-"
+                                           f"{2 * chunk - 1}", **res)), flush=True)
+            if quantized and not moe:
                 n, chunk = 5, 512
                 tokens = torch.randint(0, cfg.vocab_size, (n, chunk), generator=gen, device=dev)
                 args = (tokens, torch.full((n,), chunk, device=dev),

@@ -94,6 +94,24 @@ def _random_llama(gen: torch.Generator, cfg: LlamaConfig, bits: int, group_size:
     return Llama(cfg, embed.to(torch.bfloat16), blocks, ones(), q(h, cfg.vocab_size))
 
 
+def random_moe_params(
+    cfg,
+    bits: int = 4,
+    group_size: int = 128,
+    *,
+    device,
+    seed: int = 0,
+) -> Llama:
+    """A random packed MoE model (a ``models.moe.MoeConfig``: Mixtral) on
+    ``device``: ``moe.init_moe_params`` with every projection
+    :func:`random_qtensor`, so no dense weight is drawn or quantized."""
+    from xbitops_tpu_torch.models.moe import init_moe_params
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return init_moe_params(gen, cfg, weight=lambda K, N, _: random_qtensor(gen, K, N, bits,
+                                                                           group_size))
+
+
 def copy_llama_params(
     gen: torch.Generator,
     cfg: LlamaConfig,
@@ -114,14 +132,33 @@ def copy_llama_params(
     the other bracket."""
     if period > cfg.vocab_size:
         raise ValueError(f"period {period} > vocab_size {cfg.vocab_size}")
-    model = _random_llama(gen, cfg, bits, group_size)
+    return make_copy_model(_random_llama(gen, cfg, bits, group_size), gen, bits, group_size,
+                           period)
+
+
+def make_copy_model(model: Llama, gen: torch.Generator, bits: int = 4, group_size: int = 128,
+                    period: int = 8) -> Llama:
+    """Turn a random packed model into a copy-model in place (see
+    :func:`copy_llama_params`): ``wo`` and the FFN's output projection
+    (``w_down``, or a MoE layer's stacked ``w_experts_down``) get weights of
+    scale ~1e-4, and lm_head maps embedding row ``v`` to ``(v + 1) %
+    period``.  The other weights keep their bytes."""
+    from xbitops_tpu_torch.models.moe import stack_experts
+
+    cfg = model.cfg
     h, ffn = cfg.hidden_size, cfg.intermediate_size
     qdim = cfg.num_heads * cfg.head_dim
+
+    def small(kdim, ndim):
+        return random_qtensor(gen, kdim, ndim, bits, group_size, scale_lo=1e-5, scale_hi=2e-5)
+
     for block in model.blocks:
-        block.wo = QLinear(random_qtensor(gen, qdim, h, bits, group_size,
-                                          scale_lo=1e-5, scale_hi=2e-5))
-        block.w_down = QLinear(random_qtensor(gen, ffn, h, bits, group_size,
-                                              scale_lo=1e-5, scale_hi=2e-5))
+        block.wo = QLinear(small(qdim, h))
+        if hasattr(block, "moe"):
+            block.moe.w_experts_down = QLinear(
+                stack_experts([small(ffn, h) for _ in range(cfg.n_experts)]))
+        else:
+            block.w_down = QLinear(small(ffn, h))
     W = torch.randn((h, cfg.vocab_size), generator=gen, device=gen.device) * 0.02
     succ = (torch.arange(period, device=gen.device) + 1) % period
     W[:, succ] = model.embed[:period].float().T
