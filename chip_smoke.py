@@ -135,6 +135,28 @@
    widths cut to 1 layer through ``convert`` and ``generate``: its logits
    equal, bit for bit, those of the same weights built directly.
 
+11. Drives tensor and expert parallelism, two ranks on the one card (each a
+   process, ``parallel.multihost.spawn``; a gloo world, since NCCL refuses two
+   ranks on one GPU, so every collective goes through the host and no time of
+   this phase is a tensor-parallel speed): (a) Llama-2-7B at full width and
+   depth at tp=2: its copy-model packed for two ranks serves 8 greedy requests
+   (prompts of 16-500, 32 new tokens) through ``Engine(mesh=)`` (eager bursts,
+   half the kv heads a rank), tokens equal to the tp=1 engine's; on the random
+   4-bit model a 2-layer cut's decode logits and each of the 32 blocks within
+   rel 2e-2 of tp=1; an AutoGPTQ checkpoint at 7B widths cut to 2 layers
+   through ``python -m xbitops_tpu_torch convert --tp 2`` and ``generate --tp
+   2`` (the command starts its two ranks), tokens equal to ``generate`` at
+   tp=1; (b) Mixtral-8x7B at ep=2, each rank building only its 4 experts: the
+   copy-model form of phase 10a through ``ep_prefill_slots`` and
+   ``ep_decode_step``, tokens equal to phase 10a's one-rank engine; a 2-layer
+   cut's MoE blocks at ep=2 within rel 2e-2 of one rank's over the tokens
+   routed alike.  The ranks' launch counts of their main-path runs join the
+   ``kernels`` line, and the CUDA-core matmul must not launch there either.
+   Phase 1 also times one rank's matmul shards at tp=2 (q|k|v 4096x6144, wo
+   2048x4096, gate|up 4096x11008, w_down 5504x4096 at g'=128, lm_head
+   4096x16000; M=8, the few-rows form) and both attention kernels at 16 local
+   heads.
+
 In every serving phase each decode burst is a replay of a CUDA graph the
 engine captured (``loop_stats["graph_replays"]`` equals the bursts run); in
 phases 2, 3, 5 and 7 the same requests run again with the bursts eager (the
@@ -362,8 +384,11 @@ def phase_kernels(dev, timer):
     res.update(kernels_decode(dev, timer, gen))
     res.update(kernels_prefill(dev, timer, gen))
     res.update(kernels_paged(dev, timer, gen))
-    res["mixtral"] = kernels_mixtral(dev, timer, gen)
-    for v in res["mixtral"].values():  # the matmul held at Mixtral's shapes too
+    res["mixtral"] = kernels_at(dev, timer, gen, "Mixtral", mixtral_mats(gen), (8, 40, 2560), 32, 8)
+    # one rank's shards of 7B at tp=2: the five matmuls at M = 8, attention at
+    # 16 local heads
+    res["tp"] = kernels_at(dev, timer, gen, "7B tp=2 shard", tp_shard_mats(gen), (8,), 16, 16)
+    for v in (*res["mixtral"].values(), *res["tp"].values()):  # the matmul held there too
         if v.get("kernel") in ("qgemv", "qgemv_mma"):
             row = res[v["kernel"]]
             row["max_abs_err"] = max(row["max_abs_err"], v["max_abs_err"])
@@ -825,15 +850,57 @@ def kernels_prefill(dev, timer, gen):
     return res
 
 
-def kernels_mixtral(dev, timer, gen):
-    """Phase 1 at Mixtral-8x7B's shapes: the fused matmul at M = 8 (a decode
-    step of 8 slots: the few-rows form), 40 (a γ=4 verify) and 2560 (a chunk
-    forward of 5 x 512; both the tile) on q|k|v (4096x6144), wo (4096x4096)
-    and, through a ``layer(e)`` view of a stacked QTensor of 8 experts (a
-    storage offset), expert gate|up (4096x28672) and expert down (14336x4096,
-    112 groups);
-    decode attention with its append and prefill attention at H=32, Hkv=8
-    (GQA rep 4), D=128, S=2048, 8 slots, bf16 and int8, beside SDPA."""
+def mixtral_mats(gen):
+    """Mixtral-8x7B's matmul weights, name -> (QTensor, note): q|k|v
+    (4096x6144), wo (4096x4096) and, through a ``layer(e)`` view of a stacked
+    QTensor of 8 experts (a storage offset), expert gate|up (4096x28672) and
+    expert down (14336x4096, 112 groups)."""
+    from xbitops_tpu_torch.models.moe import stack_experts
+    from xbitops_tpu_torch.utils import synth
+
+    for name, (K, N, experts) in {"wqkv": (4096, 6144, 0), "wo": (4096, 4096, 0),
+                                  "expert_gateup": (4096, 28672, 8),
+                                  "expert_down": (14336, 4096, 8)}.items():
+        if experts:
+            qt = stack_experts([synth.random_qtensor(gen, K, N, 4, 128)
+                                for _ in range(experts)]).layer(5)
+            check(qt.planes[0].storage_offset() > 0, f"{name}: the expert view has no offset")
+            yield name, qt, ", expert view"
+        else:
+            yield name, synth.random_qtensor(gen, K, N, 4, 128), ""
+
+
+def tp_shard_mats(gen):
+    """One rank's shards of Llama-2-7B at tp=2 (4-bit, g=128), as
+    ``parallel.model_tp.shard_params`` gives them: the column shards of q|k|v
+    (4096x6144), gate|up (4096x11008) and lm_head (4096x16000), and the row
+    shards of wo (2048x4096) and w_down (5504x4096: g'=128, 43 groups, the
+    shard padded to its own tile), repacked from the whole weight
+    (``formats.row_shard_qtensor``).  Rank 1's shard."""
+    from xbitops_tpu_torch import formats
+    from xbitops_tpu_torch.parallel import tp
+    from xbitops_tpu_torch.parallel.mesh import Mesh
+    from xbitops_tpu_torch.utils import synth
+
+    mesh = Mesh(("model",), (2,), (1,), (None,))  # a shard, without its collectives
+    for name, K, N, kind in (("wqkv", 4096, 12288, "col"), ("wo", 4096, 4096, "row"),
+                             ("w_gateup", 4096, 22016, "col"), ("w_down", 11008, 4096, "row"),
+                             ("lm_head", 4096, 32000, "col")):
+        qt = synth.random_qtensor(gen, K, N, 4, 128)
+        if kind == "row":
+            yield name, tp.local_qtensor(formats.row_shard_qtensor(qt, 2), mesh,
+                                         row_axis="model"), ", row shard"
+        else:
+            yield name, tp.local_qtensor(qt, mesh, col_axis="model"), ", column shard"
+
+
+def kernels_at(dev, timer, gen, label, mats, Ms, H, Hkv):
+    """Phase 1 at a model's shapes: the fused matmul at each M of ``Ms`` (8: a
+    decode step of 8 slots, the few-rows form; 40: a γ=4 verify and 2560: a
+    chunk forward of 5 x 512, both the tile) on each of ``mats`` (name,
+    QTensor, note); decode attention with its append and prefill attention at
+    ``H`` query and ``Hkv`` kv heads, D=128, S=2048, 8 slots, bf16 and int8,
+    beside SDPA."""
     from xbitops_tpu_torch.kernels import common
     from xbitops_tpu_torch.kernels.decode_attention import (
         decode_attention,
@@ -849,25 +916,12 @@ def kernels_mixtral(dev, timer, gen):
         prefill_attention_reference,
     )
     from xbitops_tpu_torch.kernels.qgemv_kernel import qgemv_form
-    from xbitops_tpu_torch.models.moe import stack_experts
     from xbitops_tpu_torch.ops.qmatmul import qmatmul
-    from xbitops_tpu_torch.utils import synth
 
     res = {}
-    for name, (K, N, experts) in {"wqkv": (4096, 6144, 0), "wo": (4096, 4096, 0),
-                                  "expert_gateup": (4096, 28672, 8),
-                                  "expert_down": (14336, 4096, 8)}.items():
-        if experts:
-            stacked = stack_experts([synth.random_qtensor(gen, K, N, 4, 128)
-                                     for _ in range(experts)])
-            qt = stacked.layer(5)
-            check(qt.planes[0].storage_offset() > 0, f"{name}: the expert view has no offset")
-        else:
-            qt = synth.random_qtensor(gen, K, N, 4, 128)
-        # M = 8: a decode step of 8 slots (the few-rows form); 40: the γ=4
-        # verify of 8 slots, and 2560: a chunk forward of 5 x 512, every
-        # expert at C = N rows in no-drop mode (both the tensor-core tile)
-        for M in (8, 40, 2560):
+    for name, qt, note in mats:
+        K, N = qt.shape
+        for M in Ms:
             a = torch.randn(M, K, device=dev, generator=gen).to(torch.bfloat16)
             form = qgemv_form(M, False, qt)
             kname = "qgemv" if M == 8 else "qgemv_mma"
@@ -876,16 +930,16 @@ def kernels_mixtral(dev, timer, gen):
             check({k: n for k, n in common.launches.items() if n} == {kname: 1}
                   and form == ("gemv" if M == 8 else "mma")
                   and not any(common.plain_on_cuda.values()),
-                  f"Mixtral {name} M={M}: {form}, launches {dict(common.launches)}")
+                  f"{label} {name} M={M}: {form}, launches {dict(common.launches)}")
             ref = qmatmul(a, qt, out_dtype=torch.float32, use_kernel=False)
             e, e_abs = rel_err(got, ref), (got.float() - ref).abs().max().item()
-            check(e <= 2e-2, f"Mixtral {name} M={M}: rel err {e:.3e} > 2e-2")
+            check(e <= 2e-2, f"{label} {name} M={M}: rel err {e:.3e} > 2e-2")
             del got, ref
             ms = timer(lambda: qmatmul(a, qt))
             plain_ms = timer(lambda: qmatmul(a, qt, use_kernel=False), iters=2)
             b = bound(qt.bytes_packed() + nbytes(a) + 2 * M * N, 2 * M * K * N)
-            print(f"Mixtral qmatmul 4-bit {name} K={K} (packed {qt.K}) N={N} M={M} ({form}"
-                  f"{', expert view' if experts else ''}): op {ms:.4f} ms "
+            print(f"{label} qmatmul 4-bit {name} K={K} (packed {qt.K}, g={qt.group_size}) N={N} "
+                  f"M={M} ({form}{note}): op {ms:.4f} ms "
                   f"({qt.bytes_packed() / ms / 1e6:.1f} GB/s packed stream, "
                   f"{2 * M * K * N / ms / 1e9:.1f} TFLOP/s, {b['bound_ms'] / ms:.1%} of the "
                   f"bound), plain {plain_ms:.4f} ms, rel err {e:.2e}, max abs err {e_abs:.2e}; "
@@ -895,11 +949,9 @@ def kernels_mixtral(dev, timer, gen):
                 kernel=kname, ms=ms, plain_ms=plain_ms, library_ms=None, max_abs_err=e_abs, **b)
             del a
         del qt
-        if experts:
-            del stacked
 
-    # decode attention with its append, GQA rep 4, ragged: 7 live slots and one at S
-    S, D, H, Hkv = 2048, 128, 32, 8
+    # decode attention with its append, ragged: 7 live slots and one at S
+    S, D = 2048, 128
     lens_live = [1, 7, 128, 1000, 2047, 2048, 513]
     B = len(lens_live) + 1
     pos = torch.tensor([n - 1 for n in lens_live] + [S], device=dev)
@@ -923,7 +975,7 @@ def kernels_mixtral(dev, timer, gen):
     ref = decode_attention_reference(q, k_ref[1], v_ref[1], lens)
     same = all(torch.equal(x, y) for x, y in zip(after, (k_ref, v_ref)))
     e = (out.float() - ref.float()).abs().max().item()
-    check(same and e <= 2e-2, f"Mixtral decode attention bf16: rows exact {same}, err {e:.3e}")
+    check(same and e <= 2e-2, f"{label} decode attention bf16: rows exact {same}, err {e:.3e}")
     e_lib = (sdpa(q[:, :, None], k_ref[1], v_ref[1], mask)[:-1, :, 0].float()
              - ref[:-1].float()).abs().max().item()
     check(e_lib <= 2e-2, f"Mixtral: the SDPA yardstick differs from the plain one: {e_lib}")
@@ -936,7 +988,7 @@ def kernels_mixtral(dev, timer, gen):
     library_ms = timer(lambda: (kf1.index_copy_(0, rows, kr1), vf1.index_copy_(0, rows, vr1),
                                 sdpa(q[:, :, None], k[1], v[1], mask)))
     b = bound(2 * 2 * live_rows + nbytes(q, out, kn, vn), 4 * H * D * int(lens.sum()))
-    print(f"Mixtral decode_attention+append bf16 B={B} H={H} Hkv={Hkv} (rep 4) S={S}: op "
+    print(f"{label} decode_attention+append bf16 B={B} H={H} Hkv={Hkv} (rep {H // Hkv}) S={S}: op "
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library (2 index_copy_ + SDPA, GQA) "
           f"{library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}; rows exact, "
           f"max abs err {e:.2e}", flush=True)
@@ -958,7 +1010,7 @@ def kernels_mixtral(dev, timer, gen):
                                      ref_cache[2][1], ref_cache[3][1])
     same = all(torch.equal(x, y) for x, y in zip(after, ref_cache))
     e = (out.float() - ref.float()).abs().max().item()
-    check(same and e <= 2e-2, f"Mixtral decode attention int8: words exact {same}, err {e:.3e}")
+    check(same and e <= 2e-2, f"{label} decode attention int8: words exact {same}, err {e:.3e}")
     del after, ref_cache
     k8, v8, ks8, vs8 = cache
     ms = timer(lambda: decode_attention(q, k8, v8, lens, layer_idx=1, k_scale=ks8, v_scale=vs8,
@@ -972,7 +1024,7 @@ def kernels_mixtral(dev, timer, gen):
     del kd, vd
     b = bound(2 * (live_rows + 2 * int(lens.sum()) * Hkv) + nbytes(q, out, kq, vq),
               4 * H * D * int(lens.sum()))
-    print(f"Mixtral decode_attention+append int8 B={B} H={H} Hkv={Hkv} S={S}: op {ms:.4f} ms, "
+    print(f"{label} decode_attention+append int8 B={B} H={H} Hkv={Hkv} S={S}: op {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, library (SDPA on bf16 rows, no append) {library_ms:.4f} ms, "
           f"bound {b['bound_ms']:.4f} ms by {b['bound_by']}; words exact, max abs err {e:.2e}",
           flush=True)
@@ -1011,7 +1063,7 @@ def kernels_mixtral(dev, timer, gen):
         ref = prefill_attention_reference(pq, k, v, ppos, slots, **scales)
         e = (out.float() - ref.float()).abs().max().item()
         check(e <= 2e-2 and bool((out[~live] == 0).all()),
-              f"Mixtral prefill attention ({'int8' if int8 else 'bf16'}): err {e:.3e}")
+              f"{label} prefill attention ({'int8' if int8 else 'bf16'}): err {e:.3e}")
         e_lib = (sdpa(qh, kd, vd, pmask).transpose(1, 2)[live].float()
                  - ref[live].float()).abs().max().item()
         check(e_lib <= 2e-2, f"Mixtral: the SDPA yardstick differs from the plain one: {e_lib}")
@@ -1021,12 +1073,12 @@ def kernels_mixtral(dev, timer, gen):
         library_ms = timer(lambda: sdpa(qh, kd, vd, pmask))
         b = bound(cache_bytes + nbytes(pq, out), flops)
         name = "int8" if int8 else "bf16"
-        print(f"Mixtral prefill_attention {name} N={N} T={T} H={H} Hkv={Hkv} S={S}: op {ms:.4f} "
+        print(f"{label} prefill_attention {name} N={N} T={T} H={H} Hkv={Hkv} S={S}: op {ms:.4f} "
               f"ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.4f} ms, library (SDPA on "
               f"bf16 rows) {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}; "
               f"max abs err {e:.2e}", flush=True)
-        res["prefill_attention_" + name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-                                                max_abs_err=e, **b)
+        res["prefill_attention_" + name] = dict(
+            ms=ms, plain_ms=plain_ms, library_ms=library_ms, max_abs_err=e, **b)
         del k, v, kd, vd, out, ref
     return res
 
@@ -2858,6 +2910,8 @@ def phase_mixtral(dev):
           f"a verify replay launches {prog}", flush=True)
     check(rate >= 0.5, f"Mixtral copy-model: acceptance {rate:.3f}")
     res["spec"] = dict(rates=rates, plain=plain_rates, rate=rate, launches=prog)
+    # phase 11b holds expert parallelism to these one-rank tokens
+    res["copy"] = dict(prompts=[r.prompt for r in creqs], tokens=[c.tokens for c in plain])
     del eng, model
     torch.cuda.empty_cache()
     return launches, res
@@ -3150,6 +3204,358 @@ def phase_mixtral_loader(dev):
     return launches, dict(t_write=t_write, t_convert=t_convert)
 
 
+# --- phase 11: tensor and expert parallelism, two ranks on the one card ---
+#
+# Each rank is a process of its own (``parallel.multihost.spawn``, start method
+# "spawn": the children import this file as a module, so ``main`` does not run
+# in them) on cuda:0.  Two ranks on one card are a gloo world: NCCL refuses two
+# ranks on one GPU, and gloo takes CUDA tensors for ``all_reduce``, the only
+# collective the port uses.  So every collective goes through the host, and no
+# time below is a tensor-parallel speed.  Rank 0 writes what it measured, and
+# each rank its launch counts of the main path's run, to files the parent
+# reads.
+
+TP_LABEL = "two ranks sharing one H100, collectives through the host by gloo: not a TP speed"
+
+
+def _rank_json(path, rank: int, name: str, obj) -> None:
+    from pathlib import Path
+
+    (Path(path) / f"{name}_rank{rank}.json").write_text(json.dumps(obj))
+
+
+def _rank_device() -> torch.device:
+    """The device ``multihost.initialize`` gave this rank."""
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _read_ranks(path, name: str, n: int = 2) -> list:
+    from pathlib import Path
+
+    return [json.loads((Path(path) / f"{name}_rank{r}.json").read_text()) for r in range(n)]
+
+
+def _tp_requests():
+    """8 greedy requests for the copy-model: prompts of 16-500 tokens on the
+    cycle (the period-8 copy-model continues any prompt by its successor)."""
+    from xbitops_tpu_torch.engine import Request
+
+    lengths = np.linspace(16, 500, 8).astype(int)
+    return [Request(prompt=[(j + i) % 8 for i in range(n)], max_new_tokens=32, id=j)
+            for j, n in enumerate(lengths)]
+
+
+def _tp_block_errs(full, shard, prompts, dev):
+    """The tp=1 model and this rank's tp=2 shard prefill the same prompts into
+    caches of their own (8 slots), then one decode step block by block: each
+    block of both on the same input (the tp=1 block's output of the block
+    before) and its own cache.  Returns each block's rel err, on every rank
+    (the shard's blocks run their collectives)."""
+    from xbitops_tpu_torch.models import llama
+
+    cfg = full.cfg
+    n, T = len(prompts), max(len(p) for p in prompts)
+    tokens = torch.zeros((n, T), dtype=torch.long, device=dev)
+    for i, p in enumerate(prompts):
+        tokens[i, : len(p)] = torch.tensor(p, device=dev)
+    lens, slots = torch.tensor([len(p) for p in prompts], device=dev), torch.arange(n, device=dev)
+    caches, logits = [], []
+    for m in (full, shard):
+        cache = llama.KVCache.init(m.cfg, n, dev)
+        logits.append(llama.prefill_slots(m, tokens, lens, slots, cache)[0])
+        caches.append(cache)
+    nxt = logits[0].argmax(-1)
+    positions = caches[0].lengths[:, None].long()
+    rope = llama.rope_tables(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling_type,
+                             cfg.rope_scaling_factor)
+    x = full.embed[nxt][:, None].to(torch.bfloat16)
+    errs = []
+    for li in range(cfg.num_layers):
+        want = full.blocks[li](x, positions, rope, caches[0], li, None)
+        got = shard.blocks[li](x, positions, rope, caches[1], li, None)
+        check(torch.isfinite(got.float()).all().item(), f"tp block {li}: non-finite output")
+        errs.append(rel_err(got, want))
+        x = want
+    return errs
+
+
+def _tp_rank(rank: int, out_dir: str) -> None:
+    """One rank of phase 11a (see :func:`phase_tp`)."""
+    from xbitops_tpu_torch.engine import Engine
+    from xbitops_tpu_torch.kernels import common
+    from xbitops_tpu_torch.models import llama
+    from xbitops_tpu_torch.parallel import model_tp
+    from xbitops_tpu_torch.parallel.mesh import make_mesh
+    from xbitops_tpu_torch.utils import synth
+
+    dev = _rank_device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh((1, 2))
+    cfg = llama.LlamaConfig.llama2_7b()
+    res = {}
+    # (1) the copy-model at full width and depth: tp=2 against tp=1, tokens equal
+    t0 = time.perf_counter()
+    copy = synth.copy_llama_params(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    packed = model_tp.pack_for_tp(copy, 2)
+    eng = Engine(packed, cfg, slots=8, decode_burst=8, mesh=mesh, kv_quant=False)
+    del packed
+    torch.cuda.synchronize()
+    res["build_s"] = time.perf_counter() - t0
+    reqs = _tp_requests()
+    common.reset_counts()
+    out = eng.generate(reqs)
+    torch.cuda.synchronize()
+    launches = dict(common.launches)
+    st = dict(eng.loop_stats)
+    check(not any(common.plain_on_cuda.values()), f"tp=2: plain versions ran on the card")
+    check(st.get("graph_captures", 0) == 0, "tp=2: a mesh engine captured a graph")
+    check(eng.cache.k.shape[2] == cfg.num_kv_heads // 2, "tp=2: the cache holds all kv heads")
+    check(all(len(c.tokens) == 32 and follows_cycle(c, r.prompt, 8) for c, r in zip(out, reqs)),
+          "tp=2 copy-model: not the cycle")
+    # a rank's launches in one decode step (every slot inactive: it writes nothing)
+    common.reset_counts()
+    llama.decode_step(eng.model, torch.zeros(8, dtype=torch.int32, device=dev), eng.cache,
+                      active=torch.zeros(8, dtype=torch.bool, device=dev))
+    torch.cuda.synchronize()
+    res.update(tokens=[c.tokens for c in out], ms_step=1e3 * st["decode"] / st["decode_steps"],
+               tok_s=st["decode_tokens"] / st["decode"], admit_s=st["admit_prefill"],
+               per_step={k: n for k, n in common.launches.items() if n})
+    del eng
+    torch.cuda.empty_cache()
+    if rank == 0:  # the tp=1 engine on the same weights (graphs, as it serves)
+        one = Engine(copy, cfg, slots=8, decode_burst=8, kv_quant=False).generate(reqs)
+        res["one_tokens"] = [c.tokens for c in one]
+        torch.cuda.synchronize()
+    del copy
+    torch.cuda.empty_cache()
+    # (2) the random model: a 2-layer cut's decode logits and each of the 32
+    # blocks at tp=2 against tp=1
+    full = synth.random_llama_params(cfg, bits=4, group_size=128, device=dev, seed=SEED)
+    shard = model_tp.shard_params(model_tp.pack_for_tp(full, 2), mesh)
+    gen = np.random.default_rng(SEED)
+    prompts = [gen.integers(0, cfg.vocab_size, n).tolist()
+               for n in np.linspace(40, 300, 8, dtype=int)]
+    res["block_errs"] = _tp_block_errs(full, shard, prompts, dev)
+    cut1, cut2 = two_layer_cut(full), two_layer_cut(shard)
+    lg = []
+    for m in (cut1, cut2):
+        cache = llama.KVCache.init(m.cfg, 8, dev)
+        tokens = torch.tensor([p[:40] for p in prompts], device=dev)
+        llama.prefill(m, tokens, cache)
+        lg.append(llama.decode_step(m, tokens[:, -1], cache)[0])
+    res["cut_err"] = rel_err(lg[1], lg[0])
+    del full, shard, cut1, cut2
+    torch.cuda.empty_cache()
+    _rank_json(out_dir, rank, "tp_launches", launches)
+    if rank == 0:
+        _rank_json(out_dir, rank, "tp", res)
+
+
+def _ep_rank(rank: int, out_dir: str, prompts, want_tokens) -> None:
+    """One rank of phase 11b (see :func:`phase_ep`)."""
+    from xbitops_tpu_torch.kernels import common
+    from xbitops_tpu_torch.models import llama, moe
+    from xbitops_tpu_torch.parallel.mesh import make_mesh
+    from xbitops_tpu_torch.utils import synth
+
+    dev = _rank_device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh((2,), ("expert",))
+    cfg = moe.MoeConfig.mixtral_like(capacity_factor=None)
+    El = cfg.n_experts // 2
+    mine = range(rank * El, (rank + 1) * El)
+    res = {}
+    # (1) the copy-model form of phase 10a's Mixtral, this rank's 4 experts only
+    t0 = time.perf_counter()
+    model = synth.random_moe_params(cfg, bits=4, group_size=128, device=dev, seed=SEED,
+                                    experts=mine)
+    synth.make_copy_model(model, torch.Generator(device=dev).manual_seed(SEED), period=8,
+                          experts=mine)
+    ep = moe.shard_experts(model, mesh)
+    torch.cuda.synchronize()
+    res.update(build_s=time.perf_counter() - t0, resident=model_bytes(model))
+    n, T = len(prompts), max(len(p) for p in prompts)
+    tokens = torch.zeros((n, -(-T // 16) * 16), dtype=torch.long, device=dev)
+    for i, p in enumerate(prompts):
+        tokens[i, : len(p)] = torch.tensor(p, device=dev)
+    cache = llama.KVCache.init(cfg, n, dev)
+    common.reset_counts()
+    t0 = time.perf_counter()
+    logits, _ = moe.ep_prefill_slots(ep, cfg, mesh, tokens, torch.tensor([len(p) for p in prompts],
+                                     device=dev), torch.arange(n, device=dev), cache)
+    torch.cuda.synchronize()
+    res["prefill_s"] = time.perf_counter() - t0
+    got = [[t] for t in logits.argmax(-1).tolist()]
+    t0 = time.perf_counter()
+    for _ in range(len(want_tokens[0]) - 1):
+        tok = torch.tensor([g[-1] for g in got], device=dev)
+        logits, _ = moe.ep_decode_step(ep, cfg, mesh, tok, cache)
+        for g, t in zip(got, logits.argmax(-1).tolist()):
+            g.append(t)
+    torch.cuda.synchronize()
+    res["decode_ms_step"] = 1e3 * (time.perf_counter() - t0) / (len(want_tokens[0]) - 1)
+    launches = dict(common.launches)
+    check(not any(common.plain_on_cuda.values()), "ep=2: plain versions ran on the card")
+    res["tokens_equal"] = got == want_tokens
+    check(got == want_tokens, "ep=2: the copy-model's tokens differ from one rank's")
+    del model, ep, cache
+    torch.cuda.empty_cache()
+    # (2) a 2-layer cut with all 8 experts on each rank: the ep=2 blocks against
+    # one rank's, block by block on the same input
+    cut_cfg = dataclasses.replace(cfg, num_layers=2)
+    full = synth.random_moe_params(cut_cfg, bits=4, group_size=128, device=dev, seed=SEED + 1)
+    ep = moe.shard_experts(full, mesh)
+    res["block_errs"], res["routes"] = _ep_block_errs(full, ep, dev)
+    _rank_json(out_dir, rank, "ep_launches", launches)
+    if rank == 0:
+        _rank_json(out_dir, rank, "ep", res)
+
+
+def _ep_block_errs(full, ep, dev):
+    """One decode step after an admission of 8 prompts of 64 tokens, block by
+    block: the ep=2 block and the one-rank block on the same input (the
+    one-rank output of the block before), each on its own cache.  A token's
+    routes are the same on both (the router reads the same input); the rel err
+    is over all tokens.  Returns the errs and (tokens routed alike, tokens)."""
+    from xbitops_tpu_torch.models import llama, moe
+
+    cfg = full.cfg
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab_size, (8, 64), device=dev, generator=gen)
+    caches, logits = [], []
+    for m in (full, ep):
+        cache = llama.KVCache.init(cfg, 8, dev)
+        logits.append(llama.prefill(m, tokens, cache)[0])
+        caches.append(cache)
+    positions = caches[0].lengths[:, None].long()
+    rope = llama.rope_tables(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling_type,
+                             cfg.rope_scaling_factor)
+    x = full.embed[logits[0][:, -1].argmax(-1)][:, None].to(torch.bfloat16)
+    errs, alike, total = [], 0, 0
+    for li in range(cfg.num_layers):
+        seen = []
+        hooks = [m.blocks[li].moe.register_forward_hook(lambda mod, i, o: seen.append(i[0]))
+                 for m in (full, ep)]
+        try:
+            want = full.blocks[li](x, positions, rope, caches[0], li, None)
+            got = ep.blocks[li](x, positions, rope, caches[1], li, None)
+        finally:
+            for h in hooks:
+                h.remove()
+        routes = [moe.route(h.reshape(-1, h.shape[-1]), full.blocks[li].moe.router,
+                            cfg.experts_per_token)[0].sort(dim=1).values for h in seen]
+        same = (routes[0] == routes[1]).all(dim=1)
+        check(torch.isfinite(got.float()).all().item(), f"ep block {li}: non-finite output")
+        errs.append(rel_err(got.reshape(-1, got.shape[-1])[same],
+                            want.reshape(-1, want.shape[-1])[same]))
+        alike, total = alike + int(same.sum()), total + same.numel()
+        x = want
+    return errs, (alike, total)
+
+
+def phase_tp(dev, rng):
+    """Phase 11a: Llama-2-7B (full width and depth) at tensor parallelism 2,
+    two gloo ranks on the one card (:func:`_tp_rank`): (a) the copy-model
+    packed for tp=2 (``model_tp.pack_for_tp``), each rank ``Engine(mesh=)``
+    with its shard (eager bursts, half the kv heads) serving 8 greedy
+    requests, tokens equal to the tp=1 engine's; (b) the random 4-bit model:
+    a 2-layer cut's decode logits and each of the 32 blocks within rel 2e-2 of
+    tp=1; (c) an AutoGPTQ checkpoint at 7B widths cut to 2 layers through
+    ``python -m xbitops_tpu_torch convert --tp 2`` and ``generate --tp 2`` (two
+    ranks the command starts), tokens equal to ``generate`` at tp=1."""
+    import re
+    import tempfile
+    from pathlib import Path
+
+    from xbitops_tpu_torch.models import llama
+    from xbitops_tpu_torch.parallel import multihost
+
+    root = Path(__file__).resolve().parent
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=root, prefix="smoke_ckpt_") as tmp:
+        multihost.spawn(_tp_rank, 2, args=(tmp,))
+        res = _read_ranks(tmp, "tp", 1)[0]
+        launches = _read_ranks(tmp, "tp_launches")
+    check(res["tokens"] == res["one_tokens"], "tp=2: the copy-model's tokens differ from tp=1")
+    errs = res["block_errs"]
+    print(f"7B tp=2 ({TP_LABEL}): copy-model, 8 requests of 16-500 prompt tokens, 32 new each, "
+          f"Engine(mesh=) bursts of 8 (eager): tokens equal the tp=1 engine's; decode "
+          f"{res['ms_step']:.2f} ms/step, {res['tok_s']:.1f} tokens/s, admission "
+          f"{res['admit_s']:.2f} s; a rank's launches a step {res['per_step']}; random model: "
+          f"2-layer cut decode logits rel {res['cut_err']:.2e}, blocks rel max {max(errs):.2e} "
+          f"(first {errs[0]:.2e}, last {errs[-1]:.2e})", flush=True)
+    check(res["cut_err"] <= 2e-2, f"tp=2 2-layer cut rel err {res['cut_err']:.3e} > 2e-2")
+    check(max(errs) <= 2e-2, f"tp=2 block rel err {max(errs):.3e} > 2e-2")
+
+    cfg = dataclasses.replace(llama.LlamaConfig.llama2_7b(), num_layers=2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (16, 90, 300, 700)]
+    with tempfile.TemporaryDirectory(dir=root, prefix="smoke_ckpt_") as tmp:
+        src = Path(tmp) / "autogptq"
+        src.mkdir()
+        write_autogptq(src, cfg, 2, rng)
+
+        def cli(*args):
+            proc = subprocess.run([sys.executable, "-m", "xbitops_tpu_torch", *args],
+                                  capture_output=True, text=True, timeout=600, cwd=root)
+            check(proc.returncode == 0, f"cli {args[0]} failed: {proc.stderr[-2000:]}")
+            return proc.stdout
+
+        t0 = time.perf_counter()
+        cli("convert", "--ckpt", str(src), "--out", f"{tmp}/packed_tp2", "--tp", "2")
+        t_convert = time.perf_counter() - t0
+        # S = 960 keeps tp=1 on the bf16 cache, which a mesh engine always takes
+        gen = ["--max-tokens", "16", "--slots", "8", "--max-seq-len", "960"]
+        for p in prompts:
+            gen += ["--prompt", " ".join(map(str, p))]
+        t0 = time.perf_counter()
+        two = cli("generate", "--ckpt", f"{tmp}/packed_tp2", "--tp", "2", *gen)
+        t_generate = time.perf_counter() - t0
+        one = cli("generate", "--ckpt", str(src), *gen)
+    lines = [[re.fullmatch(r"\[(\d+)\] \[(.*)\] \((\w+)\)", x) for x in out.splitlines()]
+             for out in (two, one)]
+    check(all(len(ls) == len(prompts) and all(ls) for ls in lines),
+          f"cli generate printed {two!r} and {one!r}")
+    toks = [[[int(t) for t in m.group(2).split(", ")] for m in ls] for ls in lines]
+    same = sum(a == b for x, y in zip(*toks) for a, b in zip(x, y))
+    print(f"AutoGPTQ 7B widths cut to 2 layers: `convert --tp 2` {t_convert:.1f} s, `generate "
+          f"--tp 2` (2 ranks it starts) of 4 prompts of 16-700 tokens {t_generate:.1f} s; tokens "
+          f"equal to `generate` at tp=1: {same} of {sum(map(len, toks[1]))}", flush=True)
+    check(toks[0] == toks[1], "generate --tp 2 printed other tokens than tp=1")
+    res.update(t_convert=t_convert, t_generate=t_generate, phase_s=time.perf_counter() - t_phase)
+    return launches, res
+
+
+def phase_ep(dev, copy):
+    """Phase 11b: Mixtral-8x7B at expert parallelism 2 (4 experts a rank, each
+    rank builds only its own: ``random_moe_params(experts=)``), two gloo ranks
+    on the one card (:func:`_ep_rank`): (a) phase 10a's copy-model form through
+    ``ep_prefill_slots`` and ``ep_decode_step``, 8 prompts of 16-500 tokens and
+    31 decode steps, tokens equal to the one-rank engine's of phase 10a; (b) a
+    2-layer cut: each MoE block at ep=2 within rel 2e-2 of one rank's over the
+    tokens routed alike."""
+    import tempfile
+    from pathlib import Path
+
+    from xbitops_tpu_torch.parallel import multihost
+
+    root = Path(__file__).resolve().parent
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=root, prefix="smoke_ckpt_") as tmp:
+        multihost.spawn(_ep_rank, 2, args=(tmp, copy["prompts"], copy["tokens"]))
+        res = _read_ranks(tmp, "ep", 1)[0]
+        launches = _read_ranks(tmp, "ep_launches")
+    errs, (alike, total) = res["block_errs"], res["routes"]
+    print(f"Mixtral-8x7B ep=2 ({TP_LABEL}): a rank holds 4 of 8 experts, "
+          f"{res['resident'] / 1e9:.2f} GB, built in {res['build_s']:.1f} s; copy-model, 8 "
+          f"prompts of 16-500 tokens, 32 tokens each through ep_prefill_slots "
+          f"({res['prefill_s']:.2f} s) and ep_decode_step ({res['decode_ms_step']:.1f} ms a "
+          f"step, eager): tokens equal one rank's; 2-layer cut, ep=2 against one rank block by "
+          f"block: rel {[f'{x:.2e}' for x in errs]}, routes alike {alike}/{total}", flush=True)
+    check(max(errs) <= 2e-2, f"ep=2 block rel err {max(errs):.3e} > 2e-2")
+    res["phase_s"] = time.perf_counter() - t_phase
+    return launches, res
+
+
 def clone_cache(cache, n_layers=None):
     """A copy of ``cache`` (of its first ``n_layers`` layers), its scales and
     page table included."""
@@ -3233,6 +3639,10 @@ def main() -> int:
     launches10a, mixtral = phase_mixtral(dev)
     launches10b, gptq_res = phase_gptq(dev)
     launches10c, _ = phase_mixtral_loader(dev)
+    gc.collect()
+    torch.cuda.empty_cache()  # the ranks of phase 11 share the card with this process
+    launches11a, tp_res = phase_tp(dev, np.random.default_rng(SEED))
+    launches11b, ep_res = phase_ep(dev, mixtral["copy"])
     print(f"card: {card}; 7B 4-bit decode at B=8: bf16 cache, prompts to 500: "
           f"{serving['ms_step']:.2f} ms/step, {serving['tok_s']:.1f} tokens/s; int8 cache, "
           f"prompts to 1500: {long_ctx['ms_step']:.2f} ms/step, {long_ctx['tok_s']:.1f} tokens/s; "
@@ -3308,6 +3718,15 @@ def main() -> int:
           f"{gptq_res['nll_q']:.4f}; spec γ=4 acceptance {gptq_res['rate']:.3f} (prompts of "
           f"one token: {gptq_res['rate1']:.3f}); "
           f"total {time.perf_counter() - t_start:.1f} s", flush=True)
+    tk = res["tp"]
+    print(f"card: {card}; phase 11 ({TP_LABEL}): 7B tp=2 copy-model decode at B=8 "
+          f"{tp_res['ms_step']:.2f} ms/step, {tp_res['tok_s']:.1f} tokens/s (eager bursts); "
+          f"Mixtral ep=2 decode {ep_res['decode_ms_step']:.1f} ms a step (eager); phases 11a + "
+          f"11b {tp_res['phase_s'] + ep_res['phase_s']:.1f} s; a 7B tp=2 rank's kernels, op ms: "
+          + ", ".join(f"{n} {v['ms']:.4f} (bound {v['bound_ms']:.4f}, library "
+                      f"{'none exists' if v['library_ms'] is None else round(v['library_ms'], 4)})"
+                      for n, v in tk.items())
+          + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
 
     csrc, jk = "xbitops_tpu_torch/csrc/", "xbitops_tpu/kernels/"
     src = {
@@ -3330,13 +3749,14 @@ def main() -> int:
         "kv_append_paged": (csrc + "kv_append.cu", jk + "kv_append.py:92"),
         "kv_append_packed_paged": (csrc + "kv_append.cu", jk + "kv_append.py:43"),
     }
-    # launches: each kernel's count over the runs of phases 2 to 10 (the counts
-    # were set to 0 just before each run and read just after it).  An append
+    # launches: each kernel's count over the runs of phases 2 to 11 (the counts
+    # were set to 0 just before each run and read just after it; phase 11's
+    # are each rank's of its main path, summed over the ranks).  An append
     # row counts its own kernel's launches (phase 6: the eager decode), and
     # apart, as fused_launches, the decode-attention launches (csrc/
     # decode_attention.cu) that appended in its form on the serving paths
     runs = (launches2, launches3, launches4, launches5, launches6, launches7, launches8,
-            launches9, launches10a, launches10b, launches10c)
+            launches9, launches10a, launches10b, launches10c, *launches11a, *launches11b)
     count = lambda n: sum(ln[n] for ln in runs)
     kernels = [dict(name=n, route="cuda", source=src[n][0], replaces=src[n][1], launches=count(n),
                     **({"fused_launches": count(n + "_fused")} if n in common.APPENDS else {}),

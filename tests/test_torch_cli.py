@@ -3,8 +3,10 @@
 then ``generate --device cpu`` prints ``[id] [tokens] (reason)`` lines equal
 to the JAX CLI's on the same directory, and on the AutoGPTQ directory itself,
 and on the directory the JAX ``convert`` wrote; ``serve`` builds its endpoint.
-``--tp 2`` and ``bench`` on the CPU raise (``quantize`` is held by
-``tests/test_torch_e2e_quantize.py``)."""
+``convert --tp 2`` then ``generate --tp 2`` (two gloo ranks, spawned) print
+the tokens of ``--tp 1``, and so does ``generate --tp 2`` on the AutoGPTQ
+directory; a ``--tp`` the heads do not split by, and ``bench`` on the CPU,
+raise (``quantize`` is held by ``tests/test_torch_e2e_quantize.py``)."""
 
 import subprocess
 import sys
@@ -54,12 +56,24 @@ def test_convert_then_generate_equals_jax_cli(ckpt, tmp_path, capsys):
         assert _lines(capsys.readouterr().out) == want, d
 
 
+def test_convert_then_generate_tp2_equals_tp1(ckpt, tmp_path, capfd):
+    out = tmp_path / "packed_tp2"
+    assert main(["generate", "--ckpt", str(ckpt), "--device", "cpu", *GEN]) == 0
+    want = _lines(capfd.readouterr().out)
+    assert len(want) == 2
+    assert main(["convert", "--ckpt", str(ckpt), "--out", str(out), "--tp", "2",
+                 "--device", "cpu"]) == 0
+    assert '"tp": 2' in (out / "manifest.json").read_text()
+    capfd.readouterr()
+    for d in (out, ckpt):  # rank 0 prints, from a process of its own
+        assert main(["generate", "--ckpt", str(d), "--tp", "2", "--device", "cpu", *GEN]) == 0
+        assert _lines(capfd.readouterr().out) == want, d
+
+
 def test_unported_options_and_bench_raise(ckpt, tmp_path):
-    with pytest.raises(NotImplementedError):
-        main(["convert", "--ckpt", str(ckpt), "--out", str(tmp_path / "p"), "--tp", "2",
+    with pytest.raises(ValueError):  # 4 heads do not split over 3 ranks
+        main(["convert", "--ckpt", str(ckpt), "--out", str(tmp_path / "p"), "--tp", "3",
               "--device", "cpu"])
-    with pytest.raises(NotImplementedError):
-        main(["generate", "--ckpt", str(ckpt), "--device", "cpu", "--tp", "2"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             main(["bench"])

@@ -1,10 +1,11 @@
 """The port's continuous-batching engine against the JAX package's on the tiny
 config: greedy tokens are identical, request by request, with slot recycling
 (3 requests on 2 slots) and bursts of 1 and 4 steps.  Also: seeded sampling
-is reproducible, top_k=1 sampling equals greedy, finish reasons, ``mesh=``
-(not ported) raises, and the option pairs the JAX engine refuses raise
-``ValueError`` (speculative decoding and pipelined bursts are in
-``tests/test_torch_spec.py`` and ``tests/test_torch_pipeline.py``).  Long prompts (130-250 tokens at S=256, admitted
+is reproducible, top_k=1 sampling equals greedy, finish reasons, and the
+option pairs the JAX engine refuses raise ``ValueError``, ``mesh=`` with a
+draft model among them (the mesh engine is in ``tests/test_torch_engine_tp.py``,
+speculative decoding and pipelined bursts in ``tests/test_torch_spec.py`` and
+``tests/test_torch_pipeline.py``).  Long prompts (130-250 tokens at S=256, admitted
 in chunks of 128, which takes JAX through its flash-prefill kernel) and the
 packed int8 cache give identical greedy tokens too, alone and together; so does
 W4A8 admission (``prefill_a8``: prompts of 33-50 tokens, bucket 64).  Restarts
@@ -113,18 +114,23 @@ def test_finish_reasons(model):
 @pytest.mark.parametrize("kw", [
     dict(spec_tokens=2, decode_burst=2), dict(spec_tokens=2, pipeline=1),
     dict(draft_params="model"), dict(draft_params="model", spec_tokens=2, paged=True),
-    dict(mesh=object()), dict(draft_params="model_s128", spec_tokens=2),
+    dict(mesh="mesh", draft_params="model", spec_tokens=2),
+    dict(draft_params="model_s128", spec_tokens=2),
 ])
 def test_unported_options_raise(model, kw):
-    """``mesh=`` is not ported; the option pairs the JAX engine refuses with
-    ``ValueError`` the port refuses so too: speculative decoding with bursts or
-    a pipeline, a draft model without speculative decoding, over a paged
-    cache, or of another ``max_seq_len``."""
+    """The option pairs the JAX engine refuses with ``ValueError`` the port
+    refuses so too: speculative decoding with bursts or a pipeline, a draft
+    model without speculative decoding, over a paged cache, under a mesh
+    (here the one-process mesh), or of another ``max_seq_len``."""
+    from xbitops_tpu_torch.parallel.mesh import make_mesh
+
     if "draft_params" in kw:
         draft = model if kw["draft_params"] == "model" else model.with_config(
             dataclasses.replace(CFG, max_seq_len=128))
         kw = dict(kw, draft_params=draft)
-    with pytest.raises(NotImplementedError if "mesh" in kw else ValueError):
+    if "mesh" in kw:
+        kw = dict(kw, mesh=make_mesh((1, 1)))
+    with pytest.raises(ValueError):
         Engine(model, CFG, **kw)
 
 

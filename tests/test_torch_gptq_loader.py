@@ -12,7 +12,8 @@ equals JAX's bit for bit where the fused N needs no lane padding; where it
 does (N not a multiple of 128) the JAX function raises (it pads the 3-D
 scales with a 2-D pad list), so the port's result is held to the parts'
 dequantized weights side by side, and its padding to ``make_qtensor``'s
-(scale 1, scale-zero 0).  ``tp=2`` raises ``NotImplementedError``."""
+(scale 1, scale-zero 0).  ``tp=2`` raises ``NotImplementedError`` for
+Mixtral, as JAX's loader does (the Llama case is in ``tests/test_torch_tp_io.py``)."""
 
 import dataclasses
 
@@ -250,8 +251,8 @@ def test_concat_qtensors_pads_lanes():
 def test_concat_qtensors_refuses():
     a, b = (qtensor_from_numpy(jax.tree.map(np.asarray, _random_qt(i, 128, 128)), "cpu")
             for i in range(2))
-    with pytest.raises(NotImplementedError):
-        formats.concat_qtensors([a, b], order=np.arange(256))
+    with pytest.raises(ValueError, match="permutation"):  # order must permute the columns
+        formats.concat_qtensors([a, b], order=np.arange(255))
     with pytest.raises(ValueError, match="act-order"):
         formats.concat_qtensors([a, dataclasses.replace(b, perm=torch.arange(128))])
     c = qtensor_from_numpy(jax.tree.map(np.asarray, _random_qt(2, 128, 128, bits=3)), "cpu")
@@ -260,16 +261,18 @@ def test_concat_qtensors_refuses():
 
 
 def test_mixtral_and_tp_raise(mixtral_ckpt_dir, ckpt_dir):
-    """A Mixtral config is a no-drop ``MoeConfig`` now; ``tp > 1`` still
-    raises, for Mixtral too."""
+    """A Mixtral config is a no-drop ``MoeConfig``; ``tp > 1`` raises for
+    Mixtral (it shards over the expert axis), as the JAX loader does, and
+    packs a Llama checkpoint row-sharded (``tests/test_torch_tp_io.py``)."""
     from xbitops_tpu_torch.models.moe import MoeConfig
 
     cfg = llama_config_from_hf({**HF_CONFIGS["llama"], "model_type": "mixtral",
                                 "num_local_experts": 4})
     assert isinstance(cfg, MoeConfig) and cfg.n_experts == 4 and cfg.capacity_factor is None
-    for d in (mixtral_ckpt_dir, ckpt_dir[0]):
-        with pytest.raises(NotImplementedError):
-            load_autogptq(str(d), tp=2, device="cpu")
+    with pytest.raises(NotImplementedError, match="EXPERT"):
+        load_autogptq(str(mixtral_ckpt_dir), tp=2, device="cpu")
+    model, _ = load_autogptq(str(ckpt_dir[0]), tp=2, device="cpu")
+    assert formats.is_row_sharded(model.blocks[0].wo.qtensor)
 
 
 def test_load_mixtral_autogptq_equals_jax_loader(mixtral_ckpt_dir):

@@ -26,6 +26,8 @@ launches a layer) leaves each cache form as its plain version does.  A tiny
 MoE model's graph-replayed bursts (bf16 and int8 cache) and γ=2 verify steps
 give the eager engine's tokens; GPTQ with an identity Hessian equals
 round-to-nearest bit for bit on the card, and its Hessian is a true-f32 sum.
+One rank's shards of Llama-2-7B under tensor parallelism (tp=2, and w_down at
+tp=4) take the few-rows form at M=8 and agree with its plain version.
 """
 
 import dataclasses
@@ -1238,3 +1240,45 @@ def test_gptq_identity_hessian_is_rtn_on_card(dev):
     x = torch.randn((256, 512), generator=_gen(dev, 5), device=dev)
     h = gptq.hessian_from_inputs(x)
     assert torch.allclose(h, 2 * (x.double().T @ x.double()).float(), rtol=1e-5, atol=1e-3)
+
+
+# One rank's shards of Llama-2-7B at tensor parallelism (4-bit, g=128): the
+# column shards of q|k|v, gate|up and lm_head and the row shards of wo and
+# w_down at tp=2 (w_down's 5504 rows keep g'=128, 43 groups padded to the
+# shard's own tile), and w_down's at tp=4 (2752 rows, g'=64).
+TP_SHARDS = [
+    ("wqkv", 4096, 12288, 2, "col", (4096, 6144)),
+    ("wo", 4096, 4096, 2, "row", (2048, 4096)),
+    ("w_gateup", 4096, 22016, 2, "col", (4096, 11008)),
+    ("w_down", 11008, 4096, 2, "row", (5504, 4096)),
+    ("lm_head", 4096, 32000, 2, "col", (4096, 16000)),
+    ("w_down_tp4", 11008, 4096, 4, "row", (2752, 4096)),
+]
+
+
+@pytest.mark.parametrize("name,K,N,n,kind,shape", TP_SHARDS, ids=[c[0] for c in TP_SHARDS])
+def test_few_rows_form_on_7b_tp_shards(dev, name, K, N, n, kind, shape):
+    """Each shard layout takes the few-rows form (``csrc/qgemv_word.cu``, one
+    launch) at M=8, against its plain version (rel 2e-2 of the largest
+    output), on the last rank's shard."""
+    from xbitops_tpu_torch import formats
+    from xbitops_tpu_torch.parallel import tp
+    from xbitops_tpu_torch.parallel.mesh import Mesh
+
+    gen = _gen(dev, K + N + n)
+    qt = synth.random_qtensor(gen, K, N, 4, 128)
+    mesh = Mesh(("model",), (n,), (n - 1,), (None,))  # its shard only: no collective here
+    if kind == "row":
+        local = tp.local_qtensor(formats.row_shard_qtensor(qt, n), mesh, row_axis="model")
+    else:
+        local = tp.local_qtensor(qt, mesh, col_axis="model")
+    assert local.shape == shape
+    assert qgemv_form(8, False, local) == "gemv" and counter("gemv", local) == "qgemv"
+    if name.startswith("w_down"):
+        assert local.group_size == {2: 128, 4: 64}[n] and local.K % local.tile_k == 0
+    a = torch.randn(8, local.K_logical, device=dev, generator=gen).to(torch.bfloat16)
+    ref = qmatmul(a, local, out_dtype=torch.float32, use_kernel=False)
+    common.reset_counts()
+    got = qmatmul(a, local)
+    assert common.launches == {**dict.fromkeys(common.launches, 0), "qgemv": 1}
+    assert (got.float() - ref).abs().max() <= 2e-2 * ref.abs().max()

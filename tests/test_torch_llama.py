@@ -414,5 +414,11 @@ def test_init_params_builds_a_model_that_runs(bits, fuse, act_order):
     again = llama.init_params(torch.Generator().manual_seed(0), CFG, bits=bits, group_size=32,
                               fuse=fuse, act_order=act_order)
     assert torch.equal(again.embed, m.embed)
-    with pytest.raises(NotImplementedError):
-        llama.init_params(gen, CFG, tp=2)
+    # tp=2 packs the same draws for two ranks (parallel/): row-sharded wo
+    tp2 = llama.init_params(torch.Generator().manual_seed(0), CFG, bits=bits, group_size=32,
+                            fuse=fuse, act_order=act_order, tp=2)
+    assert torch.equal(tp2.embed, m.embed)
+    if bits is not None:
+        assert tp2.blocks[0].wo.qtensor.planes[0].shape[0] == 2
+    with pytest.raises(ValueError):  # 4 heads do not split 3 ways
+        llama.init_params(gen, CFG, tp=3)

@@ -76,8 +76,15 @@ def test_quantize_array_shapes_and_options_match_jax(K, N, g, kw):
 
 
 def test_quantize_array_row_shards_wait_for_parallel():
-    with pytest.raises(NotImplementedError):
-        xt.quantize_array(torch.zeros(256, 128), 4, 64, row_shards=2)
+    """Row-sharded packing is ported (``parallel/``): leaves equal to JAX's,
+    a leading shard axis; a K that does not split raises as JAX's does."""
+    w = _w(256, 128, 7)
+    jqt = xb.quantize_array(jnp.asarray(w), 4, 64, row_shards=2)
+    got = xt.quantize_array(torch.from_numpy(w), 4, 64, row_shards=2)
+    assert got.planes[0].shape[0] == 2
+    assert_same_qtensor(got, jqt)
+    with pytest.raises(ValueError):
+        xt.quantize_array(torch.zeros(258, 128), 4, 64, row_shards=4)
 
 
 @pytest.mark.parametrize("bits", [3, 4, 8])

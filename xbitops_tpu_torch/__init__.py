@@ -5,8 +5,9 @@ Weight-only quantized Llama inference: packed 1-8-bit weights (the JAX
 package's format v3), hand-written CUDA kernels for the fused dequant-matmul
 (bf16 and int8 activations), the dequantizer, decode and prefill attention and
 KV append (``csrc/``, built with nvcc at first use), a quantizer, a Llama
-model and a continuous-batching engine.  The JAX package stays the reference;
-the tests hold this package against it.
+model and a continuous-batching engine, with tensor and expert parallelism
+over ``torch.distributed`` (``parallel/``, one process a rank).  The JAX
+package stays the reference; the tests hold this package against it.
 
 Reference-compatible surface, on the GPTQ interchange layout:
     - :func:`dequant`: unpack 1-8-bit packed weights to fp16 / bf16 / f32

@@ -1,7 +1,7 @@
 """Command-line interface of the port (port of ``xbitops_tpu/cli.py``):
 
-    python -m xbitops_tpu_torch convert  --ckpt <autogptq_dir> --out <packed_dir>
-    python -m xbitops_tpu_torch generate --ckpt <dir> --prompt "1 2 3" [--max-tokens N]
+    python -m xbitops_tpu_torch convert  --ckpt <autogptq_dir> --out <packed_dir> [--tp N]
+    python -m xbitops_tpu_torch generate --ckpt <dir> --prompt "1 2 3" [--max-tokens N] [--tp N]
     python -m xbitops_tpu_torch serve    --ckpt <dir> [--slots 8] [--burst 8] [--port 8000]
     python -m xbitops_tpu_torch bench    [--bits 4] [--batch 4]
     python -m xbitops_tpu_torch quantize --ckpt <dense_hf_dir> --out <packed_dir> [--bits 4]
@@ -15,8 +15,15 @@ Prompts are token ids separated by spaces unless a tokenizer loads from the
 checkpoint directory (``transformers``).  ``quantize`` GPTQ-quantizes a dense
 HF-layout Llama, Mistral or Mixtral checkpoint layer by layer on calibration
 tokens (``--calib-npy``, else random ids from a seeded generator) and writes a
-packed directory that ``generate`` and ``serve`` read.  Not ported yet:
-``--tp`` above 1.
+packed directory that ``generate`` and ``serve`` read.
+
+``--tp N`` (``convert``, ``generate``): tensor parallelism over N ranks.
+``convert --tp N`` packs for N ranks (row-sharded wo and w_down, fused columns
+interleaved; the directory records N); ``generate --tp N`` starts N processes
+(``torch.multiprocessing``, start method "spawn", a gloo or NCCL world as
+``parallel.multihost.initialize`` picks), each serving its shard of the same
+requests, and rank 0 prints.  A rank loads the model on the CPU and puts only
+its shard on its device.  ``serve`` has no ``--tp``.
 """
 
 from __future__ import annotations
@@ -29,22 +36,17 @@ import time
 from pathlib import Path
 
 
-def _check_tp(tp: int) -> None:
-    if tp != 1:
-        raise NotImplementedError("--tp > 1 waits for the port of parallel/")
-
-
-def _load_any(path: str, device: str, max_seq_len=None):
+def _load_any(path: str, device: str, max_seq_len=None, tp: int = 1):
     """A packed directory (``manifest.json``) or an AutoGPTQ one (``config.json``)
-    as ``(model, cfg)`` on ``device``."""
+    as ``(model, cfg)`` on ``device``, packed for ``tp`` ranks."""
     from xbitops_tpu_torch.io import llama_config_from_hf, load_autogptq
     from xbitops_tpu_torch.io.checkpoint import load_llama
 
     p = Path(path)
     if (p / "manifest.json").exists():
         cfg = llama_config_from_hf(json.loads((p / "config.json").read_text()), max_seq_len)
-        return load_llama(str(p), cfg, device), cfg
-    return load_autogptq(str(p), max_seq_len=max_seq_len, device=device)
+        return load_llama(str(p), cfg, device, tp=tp), cfg
+    return load_autogptq(str(p), tp=tp, max_seq_len=max_seq_len, device=device)
 
 
 def _tokenizer(path: str):
@@ -64,10 +66,10 @@ def _tokenizer(path: str):
 def cmd_convert(args) -> int:
     from xbitops_tpu_torch.io import load_autogptq, save_packed
 
-    _check_tp(args.tp)
     t0 = time.time()
-    model, cfg = load_autogptq(args.ckpt, storage_bits=args.storage, device=args.device)
-    save_packed(model, args.out)
+    model, cfg = load_autogptq(args.ckpt, tp=args.tp, storage_bits=args.storage,
+                               device=args.device)
+    save_packed(model, args.out, tp=args.tp)
     # carry the model's config and tokenizer beside the packed arrays
     src = Path(args.ckpt)
     for name in ("config.json", "quantize_config.json", "tokenizer.json",
@@ -78,11 +80,30 @@ def cmd_convert(args) -> int:
     return 0
 
 
+def _generate_rank(rank: int, args) -> None:
+    """One rank of ``generate --tp N``: its shard of the same requests."""
+    from xbitops_tpu_torch.parallel.mesh import make_mesh
+
+    _generate(args, make_mesh((1, args.tp)), quiet=rank != 0)
+
+
 def cmd_generate(args) -> int:
+    if args.tp > 1:
+        from xbitops_tpu_torch.parallel import multihost
+
+        multihost.spawn(_generate_rank, args.tp, args=(args,),
+                        backend="gloo" if args.device == "cpu" else None)
+        return 0
+    _generate(args)
+    return 0
+
+
+def _generate(args, mesh=None, quiet: bool = False) -> None:
     from xbitops_tpu_torch.engine import Engine, Request
 
-    _check_tp(args.tp)
-    model, cfg = _load_any(args.ckpt, args.device, args.max_seq_len)
+    # a rank loads the model on the CPU and puts only its shard on the device
+    model, cfg = _load_any(args.ckpt, args.device if mesh is None else "cpu", args.max_seq_len,
+                           args.tp)
     tokenizer = _tokenizer(args.ckpt)
     reqs = []
     for i, p in enumerate(args.prompt or ["1 2 3 4"]):
@@ -93,19 +114,21 @@ def cmd_generate(args) -> int:
         reqs.append(Request(prompt=ids, max_new_tokens=args.max_tokens,
                             temperature=args.temperature, eos_id=eos, id=i))
     eng = Engine(model, cfg, slots=args.slots, top_k=args.top_k, top_p=args.top_p,
-                 seed=args.seed)
+                 seed=args.seed, mesh=mesh, device=None if mesh is None else args.device)
+    del model
     t0 = time.time()
     outs = eng.generate(reqs)
     dt = time.time() - t0
+    if quiet:
+        return
     n_tok = sum(len(c.tokens) for c in outs)
     for c in outs:
         if tokenizer is not None:
-            print(f"[{c.id}] {tokenizer.decode(c.tokens)!r} ({c.finish_reason})")
+            print(f"[{c.id}] {tokenizer.decode(c.tokens)!r} ({c.finish_reason})", flush=True)
         else:
-            print(f"[{c.id}] {c.tokens} ({c.finish_reason})")
+            print(f"[{c.id}] {c.tokens} ({c.finish_reason})", flush=True)
     print(f"{n_tok} tokens in {dt:.2f}s ({n_tok / dt:.1f} tok/s, graph capture included)",
-          file=sys.stderr)
-    return 0
+          file=sys.stderr, flush=True)
 
 
 def cmd_serve(args) -> int:

@@ -42,7 +42,19 @@ CPU the same functions run eagerly.  The KV cache (bf16, or packed int8 with
 addresses it captured: nothing may rebind a cache tensor while a graph
 holds it, and a restart drops the graphs with the caches.  Host inputs go up
 through pinned memory without blocking, and a burst's tokens come back the
-same way, so that pipelined bursts overlap the host.  Not ported yet: meshes.
+same way, so that pipelined bursts overlap the host.
+
+``mesh=`` (tensor parallelism, one process a rank): every rank builds the
+engine on the same model packed for the mesh's ``axis`` and runs the same
+``generate`` on the same requests.  The engine keeps the rank's shard
+(``parallel.model_tp.shard_params``: an ordinary :class:`~llama.Llama` of
+``cfg.local(tp)`` whose row projections sum over the axis and whose lm_head
+gathers) and a cache of the rank's kv heads; its forwards are ``model_tp``'s
+``tp_*`` functions on that shard, so every rank holds the same logits and
+samples the same tokens.  A mesh engine runs its bursts and
+speculative steps eagerly, never as graphs (``loop_stats["graph_captures"]``
+stays 0): a gloo collective syncs through the host, which a CUDA graph cannot
+capture, and NCCL inside a graph needs a card a rank.
 """
 
 from __future__ import annotations
@@ -147,6 +159,8 @@ class Engine:
         page_size: int = 256,
         pipeline: int = 0,
         mesh=None,
+        axis: str = "model",
+        device=None,
         draft_params: Optional[llama.Llama] = None,
         draft_cfg: Optional[llama.LlamaConfig] = None,
         max_restarts: int = 0,
@@ -189,11 +203,22 @@ class Engine:
         bursts, whose tokens are dropped).  The tokens are the synchronous
         engine's.  It is kept for parity: on one H100 replayed bursts leave
         the host little to overlap, and it has measured slower than
-        ``pipeline=0`` (``PERF.md``)."""
-        if mesh is not None:
-            raise NotImplementedError("Engine(mesh=...) is not ported yet")
+        ``pipeline=0`` (``PERF.md``).
+
+        ``mesh`` (a ``parallel.mesh.Mesh``): tensor-parallel over its ``axis``
+        (module docstring); ``model`` is packed for that many ranks
+        (``init_params(tp=)``, ``load_autogptq(tp=)``, ``load_llama(tp=)``,
+        ``model_tp.pack_for_tp``).  ``kv_quant=None`` then picks bf16, as the
+        JAX package does; a draft model is refused.  ``device`` (with
+        ``mesh`` only): where the rank's shard and cache go (None: the
+        model's device).  A model loaded on the CPU is then never whole on
+        the card: a rank's card holds its shard (its columns and row shards,
+        the embedding and the norms whole) and its cache."""
         if cfg != model.cfg:
             raise ValueError("cfg differs from the model's config")
+        self.mesh = mesh
+        if mesh is not None and draft_params is not None:
+            raise ValueError("draft-model speculation supports mesh=None, paged=False")
         self.spec_tokens = max(0, spec_tokens)
         self.pipeline = int(pipeline)  # bursts in flight (0: synchronous)
         if self.spec_tokens and decode_burst > 1:
@@ -218,6 +243,16 @@ class Engine:
             "draft_source": (("model" if self.draft is not None else "ngram")
                              if self.spec_tokens else None),
         }
+        self._steps = llama  # the step functions of the target model
+        if mesh is not None:
+            from xbitops_tpu_torch.parallel import model_tp
+
+            model = model_tp.shard_params(model, mesh, axis)
+            if device is not None:
+                model = model.to(device)
+            self._steps = model_tp.step_functions(cfg, mesh, axis)
+        elif device is not None:
+            raise ValueError("device= places a mesh engine's shard; move the model itself")
         self.model = model
         self.cfg = cfg
         self.slots = slots
@@ -228,7 +263,8 @@ class Engine:
         ) or [self.prefill_chunk]
         if kv_quant is None:
             kv_quant = (
-                not paged  # the reference's rule; its `mesh is None` comes with `mesh`
+                not paged  # the reference's rule
+                and mesh is None
                 and cache_dtype == torch.bfloat16
                 and cfg.max_seq_len % 4 == 0
                 and self.prefill_chunk % 4 == 0
@@ -283,10 +319,10 @@ class Engine:
         self.loop_stats = defaultdict(float)
 
     def _new_cache(self) -> llama.KVCache:
-        """A new cache (the cache factory a restart calls), a new draft cache
-        with a draft model, and for a paged one an allocator with every page
-        free."""
-        cfg, slots = self.cfg, self.slots
+        """A new cache (the cache factory a restart calls; of the rank's kv
+        heads under a mesh), a new draft cache with a draft model, and for a
+        paged one an allocator with every page free."""
+        cfg, slots = self.model.cfg, self.slots
         if self.draft is not None:
             self._draft_cache = None
             self._draft_cache = llama.KVCache.init(self.draft.cfg, slots, self.device)
@@ -391,7 +427,7 @@ class Engine:
         replays it; on the CPU it runs as it is."""
         tok, act = self._tok_in, self._act_in
         for i in range(self.decode_burst):
-            logits, _ = llama.decode_step(self.model, tok, self.cache, active=act)
+            logits, _ = self._steps.decode_step(self.model, tok, self.cache, active=act)
             tok = torch.where(act, self._sample(logits, self._temps_in, greedy), 0)
             self._burst_out[i].copy_(tok)
 
@@ -416,13 +452,13 @@ class Engine:
                     # a draft past the target's vocabulary could never be
                     # accepted; clamped, it is a token the target can embed
                     toks[:, i + 1].copy_(tok.clamp(max=self.cfg.vocab_size - 1))
-        greedy, accepted, _ = llama.spec_verify_step(self.model, toks, self.cache, active=act)
+        greedy, accepted, _ = self._steps.spec_verify_step(self.model, toks, self.cache, active=act)
         self._spec_out.copy_(torch.cat((toks, greedy, accepted[:, None]), dim=1))
 
     def _program(self, key) -> Optional[_Program]:
         """The captured graph of a CUDA engine's greedy (``key`` True) or
         sampled (False) burst, or of its speculative step ("spec"), captured
-        at its first use; None where they run eagerly (the CPU, or
+        at its first use; None where they run eagerly (the CPU, a mesh, or
         ``_eager``).  A capture that fails raises: there is no eager fallback.
 
         Before its capture the function runs once with an all-False mask,
@@ -434,7 +470,7 @@ class Engine:
         them, as a pipelined burst reads ``_burst_out``, does so before this
         call, and sets the inputs after it.  Sampled graphs register the
         engine's generator, so each replay draws new numbers."""
-        if self.device.type != "cuda" or self._eager:
+        if self.device.type != "cuda" or self._eager or self.mesh is not None:
             return None
         prog = self._programs.get(key)
         if prog is not None:
@@ -690,8 +726,8 @@ class Engine:
                                 torch.full((n,), begin, device=dev),
                                 torch.from_numpy(lens).to(dev), torch.from_numpy(slots).to(dev))
                         resets = torch.full((n,), ci == 0, device=dev)
-                        logits, _ = llama.prefill_slots_chunk(self.model, *args, self.cache,
-                                                              resets=resets)
+                        logits, _ = self._steps.prefill_slots_chunk(
+                            self.model, *args, self.cache, resets=resets)
                         if self.draft is not None:
                             llama.prefill_slots_chunk(self.draft, *args, self._draft_cache,
                                                       resets=resets)
@@ -716,7 +752,8 @@ class Engine:
                     slots = torch.tensor([b for b, _, _ in admit], device=dev)
                     t_adm = [r.temperature for _, r, _ in admit]
                     tokens = torch.from_numpy(tokens).to(dev)
-                    logits, _ = llama.prefill_slots(self.model, tokens, lens, slots, self.cache)
+                    logits, _ = self._steps.prefill_slots(self.model, tokens, lens, slots,
+                                                          self.cache)
                     if self.draft is not None:
                         llama.prefill_slots(self.draft, tokens, lens, slots, self._draft_cache)
                     toks = self._sample(logits, torch.tensor(t_adm, device=dev),

@@ -52,6 +52,9 @@ __all__ = [
     "unpack_planes_reference",
     "tile_scales",
     "make_qtensor",
+    "make_row_sharded_qtensor",
+    "row_shard_qtensor",
+    "is_row_sharded",
     "from_gptq",
     "concat_qtensors",
     "dequant_qtensor_reference",
@@ -463,6 +466,7 @@ def make_qtensor(
     perm: Optional[torch.Tensor] = None,
     scale_store_dtype=None,
     storage_bits=None,
+    scale_zeros: Optional[torch.Tensor] = None,
 ) -> QTensor:
     """Build a QTensor from unpacked integer values ``wq[K, N]`` and per-group
     ``scales``/``zeros`` ``[G, N]`` (port of ``formats.make_qtensor``; the
@@ -471,7 +475,9 @@ def make_qtensor(
     ``scale_zeros = s*(z + bias)`` is rounded through the scales' dtype, then
     stored as ``scale_store_dtype`` (None: float16 for fp16 scales, else
     float32).  K pads to a tile multiple and N to a multiple of 128 with scale
-    1, zero 0.  ``storage_bits``: see :func:`resolve_storage_bits`."""
+    1, zero 0.  ``storage_bits``: see :func:`resolve_storage_bits`.
+    ``scale_zeros`` given per group ``[G, N]`` (a repack of stored values)
+    replaces the product and ``zeros`` is not read."""
     if scale_store_dtype is None:
         scale_store_dtype = torch.float16 if scales.dtype == torch.float16 else torch.float32
     K_logical, N = wq.shape
@@ -493,8 +499,10 @@ def make_qtensor(
     G = max(scales.shape[0], -(-K // g))
     wq = _pad_to(wq.to(torch.int32), K, Np)
     scales = _pad_to(scales, G, Np, value=1)
-    zeros = _pad_to(zeros, G, Np)
-    sz = _scale_zeros(scales, zeros, add_zero_bias)
+    if scale_zeros is None:
+        sz = _scale_zeros(scales, _pad_to(zeros, G, Np), add_zero_bias)
+    else:  # padding as a zero point of 0 gives it: s * bias with s = 1
+        sz = _pad_to(scale_zeros.to(scales.dtype), G, Np, value=float(add_zero_bias))
     return QTensor(
         planes=pack_planes(wq, bits, tile_k, paired=paired_ok(bits, tile_k, g)),
         scales=tile_scales(scales.float(), tile_k, g, K).to(scale_store_dtype),
@@ -508,6 +516,106 @@ def make_qtensor(
         N_logical=N if Np != N else None,
         value_bits=value_bits,
     )
+
+
+def _shard_rows(wq, scales, sz, bits, group_size, row_shards, pad_sz, tile_k, scale_store_dtype,
+                storage_bits, perm) -> QTensor:
+    """Pack each of ``row_shards`` contiguous K-slices of ``wq`` as its own
+    QTensor with the shard-local group size ``gcd(g, K/row_shards)``, the
+    per-group ``scales`` / ``sz`` rows copied onto the finer grid, each shard
+    padded to its own tile; stacked on a leading shard axis."""
+    K, N = wq.shape
+    Ks = K // row_shards
+    g_local = math.gcd(group_size, Ks)
+    if g_local < 16:
+        raise ValueError(f"shard-local group size gcd({group_size}, {Ks}) = {g_local} < 16")
+    sb = resolve_storage_bits(bits, storage_bits)
+    tile = tile_k or default_tile_k(Ks, g_local, sb)
+    row0 = torch.arange(0, Ks, g_local, device=wq.device)
+    shards = []
+    for i in range(row_shards):
+        gidx = (i * Ks + row0) // group_size
+        shards.append(make_qtensor(
+            wq[i * Ks : (i + 1) * Ks], scales[gidx], None, bits, g_local, pad_sz, tile_k=tile,
+            scale_store_dtype=scale_store_dtype, storage_bits=sb, scale_zeros=sz[gidx]))
+    first = shards[0]
+    return dataclasses.replace(
+        first,
+        planes=tuple(torch.stack([s.planes[j] for s in shards]) for j in range(len(first.planes))),
+        scales=torch.stack([s.scales for s in shards]),
+        scale_zeros=torch.stack([s.scale_zeros for s in shards]),
+        perm=None if perm is None else perm.long(),
+    )
+
+
+def make_row_sharded_qtensor(
+    wq: torch.Tensor,
+    scales: torch.Tensor,
+    zeros: torch.Tensor,
+    bits: int,
+    group_size: int,
+    row_shards: int,
+    add_zero_bias: int = 0,
+    tile_k: Optional[int] = None,
+    scale_store_dtype=None,
+    storage_bits=None,
+    perm: Optional[torch.Tensor] = None,
+) -> QTensor:
+    """Pack ``wq[K, N]`` for row-parallel execution over ``row_shards`` ranks
+    (port of ``formats.make_row_sharded_qtensor``).
+
+    A shard boundary rarely lands on a group boundary (Llama-7B's w_down at
+    tp=8: 1376 rows a shard, 10.75 groups of 128), so each shard is packed on
+    its own with the local group size ``g' = gcd(g, K/row_shards)`` and the
+    global scales copied exactly onto the finer grid: the values are
+    unchanged, only the scale rows grow.  Each shard pads to its own tile.
+    The leaves carry a leading shard axis ``[row_shards, ...]`` and the static
+    fields describe one shard, so that ``parallel.tp.squeeze_row_shard`` of a
+    shard is a complete QTensor.  ``perm`` (``[row_shards, K/row_shards]``):
+    shard-local act-order permutations of rows already permuted so."""
+    if scale_store_dtype is None:
+        scale_store_dtype = torch.float16 if scales.dtype == torch.float16 else torch.float32
+    K, N = wq.shape
+    if perm is not None and tuple(perm.shape) != (row_shards, K // row_shards):
+        raise ValueError(f"perm shape {tuple(perm.shape)} != ({row_shards}, {K // row_shards})")
+    if K % row_shards:
+        raise ValueError(f"K={K} must divide into {row_shards} row shards")
+    sz = _scale_zeros(scales, zeros, add_zero_bias)
+    return _shard_rows(wq, scales, sz, bits, group_size, row_shards, add_zero_bias, tile_k,
+                       scale_store_dtype, storage_bits, perm)
+
+
+def _group_rows(ts: torch.Tensor, qt: QTensor) -> torch.Tensor:
+    """Tiled scales ``[T, gt_pad, N]`` -> one row a group ``[ceil(K/g), N]``,
+    in their stored dtype."""
+    gt = qt.groups_per_tile
+    rows = ts[:, :gt, :].reshape(-1, ts.shape[-1])
+    return torch.repeat_interleave(rows, qt.tile_k // gt, dim=0)[:: qt.group_size]
+
+
+def row_shard_qtensor(qt: QTensor, row_shards: int) -> QTensor:
+    """A packed QTensor repacked for row-parallel execution over
+    ``row_shards`` ranks: the layout of :func:`make_row_sharded_qtensor`, with
+    every stored value, scale and scale-zero copied (no requantization), so
+    the shards dequantize to the rows of ``qt`` exactly.  An act-order tensor
+    is refused: its row order crosses the shards (it runs gathered)."""
+    if qt.perm is not None:
+        raise ValueError("an act-order QTensor cannot be row-sharded (it runs gathered)")
+    if qt.planes[0].ndim != 2:
+        raise ValueError("row_shard_qtensor takes one unstacked QTensor")
+    if qt.K_logical % row_shards:
+        raise ValueError(f"K={qt.K_logical} must divide into {row_shards} row shards")
+    wq = unpack_planes_reference(qt.planes, qt.bits, qt.tile_k, qt.K, paired=qt.paired)
+    out = _shard_rows(wq[: qt.K_logical], _group_rows(qt.scales, qt),
+                      _group_rows(qt.scale_zeros, qt), qt.value_bits or qt.bits, qt.group_size,
+                      row_shards, 0, None, qt.scales.dtype, qt.bits, None)
+    return dataclasses.replace(out, N_logical=qt.N_logical)
+
+
+def is_row_sharded(qt: QTensor) -> bool:
+    """Whether the leaves carry a leading shard axis (the JAX package's test:
+    a stacked QTensor of layers or experts reads the same)."""
+    return qt.planes[0].ndim == 3
 
 
 def from_gptq(
@@ -551,13 +659,13 @@ def from_gptq(
 
 def concat_qtensors(qts: Sequence[QTensor], order: Optional[np.ndarray] = None) -> QTensor:
     """Concatenate QTensors along N (one K): fuses q/k/v, or gate/up, into one
-    matmul.  Their static metadata must match, and act-order tensors (each with
-    its own row permutation) cannot fuse.  The fused N pads to a multiple of
-    128 as :func:`make_qtensor` pads it (scale 1, scale-zero 0).  ``order``,
-    the column permutation that interleaves shards for tensor parallelism,
-    waits for the port of ``parallel/``."""
-    if order is not None:
-        raise NotImplementedError("concat_qtensors(order=...) waits for tensor parallelism")
+    matmul.  Their static metadata must match, and so must their row
+    permutations: act-order tensors fuse only where they share one (as the
+    parts of one tensor do), which the result keeps.  ``order`` permutes the fused
+    columns (``models.llama.interleave_order``: the per-shard interleave of
+    tensor parallelism); it must be a permutation of them.  The fused N pads
+    to a multiple of 128 as :func:`make_qtensor` pads it (scale 1, scale-zero
+    0), after the permutation."""
     first = qts[0]
     for qt in qts[1:]:
         same = (qt.bits == first.bits and qt.group_size == first.group_size
@@ -565,11 +673,22 @@ def concat_qtensors(qts: Sequence[QTensor], order: Optional[np.ndarray] = None) 
                 and qt.K_logical == first.K_logical and qt.value_bits == first.value_bits)
         if not same:
             raise ValueError("concat_qtensors: mismatched quantization metadata")
-        if qt.perm is not None or first.perm is not None:
-            raise ValueError("concat_qtensors: act-order tensors cannot be fused")
+        same_rows = (qt.perm is None) == (first.perm is None) and (
+            qt.perm is None or torch.equal(qt.perm, first.perm))
+        if not same_rows:
+            raise ValueError("concat_qtensors: act-order tensors with other row orders "
+                             "cannot be fused")
+
+    N = sum(qt.shape[1] for qt in qts)
+    if order is not None:
+        order = torch.as_tensor(np.asarray(order), dtype=torch.long)
+        if order.shape != (N,) or not torch.equal(order.sort().values, torch.arange(N)):
+            raise ValueError(f"concat_qtensors: order is not a permutation of the {N} columns")
+        order = order.to(first.planes[0].device)
 
     def cat(get):
-        return torch.cat([get(qt)[..., : qt.shape[1]] for qt in qts], dim=-1)
+        out = torch.cat([get(qt)[..., : qt.shape[1]] for qt in qts], dim=-1)
+        return out if order is None else out.index_select(-1, order)
 
     planes = tuple(cat(lambda q, i=i: q.planes[i]) for i in range(len(first.planes)))
     scales = cat(lambda q: q.scales)
@@ -584,7 +703,7 @@ def concat_qtensors(qts: Sequence[QTensor], order: Optional[np.ndarray] = None) 
     return QTensor(
         planes=planes, scales=scales, scale_zeros=scale_zeros, bits=first.bits,
         group_size=first.group_size, tile_k=first.tile_k, K=first.K,
-        K_logical=first.K_logical, N_logical=N if Np != N else None,
+        K_logical=first.K_logical, N_logical=N if Np != N else None, perm=first.perm,
         value_bits=first.value_bits)
 
 

@@ -61,7 +61,7 @@ def _encode(node: Any, path: str, arrays: dict) -> dict:
 def save_packed(params: Any, path: str, tp: int = 1) -> None:
     """Write a :class:`Llama`, or a tree of dicts, lists, tensors and QTensors,
     to the directory ``path``.  ``tp`` records the tensor-parallel degree the
-    tree was packed for (the port packs for 1)."""
+    tree was packed for (row-sharded leaves carry that many shards)."""
     p = Path(path)
     p.mkdir(parents=True, exist_ok=True)
     arrays: dict = {}
@@ -129,8 +129,11 @@ def load_packed(path: str, device=None, tp: Optional[int] = None) -> Any:
     return _decode(manifest["tree"], "p", load_array, device)
 
 
-def load_llama(path: str, cfg: LlamaConfig, device=None) -> Llama:
+def load_llama(path: str, cfg: LlamaConfig, device=None, tp: int = 1) -> Llama:
     """A :class:`Llama` from a packed checkpoint directory, on ``device``
-    (default: the CUDA device): what a server starts from."""
+    (default: the CUDA device): what a server starts from.  The directory
+    must be packed for ``tp`` ranks; a model of ``tp > 1`` (row-sharded wo and
+    w_down, fused columns interleaved) is what ``parallel.model_tp.
+    shard_params`` and ``Engine(mesh=)`` take."""
     device = "cuda" if device is None else device
-    return params_from_numpy(load_packed(path, device, tp=1), cfg, device)
+    return params_from_numpy(load_packed(path, device, tp=tp), cfg, device)

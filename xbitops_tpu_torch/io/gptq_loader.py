@@ -19,8 +19,9 @@ w1 (gate) | w3 (up) fused, then stacked on a leading expert axis, w2 (down)
 stacked likewise: quantized experts as stacked QTensors, dense ones (the
 quantizer's input) as ``[E, K, N]`` tensors.
 
-Not ported yet: ``tp > 1`` (it waits for ``parallel/``; a Mixtral checkpoint
-would shard over the expert axis, not by rows).
+``tp > 1`` packs for tensor parallelism (``parallel.model_tp``; see
+:func:`load_autogptq`); a Mixtral checkpoint shards over the expert axis, not
+by rows, and raises for it.
 """
 
 from __future__ import annotations
@@ -33,7 +34,7 @@ import numpy as np
 import torch
 
 from xbitops_tpu_torch import formats
-from xbitops_tpu_torch.models.llama import Llama, LlamaBlock, LlamaConfig
+from xbitops_tpu_torch.models.llama import Llama, LlamaBlock, LlamaConfig, interleave_order
 
 __all__ = ["load_autogptq", "llama_config_from_hf"]
 
@@ -105,16 +106,18 @@ def _nontrivial_gidx(tensors: dict, prefix: str, in_features: int, group_size: i
     return torch.from_numpy(arr).to(device)
 
 
-def _try_fuse(parts):
-    """One QTensor for column-parallel parts ([q|k|v] or [gate|up]), or None
-    where they cannot fuse (a dense part, act-order rows, other layouts)."""
+def _try_fuse(parts, sizes=None, tp: int = 1):
+    """One QTensor for column-parallel parts ([q|k|v] or [gate|up]) of
+    ``sizes`` columns, interleaved per shard for ``tp > 1``, or None where
+    they cannot fuse (a dense part, act-order rows, other layouts)."""
     if not all(isinstance(p, formats.QTensor) for p in parts):
         return None
     if any(p.perm is not None for p in parts):
         return None
     if len({(p.bits, p.group_size, p.tile_k, p.K, p.K_logical) for p in parts}) != 1:
         return None
-    return formats.concat_qtensors(parts)
+    order = interleave_order(sizes, tp) if tp > 1 else None
+    return formats.concat_qtensors(parts, order=order)
 
 
 def load_autogptq(
@@ -135,14 +138,24 @@ def load_autogptq(
     ``fuse`` merges q|k|v and gate|up into single matmuls where they can
     fuse (per layer: not across act-order or dense projections).  A projection
     without ``qweight`` (often ``lm_head``) stays dense in ``dtype``.
-    ``storage_bits``: see :func:`formats.resolve_storage_bits`."""
-    if tp != 1:
-        raise NotImplementedError("load_autogptq(tp > 1) waits for the port of parallel/")
+    ``storage_bits``: see :func:`formats.resolve_storage_bits`.
+
+    ``tp > 1`` packs for a ``tp``-way model axis (``parallel.model_tp``): the
+    row-parallel o_proj and down_proj row-sharded
+    (``formats.make_row_sharded_qtensor``; a desc_act down_proj with its sort
+    folded into gate|up's columns, then sharded in sorted order), fused
+    columns interleaved per shard.  A desc_act o_proj, whose order crosses
+    the heads, keeps its whole tensor and runtime ``perm`` and runs gathered.
+    Mixtral shards over the expert axis (``models.moe.shard_experts``), not
+    this one: it raises for ``tp > 1``, as the JAX package does."""
     device = "cuda" if device is None else device
     p = Path(path)
     hf_cfg = json.loads((p / "config.json").read_text())
     if hf_cfg.get("model_type", "llama") not in ("llama", "mistral", "mixtral"):
         raise ValueError(f"unsupported model_type {hf_cfg.get('model_type')}")
+    if hf_cfg.get("model_type") == "mixtral" and tp > 1:
+        raise NotImplementedError("Mixtral checkpoints shard over the EXPERT axis "
+                                  "(models.moe.shard_experts), not row-parallel TP; load with tp=1")
     qcfg_path = p / "quantize_config.json"
     qcfg = json.loads(qcfg_path.read_text()) if qcfg_path.exists() else {}
     bits = qcfg.get("bits", 4)
@@ -156,12 +169,27 @@ def load_autogptq(
     def t(name: str) -> torch.Tensor:
         return torch.from_numpy(np.asarray(tensors[name])).to(device)
 
-    def q(prefix: str, k_dim: int, col_perm=None, fold: bool = False):
+    def q(prefix: str, k_dim: int, col_perm=None, fold: bool = False, row: bool = False,
+          gathered_ok: bool = False):
         if f"{prefix}.qweight" in tensors:
+            g_idx = _nontrivial_gidx(tensors, prefix, k_dim, group_size, device)
+            if row and tp > 1 and (g_idx is None or fold):
+                wq = formats.gptq_unpack_weight(t(f"{prefix}.qweight"), bits, k_dim)
+                scales = t(f"{prefix}.scales")
+                zeros = formats.gptq_unpack_zeros(t(f"{prefix}.qzeros"), bits, scales.shape[1])
+                if g_idx is not None:  # rows sorted; the activations arrive sorted
+                    wq = wq[torch.argsort(g_idx, stable=True)]
+                return formats.make_row_sharded_qtensor(
+                    wq, scales, zeros, bits, group_size, tp, add_zero_bias=add_zero_bias,
+                    scale_store_dtype=scale_store_dtype, storage_bits=storage_bits)
+            if row and tp > 1 and not gathered_ok:
+                raise NotImplementedError(
+                    "act-order (g_idx) on this row-parallel projection cannot fold into an "
+                    "upstream layer; load with tp=1 or re-quantize without desc_act")
+            # a desc_act o_proj under tp > 1 keeps its whole tensor and runs gathered
             return formats.from_gptq(
                 t(f"{prefix}.qweight"), t(f"{prefix}.scales"), t(f"{prefix}.qzeros"), bits,
-                group_size, k_dim, add_zero_bias=add_zero_bias,
-                g_idx=_nontrivial_gidx(tensors, prefix, k_dim, group_size, device),
+                group_size, k_dim, add_zero_bias=add_zero_bias, g_idx=g_idx,
                 scale_store_dtype=scale_store_dtype, storage_bits=storage_bits,
                 col_perm=col_perm, fold_perm=fold)
         # dense (lm_head is often kept fp16): HF stores [out, in]
@@ -194,16 +222,17 @@ def load_autogptq(
                     w_experts_gateup=stack_experts(gus), w_experts_down=stack_experts(downs))
 
     qdim = cfg.num_heads * cfg.head_dim
+    kvdim = cfg.num_kv_heads * cfg.head_dim
     is_moe = hf_cfg.get("model_type") == "mixtral"
     blocks = []
     for i in range(cfg.num_layers):
         pre = f"model.layers.{i}"
         proj = {}
         qkv = [q(f"{pre}.self_attn.{n}_proj", h) for n in "qkv"]
-        wqkv = _try_fuse(qkv) if fuse else None
+        wqkv = _try_fuse(qkv, (qdim, kvdim, kvdim), tp) if fuse else None
         proj.update(dict(wqkv=wqkv) if wqkv is not None else dict(zip(("wq", "wk", "wv"), qkv)))
         # a desc_act o_proj keeps its runtime perm: its sort crosses the heads
-        proj["wo"] = q(f"{pre}.self_attn.o_proj", qdim)
+        proj["wo"] = q(f"{pre}.self_attn.o_proj", qdim, row=True, gathered_ok=True)
         ln = (norm(f"{pre}.input_layernorm.weight"),
               norm(f"{pre}.post_attention_layernorm.weight"))
         if is_moe:
@@ -219,9 +248,9 @@ def load_autogptq(
             col_perm = torch.argsort(down_gidx, stable=True)
         gate = q(f"{pre}.mlp.gate_proj", h, col_perm=col_perm)
         up = q(f"{pre}.mlp.up_proj", h, col_perm=col_perm)
-        gu = _try_fuse([gate, up]) if fuse else None
+        gu = _try_fuse([gate, up], (cfg.intermediate_size,) * 2, tp) if fuse else None
         proj.update(dict(w_gateup=gu) if gu is not None else dict(w_gate=gate, w_up=up))
-        proj["w_down"] = q(down, cfg.intermediate_size, fold=col_perm is not None)
+        proj["w_down"] = q(down, cfg.intermediate_size, fold=col_perm is not None, row=True)
         blocks.append(LlamaBlock(cfg, proj, *ln))
     embed = t("model.embed_tokens.weight").to(dtype)
     if "lm_head.weight" in tensors or "lm_head.qweight" in tensors:

@@ -120,6 +120,36 @@ class LlamaConfig:
             max_seq_len=seq,
         )
 
+    def local(self, tp: int) -> "LlamaConfig":
+        """One rank's view under tensor parallelism: heads, kv heads and the
+        FFN width split ``tp`` ways."""
+        if self.num_heads % tp or self.num_kv_heads % tp or self.intermediate_size % tp:
+            raise ValueError(f"heads {self.num_heads}, kv heads {self.num_kv_heads} and ffn "
+                             f"{self.intermediate_size} must split over tp={tp}")
+        return dataclasses.replace(
+            self, num_heads=self.num_heads // tp, num_kv_heads=self.num_kv_heads // tp,
+            intermediate_size=self.intermediate_size // tp)
+
+
+def interleave_order(sizes, tp: int):
+    """Column order turning a concat ``[A|B|C]`` into per-shard interleaving
+    ``[A_0|B_0|C_0|A_1|B_1|C_1|...]``, so a fused column-parallel weight splits
+    into self-consistent per-shard ``[q_s|k_s|v_s]`` blocks (Megatron's fused
+    q|k|v layout).  int64 numpy indices."""
+    import numpy as np
+
+    offs = np.cumsum([0] + list(sizes[:-1]))
+    for sz in sizes:
+        if sz % tp:
+            raise ValueError(f"fused block of size {sz} does not split evenly over tp={tp}; a "
+                             "truncated interleave would corrupt the packed checkpoint")
+    idx = []
+    for s in range(tp):
+        for off, sz in zip(offs, sizes):
+            per = sz // tp
+            idx.extend(range(off + s * per, off + (s + 1) * per))
+    return np.asarray(idx, np.int64)
+
 
 # Smallest cache capacity routed to the decode-attention kernel.  The value is
 # the JAX package's, measured on a TPU v5e; it is kept for parity until the
@@ -227,7 +257,14 @@ class KVCache:
 
 
 class QLinear(nn.Module):
-    """A projection over a packed QTensor, whose arrays it holds as buffers."""
+    """A projection over a packed QTensor, whose arrays it holds as buffers.
+
+    On a rank of a tensor-parallel mesh the QTensor is the rank's shard and
+    ``role`` (a ``parallel.tp.Role``) adds the collectives around the product,
+    as Megatron's column- and row-parallel linears do: a row shard sums its
+    partial products over the axis, lm_head gathers its columns."""
+
+    role = None
 
     def __init__(self, qt: QTensor):
         super().__init__()
@@ -248,19 +285,27 @@ class QLinear(nn.Module):
         return QTensor(planes, self.scales, self.scale_zeros, perm=self.perm, **self.meta)
 
     def forward(self, x: torch.Tensor, use_kernel: bool = True, a8: bool = False) -> torch.Tensor:
-        return qmatmul(x, self.qtensor, out_dtype=x.dtype, use_kernel=use_kernel, a8=a8)
+        def product(x):
+            return qmatmul(x, self.qtensor, out_dtype=x.dtype, use_kernel=use_kernel, a8=a8)
+
+        return product(x) if self.role is None else self.role(product, x)
 
 
 class DenseLinear(nn.Module):
     """A projection over a dense ``[K, N]`` weight (bf16 matmul, f32 sums).
-    There is no int8 path for a dense weight: ``a8`` changes nothing."""
+    There is no int8 path for a dense weight: ``a8`` changes nothing.
+    ``role``: as :class:`QLinear`'s."""
+
+    role = None
 
     def __init__(self, w: torch.Tensor):
         super().__init__()
         self.register_buffer("weight", w)
 
     def forward(self, x: torch.Tensor, use_kernel: bool = True, a8: bool = False) -> torch.Tensor:
-        return dense_matmul(x, self.weight)
+        if self.role is None:
+            return dense_matmul(x, self.weight)
+        return self.role(lambda x: dense_matmul(x, self.weight), x)
 
 
 def _linear(w: Union[QTensor, torch.Tensor]) -> nn.Module:
@@ -574,10 +619,15 @@ class Llama(nn.Module):
         """The same weights (shared, not copied) under another config: another
         option (``prefill_a8``), or the first ``cfg.num_layers`` blocks.  The
         JAX package passes the config with every call; here a model holds
-        it."""
+        it.  A rank's shard keeps its projections' parallel roles."""
         blocks = [LlamaBlock(cfg, b.weights(), b.ln_attn, b.ln_mlp)
                   for b in list(self.blocks)[: cfg.num_layers]]
-        return Llama(cfg, self.embed, blocks, self.ln_final, linear_weight(self.lm_head))
+        out = Llama(cfg, self.embed, blocks, self.ln_final, linear_weight(self.lm_head))
+        src = dict(self.named_modules())
+        for name, m in out.named_modules():
+            if getattr(src.get(name), "role", None) is not None:
+                m.role = src[name].role
+        return out
 
     def forward(
         self,
@@ -662,13 +712,28 @@ def init_params(
     ``fan_in ** -0.5`` quantized to ``bits`` by :func:`quantize_array`
     (``None``: kept dense in ``dtype``), q|k|v and gate|up fused (``fuse``) or
     split, unit norms (port of ``models.llama.init_params``; the two packages
-    draw different numbers from a seed)."""
-    if tp > 1:
-        raise NotImplementedError("tensor-parallel packing waits for the port of parallel/")
-    dev = gen.device
+    draw different numbers from a seed).
 
-    def q(kdim, ndim, scale):
+    ``tp > 1`` packs for a ``tp``-way model axis, from the same draws: wo and
+    w_down row-sharded (``quantize_array(row_shards=tp)``; act-order sorts
+    each K-shard's rows), the fused columns interleaved per shard
+    (:func:`interleave_order`).  Such a model runs through
+    ``parallel.model_tp`` (``shard_params`` gives each rank its shard)."""
+    dev = gen.device
+    if tp > 1:
+        cfg.local(tp)  # the heads and the FFN must split
+
+    def q(kdim, ndim, scale, row_parallel=False):
         w = torch.randn((kdim, ndim), generator=gen, device=dev) * scale
+        if bits is None:
+            return w.to(dtype)
+        return quantize_array(w, bits, group_size, act_order=act_order,
+                              row_shards=tp if row_parallel else 1)
+
+    def q_fused(kdim, sizes, scale):
+        w = torch.randn((kdim, sum(sizes)), generator=gen, device=dev) * scale
+        if tp > 1:
+            w = w[:, torch.from_numpy(interleave_order(sizes, tp)).to(dev)]
         if bits is None:
             return w.to(dtype)
         return quantize_array(w, bits, group_size, act_order=act_order)
@@ -683,11 +748,13 @@ def init_params(
     blocks = []
     for _ in range(cfg.num_layers):
         if fuse:
-            proj = dict(wqkv=q(h, qdim + 2 * kvdim, s), w_gateup=q(h, 2 * ffn, s))
+            proj = dict(wqkv=q_fused(h, (qdim, kvdim, kvdim), s),
+                        w_gateup=q_fused(h, (ffn, ffn), s))
         else:
             proj = dict(wq=q(h, qdim, s), wk=q(h, kvdim, s), wv=q(h, kvdim, s),
                         w_gate=q(h, ffn, s), w_up=q(h, ffn, s))
-        proj.update(wo=q(qdim, h, s), w_down=q(ffn, h, ffn ** -0.5))
+        proj.update(wo=q(qdim, h, s, row_parallel=True),
+                    w_down=q(ffn, h, ffn ** -0.5, row_parallel=True))
         blocks.append(LlamaBlock(cfg, proj, ones(), ones()))
     embed = (torch.randn((cfg.vocab_size, h), generator=gen, device=dev) * 0.02).to(dtype)
     return Llama(cfg, embed, blocks, ones(), q(h, cfg.vocab_size, s))

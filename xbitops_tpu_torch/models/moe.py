@@ -20,8 +20,15 @@ Routing ties: the top-k routes are taken by k rounds of ``argmax`` (which
 returns the FIRST maximal index), so among equal logits the lower expert index
 comes first, as ``jax.lax.top_k`` orders them.
 
-Not ported yet: expert parallelism (``expert_pspecs``, ``ep_decode_step``,
-``ep_prefill_slots``); it waits for the port of ``parallel/``.
+Expert parallelism (one rank a process, ``parallel/``): :func:`shard_experts`
+gives rank ``r`` of an ``n``-rank expert axis the experts ``[r E/n, (r+1)
+E/n)`` (views of the stacked QTensors, or a model built with those experts
+only); the attention, the router, the embedding, lm_head and the cache are
+replicated, as the JAX package's ``expert_pspecs`` places them.  Each rank
+routes every token, runs its own experts on the routes they take (the others
+read the spare row, zero) and the f32 combine is summed over the axis before
+the cast (:class:`ExpertParallel`); :func:`ep_decode_step` and
+:func:`ep_prefill_slots` run the single-rank step functions on that model.
 """
 
 from __future__ import annotations
@@ -39,7 +46,8 @@ from xbitops_tpu_torch.ops.qmatmul import qmatmul
 from xbitops_tpu_torch.ops.quantize import quantize_array
 
 __all__ = ["MoeConfig", "MoeFFN", "stack_experts", "init_moe_params", "moe_ffn",
-           "moe_capacity", "route"]
+           "moe_capacity", "route", "ExpertParallel", "shard_experts", "ep_decode_step",
+           "ep_prefill_slots"]
 
 Weight = Union[QTensor, torch.Tensor]
 
@@ -87,6 +95,15 @@ def stack_experts(ws: Sequence[Weight]) -> Weight:
     )
 
 
+def _stack_kept(ws, experts: Optional[Sequence[int]] = None) -> Weight:
+    """:func:`stack_experts` of the experts in ``experts`` (default all); the
+    list is consumed as it goes, so a dropped expert's memory goes at once."""
+    keep = range(len(ws)) if experts is None else experts
+    kept = [w for e, w in enumerate(ws) if e in keep]
+    ws.clear()
+    return stack_experts(kept)
+
+
 def n_stacked(w: Weight) -> int:
     return w.planes[0].shape[0] if isinstance(w, QTensor) else w.shape[0]
 
@@ -119,8 +136,17 @@ def _dense(a: torch.Tensor, w: torch.Tensor, out_dtype) -> torch.Tensor:
     return (a.float() @ w.to(a.dtype).float()).to(out_dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class ExpertParallel:
+    """The expert axis of a mesh (``parallel.mesh.Mesh``) a MoE layer's
+    experts are split over: this rank holds experts ``[r El, (r+1) El)``."""
+
+    mesh: object
+    axis: str
+
+
 def moe_ffn(hx: torch.Tensor, layer: Dict[str, Weight], cfg: MoeConfig, a8: bool = False,
-            use_kernel: bool = True) -> torch.Tensor:
+            use_kernel: bool = True, ep: Optional[ExpertParallel] = None) -> torch.Tensor:
     """Top-k routed expert FFN of ``hx [B, T, h]`` (the post-norm residual
     input); returns ``[B, T, h]`` in ``hx``'s dtype.
 
@@ -129,12 +155,22 @@ def moe_ffn(hx: torch.Tensor, layer: Dict[str, Weight], cfg: MoeConfig, a8: bool
     (``[ffn, h]``).  gate|up comes out in ``hx``'s dtype, SiLU times up runs in
     f32 and is cast back, down comes out in f32, and the k contributions are
     weighted and summed in f32 before the final cast.  ``a8`` goes to every
-    expert's :func:`qmatmul`; ``use_kernel=False`` runs the plain versions."""
+    expert's :func:`qmatmul`; ``use_kernel=False`` runs the plain versions.
+
+    ``ep``: the layer holds this rank's ``El = E / n`` experts only; routes to
+    other ranks' experts add 0 here and the f32 sum is summed over the axis
+    (``psum``) before the cast."""
     B, T, h = hx.shape
     E, k, ffn = cfg.n_experts, cfg.experts_per_token, cfg.intermediate_size
     w_gu, w_down = layer["w_experts_gateup"], layer["w_experts_down"]
-    if n_stacked(w_gu) != E or n_stacked(w_down) != E:
-        raise ValueError(f"expert weights stack {n_stacked(w_gu)} experts, config says {E}")
+    El, e0 = E, 0
+    if ep is not None:
+        n = ep.mesh.shape[ep.axis]
+        if E % n:
+            raise ValueError(f"{E} experts do not split over {n} ranks")
+        El, e0 = E // n, ep.mesh.index(ep.axis) * (E // n)
+    if n_stacked(w_gu) != El or n_stacked(w_down) != El:
+        raise ValueError(f"expert weights stack {n_stacked(w_gu)} experts, this rank holds {El}")
     dense = not isinstance(w_gu, QTensor)
     N = B * T
     C = moe_capacity(cfg, N)
@@ -144,11 +180,13 @@ def moe_ffn(hx: torch.Tensor, layer: Dict[str, Weight], cfg: MoeConfig, a8: bool
     # takes slot e * C + j; past the capacity it goes to the spare row E * C
     onehot = (idx[..., None] == torch.arange(E, device=x.device)).reshape(N * k, E).long()
     pos = ((torch.cumsum(onehot, dim=0) - onehot) * onehot).sum(dim=1).reshape(N, k)
-    slot = torch.where(pos < C, idx * C + pos, E * C).reshape(N * k)
-    xe = x.new_zeros((E * C + 1, h))
+    # a route to another rank's expert reads the spare row too
+    keep = (pos < C) & (idx >= e0) & (idx < e0 + El)
+    slot = torch.where(keep, (idx - e0) * C + pos, El * C).reshape(N * k)
+    xe = x.new_zeros((El * C + 1, h))
     xe.index_copy_(0, slot, x[:, None, :].expand(N, k, h).reshape(N * k, h))
     ye = []
-    for e in range(E):
+    for e in range(El):
         xs = xe[e * C : (e + 1) * C]
         if dense:
             gu = _dense(xs, w_gu[e], hx.dtype)
@@ -162,13 +200,22 @@ def moe_ffn(hx: torch.Tensor, layer: Dict[str, Weight], cfg: MoeConfig, a8: bool
                               use_kernel=use_kernel, a8=a8))
     ye.append(ye[0].new_zeros((1, h)))  # the spare row: a dropped route adds 0
     y = torch.cat(ye)[slot].reshape(N, k, h)
-    return (y * probs[..., None]).sum(dim=1).reshape(B, T, h).to(hx.dtype)
+    y = (y * probs[..., None]).sum(dim=1)
+    if ep is not None:
+        from xbitops_tpu_torch.parallel.mesh import psum
+
+        y = psum(y, ep.mesh, ep.axis)
+    return y.reshape(B, T, h).to(hx.dtype)
 
 
 class MoeFFN(nn.Module):
     """The MoE FFN of a block: the ``router`` f32 ``[h, E]`` as a buffer and
     the stacked experts ``w_experts_gateup`` / ``w_experts_down`` held as
-    projection modules (their arrays as buffers, read through expert views)."""
+    projection modules (their arrays as buffers, read through expert views).
+    ``role``: an :class:`ExpertParallel` where the module holds one rank's
+    experts."""
+
+    role = None
 
     def __init__(self, cfg: MoeConfig, router: torch.Tensor, w_gateup: Weight, w_down: Weight):
         super().__init__()
@@ -183,7 +230,7 @@ class MoeFFN(nn.Module):
                     w_experts_down=linear_weight(self.w_experts_down))
 
     def forward(self, hx: torch.Tensor, use_kernel: bool = True, a8: bool = False) -> torch.Tensor:
-        return moe_ffn(hx, self.weights(), self.cfg, a8=a8, use_kernel=use_kernel)
+        return moe_ffn(hx, self.weights(), self.cfg, a8=a8, use_kernel=use_kernel, ep=self.role)
 
 
 def init_moe_params(
@@ -193,6 +240,7 @@ def init_moe_params(
     group_size: int = 128,
     dtype=torch.bfloat16,
     weight: Optional[Callable[[int, int, float], Weight]] = None,
+    experts: Optional[Sequence[int]] = None,
 ):
     """A random MoE model on ``gen``'s device: Llama attention (fused q|k|v),
     a f32 router of scale ``hidden ** -0.5`` and ``E`` experts a layer
@@ -201,7 +249,10 @@ def init_moe_params(
     (port of ``models.moe.init_moe_params``; the two packages draw different
     numbers from a seed).  Each projection is ``weight(K, N, scale)``; by
     default normal weights of scale ``fan_in ** -0.5`` quantized by
-    :func:`quantize_array` (``bits=None``: dense in ``dtype``)."""
+    :func:`quantize_array` (``bits=None``: dense in ``dtype``).  ``experts``
+    (a range): keep only those experts of every layer (the others are drawn
+    and dropped, so the kept ones equal a full build's): one rank's part under
+    expert parallelism, without the memory of the rest."""
     from xbitops_tpu_torch.models.llama import Llama, LlamaBlock
 
     dev = gen.device
@@ -221,11 +272,72 @@ def init_moe_params(
 
     blocks: List[LlamaBlock] = []
     for _ in range(cfg.num_layers):
-        gu = stack_experts([q(h, 2 * ffn, s) for _ in range(E)])
-        down = stack_experts([q(ffn, h, ffn ** -0.5) for _ in range(E)])
+        gu = _stack_kept([q(h, 2 * ffn, s) for _ in range(E)], experts)
+        down = _stack_kept([q(ffn, h, ffn ** -0.5) for _ in range(E)], experts)
         proj = dict(wqkv=q(h, qdim + 2 * kvdim, s), wo=q(qdim, h, s),
                     router=torch.randn((h, E), generator=gen, device=dev) * s,
                     w_experts_gateup=gu, w_experts_down=down)
         blocks.append(LlamaBlock(cfg, proj, ones(), ones()))
     embed = (torch.randn((cfg.vocab_size, h), generator=gen, device=dev) * 0.02).to(dtype)
     return Llama(cfg, embed, blocks, ones(), q(h, cfg.vocab_size, s))
+
+
+def _experts(w: Weight, e0: int, e1: int) -> Weight:
+    """Experts ``[e0, e1)`` of a stacked weight, as views."""
+    if not isinstance(w, QTensor):
+        return w[e0:e1]
+    return dataclasses.replace(
+        w, planes=tuple(p[e0:e1] for p in w.planes), scales=w.scales[e0:e1],
+        scale_zeros=w.scale_zeros[e0:e1], perm=None if w.perm is None else w.perm[e0:e1])
+
+
+def shard_experts(model, mesh, axis: str = "expert"):
+    """This rank's model under expert parallelism (``expert_pspecs``'
+    placement): every MoE layer keeps the rank's ``E / n`` experts, views of
+    the stacked weights (a model built with only those experts keeps them as
+    they are), and runs its combine summed over ``axis``; every other weight is
+    shared with ``model``."""
+    from xbitops_tpu_torch.models.llama import Llama, LlamaBlock
+
+    cfg = model.cfg
+    n, r = mesh.shape[axis], mesh.index(axis)
+    if cfg.n_experts % n:
+        raise ValueError(f"{cfg.n_experts} experts do not split over {n} ranks")
+    El = cfg.n_experts // n
+    blocks = []
+    for b in model.blocks:
+        w = b.weights()
+        moe = "router" in w
+        if moe and n_stacked(w["w_experts_gateup"]) == cfg.n_experts:
+            for key in ("w_experts_gateup", "w_experts_down"):
+                w[key] = _experts(w[key], r * El, (r + 1) * El)
+        block = LlamaBlock(cfg, w, b.ln_attn, b.ln_mlp)
+        if moe:
+            block.moe.role = ExpertParallel(mesh, axis)
+        blocks.append(block)
+    return Llama(cfg, model.embed, blocks, model.ln_final, linear_weight(model.lm_head))
+
+
+def _check_ep(model, cfg, mesh, axis) -> None:
+    roles = [b.moe.role for b in model.blocks if hasattr(b, "moe")]
+    if model.cfg != cfg or not roles or roles[0] != ExpertParallel(mesh, axis):
+        raise ValueError("the model is not this mesh's expert shard of cfg (use shard_experts)")
+
+
+def ep_decode_step(model, cfg: MoeConfig, mesh, tokens, cache, axis: str = "expert",
+                   active=None):
+    """Expert-parallel :func:`~xbitops_tpu_torch.models.llama.decode_step` on
+    the rank's :func:`shard_experts` model: logits ``[B, V]`` on every rank."""
+    from xbitops_tpu_torch.models import llama
+
+    _check_ep(model, cfg, mesh, axis)
+    return llama.decode_step(model, tokens, cache, active=active)
+
+
+def ep_prefill_slots(model, cfg: MoeConfig, mesh, tokens, true_lens, slots, cache,
+                     axis: str = "expert"):
+    """Expert-parallel :func:`~xbitops_tpu_torch.models.llama.prefill_slots`."""
+    from xbitops_tpu_torch.models import llama
+
+    _check_ep(model, cfg, mesh, axis)
+    return llama.prefill_slots(model, tokens, true_lens, slots, cache)

@@ -36,16 +36,27 @@ def quantize_array(
     type) BEFORE q and zero are chosen, so they compensate the stored value.
     ``act_order`` quantizes rows in descending-salience order (a stable sort)
     and keeps the order as ``perm``: matmuls gather activations, the weights
-    stay put.  ``storage_bits``: see ``formats.resolve_storage_bits``."""
-    if row_shards > 1:
-        raise NotImplementedError("row-sharded packing waits for the port of parallel/")
+    stay put.  ``storage_bits``: see ``formats.resolve_storage_bits``.
+
+    ``row_shards > 1`` packs for row-parallel tensor parallelism
+    (``formats.make_row_sharded_qtensor``: a leading shard axis); with
+    ``act_order`` each K-shard sorts its own rows, so the gather stays inside
+    a rank, and ``perm`` is ``[row_shards, K / row_shards]`` of shard-local
+    indices."""
     K, N = w.shape
     w = w.float()
     perm = None
     if act_order:
         salience = w.abs().sum(dim=1)
-        perm = torch.argsort(-salience, stable=True)
-        w = w[perm]
+        if row_shards > 1:
+            if K % row_shards:
+                raise ValueError(f"K={K} must divide into {row_shards} shards")
+            Ks = K // row_shards
+            perm = torch.argsort(-salience.reshape(row_shards, Ks), dim=1, stable=True)
+            w = w[(perm + torch.arange(row_shards, device=w.device)[:, None] * Ks).reshape(-1)]
+        else:
+            perm = torch.argsort(-salience, stable=True)
+            w = w[perm]
     Kp = formats._round_up(K, group_size)
     G = Kp // group_size
     maxq = (1 << bits) - 1
@@ -65,6 +76,11 @@ def quantize_array(
         zero = torch.clamp(torch.round(-lo / scale), 0, maxq)
     q = torch.clamp(torch.round(wg / scale[:, None, :] + zero[:, None, :]), 0, maxq)
     wq = q.reshape(Kp, N).to(torch.int32)[:K]
+    if row_shards > 1:
+        return formats.make_row_sharded_qtensor(
+            wq, scale.to(scale_round_dtype), zero.to(torch.int32), bits, group_size, row_shards,
+            tile_k=tile_k, scale_store_dtype=scale_store_dtype, storage_bits=storage_bits,
+            perm=perm)
     return formats.make_qtensor(
         wq, scale.to(scale_round_dtype), zero.to(torch.int32), bits, group_size,
         add_zero_bias=0, tile_k=tile_k, perm=perm, scale_store_dtype=scale_store_dtype,

@@ -101,15 +101,19 @@ def random_moe_params(
     *,
     device,
     seed: int = 0,
+    experts=None,
 ) -> Llama:
     """A random packed MoE model (a ``models.moe.MoeConfig``: Mixtral) on
     ``device``: ``moe.init_moe_params`` with every projection
-    :func:`random_qtensor`, so no dense weight is drawn or quantized."""
+    :func:`random_qtensor`, so no dense weight is drawn or quantized.
+    ``experts``: keep only those experts (one rank's under expert
+    parallelism; the same bits as a full build's)."""
     from xbitops_tpu_torch.models.moe import init_moe_params
 
     gen = torch.Generator(device=device).manual_seed(seed)
     return init_moe_params(gen, cfg, weight=lambda K, N, _: random_qtensor(gen, K, N, bits,
-                                                                           group_size))
+                                                                           group_size),
+                           experts=experts)
 
 
 def copy_llama_params(
@@ -137,13 +141,14 @@ def copy_llama_params(
 
 
 def make_copy_model(model: Llama, gen: torch.Generator, bits: int = 4, group_size: int = 128,
-                    period: int = 8) -> Llama:
+                    period: int = 8, experts=None) -> Llama:
     """Turn a random packed model into a copy-model in place (see
     :func:`copy_llama_params`): ``wo`` and the FFN's output projection
     (``w_down``, or a MoE layer's stacked ``w_experts_down``) get weights of
     scale ~1e-4, and lm_head maps embedding row ``v`` to ``(v + 1) %
-    period``.  The other weights keep their bytes."""
-    from xbitops_tpu_torch.models.moe import stack_experts
+    period``.  The other weights keep their bytes.  ``experts``: the model
+    holds only those experts of each layer (``random_moe_params(experts=)``)."""
+    from xbitops_tpu_torch.models.moe import _stack_kept
 
     cfg = model.cfg
     h, ffn = cfg.hidden_size, cfg.intermediate_size
@@ -156,7 +161,7 @@ def make_copy_model(model: Llama, gen: torch.Generator, bits: int = 4, group_siz
         block.wo = QLinear(small(qdim, h))
         if hasattr(block, "moe"):
             block.moe.w_experts_down = QLinear(
-                stack_experts([small(ffn, h) for _ in range(cfg.n_experts)]))
+                _stack_kept([small(ffn, h) for _ in range(cfg.n_experts)], experts))
         else:
             block.w_down = QLinear(small(ffn, h))
     W = torch.randn((h, cfg.vocab_size), generator=gen, device=gen.device) * 0.02
