@@ -157,6 +157,29 @@
    4096x16000; M=8, the few-rows form) and both attention kernels at 16 local
    heads.
 
+12. Drives pipeline and sequence parallelism, two ranks on the one card as
+   in phase 11 (each stage's hidden state, and each chunk's keys, move by
+   ``parallel.mesh.ppermute``: an ``all_to_all_single`` through the host, so
+   no time of this phase is a PP or SP speed): (a) Llama-2-7B at full width
+   and depth at pp=2, 16 layers a rank (``pp.stage_model``): its copy-model
+   admits 8 prompts of 16-500 tokens in one bucket of 512 through
+   ``pp_prefill_slots``, then ``pp_decode_burst`` runs 32 greedy steps: tokens
+   equal to phase 11a's one-rank engine's, each stage's decode through the
+   decode-attention kernel with the append inside (1024 launches a rank); a
+   2-layer cut of the random model through ``pp_decode_step`` within rel 2e-2
+   of one rank's ``decode_step`` on the bf16 and the int8 cache; (b)
+   ``sp_prefill`` at sp=2 of 2 prompts of 2048 tokens on the copy-model, then
+   3 ordinary decode steps on a rank's cache: tokens equal to one rank's
+   ``prefill`` and ``decode_step``; 2-layer cuts at T=2048 of the random
+   model and of a random model at Mistral-7B's widths (32 q heads, 8 kv
+   heads) with a window of 512: logits within rel 2e-2 of one rank's
+   ``prefill``, layer 0's cache rows within rtol 5e-2 / atol 3e-2 and every
+   layer's within rel 2e-2 of their largest.  The ranks' launch
+   counts join the ``kernels`` line.  Phase 1 also times the matmul at M=4 (a
+   PP decode microbatch, the few-rows form) and M=1024 (an SP chunk, the tile)
+   on the five 7B shapes, and decode attention with its append on a
+   microbatch's view ``k[:, 4:8]`` of an 8-slot cache (B=4), bf16 and int8.
+
 In every serving phase each decode burst is a replay of a CUDA graph the
 engine captured (``loop_stats["graph_replays"]`` equals the bursts run); in
 phases 2, 3, 5 and 7 the same requests run again with the bursts eager (the
@@ -288,9 +311,10 @@ def phase_kernels(dev, timer):
         check(e <= 2e-2, f"qmatmul {label}: rel err {e:.3e} > 2e-2")
         return name, e
 
+    pp_sp = {}  # M = 4 (a PP decode microbatch of 8 slots at pp=2) and 1024 (an SP chunk)
     for name, (K, N) in shapes.items():
         qt = synth.random_qtensor(gen, K, N, 4, 128)
-        for M in (8, 32, 256, 2560):
+        for M in (4, 8, 32, 256, 1024, 2560):
             a = torch.randn(M, K, device=dev, generator=gen).to(torch.bfloat16)
             form = qgemv_form(M, False, qt)
             kname, e = held(a, qt, f"{name} M={M}")
@@ -310,6 +334,10 @@ def phase_kernels(dev, timer):
             if name == "w_gateup" and M == 2560:
                 check(kname == "qgemv_mma" and form == "mma", f"M=2560 took {form}")
                 res["qgemv_mma"] = dict(ms=ms, plain_ms=plain_ms, library_ms=None, **b)
+            if M in (4, 1024):
+                check((form, kname) == (("gemv", "qgemv") if M == 4 else ("mma", "qgemv_mma")),
+                      f"{name} M={M} took {form} ({kname})")
+                pp_sp[(name, M)] = dict(ms=ms, plain_ms=plain_ms, **b)
             if M == 256:  # the form this one replaced, for the record
                 a_pad = torch.nn.functional.pad(a, (0, qt.K - K))
                 core_ms = timer(lambda: qmatmul_kernel(a_pad, qt, form="cuda_core"), iters=3)
@@ -375,6 +403,14 @@ def phase_kernels(dev, timer):
               f"{ {b: round(t, 4) for b, t in row.items()} }; CUDA-core form "
               f"{ {b: round(t, 4) for b, t in core.items()} }; share of the bound "
               f"{ {b: round(x, 3) for b, x in share.items()} }", flush=True)
+    for M in (4, 1024):
+        row = {n: v for (n, m), v in pp_sp.items() if m == M}
+        print(f"qmatmul 4-bit, the five 7B shapes at M={M} "
+              f"({'a PP decode microbatch, few-rows form' if M == 4 else 'an SP chunk, the tile'}"
+              f"), op / bound / plain ms: "
+              + ", ".join(f"{n} {v['ms']:.4f} / {v['bound_ms']:.4f} / {v['plain_ms']:.4f}"
+                          for n, v in row.items()), flush=True)
+    res["pp_sp_matmul"] = pp_sp
     print(f"qmatmul: worst rel err {worst:.2e} (gate 2e-2), worst abs err {worst_abs}",
           flush=True)
     for kname in ("qgemv", "qgemv_mma", "qgemv_planes"):  # the CUDA-core form: no serving path
@@ -383,6 +419,7 @@ def phase_kernels(dev, timer):
     res.update(kernels_quant(dev, timer, gen, shapes))
     res.update(kernels_decode(dev, timer, gen))
     res.update(kernels_prefill(dev, timer, gen))
+    res["pp_view"] = kernels_pp_view(dev, timer, gen)
     res.update(kernels_paged(dev, timer, gen))
     res["mixtral"] = kernels_at(dev, timer, gen, "Mixtral", mixtral_mats(gen), (8, 40, 2560), 32, 8)
     # one rank's shards of 7B at tp=2: the five matmuls at M = 8, attention at
@@ -770,6 +807,89 @@ def kernels_decode(dev, timer, gen):
     print(f"decode attention B=8 live=1000 S={S} MHA, no append: bf16 cache {bf:.4f} ms, int8 "
           f"cache {i8:.4f} ms (int8 / bf16 = {i8 / bf:.3f})", flush=True)
     res["live1000"] = dict(bf16_ms=bf, int8_ms=i8)
+    return res
+
+
+def kernels_pp_view(dev, timer, gen):
+    """Decode attention with its append on a PP decode microbatch: slots 4-7
+    of an 8-slot cache as the view ``k[:, 4:8]`` that ``parallel/pp.py`` hands
+    a stage's blocks (B=4, H=Hkv=32, S=2048, ragged lengths, one slot at S),
+    bf16 and int8, against the plain version on the same view, the other
+    slots' bytes untouched; beside SDPA."""
+    from xbitops_tpu_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_reference,
+    )
+    from xbitops_tpu_torch.kernels.kv_append import (
+        _unpack_kv_words,
+        kv_append_dense_reference,
+        kv_append_packed_reference,
+    )
+
+    S, D, H, B, lo = 2048, 128, 32, 4, 4
+    pos = torch.tensor([999, 6, 2046, S], device=dev)  # the last slot at S: inactive
+    lens = torch.clamp(pos + 1, max=S)
+    act = pos < S
+    mask = (torch.arange(S, device=dev)[None] < lens[:, None])[:, None, None, :]
+    q = torch.randn(B, H, D, device=dev, generator=gen).to(torch.bfloat16)
+    live_rows = int(lens.sum()) * H * D
+    res = {}
+    for int8 in (False, True):
+        if int8:
+            whole = list(packed_cache(gen, 2, 2 * B, H, S, D))
+            new = tuple(torch.randint(1, 256, (B, H, D), generator=gen, device=dev,
+                                      dtype=torch.int32) for _ in range(2)) + tuple(
+                torch.empty((B, H), device=dev).uniform_(0.005, 0.02, generator=gen)
+                for _ in range(2)) + (pos,)
+            name, append, reference = "decode_attention_int8", "kv_append_packed", \
+                kv_append_packed_reference
+        else:
+            whole = [torch.randn(2, 2 * B, H, S, D, device=dev, generator=gen).to(torch.bfloat16)
+                     for _ in range(2)]
+            new = tuple(torch.randn(B, H, D, device=dev, generator=gen).to(torch.bfloat16)
+                        for _ in range(2)) + (pos,)
+            name, append, reference = "decode_attention", "kv_append", kv_append_dense_reference
+        view = [t[:, lo:lo + B] for t in whole]
+        scales = dict(k_scale=view[2], v_scale=view[3]) if int8 else {}
+        call = lambda: decode_attention(q, view[0], view[1], lens, layer_idx=1, kv_new=new,
+                                        **scales)
+        ref_whole = [t.clone() for t in whole]
+        out, after = fused_once(call, name, append, whole)
+        ref_view = [t[:, lo:lo + B] for t in ref_whole]
+        reference(*ref_view, *new, 1)
+        ref = decode_attention_reference(q, ref_view[0][1], ref_view[1][1], lens, None,
+                                         *([ref_view[2][1], ref_view[3][1]] if int8 else []))
+        same = all(torch.equal(a, b) for a, b in zip(after, ref_whole))
+        e = (out.float() - ref.float()).abs().max().item()
+        check(same and e <= 2e-2, f"{name} on a slot-range view: bytes exact {same}, err {e:.3e}")
+        del after, ref_whole
+        ms = timer(call)
+        plain_ms = timer(lambda: (reference(*view, *new, 1), decode_attention_reference(
+            q, view[0][1], view[1][1], lens, None,
+            *([view[2][1], view[3][1]] if int8 else []))), iters=3)
+        if int8:  # SDPA on the rows as bf16: no PyTorch call writes a byte of a packed word
+            kd = _unpack_kv_words(view[0][1], view[2][1]).to(torch.bfloat16)
+            vd = _unpack_kv_words(view[1][1], view[3][1]).to(torch.bfloat16)
+            library_ms = timer(lambda: sdpa(q[:, :, None], kd, vd, mask))
+            del kd, vd
+            b = bound(2 * (live_rows + 2 * int(lens.sum()) * H) + nbytes(q, out, *new[:2]),
+                      4 * H * D * int(lens.sum()))
+        else:  # 2 index_copy_ of the new rows and SDPA, like for like
+            rows = ((torch.arange(B, device=dev)[:, None] * H
+                     + torch.arange(H, device=dev)[None]) * S + pos[:, None])[act].reshape(-1)
+            k1, v1 = view[0][1], view[1][1]  # one layer of the view: contiguous
+            kf, vf = k1.view(-1, D), v1.view(-1, D)
+            kr, vr = new[0][act].reshape(-1, D), new[1][act].reshape(-1, D)
+            library_ms = timer(lambda: (kf.index_copy_(0, rows, kr), vf.index_copy_(0, rows, vr),
+                                        sdpa(q[:, :, None], k1, v1, mask)))
+            b = bound(2 * 2 * live_rows + nbytes(q, out, *new[:2]), 4 * H * D * int(lens.sum()))
+        print(f"{name}+append on a PP microbatch's view k[:, 4:8] of an 8-slot cache, B={B} "
+              f"H=Hkv={H} S={S}: op {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+              f"({'SDPA on bf16 rows, no append' if int8 else '2 index_copy_ + SDPA'}) "
+              f"{library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}; bytes "
+              f"exact (the other slots untouched), max abs err {e:.2e}", flush=True)
+        res[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, max_abs_err=e, **b)
+        del whole, view
     return res
 
 
@@ -3556,6 +3676,257 @@ def phase_ep(dev, copy):
     return launches, res
 
 
+# --- phase 12: pipeline and sequence parallelism, two ranks on the one card ---
+#
+# As phase 11: two spawned gloo ranks on cuda:0.  The ring permute that moves
+# a PP stage's hidden state or an SP chunk's keys (``parallel.mesh.ppermute``)
+# is an ``all_to_all_single`` through the host, so no time below is a PP or
+# SP speed.
+
+PPSP_LABEL = ("two ranks sharing one H100, permutes and sums through the host by gloo: not a "
+              "PP/SP speed")
+
+
+def _padded(prompts, dev):
+    """Prompts zero-padded into one batch [n, T], T the next multiple of 16,
+    and their lengths."""
+    T = -(-max(map(len, prompts)) // 16) * 16
+    tokens = torch.zeros((len(prompts), T), dtype=torch.long, device=dev)
+    for i, p in enumerate(prompts):
+        tokens[i, : len(p)] = torch.tensor(p, device=dev)
+    return tokens, torch.tensor([len(p) for p in prompts], device=dev)
+
+
+def _permute_ms(x, mesh, axis: str) -> float:
+    """Mean ms of ``parallel.mesh.ppermute`` of ``x`` over 20 calls."""
+    from xbitops_tpu_torch.parallel.mesh import ppermute
+
+    for _ in range(3):
+        ppermute(x, mesh, axis)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        x = ppermute(x, mesh, axis)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / 20
+
+
+def _ppsp_rank(rank: int, out_dir: str, want_tokens) -> None:
+    """One rank of phase 12 (see :func:`phase_pp_sp`)."""
+    from xbitops_tpu_torch.kernels import common
+    from xbitops_tpu_torch.models import llama
+    from xbitops_tpu_torch.parallel import pp, seqpar
+    from xbitops_tpu_torch.parallel.mesh import make_mesh
+    from xbitops_tpu_torch.utils import synth
+
+    dev = _rank_device()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    pipe, seq = make_mesh((2,), ("pipe",)), make_mesh((2,), ("seq",))
+    cfg = llama.LlamaConfig.llama2_7b()
+    cut_cfg = dataclasses.replace(cfg, num_layers=2)
+    res, launches = {}, {}
+
+    def counted(key, fn):
+        """A main-path run: the counts set to 0 just before ``fn``, read just after."""
+        common.reset_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        check(not any(common.plain_on_cuda.values()),
+              f"phase 12 {key}: plain versions ran on the card: {dict(common.plain_on_cuda)}")
+        launches[key] = dict(common.launches)
+        return out
+
+    # (a) PP: the copy-model at full width and depth, 16 layers a rank: 8
+    # prompts admitted in one bucket, then a burst of 32 greedy steps
+    t0 = time.perf_counter()
+    copy = synth.copy_llama_params(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    stage = pp.stage_model(copy, pipe)
+    del copy
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    res.update(pp_build_s=time.perf_counter() - t0, pp_resident=model_bytes(stage))
+    prompts = [r.prompt for r in _tp_requests()]
+    tokens, lens = _padded(prompts, dev)
+    cache = llama.KVCache.init(stage.cfg, len(prompts), dev)
+    times = []
+
+    def pp_run():
+        t0 = time.perf_counter()
+        logits, _ = pp.pp_prefill_slots(stage, cfg, pipe, tokens, lens, cache)
+        first = logits.argmax(-1).to(torch.int32)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out, _ = pp.pp_decode_burst(stage, cfg, pipe, first, cache, 32)
+        torch.cuda.synchronize()
+        times.extend((t1 - t0, time.perf_counter() - t1))
+        return first, out
+
+    first, out = counted("pp", pp_run)
+    res.update(pp_prefill_s=times[0], pp_burst_s=times[1], pp_bucket=tokens.shape[1])
+    streams = [[f] + col for f, col in zip(first.tolist(), out.t().tolist())]
+    check(all(t == (p + 1) % 8 for s, pr in zip(streams, prompts)
+              for p, t in zip([pr[-1]] + s[:-1], s)), "pp=2 copy-model: not the cycle")
+    check([s[:32] for s in streams] == want_tokens,
+          "pp=2: the copy-model's tokens differ from the one-rank engine's (phase 11a)")
+    ln = launches["pp"]
+    check(ln.get("decode_attention") == ln.get("kv_append_fused") == 16 * 32 * 2,
+          f"pp=2: a stage's burst launched {ln}, want decode attention with the append inside "
+          f"once a layer, microbatch and step (1024)")
+    res["pp_permute_ms"] = _permute_ms(torch.randn(4, 1, 4096, device=dev).to(torch.bfloat16),
+                                       pipe, "pipe")
+    del stage, cache
+    torch.cuda.empty_cache()
+
+    # a 2-layer cut of the random model, one layer a rank: pp_decode_step
+    # against one rank's decode_step on the bf16 and the int8 cache
+    cut = synth.random_llama_params(cut_cfg, bits=4, group_size=128, device=dev, seed=SEED)
+    cstage = pp.stage_model(cut, pipe)
+    rng = np.random.default_rng(SEED)
+    ptoks, plens = _padded([rng.integers(0, cfg.vocab_size, n).tolist()
+                            for n in np.linspace(40, 300, 8, dtype=int)], dev)
+    for quantized in (False, True):
+        whole = llama.KVCache.init(cut_cfg, 8, dev, quantized=quantized)
+        logits, _ = llama.prefill_slots(cut, ptoks, plens, torch.arange(8, device=dev), whole)
+        nxt = logits.argmax(-1).to(torch.int32)
+        part = pp.stage_cache(whole, pipe)
+        key = "pp_cut_int8" if quantized else "pp_cut"
+        got = counted(key, lambda: pp.pp_decode_step(cstage, cut_cfg, pipe, nxt, part)[0])
+        want = llama.decode_step(cut, nxt, whole)[0]
+        res[key + "_err"] = rel_err(got, want)
+        name = "decode_attention_int8" if quantized else "decode_attention"
+        check(launches[key].get(name) == 2, f"pp=2 cut: {launches[key]}, want {name} twice")
+    del cut, cstage, whole, part
+    torch.cuda.empty_cache()
+
+    # (b) SP: the copy-model, 2 prompts of 2048 tokens on the cycle, then 3
+    # decode steps on one rank's cache, against one rank's prefill + decode
+    copy = synth.copy_llama_params(torch.Generator(device=dev).manual_seed(SEED), cfg)
+    T = 2048
+    stoks = torch.tensor([[(j + i) % 8 for i in range(T)] for j in range(2)], device=dev)
+    scfg = dataclasses.replace(cfg, max_seq_len=2 * T)  # room for the decode after
+
+    def decode_after(logits, cache):
+        toks = [logits.argmax(-1)]
+        for _ in range(3):
+            toks.append(llama.decode_step(copy, toks[-1], cache)[0].argmax(-1))
+        return torch.stack(toks, 1).tolist()
+
+    def sp_run():
+        cache = llama.KVCache.init(scfg, 2, dev)
+        t0 = time.perf_counter()
+        logits, _ = seqpar.sp_prefill(copy, cfg, seq, stoks, cache)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        return decode_after(logits, cache)
+
+    res["sp_tokens"] = counted("sp", sp_run)
+    res["sp_prefill_s"] = times[-1]
+    one = llama.KVCache.init(scfg, 2, dev)
+    res["sp_one_tokens"] = decode_after(llama.prefill(copy, stoks, one)[0][:, -1], one)
+    del copy, one
+    torch.cuda.empty_cache()
+    res["sp_permute_ms"] = _permute_ms(
+        torch.randn(1, 1024, 32, 128, device=dev).to(torch.bfloat16), seq, "seq")
+
+    # 2-layer cuts at T=2048: the random model, and Mistral-7B's widths (32 q
+    # heads, 8 kv heads: GQA rep 4) with a window of 512, against one rank
+    mistral = dataclasses.replace(llama.LlamaConfig.mistral_7b(), num_layers=2,
+                                  max_seq_len=T, sliding_window=512)
+    for label, ccfg in (("random", cut_cfg), ("mistral", mistral)):
+        m = synth.random_llama_params(ccfg, bits=4, group_size=128, device=dev, seed=SEED)
+        toks = torch.randint(0, ccfg.vocab_size, (2, T), device=dev,
+                             generator=torch.Generator(device=dev).manual_seed(SEED))
+        c1, c2 = (llama.KVCache.init(ccfg, 2, dev) for _ in range(2))
+        got = counted(f"sp_{label}", lambda: seqpar.sp_prefill(m, ccfg, seq, toks, c1)[0])
+        want = llama.prefill(m, toks, c2)[0][:, -1]
+        res[f"sp_{label}_err"] = rel_err(got, want)
+        # layer 0's rows come from the same projections: the CPU tests' rtol 5e-2 /
+        # atol 3e-2.  Layer 1's carry layer 0's attention, the ring's (f32) against
+        # the prefill kernel's (bf16 probabilities), at the 7B widths' magnitudes:
+        # they are held, as the logits are, by rel 2e-2 of their largest
+        pairs = [(a[li, :2, :, :T], b[li, :2, :, :T]) for a, b in ((c1.k, c2.k), (c1.v, c2.v))
+                 for li in range(ccfg.num_layers)]
+        res[f"sp_{label}_rows0"] = all(torch.allclose(a.float(), b.float(), rtol=5e-2, atol=3e-2)
+                                       for a, b in pairs[::ccfg.num_layers])
+        res[f"sp_{label}_rows_rel"] = max(rel_err(a, b) for a, b in pairs)
+        res[f"sp_{label}_rows_abs"] = max((a.float() - b.float()).abs().max().item()
+                                          for a, b in pairs)
+        del m, c1, c2
+        torch.cuda.empty_cache()
+    _rank_json(out_dir, rank, "ppsp_launches",
+               {k: sum(ln[k] for ln in launches.values()) for k in common.launches})
+    _rank_json(out_dir, rank, "ppsp_runs", launches)
+    if rank == 0:
+        _rank_json(out_dir, rank, "ppsp", res)
+
+
+def phase_pp_sp(dev, want_tokens):
+    """Phase 12: Llama-2-7B at pipeline parallelism 2 and at sequence
+    parallelism 2, two gloo ranks on the one card (:func:`_ppsp_rank`): (a)
+    the copy-model at full width and depth, 16 layers a rank
+    (``pp.stage_model``): 8 prompts of 16-500 tokens admitted by
+    ``pp_prefill_slots`` in one bucket of 512, then ``pp_decode_burst`` of 32
+    greedy steps, tokens equal to phase 11a's one-rank engine's, each stage's
+    decode through the decode-attention kernel with the append inside; on a
+    2-layer cut of the random model, ``pp_decode_step`` on the bf16 and the
+    int8 cache within rel 2e-2 of one rank's ``decode_step``; (b)
+    ``sp_prefill`` of 2 prompts of 2048 tokens on the copy-model, then 3
+    ``decode_step`` on a rank's cache, tokens equal to one rank's ``prefill``
+    and ``decode_step``; on 2-layer cuts of the random model and of a random
+    model at Mistral-7B's widths with a window of 512, the logits within rel
+    2e-2 of one rank's ``prefill``, layer 0's cache rows within rtol 5e-2 /
+    atol 3e-2 and every layer's within rel 2e-2."""
+    import tempfile
+    from pathlib import Path
+
+    from xbitops_tpu_torch.parallel import multihost
+
+    root = Path(__file__).resolve().parent
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=root, prefix="smoke_ckpt_") as tmp:
+        multihost.spawn(_ppsp_rank, 2, args=(tmp, want_tokens))
+        res = _read_ranks(tmp, "ppsp", 1)[0]
+        launches = _read_ranks(tmp, "ppsp_launches")
+        runs = _read_ranks(tmp, "ppsp_runs")[0]
+    rounds = 32 * 2 + 1
+    res.update(pp_ms_round=1e3 * res["pp_burst_s"] / rounds,
+               pp_ms_step=1e3 * res["pp_burst_s"] / 32,
+               pp_tok_s=8 * 32 / res["pp_burst_s"])
+    print(f"7B pp=2 ({PPSP_LABEL}): a rank holds 16 layers, {res['pp_resident'] / 1e9:.2f} GB, "
+          f"built in {res['pp_build_s']:.1f} s; copy-model, 8 prompts of 16-500 tokens in one "
+          f"bucket of {res['pp_bucket']} through pp_prefill_slots ({res['pp_prefill_s']:.2f} s), "
+          f"pp_decode_burst of 32 steps ({rounds} rounds): {res['pp_ms_round']:.2f} ms a round, "
+          f"{res['pp_ms_step']:.2f} ms/step, {res['pp_tok_s']:.1f} tokens/s; tokens equal the "
+          f"one-rank engine's; the permute of [4, 1, 4096] bf16 {res['pp_permute_ms']:.3f} ms; "
+          f"2-layer cut pp_decode_step against one rank: bf16 rel {res['pp_cut_err']:.2e}, int8 "
+          f"rel {res['pp_cut_int8_err']:.2e}; rank 0's launches of the admission and burst "
+          f"{ {k: n for k, n in runs['pp'].items() if n} }",
+          flush=True)
+    print(f"7B sp=2 ({PPSP_LABEL}): copy-model, 2 prompts of 2048 tokens, sp_prefill "
+          f"{res['sp_prefill_s']:.2f} s, then 3 decode steps on a rank's cache: tokens "
+          f"{[t[:4] for t in res['sp_tokens']]} equal one rank's prefill + decode; the permute of "
+          f"[1, 1024, 32, 128] bf16 {res['sp_permute_ms']:.3f} ms; 2-layer cuts against one "
+          f"rank's prefill at T=2048: random rel {res['sp_random_err']:.2e} (cache rows rel "
+          f"{res['sp_random_rows_rel']:.2e}, max abs {res['sp_random_rows_abs']:.2e}), Mistral-7B "
+          f"widths with window 512 rel {res['sp_mistral_err']:.2e} (rows rel "
+          f"{res['sp_mistral_rows_rel']:.2e}, max abs {res['sp_mistral_rows_abs']:.2e}); rank 0's "
+          f"launches of sp_prefill and the decode after { {k: n for k, n in runs['sp'].items() if n} }",
+          flush=True)
+    check(res["sp_tokens"] == res["sp_one_tokens"],
+          f"sp=2: tokens {res['sp_tokens']} differ from one rank's {res['sp_one_tokens']}")
+    for key in ("pp_cut_err", "pp_cut_int8_err", "sp_random_err", "sp_mistral_err",
+                "sp_random_rows_rel", "sp_mistral_rows_rel"):
+        check(res[key] <= 2e-2, f"phase 12 {key} {res[key]:.3e} > 2e-2")
+    check(res["sp_random_rows0"] and res["sp_mistral_rows0"],
+          "sp=2: layer 0's cache rows outside rtol 5e-2 / atol 3e-2 of one rank's")
+    for key in ("pp", "sp"):
+        ln = runs[key]
+        check(ln.get("qgemv", 0) > 0 and ln.get("qgemv_mma", 0) > 0
+              and ln.get("qgemv_cuda_core", 0) == 0, f"phase 12 {key}: matmul forms {ln}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    return launches, res
+
+
 def clone_cache(cache, n_layers=None):
     """A copy of ``cache`` (of its first ``n_layers`` layers), its scales and
     page table included."""
@@ -3643,6 +4014,7 @@ def main() -> int:
     torch.cuda.empty_cache()  # the ranks of phase 11 share the card with this process
     launches11a, tp_res = phase_tp(dev, np.random.default_rng(SEED))
     launches11b, ep_res = phase_ep(dev, mixtral["copy"])
+    launches12, ppsp_res = phase_pp_sp(dev, tp_res["one_tokens"])
     print(f"card: {card}; 7B 4-bit decode at B=8: bf16 cache, prompts to 500: "
           f"{serving['ms_step']:.2f} ms/step, {serving['tok_s']:.1f} tokens/s; int8 cache, "
           f"prompts to 1500: {long_ctx['ms_step']:.2f} ms/step, {long_ctx['tok_s']:.1f} tokens/s; "
@@ -3728,6 +4100,22 @@ def main() -> int:
                       for n, v in tk.items())
           + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    mm, pv = res["pp_sp_matmul"], res["pp_view"]
+    print(f"card: {card}; phase 12 ({PPSP_LABEL}): 7B pp=2 burst {ppsp_res['pp_ms_round']:.2f} "
+          f"ms a round, {ppsp_res['pp_ms_step']:.2f} ms/step, {ppsp_res['pp_tok_s']:.1f} tokens/s; "
+          f"sp=2 prefill of 2 x 2048 {ppsp_res['sp_prefill_s']:.2f} s; permutes "
+          f"{ppsp_res['pp_permute_ms']:.3f} / {ppsp_res['sp_permute_ms']:.3f} ms; phase 12 "
+          f"{ppsp_res['phase_s']:.1f} s; kernels at its shapes, op ms (bound, plain): qmatmul M=4 "
+          + ", ".join(f"{n} {v['ms']:.4f} ({v['bound_ms']:.4f}, {v['plain_ms']:.4f})"
+                      for (n, m), v in mm.items() if m == 4)
+          + "; M=1024 "
+          + ", ".join(f"{n} {v['ms']:.4f} ({v['bound_ms']:.4f}, {v['plain_ms']:.4f})"
+                      for (n, m), v in mm.items() if m == 1024)
+          + "; decode attention on a microbatch's view (B=4) "
+          + ", ".join(f"{n} {v['ms']:.4f} ({v['bound_ms']:.4f}, {v['plain_ms']:.4f}; SDPA "
+                      f"{v['library_ms']:.4f})" for n, v in pv.items())
+          + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
+
     csrc, jk = "xbitops_tpu_torch/csrc/", "xbitops_tpu/kernels/"
     src = {
         "qgemv": (csrc + "qgemv_word.cu", jk + "qgemv_kernel.py:51"),
@@ -3749,14 +4137,15 @@ def main() -> int:
         "kv_append_paged": (csrc + "kv_append.cu", jk + "kv_append.py:92"),
         "kv_append_packed_paged": (csrc + "kv_append.cu", jk + "kv_append.py:43"),
     }
-    # launches: each kernel's count over the runs of phases 2 to 11 (the counts
-    # were set to 0 just before each run and read just after it; phase 11's
-    # are each rank's of its main path, summed over the ranks).  An append
+    # launches: each kernel's count over the runs of phases 2 to 12 (the counts
+    # were set to 0 just before each run and read just after it; phases 11
+    # and 12's are each rank's of its main-path runs, summed over the ranks).  An append
     # row counts its own kernel's launches (phase 6: the eager decode), and
     # apart, as fused_launches, the decode-attention launches (csrc/
     # decode_attention.cu) that appended in its form on the serving paths
     runs = (launches2, launches3, launches4, launches5, launches6, launches7, launches8,
-            launches9, launches10a, launches10b, launches10c, *launches11a, *launches11b)
+            launches9, launches10a, launches10b, launches10c, *launches11a, *launches11b,
+            *launches12)
     count = lambda n: sum(ln[n] for ln in runs)
     kernels = [dict(name=n, route="cuda", source=src[n][0], replaces=src[n][1], launches=count(n),
                     **({"fused_launches": count(n + "_fused")} if n in common.APPENDS else {}),

@@ -11,7 +11,8 @@ goes through ``params_from_numpy``) in one 2-rank and one 4-rank gloo world
 one torch thread).  Held: the sharded prefill logits within rel 2e-2 of
 JAX's ``tp_prefill`` on the same trees, on every rank, and the next decode
 step's within rel 2e-2 of JAX's ``tp_decode_step`` (finite on the others, as
-JAX's own tests hold them); ``pack_for_tp`` of the port's own tp=1 models
+JAX's own tests hold them); the one-slot admissions ``tp_prefill_slot`` and
+``tp_prefill_slot_chunk`` within rel 2e-2 of JAX's; ``pack_for_tp`` of the port's own tp=1 models
 (split, fused, fused act-order) within rel 2e-2 of those models; a dp x tp =
 2 x 2 mesh's logits within rel 2e-2 of
 JAX's; expert parallelism over 4 ranks against one rank (prefill logits rtol
@@ -70,6 +71,25 @@ def _jax_tp(params, cfg, mesh, tokens, data_axis=None, decode=True):
         p, cfg, mesh, t, c, data_axis=data_axis))(ps, nxt, cache)
     return np.asarray(logits, np.float32), np.asarray(nxt), np.asarray(step, np.float32)
 
+def _jax_slot(params, mesh, inputs):
+    """JAX's one-slot forms, jitted: a prompt of 6 (padded to 8) into slot 1
+    by ``tp_prefill_slot``; one of 12 into slot 0 in chunks of 8 by
+    ``tp_prefill_slot_chunk``.  Their last-token logits."""
+    ps = jmodel_tp.shard_params(params, mesh)
+    toks = jax.random.randint(jax.random.PRNGKey(21), (20,), 0, JCFG.vocab_size)
+    inputs["slot_tokens"] = np.asarray(jnp.where(jnp.arange(8) < 6, toks[:8], 0))
+    inputs["chunk_tokens"] = np.asarray(jnp.where(jnp.arange(16) < 12, toks[4:], 0))
+    cache = jmodel_tp.shard_cache(jllama.KVCache.init(JCFG, 2), mesh)
+    slot, _ = jax.jit(lambda p, t, c: jmodel_tp.tp_prefill_slot(p, JCFG, mesh, t, 6, 1, c))(
+        ps, jnp.asarray(inputs["slot_tokens"]), cache)
+    chunk = jax.jit(lambda p, t, s, r, c: jmodel_tp.tp_prefill_slot_chunk(
+        p, JCFG, mesh, t, s, 12, 0, c, reset=r))
+    for start in (0, 8):
+        logits, cache = chunk(ps, jnp.asarray(inputs["chunk_tokens"][start:start + 8]), start,
+                              start == 0, cache)
+    return {"slot": np.asarray(slot, np.float32), "slot_chunk": np.asarray(logits, np.float32)}
+
+
 @pytest.fixture(scope="module")
 def world2(tmp_path_factory):
     """JAX's results, then the 2-rank world's."""
@@ -87,6 +107,8 @@ def world2(tmp_path_factory):
         want[f"{name}_prefill"], inputs[f"{name}_next"], want[f"{name}_decode"] = _jax_tp(
             params, JCFG, mesh, tokens, decode=name == "q8")
         inputs[f"{name}_tokens"] = np.asarray(tokens)
+        if name == "q8":
+            want.update(_jax_slot(params, mesh, inputs))
     np.savez(d / "inputs.npz", **inputs)
     ranks.run("model_tp2", 2, d)
     return want, [dict(np.load(d / f"model_rank{r}.npz")) for r in range(2)]
@@ -107,6 +129,17 @@ def test_tp_logits_match_jax(world2, name):
         T = want[f"{name}_prefill"].shape[1]
         assert got[r][f"{name}_lengths"].tolist() == [T + 1, T + 1]  # the decode step wrote
     assert np.array_equal(got[0][f"{name}_prefill"], got[1][f"{name}_prefill"])
+
+@pytest.mark.parametrize("name", ["slot", "slot_chunk"])
+def test_tp_prefill_slot_matches_jax(world2, name):
+    """``model_tp.tp_prefill_slot`` and ``tp_prefill_slot_chunk`` (the
+    one-slot forms of the batched admissions) on JAX's tp=2 q8 tree: the
+    last-token logits [V] on every rank within rel 2e-2 of JAX's functions'."""
+    want, got = world2
+    for r in range(2):
+        assert got[r][name].shape == (JCFG.vocab_size,)
+        assert _rel(got[r][name], want[name]) < 2e-2, (name, r)
+
 
 @pytest.mark.parametrize("name", list(ranks.PACKED))
 def test_pack_for_tp_matches_tp1(world2, name):

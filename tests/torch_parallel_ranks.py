@@ -7,6 +7,7 @@ ranks write their results beside them for the tests to read."""
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
 from pathlib import Path
@@ -19,7 +20,7 @@ from xbitops_tpu_torch.parallel import multihost
 
 def run(case: str, world: int, d: Path) -> None:
     """Run ``case(rank, d)`` on every rank of a new ``world``-rank gloo world."""
-    multihost.spawn(_entry, world, args=(case, str(d)), backend="gloo")
+    multihost.spawn(_entry, world, args=(case, str(d)), backend="gloo", device="cpu")
 
 
 def _entry(rank: int, case: str, d: str) -> None:
@@ -137,7 +138,16 @@ def model_tp2(rank: int, d: Path) -> None:
         out[f"{name}_prefill"] = logits
         nxt = torch.from_numpy(inp[f"{name}_next"]).int()
         out[f"{name}_decode"], _ = model_tp.tp_decode_step(m, cfg, mesh, nxt, cache)
-        out[f"{name}_lengths"] = cache.lengths
+        out[f"{name}_lengths"] = cache.lengths.clone()
+    # the one-slot forms on the q8 tree: a prompt of 6 into slot 1, one of 12
+    # into slot 0 in chunks of 8
+    m = model_tp.shard_params(load_llama(str(d / "q8"), cfg, "cpu", tp=2), mesh)
+    out["slot"], _ = model_tp.tp_prefill_slot(m, cfg, mesh, torch.from_numpy(inp["slot_tokens"]),
+                                              6, 1, llama.KVCache.init(m.cfg, 2, "cpu"))
+    cache, tokens = llama.KVCache.init(m.cfg, 2, "cpu"), torch.from_numpy(inp["chunk_tokens"])
+    for start in (0, 8):
+        out["slot_chunk"], cache = model_tp.tp_prefill_slot_chunk(
+            m, cfg, mesh, tokens[start:start + 8], start, 12, 0, cache, reset=start == 0)
     # pack_for_tp of the port's own tp=1 models against those models
     tokens = torch.from_numpy(inp["q8_tokens"]).long()
     for name, kw in PACKED.items():
@@ -277,3 +287,213 @@ def io_tp2(rank: int, d: Path) -> None:
     if rank == 0:
         (d / "roles.json").write_text(json.dumps(roles))
     _save(d, "io", rank, **out)
+
+
+# --- pipeline parallelism (tests/test_torch_pp.py) ---
+
+
+def _cache(inp, prefix: str = ""):
+    """A whole cache from the arrays the JAX package prefilled: bf16 rows
+    (or int32 words and bf16 scales) and lengths."""
+    from xbitops_tpu_torch.models import llama
+
+    t = lambda k: torch.from_numpy(inp[prefix + k])
+    scales = {}
+    if prefix + "k_scale" in inp.files:
+        scales = dict(k_scale=t("k_scale").to(torch.bfloat16),
+                      v_scale=t("v_scale").to(torch.bfloat16))
+        k, v = t("k"), t("v")
+    else:
+        k, v = t("k").to(torch.bfloat16), t("v").to(torch.bfloat16)
+    return llama.KVCache(k=k, v=v, lengths=t("lengths").int(), **scales)
+
+
+def _whole(cache, mesh, axis: str = "pipe"):
+    """The stages' caches put back together along the layer axis."""
+    from xbitops_tpu_torch.models import llama
+    from xbitops_tpu_torch.parallel.mesh import all_gather
+
+    g = lambda t: None if t is None else all_gather(t, mesh, axis, dim=0)
+    return llama.KVCache(k=g(cache.k), v=g(cache.v), lengths=cache.lengths,
+                         k_scale=g(cache.k_scale), v_scale=g(cache.v_scale))
+
+
+def pp2(rank: int, d: Path) -> None:
+    """Decode steps, bursts and admission at pp=2 (each rank one of the tiny
+    model's 2 layers) from the JAX package's prefilled caches; each case also
+    through the port's one-rank path, and the raises."""
+    from xbitops_tpu_torch.io.checkpoint import load_llama
+    from xbitops_tpu_torch.models import llama
+    from xbitops_tpu_torch.parallel import pp
+    from xbitops_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = _tiny()
+    inp = np.load(d / "inputs.npz")
+    mesh = make_mesh((2,), ("pipe",))
+    full = load_llama(str(d / "p1"), cfg, "cpu")
+    stage = pp.stage_model(full, mesh)
+    out = {"stage_layers": torch.tensor(len(stage.blocks))}
+    toks = torch.from_numpy(inp["toks"]).int()
+
+    for name, prefix, active in (("dec", "", None), ("mask", "", [True, False, True, False]),
+                                 ("int8", "q_", None)):
+        act = None if active is None else torch.tensor(active)
+        tok, want = torch.from_numpy(inp[prefix + "toks"]).int(), _cache(inp, prefix)
+        logits, cache = pp.pp_decode_step(stage, cfg, mesh, tok, pp.stage_cache(want, mesh),
+                                          active=act)
+        one, want = llama.decode_step(full, tok, want, active=act)
+        got = _whole(cache, mesh)
+        out[f"{name}_logits"], out[f"{name}_one"] = logits, one
+        out[f"{name}_lengths"], out[f"{name}_k"] = got.lengths, got.k
+        fields = ("k", "v", "k_scale", "v_scale") if prefix else ("k", "v")
+        out[f"{name}_same_as_one"] = torch.tensor(
+            all(torch.equal(getattr(got, f), getattr(want, f)) for f in fields)
+            and torch.equal(got.lengths, want.lengths))
+
+    # bursts, against n pp_decode_steps of the port; the second with an
+    # inactive slot and one a position from the capacity
+    S = cfg.max_seq_len
+    for name, n, active, near_full in (("burst", 5, None, False),
+                                       ("burst_mask", 4, [True, True, False, True], True)):
+        act = None if active is None else torch.tensor(active)
+        whole = _cache(inp)
+        if near_full:
+            whole.lengths[3] = S - 1
+        tokens, cache = pp.pp_decode_burst(stage, cfg, mesh, toks, pp.stage_cache(whole, mesh), n,
+                                           active=act)
+        seq_cache, cur, seq = pp.stage_cache(whole, mesh), toks, []
+        for _ in range(n):
+            logits, seq_cache = pp.pp_decode_step(stage, cfg, mesh, cur, seq_cache, active=act)
+            cur = logits.argmax(-1).int()
+            if act is not None:
+                cur = torch.where(act, cur, 0)
+            seq.append(cur)
+        out[f"{name}_tokens"], out[f"{name}_seq"] = tokens, torch.stack(seq)
+        got = _whole(cache, mesh)
+        out[f"{name}_lengths"], out[f"{name}_k"] = got.lengths, got.k
+        out[f"{name}_cache_same"] = torch.tensor(
+            torch.equal(cache.k, seq_cache.k) and torch.equal(cache.v, seq_cache.v)
+            and torch.equal(cache.lengths, seq_cache.lengths))
+
+    # admission into fresh slots, then one ordinary decode step from the gathered cache
+    tokens, lens = torch.from_numpy(inp["pre_tokens"]).long(), torch.from_numpy(inp["pre_lens"])
+    B = tokens.shape[0]
+    logits, cache = pp.pp_prefill_slots(stage, cfg, mesh, tokens, lens,
+                                        llama.KVCache.init(stage.cfg, B, "cpu"))
+    one, one_cache = llama.prefill_slots(full, tokens, lens, torch.arange(B),
+                                         llama.KVCache.init(cfg, B, "cpu"))
+    got = _whole(cache, mesh)
+    out.update(pre_logits=logits, pre_one=one, pre_lengths=got.lengths.clone(), pre_k=got.k,
+               pre_same_as_one=torch.tensor(torch.equal(got.k, one_cache.k)
+                                            and torch.equal(got.v, one_cache.v)))
+    nxt = logits.argmax(-1).int()
+    out["pre_decode"] = llama.decode_step(full, nxt, got)[0]
+    out["pre_decode_one"] = llama.decode_step(full, nxt, one_cache)[0]
+
+    cache = llama.KVCache.init(stage.cfg, 4, "cpu")
+    paged = llama.KVCache.init_paged(stage.cfg, 4, 8, 16, device="cpu")
+    msgs = [_raises(lambda: pp.pp_decode_step(stage, cfg, mesh, toks[:3], cache)),
+            _raises(lambda: pp.pp_decode_step(stage, cfg, mesh, toks, paged)),
+            _raises(lambda: pp.pp_decode_step(full, cfg, mesh, toks, cache)),
+            _raises(lambda: pp.stage_model(llama.init_params(
+                torch.Generator().manual_seed(0), _tiny(), bits=4, group_size=32).with_config(
+                dataclasses.replace(cfg, num_layers=1)), mesh))]
+    (d / f"raises_rank{rank}.json").write_text(json.dumps(msgs))
+    _save(d, "pp2", rank, **out)
+
+
+def pp4(rank: int, d: Path) -> None:
+    """A (pipe, model) = 2 x 2 mesh: the JAX package's tp=2 tree, each rank
+    one layer's shard; a decode step and a burst from the prefilled cache."""
+    from xbitops_tpu_torch.io.checkpoint import load_llama
+    from xbitops_tpu_torch.parallel import pp
+    from xbitops_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = _tiny()
+    inp = np.load(d / "inputs.npz")
+    mesh = make_mesh((2, 2), ("pipe", "model"))
+    stage = pp.stage_model(load_llama(str(d / "p2"), cfg, "cpu", tp=2), mesh, tp_axis="model")
+    toks = torch.from_numpy(inp["toks"]).int()
+    out = {"heads": torch.tensor(stage.cfg.num_heads)}
+    whole = _cache(inp)
+    out["logits"], cache = pp.pp_decode_step(stage, cfg, mesh, toks,
+                                             pp.stage_cache(whole, mesh, tp_axis="model"),
+                                             tp_axis="model")
+    out["k"], out["lengths"] = cache.k, cache.lengths
+    tokens, burst = pp.pp_decode_burst(stage, cfg, mesh, toks,
+                                       pp.stage_cache(whole, mesh, tp_axis="model"), 3,
+                                       tp_axis="model")
+    seq_cache, cur, seq = pp.stage_cache(whole, mesh, tp_axis="model"), toks, []
+    for _ in range(3):
+        logits, seq_cache = pp.pp_decode_step(stage, cfg, mesh, cur, seq_cache, tp_axis="model")
+        cur = logits.argmax(-1).int()
+        seq.append(cur)
+    out["burst_tokens"], out["burst_seq"] = tokens, torch.stack(seq)
+    out["burst_cache_same"] = torch.tensor(torch.equal(burst.k, seq_cache.k))
+    _save(d, "pp4", rank, **out)
+
+
+# --- sequence parallelism (tests/test_torch_seqpar.py) ---
+
+# name -> (packed directory, config options, tp)
+SP_TREES = {"plain": ("sp_plain", {}, 1), "stacked": ("sp_stacked", {}, 1),
+            "window": ("sp_window", dict(sliding_window=8), 1), "tp": ("sp_tp", {}, 2)}
+
+
+def seq4(rank: int, d: Path) -> None:
+    """Ring attention at sp=4 on chunks of the same f32 inputs, and
+    ``sp_prefill`` of the JAX package's trees at sp=4 and at (seq, model) =
+    2 x 2, each followed by one ordinary greedy decode step; the raises."""
+    from xbitops_tpu_torch.io.checkpoint import load_llama
+    from xbitops_tpu_torch.models import llama
+    from xbitops_tpu_torch.parallel import model_tp, seqpar
+    from xbitops_tpu_torch.parallel.mesh import make_mesh
+
+    inp = np.load(d / "inputs.npz")
+    t = lambda k: torch.from_numpy(inp[k])
+    seq = make_mesh((4,), ("seq",))
+    sp_tp = make_mesh((2, 2), ("seq", "model"))
+    c = seq.index("seq")
+    out = {}
+    for name in ("rep1", "rep2", "reversed", "window"):
+        q, k, v, qp, kp = (t(f"{name}_{x}") for x in ("q", "k", "v", "q_pos", "kv_pos"))
+        n = q.shape[1] // 4
+        part = lambda x: x[:, c * n:(c + 1) * n]
+        window = int(inp[f"{name}_window"]) or None
+        out[f"ring_{name}"] = seqpar.ring_attention(part(q), part(k), part(v), part(qp),
+                                                    part(kp), seq, window=window)
+    for name, (path, kw, tp) in SP_TREES.items():
+        cfg = dataclasses.replace(_tiny(), **kw)
+        full = load_llama(str(d / path), cfg, "cpu", tp=tp)
+        mesh = sp_tp if tp > 1 else seq
+        model = model_tp.shard_params(full, mesh) if tp > 1 else full
+        tokens = t(f"{name}_tokens").long()
+        B = tokens.shape[0]
+        logits, cache = seqpar.sp_prefill(model, cfg, mesh, tokens,
+                                          llama.KVCache.init(model.cfg, B, "cpu"),
+                                          tp_axis="model" if tp > 1 else None)
+        out[f"{name}_logits"], out[f"{name}_k"], out[f"{name}_v"] = logits, cache.k, cache.v
+        out[f"{name}_lengths"] = cache.lengths.clone()
+        nxt = logits.argmax(-1).int()
+        if tp > 1:
+            out[f"{name}_decode"] = model_tp.tp_decode_step(model, cfg, mesh, nxt, cache)[0]
+        else:
+            out[f"{name}_decode"] = llama.decode_step(model, nxt, cache)[0]
+            one, one_cache = llama.prefill(model, tokens, llama.KVCache.init(cfg, B, "cpu"))
+            out[f"{name}_one"] = one[:, -1]
+            out[f"{name}_one_decode"] = llama.decode_step(model, one[:, -1].argmax(-1).int(),
+                                                          one_cache)[0]
+    cfg = _tiny()
+    full = load_llama(str(d / "sp_plain"), cfg, "cpu")
+    dense = llama.KVCache.init(cfg, 2, "cpu")
+    msgs = [_raises(lambda: seqpar.sp_prefill(full, cfg, seq, torch.zeros((2, 10), dtype=torch.long),
+                                              dense)),
+            _raises(lambda: seqpar.sp_prefill(full, cfg, seq, torch.zeros((2, 32), dtype=torch.long),
+                                              llama.KVCache.init(cfg, 2, "cpu", quantized=True))),
+            _raises(lambda: seqpar.sp_prefill(full, cfg, seq, torch.zeros((2, 32), dtype=torch.long),
+                                              llama.KVCache.init_paged(cfg, 2, 4, 16,
+                                                                       device="cpu"))),
+            _raises(lambda: seqpar.sp_prefill(full, cfg, seq, torch.zeros((2, 128), dtype=torch.long),
+                                              dense))]
+    (d / f"raises_rank{rank}.json").write_text(json.dumps(msgs))
+    _save(d, "seq4", rank, **out)

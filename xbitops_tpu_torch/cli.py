@@ -91,8 +91,7 @@ def cmd_generate(args) -> int:
     if args.tp > 1:
         from xbitops_tpu_torch.parallel import multihost
 
-        multihost.spawn(_generate_rank, args.tp, args=(args,),
-                        backend="gloo" if args.device == "cpu" else None)
+        multihost.spawn(_generate_rank, args.tp, args=(args,), device=args.device)
         return 0
     _generate(args)
     return 0

@@ -94,20 +94,22 @@ def stacked_view(k, v, k_scale, v_scale, layer_idx, window, page_table=None):
 def check_cache(k_all, v_all, ks_all=None, vs_all=None):
     """Reject a stacked cache the kernels do not take; returns
     ``(L, B, Hkv, S, D)`` with S in positions.  bf16 rows [L, B, Hkv, S, D],
-    or with scales the packed int8 form."""
+    or with scales the packed int8 form.  A kernel reads one layer, so each
+    layer must be contiguous, not the stack: a range of slots of every layer
+    (``cache.k[:, lo:hi]``, a pipeline stage's microbatch) is taken."""
     req = common.require
     int8 = ks_all is not None
     L, B, Hkv, rows, D = k_all.shape
     for t in (k_all, v_all):
-        req(t.dtype == (torch.int32 if int8 else torch.bfloat16) and t.is_contiguous()
+        req(t.dtype == (torch.int32 if int8 else torch.bfloat16) and t[0].is_contiguous()
             and t.shape == k_all.shape and t.device == k_all.device,
-            "k/v caches: contiguous int32 words [L, B, Hkv, S/4, D]" if int8
-            else "k/v caches: contiguous bf16 [L, B, Hkv, S, D]")
+            "k/v caches: int32 words [L, B, Hkv, S/4, D], each layer contiguous" if int8
+            else "k/v caches: bf16 [L, B, Hkv, S, D], each layer contiguous")
     if int8:
         for t in (ks_all, vs_all):
-            req(t is not None and t.dtype == torch.bfloat16 and t.is_contiguous()
+            req(t is not None and t.dtype == torch.bfloat16 and t[0].is_contiguous()
                 and t.shape == (L, B, 4, Hkv, rows) and t.device == k_all.device,
-                f"k/v scales: contiguous bf16 [{L}, {B}, 4, {Hkv}, {rows}]")
+                f"k/v scales: bf16 [{L}, {B}, 4, {Hkv}, {rows}], each layer contiguous")
     return L, B, Hkv, rows * (4 if int8 else 1), D
 
 

@@ -522,20 +522,14 @@ class LlamaBlock(nn.Module):
             out.update(child.weights() if name == "moe" else {name: linear_weight(child)})
         return out
 
-    def forward(self, x, positions, rope, cache: KVCache, li: int, mask, slot_ids=None,
-                self_attend: bool = False, use_kernel: bool = True,
-                flash_prefill: bool = False, kv_unaligned: bool = False):
-        """x [B, T, hidden] at ``positions`` [B, T] (``rope``: their
-        :func:`rope_tables`); writes layer ``li`` of ``cache`` in place
-        (``kv_unaligned``: by :func:`_write_unaligned`).  ``mask`` None means
-        a kernel attends: the prefill-attention kernel with ``flash_prefill``,
-        else decode through the decode-attention kernel."""
+    def qkv(self, x, rope, use_kernel: bool = True, a8: bool = False):
+        """The attention's inputs from x [B, T, hidden] (``rope``: the
+        :func:`rope_tables` of its positions): q [B, T, H, D], k and v
+        [B, T, Hkv, D], q and k rotated."""
         cfg = self.cfg
         B, T, _ = x.shape
         H, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         qdim, kvdim = H * D, Hkv * D
-        a8 = cfg.prefill_a8 and T >= A8_MIN_T
-
         hx = rms_norm(x, self.ln_attn, cfg.rms_eps)
         if hasattr(self, "wqkv"):
             qkv = self.wqkv(hx, use_kernel, a8)
@@ -546,8 +540,39 @@ class LlamaBlock(nn.Module):
             q = self.wq(hx, use_kernel, a8).reshape(B, T, H, D)
             k = self.wk(hx, use_kernel, a8).reshape(B, T, Hkv, D)
             v = self.wv(hx, use_kernel, a8).reshape(B, T, Hkv, D)
-        q = _rope(q, rope)
-        k = _rope(k, rope)
+        return _rope(q, rope), _rope(k, rope), v
+
+    def out(self, x, att, use_kernel: bool = True, a8: bool = False):
+        """The block's output from its input x and the attention's output att
+        [B, T, H, D]: the residual through wo, then through the MLP (or the
+        routed experts)."""
+        cfg = self.cfg
+        B, T, _ = x.shape
+        x = x + self.wo(att.reshape(B, T, cfg.num_heads * cfg.head_dim), use_kernel, a8)
+        hx = rms_norm(x, self.ln_mlp, cfg.rms_eps)
+        if hasattr(self, "moe"):
+            return x + self.moe(hx, use_kernel, a8)
+        if hasattr(self, "w_gateup"):
+            gu = self.w_gateup(hx, use_kernel, a8)
+            gate, up = gu[..., : cfg.intermediate_size], gu[..., cfg.intermediate_size :]
+        else:
+            gate, up = self.w_gate(hx, use_kernel, a8), self.w_up(hx, use_kernel, a8)
+        act = (torch.nn.functional.silu(gate.float()) * up.float()).to(x.dtype)
+        return x + self.w_down(act, use_kernel, a8)
+
+    def forward(self, x, positions, rope, cache: KVCache, li: int, mask, slot_ids=None,
+                self_attend: bool = False, use_kernel: bool = True,
+                flash_prefill: bool = False, kv_unaligned: bool = False):
+        """x [B, T, hidden] at ``positions`` [B, T] (``rope``: their
+        :func:`rope_tables`); writes layer ``li`` of ``cache`` in place
+        (``kv_unaligned``: by :func:`_write_unaligned`).  ``mask`` None means
+        a kernel attends: the prefill-attention kernel with ``flash_prefill``,
+        else decode through the decode-attention kernel."""
+        cfg = self.cfg
+        B, T, _ = x.shape
+        D = cfg.head_dim
+        a8 = cfg.prefill_a8 and T >= A8_MIN_T
+        q, k, v = self.qkv(x, rope, use_kernel, a8)
 
         S = cache.S
         scales = (dict(k_scale=cache.k_scale, v_scale=cache.v_scale) if cache.quantized else {})
@@ -584,18 +609,7 @@ class LlamaBlock(nn.Module):
                     window=cfg.sliding_window, page_table=table, **scales)
             else:  # eager, over every row of the slots
                 att = _attention(q, *_slot_rows(cache, li, slot_ids), mask, D ** -0.5)
-        x = x + self.wo(att.reshape(B, T, qdim), use_kernel, a8)
-
-        hx = rms_norm(x, self.ln_mlp, cfg.rms_eps)
-        if hasattr(self, "moe"):
-            return x + self.moe(hx, use_kernel, a8)
-        if hasattr(self, "w_gateup"):
-            gu = self.w_gateup(hx, use_kernel, a8)
-            gate, up = gu[..., : cfg.intermediate_size], gu[..., cfg.intermediate_size :]
-        else:
-            gate, up = self.w_gate(hx, use_kernel, a8), self.w_up(hx, use_kernel, a8)
-        act = (torch.nn.functional.silu(gate.float()) * up.float()).to(x.dtype)
-        return x + self.w_down(act, use_kernel, a8)
+        return self.out(x, att, use_kernel, a8)
 
 
 class Llama(nn.Module):
@@ -648,14 +662,32 @@ class Llama(nn.Module):
         ``kv_unaligned``: the T > 1 rows of a slot may start at any position
         (speculative verify; row i -> slot i), see the module docstring.
         ``use_kernel=False`` runs every kernel's plain version."""
-        if kv_unaligned and (slot_ids is not None or self_attend):
-            raise ValueError("kv_unaligned writes row i to slot i: no slot_ids, no self_attend")
-        cfg = self.cfg
-        B, T = tokens.shape
         S = cache.S
         positions = positions.long()
         x = self.embed[tokens.long()].to(torch.bfloat16)
+        x = self.layers(x, cache, positions, slot_ids, self_attend, kv_unaligned, use_kernel)
+        logits = self.head(x, logits_rows, use_kernel)
+        valid_next = torch.where(positions < S, positions + 1, 0).amax(dim=1).to(torch.int32)
+        if slot_ids is None:
+            torch.maximum(cache.lengths, valid_next, out=cache.lengths)
+        else:
+            rows = slot_ids.long()
+            ok = (rows >= 0) & (rows < cache.lengths.shape[0])
+            rows, vals = rows[ok], valid_next[ok]
+            cache.lengths[rows] = torch.maximum(cache.lengths[rows], vals)
+        return logits, cache
 
+    def layers(self, x, cache: KVCache, positions, slot_ids=None, self_attend: bool = False,
+               kv_unaligned: bool = False, use_kernel: bool = True) -> torch.Tensor:
+        """The blocks of :meth:`forward` on embedded rows x [B, T, hidden]:
+        the same routes (decode kernel, prefill kernel or eager attention),
+        the cache's layers written in place, its lengths left as they are."""
+        if kv_unaligned and (slot_ids is not None or self_attend):
+            raise ValueError("kv_unaligned writes row i to slot i: no slot_ids, no self_attend")
+        cfg = self.cfg
+        T = x.shape[1]
+        S = cache.S
+        positions = positions.long()
         flash = cfg.flash_decode and cfg.head_dim % 128 == 0
         decode = T == 1 and slot_ids is None and not self_attend and flash and S >= FLASH_MIN_S
         # T > 1 against the cache (a chunk of a long prompt, or a whole prompt
@@ -671,7 +703,7 @@ class Llama(nn.Module):
                 mask &= positions[:, :, None] - positions[:, None, :] < cfg.sliding_window
         elif not decode and not flash_prefill:
             # mask[b, q, s]: cache position s visible to query q
-            s_idx = torch.arange(S, device=tokens.device)[None, None, :]
+            s_idx = torch.arange(S, device=x.device)[None, None, :]
             mask = s_idx <= positions[:, :, None]
             if cfg.sliding_window is not None:
                 mask &= positions[:, :, None] - s_idx < cfg.sliding_window
@@ -681,21 +713,17 @@ class Llama(nn.Module):
         for li, block in enumerate(self.blocks):
             x = block(x, positions, rope, cache, li, mask, slot_ids, self_attend, use_kernel,
                       flash_prefill, kv_unaligned)
+        return x
 
-        x = rms_norm(x, self.ln_final, cfg.rms_eps)
+    def head(self, x, logits_rows: Optional[torch.Tensor] = None,
+             use_kernel: bool = True) -> torch.Tensor:
+        """The final norm and lm_head of x [B, T, hidden]: logits [B, T, V],
+        or ``[B, 1, V]`` of the rows' ``logits_rows`` [B] only."""
+        x = rms_norm(x, self.ln_final, self.cfg.rms_eps)
         if logits_rows is not None:
-            idx = logits_rows.long()[:, None, None].expand(B, 1, x.shape[-1])
+            idx = logits_rows.long()[:, None, None].expand(x.shape[0], 1, x.shape[-1])
             x = torch.gather(x, 1, idx)  # [B, 1, h]
-        logits = self.lm_head(x, use_kernel)
-        valid_next = torch.where(positions < S, positions + 1, 0).amax(dim=1).to(torch.int32)
-        if slot_ids is None:
-            torch.maximum(cache.lengths, valid_next, out=cache.lengths)
-        else:
-            rows = slot_ids.long()
-            ok = (rows >= 0) & (rows < cache.lengths.shape[0])
-            rows, vals = rows[ok], valid_next[ok]
-            cache.lengths[rows] = torch.maximum(cache.lengths[rows], vals)
-        return logits, cache
+        return self.lm_head(x, use_kernel)
 
 
 def init_params(

@@ -8,8 +8,9 @@ coordinate on it.  A sum is ``all_reduce``, a gather
 ``all_gather_into_tensor`` and a sum-and-slice ``reduce_scatter_tensor``, the
 same calls on every backend: gloo on the CPU, gloo with ranks that share a
 card (NCCL refuses two ranks on one card; gloo takes all three for CUDA
-tensors, ``utils/collectives_probe.py``) and NCCL with a card a rank.  An
-axis of size 1 makes no call.
+tensors, ``utils/collectives_probe.py``) and NCCL with a card a rank.  A ring
+permute (``lax.ppermute``) is ``all_to_all_single`` with one nonzero split
+each way (:func:`ppermute`).  An axis of size 1 makes no call.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-__all__ = ["Mesh", "make_mesh", "psum", "all_gather", "psum_scatter"]
+__all__ = ["Mesh", "make_mesh", "psum", "all_gather", "psum_scatter", "ppermute"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,3 +126,30 @@ def psum_scatter(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = -1) -> torch
     out = x.new_empty((x.shape[0] // n, *x.shape[1:]))
     dist.reduce_scatter_tensor(out, x, group=mesh.group(axis))
     return out.movedim(0, dim).contiguous()
+
+
+def ppermute(x: torch.Tensor, mesh: Mesh, axis: str, shift: int = 1) -> torch.Tensor:
+    """The ring permute of ``lax.ppermute`` with pairs ``(i, (i + shift) % n)``:
+    every rank of ``axis`` sends ``x`` to the rank at coordinate ``(c + shift)
+    % n`` and returns what the rank at ``(c - shift) % n`` sent.  ``x`` has
+    the same shape and dtype on every rank.
+
+    One ``all_to_all_single`` whose input splits are 0 except at the
+    destination and whose output splits are 0 except at the source.  Gloo
+    takes it for CUDA tensors, while ``send`` / ``recv`` and
+    ``batch_isend_irecv`` of a CUDA tensor hand gloo's TCP transport the
+    device pointer and end the process ("Bad address";
+    ``utils/collectives_probe.py``, torch 2.11 on an H100); NCCL and gloo on
+    the CPU take it too, so one call serves every backend, as :func:`psum`
+    does."""
+    n = mesh.shape[axis]
+    if shift % n == 0:
+        return x
+    c = mesh.index(axis)
+    flat = x.reshape(-1).contiguous()
+    out = torch.empty_like(flat)
+    send, recv = [0] * n, [0] * n
+    send[(c + shift) % n] = recv[(c - shift) % n] = flat.numel()
+    dist.all_to_all_single(out, flat, output_split_sizes=recv, input_split_sizes=send,
+                           group=mesh.group(axis))
+    return out.view(x.shape)

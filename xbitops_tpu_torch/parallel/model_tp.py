@@ -38,8 +38,8 @@ from xbitops_tpu_torch.parallel.mesh import Mesh, all_gather
 from xbitops_tpu_torch.parallel.tp import Role, local_weight
 
 __all__ = ["pack_for_tp", "shard_params", "shard_cache", "tp_forward", "tp_decode_step",
-           "tp_spec_verify_step", "tp_prefill_slots", "tp_prefill_slots_chunk", "tp_prefill",
-           "step_functions"]
+           "tp_spec_verify_step", "tp_prefill_slot", "tp_prefill_slot_chunk", "tp_prefill_slots",
+           "tp_prefill_slots_chunk", "tp_prefill", "step_functions"]
 
 _COL_KEYS = {"wq", "wk", "wv", "wqkv", "w_gate", "w_up", "w_gateup"}
 _ROW_KEYS = {"wo", "w_down"}
@@ -209,6 +209,21 @@ def tp_prefill_slots(model: Llama, cfg: LlamaConfig, mesh: Mesh, tokens, true_le
     """Sharded :func:`~llama.prefill_slots`."""
     _check(model, cfg, mesh, axis)
     return llama.prefill_slots(model, tokens, true_lens, slots, cache)
+
+
+def tp_prefill_slot_chunk(model: Llama, cfg: LlamaConfig, mesh: Mesh, tokens, start: int,
+                          true_len: int, slot: int, cache: llama.KVCache, axis: str = "model",
+                          reset: bool = False):
+    """Sharded :func:`~llama.prefill_slot_chunk`: the logits [V] on every rank."""
+    _check(model, cfg, mesh, axis)
+    return llama.prefill_slot_chunk(model, tokens, start, true_len, slot, cache, reset=reset)
+
+
+def tp_prefill_slot(model: Llama, cfg: LlamaConfig, mesh: Mesh, tokens, true_len: int,
+                    slot: int, cache: llama.KVCache, axis: str = "model"):
+    """Sharded :func:`~llama.prefill_slot`: the logits [V] on every rank."""
+    _check(model, cfg, mesh, axis)
+    return llama.prefill_slot(model, tokens, true_len, slot, cache)
 
 
 def step_functions(cfg: LlamaConfig, mesh: Mesh, axis: str = "model") -> SimpleNamespace:
