@@ -28,7 +28,17 @@
    ``layer(e)`` view of a stacked QTensor of 8 experts, expert gate|up
    (4096x28672) and expert down (14336x4096); decode attention with its
    append and prefill attention at H=32, Hkv=8 (GQA rep 4), bf16 and int8,
-   each beside its plain version, its bound and SDPA.
+   each beside its plain version, its bound and SDPA.  The fp16 and f32
+   caches' forms (``kernels_dense``): decode attention with its append
+   (B=8, H=Hkv=32 and GQA rep 4, S=2048, the seven ragged slots and one at
+   S), the append alone and prefill attention (8 x 512 and the verify's
+   8 x 5), each linear and paged (pages of 256), against their plain
+   versions on the same cache: appends bit-equal to the plain cast, fp16
+   outputs within abs 2e-2, f32 outputs within 2e-2 and within abs 4e-3
+   beyond the rounding of their bf16 output (``beyond_rounding``); timed
+   beside SDPA on the rows in the cache's type (q cast to it), the bound at
+   2 or 4 bytes an element (the f32 forms' operations counted as the bf16
+   products of their split, 2.5 a product).
 2. Drives the serving path: a random 4-bit (g=128) Llama-2-7B at full width
    and depth through ``Engine.generate`` with 12 requests on 8 slots over the
    bf16 KV cache, then checks the outputs, that every kernel of that path
@@ -179,6 +189,21 @@
    PP decode microbatch, the few-rows form) and M=1024 (an SP chunk, the tile)
    on the five 7B shapes, and decode attention with its append on a
    microbatch's view ``k[:, 4:8]`` of an 8-slot cache (B=4), bf16 and int8.
+
+13. Drives the fp16 and f32 KV caches at full width and depth: (a) the
+   copy-model of Llama-2-7B (4-bit g=128, 8 slots, S=2048, bursts of 8)
+   serves 9 greedy requests (prompts of 16-500 and one of 1500 admitted in 3
+   chunks of 512, 32 new tokens) over the bf16, the f32 and the fp16 cache:
+   tokens the cycle and equal across the three; (c) the f32 and fp16 runs
+   again with eager bursts, tokens equal; (d) a pool of 24 pages of 256,
+   tokens equal to the linear cache's; (e) n-gram speculation at γ=4, linear
+   and paged, tokens equal (the verify's rows through the append, #4, and its
+   attention through #9); (b) on the random model's 2-layer cut, a chunk
+   forward of 5 x 512 at positions 512-1023 and a decode step, block by
+   block against the plain path on the same cache (rel 2e-2); then each
+   cache's decode step at 8 x 1000 live positions, replayed as a graph,
+   beside ``utils/profiling.decode_roofline``'s bound at 2 or 4 bytes an
+   element.
 
 In every serving phase each decode burst is a replay of a CUDA graph the
 engine captured (``loop_stats["graph_replays"]`` equals the bursts run); in
@@ -421,6 +446,7 @@ def phase_kernels(dev, timer):
     res.update(kernels_prefill(dev, timer, gen))
     res["pp_view"] = kernels_pp_view(dev, timer, gen)
     res.update(kernels_paged(dev, timer, gen))
+    res.update(kernels_dense(dev, timer, gen))
     res["mixtral"] = kernels_at(dev, timer, gen, "Mixtral", mixtral_mats(gen), (8, 40, 2560), 32, 8)
     # one rank's shards of 7B at tp=2: the five matmuls at M = 8, attention at
     # 16 local heads
@@ -807,6 +833,277 @@ def kernels_decode(dev, timer, gen):
     print(f"decode attention B=8 live=1000 S={S} MHA, no append: bf16 cache {bf:.4f} ms, int8 "
           f"cache {i8:.4f} ms (int8 / bf16 = {i8 / bf:.3f})", flush=True)
     res["live1000"] = dict(bf16_ms=bf, int8_ms=i8)
+    return res
+
+
+# The fp16 and f32 caches' forms of #2, #9 and #4 (csrc/kvtype.cuh).  Their
+# q and outputs stay bf16; the f32 forms multiply on the bf16 tensor cores, each
+# f32 operand split into a high and a low bf16 part: 2 products for q k^T and 3
+# for p v where a 16-bit form takes one (SPLIT_PRODUCTS a product on average).
+DENSE = {"f16": torch.float16, "f32": torch.float32}
+SPLIT_PRODUCTS = 2.5
+
+
+def beyond_rounding(out, ref32) -> float:
+    """Largest |out - ref32| beyond half a bf16 unit in the last place of
+    ``ref32``: the error of a bf16 output ``out`` that its own rounding does not
+    explain, against the plain version's unrounded f32 result."""
+    half = torch.ldexp(torch.ones_like(ref32), torch.frexp(ref32).exponent - 9)
+    return ((out.float() - ref32).abs() - half).clamp(min=0).max().item()
+
+
+def held_dense(out, want, want32, dtype, label):
+    """A dense form's bf16 output against its plain version on the same cache:
+    abs 2e-2 (the bf16 forms' tolerance) for both types, and for f32 abs 4e-3
+    beyond the output's own rounding: both sides are bf16, so where the two f32
+    results straddle a rounding boundary they part by one unit in the last
+    place (7.8e-3 at |out| in [1, 2)) whatever the arithmetic, while a form that
+    rounded the cache to bf16 leaves ~5e-3 beyond it.  Returns both errors."""
+    e = (out.float() - want.float()).abs().max().item()
+    check(e <= 2e-2, f"{label}: abs err {e:.3e} > 2e-2")
+    check(torch.isfinite(out.float()).all().item(), f"{label}: non-finite output")
+    if dtype != torch.float32:
+        return e, None
+    b = beyond_rounding(out, want32)
+    check(b <= 4e-3, f"{label}: abs err {b:.3e} beyond the bf16 output's rounding > 4e-3")
+    return e, b
+
+
+def kernels_dense(dev, timer, gen):
+    """The fp16 and f32 caches' forms of decode attention with its append (#2),
+    the append alone (#4) and prefill attention (#9), linear and paged (pages of
+    256 cut from the linear cache), at the bf16 forms' shapes: held to their
+    plain versions on the same cache and timed beside SDPA on the rows in the
+    cache's type (q cast to it)."""
+    from xbitops_tpu_torch.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_reference,
+    )
+    from xbitops_tpu_torch.kernels.kv_append import (
+        gather_pages,
+        kv_append_dense,
+        kv_append_dense_reference,
+    )
+    from xbitops_tpu_torch.kernels.prefill_attention import (
+        prefill_attention,
+        prefill_attention_reference,
+    )
+    from xbitops_tpu_torch.utils.synth import cut_pages
+
+    res = {}
+    S, D, L, psz = 2048, 128, 2, 256
+    P = S // psz
+    lens_live = [1, 7, 128, 1000, 2047, 2048, 513]  # + one inactive slot: no page, length S
+    B = len(lens_live) + 1
+    pos = torch.tensor([n - 1 for n in lens_live] + [S], device=dev)
+    lens = torch.clamp(pos + 1, max=S)
+    held = torch.where(pos < S, lens, 0)
+    act = pos < S
+    s_idx = torch.arange(S, device=dev)
+    mask = (s_idx[None] < lens[:, None])[:, None, None, :]
+    ar = torch.arange(B, device=dev)
+    # chunked admission (8 rows of 512, ragged, one inert) and a verify (8 slots of 5)
+    N, T = 8, 512
+    starts = torch.tensor([0, 512, 1024, 1536, 1024, 0, 512, 0], device=dev)
+    plens = torch.tensor([512, 1024, 1536, 2048, 1324, 100, 900, 0], device=dev)
+    pslots = torch.tensor([3, 0, 7, 1, 5, 2, 6, N], device=dev)
+    ppos = starts[:, None] + torch.arange(T, device=dev)[None]
+    ppos = torch.where(ppos < plens[:, None], ppos, S)
+    vstart = torch.tensor([3, 100, 1000, 2043, 511, 0, 1500, S], device=dev)  # last: inactive
+    vpos = (vstart[:, None] + torch.arange(5, device=dev)[None]).clamp(max=S)
+    chunks = {"chunk": (ppos, pslots), "verify": (vpos, ar)}
+
+    for kind, dtype in DENSE.items():
+        esz = torch.finfo(dtype).bits // 8
+        ops = 1.0 if dtype == torch.float16 else SPLIT_PRODUCTS  # bf16/fp16 products a product
+        worst = {}
+
+        def keep(name, errs):
+            w = worst.setdefault(name, [0.0, 0.0])
+            w[0] = max(w[0], errs[0])
+            w[1] = max(w[1], errs[1] or 0.0)
+
+        # --- #2 with its append: MHA (timed) and GQA rep 4 ---
+        for H, Hkv in ((32, 32), (32, 8)):
+            timed = H == Hkv
+            q = torch.randn(B, H, D, device=dev, generator=gen).to(torch.bfloat16)
+            linear = [torch.randn(L, B, Hkv, S, D, device=dev, generator=gen).to(dtype)
+                      for _ in range(2)]
+            new = [torch.randn(B, Hkv, D, device=dev, generator=gen).to(torch.bfloat16)
+                   for _ in range(2)]
+            table, pools = cut_pages(gen, linear, P, held)
+            for paged in (False, True):
+                cache, tbl = (pools, table) if paged else (linear, None)
+                sfx = f"_{kind}" + ("_paged" if paged else "")
+                name, label = "decode_attention" + sfx, f"decode_attention{sfx}+append H={H} Hkv={Hkv}"
+                ref = [t.clone() for t in cache]
+                call = (lambda c=cache, t=tbl: decode_attention(
+                    q, c[0], c[1], lens, layer_idx=1, kv_new=(*new, pos), page_table=t))
+                out, after = fused_once(call, name, "kv_append" + sfx, cache)
+                kv_append_dense_reference(*ref, *new, pos, 1, tbl)
+                same = all(torch.equal(a, b) for a, b in zip(after, ref))
+                del after
+                want = decode_attention_reference(q, ref[0][1], ref[1][1], lens, page_table=tbl)
+                want32 = decode_attention_reference(q.float(), ref[0][1], ref[1][1], lens,
+                                                    page_table=tbl)
+                # a paged inactive slot reads page 0, which another slot may be writing
+                # in the same launch: its output is not defined
+                rows = slice(0, B - 1) if paged else slice(None)
+                errs = held_dense(out[rows], want[rows], want32[rows], dtype, label)
+                check(same, f"{label}: appended rows differ from the plain append (cast)")
+                print(f"{label} B={B} S={S}{' page_size=256' if paged else ''}: rows exact "
+                      f"{same}, max abs err {errs[0]:.2e}"
+                      + (f", {errs[1]:.2e} beyond the bf16 output's rounding" if errs[1] is not None
+                         else ""), flush=True)
+                keep(name, errs)
+                if not timed:
+                    continue
+                ms = timer(call)
+                plain_ms = timer(lambda c=cache, t=tbl: (
+                    kv_append_dense_reference(*c, *new, pos, 1, t),
+                    decode_attention_reference(q, c[0][1], c[1][1], lens, page_table=t)), iters=3)
+                # yardstick: two index_copy_ of the new rows (cast to the cache's type
+                # beforehand) and SDPA on the rows in the cache's type, q cast to it
+                qd = q.to(dtype)
+                if paged:
+                    pg = table[ar, (pos // psz).clamp(max=P - 1)].long()
+                    rws = ((pg[:, None] * Hkv + torch.arange(Hkv, device=dev)[None]) * psz
+                           + (pos % psz)[:, None])[act].reshape(-1)
+                    kd, vd = gather_pages(cache[0][1], table), gather_pages(cache[1][1], table)
+                else:
+                    rws = ((ar[:, None] * Hkv + torch.arange(Hkv, device=dev)[None]) * S
+                           + pos[:, None])[act].reshape(-1)
+                    kd, vd = cache[0][1], cache[1][1]
+                kf, vf = cache[0][1].view(-1, D), cache[1][1].view(-1, D)
+                nk, nv = (t[act].reshape(-1, D).to(dtype) for t in new)
+                lib = sdpa(qd[:, :, None], kd, vd, mask)[:, :, 0]
+                e_lib = (lib[:-1].float() - want[:-1].float()).abs().max().item()
+                check(e_lib <= 2e-2, f"{label}: the library yardstick differs: {e_lib}")
+                library_ms = timer(lambda: (kf.index_copy_(0, rws, nk), vf.index_copy_(0, rws, nv),
+                                            sdpa(qd[:, :, None], kd, vd, mask)))
+                check(all(torch.equal(a, c) for a, c in zip(cache, ref)),
+                      f"{label}: the index_copy_ yardstick does not write the op's rows")
+                if paged:  # rows moved: the held ones and page 0 (the inactive slot's clamp)
+                    owner = (table == 0).nonzero()
+                    shared = 0 if not len(owner) else int(
+                        (held[owner[0, 0]] - owner[0, 1] * psz).clamp(0, psz))
+                    n_moved = int(held.sum()) + psz - shared
+                else:
+                    n_moved = int(lens.sum())
+                b = bound(2 * esz * n_moved * Hkv * D + nbytes(q, out, *new),
+                          ops * 4 * H * D * int(lens.sum()))
+                print(f"{label}: op {ms:.4f} ms, plain {plain_ms:.4f} ms, library (2 index_copy_ "
+                      f"+ SDPA in {kind}) {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms by "
+                      f"{b['bound_by']}", flush=True)
+                res[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **b)
+                del kd, vd, lib
+
+                # --- #4 alone: bf16 rows cast in the kernel; slot 6 has no page at 800 ---
+                aname = "kv_append" + sfx
+                pos4 = torch.tensor([0, 5, 18, 999, 2046, 2047, 800, S], device=dev)
+                ref = [t.clone() for t in cache]
+                new4 = [t + 1 for t in new]
+                kv_append_dense(*cache, *new4, pos4, 0, tbl)
+                kv_append_dense_reference(*ref, *new4, pos4, 0, tbl)
+                app_ok = all(torch.equal(a, c) for a, c in zip(cache, ref))
+                check(app_ok, f"{aname} differs from its plain version (the cast included)")
+                ms = timer(lambda c=cache, t=tbl: kv_append_dense(*c, *new4, pos4, 0, t))
+                plain_ms = timer(lambda c=cache, t=tbl: kv_append_dense_reference(
+                    *c, *new4, pos4, 0, t))
+                if paged:
+                    wrote = table[ar, (pos4 // psz).clamp(max=P - 1)]
+                    ok = (pos4 < S) & (wrote >= 0)
+                    rws = ((wrote.long().clamp(min=0)[:, None] * Hkv
+                            + torch.arange(Hkv, device=dev)[None]) * psz
+                           + (pos4 % psz)[:, None])[ok].reshape(-1)
+                else:
+                    ok = pos4 < S
+                    rws = ((ar[:, None] * Hkv + torch.arange(Hkv, device=dev)[None]) * S
+                           + pos4[:, None])[ok].reshape(-1)
+                kf, vf = cache[0][0].view(-1, D), cache[1][0].view(-1, D)
+                nk, nv = (t[ok].reshape(-1, D).to(dtype) for t in new4)
+                library_ms = timer(lambda: (kf.index_copy_(0, rws, nk), vf.index_copy_(0, rws, nv)))
+                check(all(torch.equal(a, c) for a, c in zip(cache, ref)),
+                      f"{aname}: the index_copy_ yardstick does not write the op's rows")
+                n_rows = int(ok.sum())
+                b = bound(2 * n_rows * Hkv * D * (2 + esz) + (nbytes(table) if paged else 0), 0)
+                print(f"{aname} B={B} Hkv={Hkv}: exact {app_ok}, op {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, library (2 index_copy_ of rows cast beforehand) "
+                      f"{library_ms:.4f} ms, bound {b['bound_ms']:.5f} ms by {b['bound_by']} "
+                      f"(launch-bound)", flush=True)
+                res[aname] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                                  max_abs_err=worst_diff(cache, ref), **b)
+            del linear, pools, ref, new
+
+        # --- #9: the chunk (timed, the row's numbers) and the verify's T = 5 ---
+        H = Hkv = 32
+        linear = [torch.randn(1, N, Hkv, S, D, device=dev, generator=gen).to(dtype)
+                  for _ in range(2)]
+        slot_lens = torch.zeros(N, dtype=torch.long, device=dev)
+        slot_lens[pslots[:-1]] = plens[:-1]
+        slot_lens = torch.maximum(slot_lens, torch.where(vstart < S, vstart + 5, 0))
+        table, pools = cut_pages(gen, linear, P, slot_lens.clamp(max=S))
+        for which, (cpos, cslots) in chunks.items():
+            live = cpos < S
+            q = torch.randn(N, cpos.shape[1], H, D, device=dev, generator=gen).to(torch.bfloat16)
+            vis = cpos[live] + 1
+            flops = 4 * H * D * int(vis.sum())
+            rows_read = sum(int(cpos[i][live[i]].max()) + 1 for i in range(N) if live[i].any())
+            for paged in (False, True):
+                cache, tbl = (pools, table) if paged else (linear, None)
+                sfx = f"_{kind}" + ("_paged" if paged else "")
+                name = "prefill_attention" + sfx
+                label = f"{name} N={N} T={cpos.shape[1]} ({which})"
+                call = (lambda c=cache, t=tbl: prefill_attention(
+                    q, c[0], c[1], cpos, cslots, layer_idx=0, page_table=t))
+                out = call()
+                want = prefill_attention_reference(q, cache[0][0], cache[1][0], cpos, cslots,
+                                                   page_table=tbl)
+                want32 = prefill_attention_reference(q.float(), cache[0][0], cache[1][0], cpos,
+                                                     cslots, page_table=tbl)
+                errs = held_dense(out, want, want32, dtype, label)
+                pads = bool((out[~live] == 0).all())
+                check(pads, f"{label}: a padding query's output is not exactly 0")
+                check(want.float().abs().max().item() > 0.05, "the plain version attended nothing")
+                if paged:
+                    lin = prefill_attention(q, linear[0], linear[1], cpos, cslots, layer_idx=0)
+                    check(torch.equal(out, lin), f"{label}: differs from the linear kernel")
+                keep(name, errs)
+                ms = timer(call)
+                plain_ms = timer(lambda c=cache, t=tbl: prefill_attention_reference(
+                    q, c[0][0], c[1][0], cpos, cslots, page_table=t), iters=3)
+                rws = cslots.clamp(0, N - 1).long()
+                if paged:
+                    t2 = table[rws]
+                    kd, vd = gather_pages(cache[0][0], t2), gather_pages(cache[1][0], t2)
+                else:
+                    kd, vd = cache[0][0][rws], cache[1][0][rws]
+                m = (s_idx[None, None] <= cpos[:, :, None])[:, None] & live[:, None, :, None]
+                qh = q.to(dtype).transpose(1, 2)
+                lib = sdpa(qh, kd, vd, m).transpose(1, 2)
+                e_lib = (lib[live].float() - want[live].float()).abs().max().item()
+                check(e_lib <= 2e-2, f"{label}: the library yardstick differs: {e_lib}")
+                library_ms = timer(lambda: sdpa(qh, kd, vd, m))
+                del kd, vd, lib, m
+                b = bound(2 * esz * rows_read * Hkv * D + nbytes(q, out), ops * flops)
+                print(f"{label}: max abs err {errs[0]:.2e}"
+                      + (f" ({errs[1]:.2e} beyond the output's rounding)" if errs[1] is not None
+                         else "")
+                      + f", padding exactly 0 {pads}; op {ms:.4f} ms ({flops / ms / 1e9:.1f} "
+                      f"TFLOP/s of the function), plain {plain_ms:.4f} ms, library (SDPA in "
+                      f"{kind}) {library_ms:.4f} ms, bound {b['bound_ms']:.4f} ms by "
+                      f"{b['bound_by']}", flush=True)
+                row = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, **b)
+                if which == "chunk":
+                    res[name] = row
+                else:
+                    res[name + "_verify"] = row
+        del linear, pools
+        for name, (e, b) in worst.items():
+            res[name]["max_abs_err"] = e
+            if dtype == torch.float32:
+                res[name]["max_abs_err_beyond_rounding"] = b
+        torch.cuda.empty_cache()
     return res
 
 
@@ -2841,6 +3138,166 @@ def phase_spec(dev, model):
     return launches, res
 
 
+def phase_dense_caches(dev, model):
+    """Phase 13: Llama-2-7B at full width and depth over the fp16 and f32 KV
+    caches (8 slots, S=2048, bursts of 8 replayed as graphs): the copy-model's
+    requests on bf16, f32 and fp16 caches (tokens the cycle and equal across
+    the three), eager against graph bursts, a paged pool, γ=4 speculation
+    linear and paged; the random model's 2-layer cut block by block against
+    the plain path; and each cache's replayed step at 8 x 1000 live positions
+    beside ``decode_roofline``'s bound."""
+    from xbitops_tpu_torch.engine import Engine, Request
+    from xbitops_tpu_torch.kernels import common
+    from xbitops_tpu_torch.models import llama
+    from xbitops_tpu_torch.utils import synth
+    from xbitops_tpu_torch.utils.profiling import decode_roofline, replayed
+
+    t_phase = time.perf_counter()
+    cfg = model.cfg
+    launches = dict.fromkeys(common.launches, 0)
+    caches = (("bf16", torch.bfloat16), ("f32", torch.float32), ("f16", torch.float16))
+
+    def run(eng, reqs, label):
+        """One run of the phase's main path: the counts set to 0 just before
+        and read just after."""
+        common.reset_counts()
+        out = eng.generate(reqs)
+        for k, n in common.launches.items():
+            launches[k] += n
+        check(not any(common.plain_on_cuda.values()),
+              f"{label}: plain versions ran on the card: {common.plain_on_cuda}")
+        check(all(len(c.tokens) == r.max_new_tokens for c, r in zip(out, reqs)),
+              f"{label}: a request stopped short")
+        return out, {k: n for k, n in common.launches.items() if n}
+
+    # (a), (c), (d), (e): the copy-model (its greedy stream is the cycle 0..7)
+    cp = synth.copy_llama_params(torch.Generator(device=dev).manual_seed(SEED + 13), cfg, 4, 128,
+                                 period=8)
+    lengths = [int(n) for n in np.linspace(16, 500, 8)] + [1500]  # the last in 3 chunks
+    reqs = [Request(prompt=[(j + i) % 8 for i in range(n)], max_new_tokens=32)
+            for j, n in enumerate(lengths)]
+    kw = dict(slots=8, kv_quant=False, prefill_chunk=512)
+    pool = dict(paged=True, page_size=256, pool_pages=24)
+    res, tokens = {}, None
+    for kind, dtype in caches:
+        label = f"phase 13, copy-model, {kind} cache"
+        sfx = "" if dtype == torch.bfloat16 else "_" + kind
+        eng = Engine(cp, cfg, decode_burst=8, cache_dtype=dtype, **kw)
+        check(eng.cache.k.dtype == dtype, f"{label}: the cache is {eng.cache.k.dtype}")
+        out, got = run(eng, reqs, label)
+        check(all(follows_cycle(c, r.prompt, 8) for c, r in zip(out, reqs)),
+              f"{label}: not the cycle")
+        tokens = tokens or [c.tokens for c in out]
+        check([c.tokens for c in out] == tokens, f"{label}: tokens differ from the bf16 cache's")
+        check(eng.loop_stats["chunks"] == 3, f"{label}: {eng.loop_stats['chunks']} chunks, want 3")
+        path = ("qgemv", "qgemv_mma", "decode_attention" + sfx, f"kv_append{sfx}_fused",
+                "prefill_attention" + sfx)
+        check(all(got.get(k, 0) > 0 for k in path), f"{label}: launches {got}")
+        if dtype == torch.bfloat16:  # phase 2 holds the bf16 graphs to eager bursts
+            rates = graph_rates(eng, label)
+            del eng
+            res[kind] = dict(rates=rates)
+            continue
+        rates = against_eager(eng, reqs, out, label)  # (c): the graph run's rates
+        check(rates["captures"] > 0, f"{label}: no graph captured")
+        del eng
+        torch.cuda.empty_cache()
+        # (d) a pool of 24 pages of 256 for 8 slots
+        eng = Engine(cp, cfg, decode_burst=8, cache_dtype=dtype, **kw, **pool)
+        pout, got = run(eng, reqs, label + ", paged")
+        check([c.tokens for c in pout] == tokens, f"{label}, paged: tokens differ from linear")
+        check(sorted(eng._free_pages) == list(range(24)), f"{label}, paged: pages not back")
+        path = (f"decode_attention{sfx}_paged", f"kv_append{sfx}_paged_fused",
+                f"prefill_attention{sfx}_paged")
+        check(all(got.get(k, 0) > 0 for k in path), f"{label}, paged: launches {got}")
+        prates = graph_rates(eng, label + ", paged")
+        waits = eng.loop_stats["admission_waits"]
+        del eng
+        torch.cuda.empty_cache()
+        # (e) n-gram speculation, γ = 4: the verify's rows through #4, attention through #9
+        spec = {}
+        for paged in (False, True):
+            slabel = f"{label}, spec γ=4" + (", paged" if paged else "")
+            eng = Engine(cp, cfg, spec_tokens=4, cache_dtype=dtype, **kw, **(pool if paged else {}))
+            sout, got = run(eng, reqs, slabel)
+            check([c.tokens for c in sout] == tokens, f"{slabel}: tokens differ from plain")
+            rate = eng.spec_stats["accepted"] / eng.spec_stats["drafted"]
+            check(rate >= 0.9, f"{slabel}: acceptance {rate:.3f} < 0.9")
+            p = "_paged" if paged else ""
+            check(got.get(f"kv_append{sfx}{p}", 0) > 0 and got.get(f"prefill_attention{sfx}{p}", 0)
+                  > 0, f"{slabel}: launches {got}")
+            spec["paged" if paged else "linear"] = dict(rates=graph_rates(eng, slabel), rate=rate)
+            del eng
+            torch.cuda.empty_cache()
+        print(f"{label}: tokens the cycle and equal to the bf16 cache's, linear, paged ({waits:.0f} "
+              f"admission waits) and under γ=4 (acceptance {spec['linear']['rate']:.3f} / "
+              f"{spec['paged']['rate']:.3f} paged); replayed device {rates['device_ms_step']:.3f} "
+              f"ms/step (paged {prates['device_ms_step']:.3f}), {rates['tok_s']:.1f} tokens/s; "
+              f"verify {spec['linear']['rates']['device_ms_step']:.3f} ms a replayed step",
+              flush=True)
+        res[kind] = dict(rates=rates, paged=prates, spec=spec, waits=waits)
+    del cp
+    torch.cuda.empty_cache()
+
+    # (b) the random model's 2-layer cut, block by block against the plain path on
+    # the same cache: a chunk forward of 5 rows of 512 at positions 512-1023, then
+    # one decode step of 8 slots
+    cut = two_layer_cut(model)
+    rng = np.random.default_rng(SEED + 13)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (5, 1024))).to(dev)
+    slots = torch.arange(5, device=dev)
+    positions = 512 + torch.arange(512, device=dev)[None].expand(5, 512)
+    rope = llama.rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    vis = torch.arange(cfg.max_seq_len, device=dev)[None, None] <= positions[:, :, None]
+    for kind, dtype in caches[1:]:
+        a = llama.KVCache.init(cut.cfg, 8, dev, dtype=dtype)
+        llama.prefill_slots_chunk(cut, toks[:, :512], torch.zeros(5, device=dev),
+                                  torch.full((5,), 1024, device=dev), slots, a,
+                                  resets=torch.ones(5, dtype=torch.bool, device=dev))
+        b = clone_cache(a)
+        x = cut.embed[toks[:, 512:]].to(torch.bfloat16)
+        chunk_errs = []
+        for li, block in enumerate(cut.blocks):
+            got = block(x, positions, rope, a, li, None, slots, flash_prefill=True)
+            want = block(x, positions, rope, b, li, vis, slots, use_kernel=False)
+            check(torch.isfinite(got.float()).all().item(), f"block {li}: non-finite output")
+            chunk_errs.append(rel_err(got, want))
+            x = got
+        a.lengths[:5] = 1024
+        step_errs = block_errs(cut, torch.cat([toks[:, -1], toks[:3, 0]]), a)
+        worst = max(chunk_errs + step_errs)
+        print(f"phase 13, 2-layer cut, {kind} cache, kernels vs plain on the same cache: chunk "
+              f"forward 5 x 512 blocks rel err {[f'{e:.2e}' for e in chunk_errs]}, decode step "
+              f"blocks {[f'{e:.2e}' for e in step_errs]}", flush=True)
+        check(worst <= 2e-2, f"{kind} cache, 2-layer cut: a block's rel err {worst:.3e} > 2e-2")
+        res[kind]["block_err"] = worst
+        del a, b
+
+    # each cache's decode step at 8 slots of 1000 live positions, replayed
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab_size, 8)).to(dev)
+    for kind, dtype in caches:
+        cache = llama.KVCache.init(cfg, 8, dev, dtype=dtype)
+
+        def step():
+            cache.lengths.fill_(1000)
+            llama.decode_step(model, tok, cache)
+
+        rep = replayed(step)  # a graph of 8 steps, as the engine replays a burst
+        ms = rep["event_ms"]
+        r = decode_roofline(model, cfg, 8, 1000, measured_ms=ms,
+                            dtype_bytes=torch.finfo(dtype).bits // 8)
+        print(f"phase 13, random 7B decode step, {kind} cache, 8 slots x 1000 live, replayed: "
+              f"{ms:.3f} ms ({r}); device {rep['device_ms']:.3f} ms busy {rep['busy']:.2f}, "
+              f"largest kernels {rep['top']}", flush=True)
+        res[kind]["live1000"] = dict(ms=ms, bound_ms=r.bound_ms, cache_gb=r.cache_bytes / 1e9,
+                                     device_ms=rep["device_ms"], busy=rep["busy"])
+        del cache
+        torch.cuda.empty_cache()
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 13: {res['phase_s']:.1f} s", flush=True)
+    return launches, res
+
+
 def model_bytes(model) -> int:
     """Device bytes of a model's buffers (its resident weights)."""
     return sum(t.numel() * t.element_size() for t in model.buffers())
@@ -4003,6 +4460,8 @@ def main() -> int:
     launches8, entry = phase_entry_points(dev, model)
     torch.cuda.empty_cache()
     launches9, spec = phase_spec(dev, model)
+    torch.cuda.empty_cache()
+    launches13, dense = phase_dense_caches(dev, model)
     del model
     torch.cuda.empty_cache()
     launches7, three_bit = phase_three_bit(dev, cfg)
@@ -4116,6 +4575,21 @@ def main() -> int:
                       f"{v['library_ms']:.4f})" for n, v in pv.items())
           + f"; total {time.perf_counter() - t_start:.1f} s", flush=True)
 
+    live = {k: dense[k]["live1000"] for k in ("bf16", "f16", "f32")}
+    print(f"card: {card}; phase 13 (Llama-2-7B 4-bit, 8 slots, S=2048): decode step at 8 x 1000 "
+          f"live, replayed, ms (bound by decode_roofline): "
+          + ", ".join(f"{k} {v['ms']:.3f} ({v['bound_ms']:.3f})" for k, v in live.items())
+          + "; copy-model serving, replayed device ms/step / tokens/s: "
+          + ", ".join(f"{k} {dense[k]['rates']['device_ms_step']:.3f} / "
+                      f"{dense[k]['rates']['tok_s']:.1f}" for k in ("bf16", "f16", "f32"))
+          + "; dense forms at the bf16 rows' shapes, op / bound / plain / library ms: "
+          + ", ".join(f"{n} {res[n]['ms']:.4f} / {res[n]['bound_ms']:.4f} / "
+                      f"{res[n]['plain_ms']:.4f} / {res[n]['library_ms']:.4f}"
+                      for n in sorted(res) if any(n.startswith(p + "_f") for p in (
+                          "decode_attention", "prefill_attention", "kv_append")))
+          + f"; phase 13 {dense['phase_s']:.1f} s; total {time.perf_counter() - t_start:.1f} s",
+          flush=True)
+
     csrc, jk = "xbitops_tpu_torch/csrc/", "xbitops_tpu/kernels/"
     src = {
         "qgemv": (csrc + "qgemv_word.cu", jk + "qgemv_kernel.py:51"),
@@ -4137,7 +4611,14 @@ def main() -> int:
         "kv_append_paged": (csrc + "kv_append.cu", jk + "kv_append.py:92"),
         "kv_append_packed_paged": (csrc + "kv_append.cu", jk + "kv_append.py:43"),
     }
-    # launches: each kernel's count over the runs of phases 2 to 12 (the counts
+    for kind in DENSE:  # the fp16 and f32 caches' forms (phase 1, phase 13)
+        for p in ("", "_paged"):
+            src[f"decode_attention_{kind}{p}"] = (csrc + "decode_attention.cu",
+                                                 jk + "decode_attention.py:176")
+            src[f"prefill_attention_{kind}{p}"] = (csrc + "prefill_attention.cu",
+                                                  jk + "prefill_attention.py:188")
+            src[f"kv_append_{kind}{p}"] = (csrc + "kv_append.cu", jk + "kv_append.py:92")
+    # launches: each kernel's count over the runs of phases 2 to 13 (the counts
     # were set to 0 just before each run and read just after it; phases 11
     # and 12's are each rank's of its main-path runs, summed over the ranks).  An append
     # row counts its own kernel's launches (phase 6: the eager decode), and
@@ -4145,12 +4626,14 @@ def main() -> int:
     # decode_attention.cu) that appended in its form on the serving paths
     runs = (launches2, launches3, launches4, launches5, launches6, launches7, launches8,
             launches9, launches10a, launches10b, launches10c, *launches11a, *launches11b,
-            *launches12)
+            *launches12, launches13)
     count = lambda n: sum(ln[n] for ln in runs)
     kernels = [dict(name=n, route="cuda", source=src[n][0], replaces=src[n][1], launches=count(n),
                     **({"fused_launches": count(n + "_fused")} if n in common.APPENDS else {}),
                     **{key: res[n][key] for key in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                                    "bound_by", "library_ms")}) for n in src]
+                                                    "bound_by", "library_ms")},
+                    **({"max_abs_err_beyond_rounding": res[n]["max_abs_err_beyond_rounding"]}
+                       if "max_abs_err_beyond_rounding" in res[n] else {})) for n in src]
     for kern in kernels:
         check(kern["launches"] > 0, f"kernel {kern['name']} was launched on no serving path")
         check(kern.get("fused_launches", 1) > 0,

@@ -15,6 +15,12 @@ repeat the plain version's) and rel 1e-5 / abs 3e-4 grouped (the groups' f32
 folds may fuse their multiply-adds).  The paged forms of the two attention
 kernels and the two appends are held to their plain versions at the same
 tolerances, and to the linear kernels on the cache the pool was cut from.
+The fp16 and f32 caches' forms of the two attention kernels and of the append
+(linear and paged) are held to the same plain versions on the same cache:
+appends bit for bit, fp16 attention abs 2e-2, f32 attention abs 4e-3 beyond
+the rounding of its bf16 output (``_beyond_rounding``: both outputs are bf16,
+and a flip of their last bit is 7.8e-3 at |out| >= 1, whatever the
+arithmetic), and the graph and speculative engines serve on such caches.
 The engine's decode bursts, captured as CUDA graphs and replayed, give the
 eager bursts' greedy tokens exactly (bf16, int8, paged and eager-attention
 caches, a slot deferred), count an eager burst's launches a replay, and are
@@ -323,9 +329,9 @@ def test_wrappers_count_and_reject(dev):
     k = torch.zeros(1, 1, 4, 8, 96, dtype=torch.bfloat16, device=dev)
     with pytest.raises(ValueError):  # head_dim 96 is not built
         decode_attention(q, k, k, torch.ones(1, device=dev), layer_idx=0)
-    with pytest.raises(ValueError):  # the kernel cache is bf16
-        kv_append_dense(k.half(), k.half(), k[0, 0, :, 0].half()[None], k[0, 0, :, 0].half()[None],
-                        torch.zeros(1, device=dev), 0)
+    with pytest.raises(ValueError):  # the dense cache is bf16, fp16 or f32
+        kv_append_dense(k.double(), k.double(), k[0, 0, :, 0].double()[None],
+                        k[0, 0, :, 0].double()[None], torch.zeros(1, device=dev), 0)
     qt = synth.random_qtensor(_gen(dev, 0), 256, 128, 4, 128)
     name = COUNTER[qgemv_form(2, False, qt)]
     qmatmul(torch.ones(2, 256, device=dev), qt)
@@ -1282,3 +1288,244 @@ def test_few_rows_form_on_7b_tp_shards(dev, name, K, N, n, kind, shape):
     got = qmatmul(a, local)
     assert common.launches == {**dict.fromkeys(common.launches, 0), "qgemv": 1}
     assert (got.float() - ref).abs().max() <= 2e-2 * ref.abs().max()
+
+
+# --- the fp16 and f32 KV caches: the dense forms of #2, #4 and #9 ---
+
+DENSE_DTYPES = {"f16": torch.float16, "f32": torch.float32}
+
+
+def _beyond_rounding(out, ref32):
+    """Largest |out - ref32| beyond half a bf16 unit in the last place of
+    ``ref32``: the error of a bf16 output ``out`` that its own rounding does not
+    explain, against the plain version's unrounded f32 result."""
+    half = torch.ldexp(torch.ones_like(ref32), torch.frexp(ref32).exponent - 9)
+    return ((out.float() - ref32).abs() - half).clamp(min=0).max().item()
+
+
+def _check_dense_attention(out, want, want32, dtype, rows=None):
+    """fp16: abs 2e-2; f32: abs 4e-3 beyond the bf16 output's rounding, and
+    abs 2e-2 outright."""
+    if rows is not None:
+        out, want, want32 = out[rows], want[rows], want32[rows]
+    assert (out.float() - want.float()).abs().max() <= 2e-2
+    if dtype == torch.float32:
+        assert _beyond_rounding(out, want32) <= 4e-3
+
+
+@pytest.mark.parametrize("dtype", list(DENSE_DTYPES.values()), ids=list(DENSE_DTYPES))
+@pytest.mark.parametrize("paged", [False, True], ids=["linear", "paged"])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("rep", [1, 2, 4, 8])
+@pytest.mark.parametrize("window", [None, 100])
+def test_dense_forms_fused_decode_equals_append_then_plain(dev, dtype, paged, D, rep, window):
+    """The fp16 / f32 cache's fused op (one launch: append, attention, combine)
+    against its standalone append kernel then the plain attention on the same
+    cache: the rows equal bit for bit (new rows as bf16, cast in the kernel),
+    the outputs as ``_check_dense_attention`` says.  New rows at both sides of
+    a split boundary, at S - 1, at S (writes nothing), and, paged, at a
+    position without a page and in a slot with no page."""
+    gen = _gen(dev, D + rep + paged + 7 * (dtype == torch.float32))
+    S, L, Hkv = 640, 2, 2
+    H = Hkv * rep
+    psz = 16 if rep in (1, 4) else 64
+    pos = torch.tensor([255, 256, S - 1, S, 3, 100, 300], device=dev)
+    B = len(pos)
+    lens = torch.clamp(pos + 1, max=S)
+    held = torch.where(pos < S, lens, 0)
+    linear = [torch.randn(L, B, Hkv, S, D, device=dev, generator=gen).to(dtype) for _ in range(2)]
+    new = tuple(torch.randn(B, Hkv, D, device=dev, generator=gen).to(torch.bfloat16)
+                for _ in range(2))
+    table = None
+    if paged:
+        table, cache = synth.cut_pages(gen, linear, S // psz, held)
+        table[5, 100 // psz] = -1
+        defined = _defined(table, lens, window, psz)
+    else:
+        cache, defined = linear, torch.ones(B, dtype=torch.bool, device=dev)
+    q = torch.randn(B, H, D, device=dev, generator=gen).to(torch.bfloat16)
+    ref = [t.clone() for t in cache]
+    common.reset_counts()
+    out, *_ = decode_attention(q, cache[0], cache[1], lens, layer_idx=1, kv_new=(*new, pos),
+                               window=window, page_table=table)
+    sfx = {torch.float16: "_f16", torch.float32: "_f32"}[dtype] + ("_paged" if paged else "")
+    assert {k: n for k, n in common.launches.items() if n} == {
+        "decode_attention" + sfx: 1, "kv_append" + sfx + "_fused": 1}
+    kv_append_dense(*ref, *new, pos, 1, table)
+    assert common.launches["kv_append" + sfx] == 1
+    for got, want in zip(cache, ref):
+        assert got.dtype == dtype and torch.equal(got, want)
+    want = decode_attention_reference(q, ref[0][1], ref[1][1], lens, window, page_table=table)
+    want32 = decode_attention_reference(q.float(), ref[0][1], ref[1][1], lens, window,
+                                        page_table=table)
+    _check_dense_attention(out, want, want32, dtype, defined)
+    assert want.float().abs().max() > 0.05 and torch.isfinite(out.float()).all()
+    # rows given in the cache's own type take the same path and land as they are
+    ref2 = [t.clone() for t in cache]
+    new2 = tuple(t.to(dtype) + 0.25 for t in new)
+    decode_attention(q, cache[0], cache[1], lens, layer_idx=0, kv_new=(*new2, pos),
+                     page_table=table)
+    kv_append_dense_reference(*ref2, *new2, pos, 0, table)
+    assert all(torch.equal(a, b) for a, b in zip(cache, ref2))
+
+
+@pytest.mark.parametrize("dtype", list(DENSE_DTYPES.values()), ids=list(DENSE_DTYPES))
+@pytest.mark.parametrize("paged", [False, True], ids=["linear", "paged"])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("rows", ["bf16", "native", "f32rows"])
+def test_dense_forms_kv_append_equal_plain(dev, dtype, paged, D, rows):
+    """The standalone append into an fp16 / f32 cache, equal bit for bit to
+    the plain cast and write: rows given as bf16 (cast in the kernel), in the
+    cache's type, or as f32 into an fp16 cache (cast by the wrapper first)."""
+    gen = _gen(dev, D + 2 * paged + 5 * (dtype == torch.float32))
+    L, B, Hkv, S = 2, 6, 3, 128
+    cache = [torch.randn(L, B, Hkv, S, D, device=dev, generator=gen).to(dtype)
+             for _ in range(2)]
+    pos = torch.tensor([0, 63, 64, S - 1, S, -1], device=dev)
+    table = None
+    if paged:
+        table, cache = synth.cut_pages(gen, cache, S // 16, torch.full((B,), S, device=dev))
+        table[1, 63 // 16] = -1
+    rdt = {"bf16": torch.bfloat16, "native": dtype, "f32rows": torch.float32}[rows]
+    # bf16 values past fp16's range and below its normal range round as a cast does
+    new = [(torch.randn(B, Hkv, D, device=dev, generator=gen)
+            * torch.tensor([1e-6, 1.0, 7e4], device=dev)[torch.arange(D, device=dev) % 3])
+           .to(torch.bfloat16).to(rdt) for _ in range(2)]
+    ref = [t.clone() for t in cache]
+    before = [t.clone() for t in cache]
+    common.reset_counts()
+    kv_append_dense(*cache, *new, pos, 1, table)
+    sfx = {torch.float16: "_f16", torch.float32: "_f32"}[dtype] + ("_paged" if paged else "")
+    assert {k: n for k, n in common.launches.items() if n} == {"kv_append" + sfx: 1}
+    kv_append_dense_reference(*ref, *new, pos, 1, table)
+    assert all(torch.equal(a, b) for a, b in zip(cache, ref))
+    assert not torch.equal(cache[0], before[0]) and torch.equal(cache[0][0], before[0][0])
+
+
+@pytest.mark.parametrize("dtype", list(DENSE_DTYPES.values()), ids=list(DENSE_DTYPES))
+@pytest.mark.parametrize("paged", [False, True], ids=["linear", "paged"])
+@pytest.mark.parametrize("D,H,Hkv,S,T,window", [
+    (128, 32, 32, 2048, 512, None), (128, 32, 8, 2048, 512, 512), (128, 8, 8, 1024, 5, None),
+    (64, 4, 4, 128, 64, 20), (256, 4, 1, 512, 96, None), (256, 8, 2, 256, 5, 64),
+    (64, 8, 2, 512, 100, None),
+])
+def test_dense_forms_prefill_attention_matches_plain(dev, dtype, paged, D, H, Hkv, S, T, window):
+    """The fp16 / f32 cache's prefill attention against its plain version:
+    chunks of 512 and a verify's T = 5, GQA, windows, D = 256 (the f32 form's
+    one key buffer); padding queries exactly 0; paged equal to linear."""
+    gen = _gen(dev, D + S + T + 3 * (dtype == torch.float32))
+    B, L = 5, 2
+    linear = [torch.randn(L, B, Hkv, S, D, device=dev, generator=gen).to(dtype)
+              for _ in range(2)]
+    q = torch.randn(4, T, H, D, device=dev, generator=gen).to(torch.bfloat16)
+    starts = [0, S - T, (S - T) // 2, 0]
+    lens = [max(T - 2, 1), S, (S - T) // 2 + T, 0]
+    pos = _chunk_positions(dev, starts, lens, T, S)
+    slots = torch.tensor([3, 0, 4, B], device=dev)
+    table, cache = None, linear
+    if paged:
+        psz = 16 if T % 2 else 64
+        slot_lens = torch.zeros(B, dtype=torch.long, device=dev)
+        slot_lens[slots[:3]] = torch.tensor(lens[:3], device=dev)
+        table, cache = synth.cut_pages(gen, linear, S // psz, slot_lens)
+    common.reset_counts()
+    got = prefill_attention(q, cache[0], cache[1], pos, slots, layer_idx=1, window=window,
+                            page_table=table)
+    sfx = {torch.float16: "_f16", torch.float32: "_f32"}[dtype] + ("_paged" if paged else "")
+    assert {k: n for k, n in common.launches.items() if n} == {"prefill_attention" + sfx: 1}
+    want = prefill_attention_reference(q, cache[0][1], cache[1][1], pos, slots, window=window,
+                                       page_table=table)
+    want32 = prefill_attention_reference(q.float(), cache[0][1], cache[1][1], pos, slots,
+                                         window=window, page_table=table)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    _check_dense_attention(got, want, want32, dtype)
+    assert want.float().abs().max() > 0.05
+    assert (got[pos >= S] == 0).all() and (pos >= S).any()
+    if paged:
+        lin = prefill_attention(q, linear[0], linear[1], pos, slots, layer_idx=1, window=window)
+        assert torch.equal(got, lin)
+
+
+@pytest.mark.parametrize("dtype", list(DENSE_DTYPES.values()), ids=list(DENSE_DTYPES))
+def test_dense_forms_count_and_reject(dev, dtype):
+    """Each dense form counts under its own name, the bf16 forms stay at 0,
+    no plain version runs on the card, and a float64 cache or mixed k/v types
+    raise."""
+    gen = _gen(dev, 2)
+    k, v = (torch.randn(1, 2, 2, 256, 128, device=dev, generator=gen).to(dtype)
+            for _ in range(2))
+    q = torch.randn(2, 4, 128, device=dev, generator=gen).to(torch.bfloat16)
+    lens = torch.tensor([256, 3], device=dev)
+    sfx = {torch.float16: "_f16", torch.float32: "_f32"}[dtype]
+    common.reset_counts()
+    out = decode_attention(q, k, v, lens, layer_idx=0)
+    qc = torch.randn(2, 8, 4, 128, device=dev, generator=gen).to(torch.bfloat16)
+    prefill_attention(qc, k, v, torch.arange(8, device=dev)[None].expand(2, 8),
+                      torch.arange(2, device=dev), layer_idx=0)
+    assert {n: c for n, c in common.launches.items() if c} == {
+        "decode_attention" + sfx: 1, "prefill_attention" + sfx: 1}
+    assert not any(common.plain_on_cuda.values())
+    want32 = decode_attention_reference(q.float(), k[0], v[0], lens)
+    _check_dense_attention(out, decode_attention_reference(q, k[0], v[0], lens), want32, dtype)
+    assert common.plain_on_cuda["decode_attention" + sfx] == 2  # the plain calls count apart
+    with pytest.raises(ValueError):
+        decode_attention(q, k.double(), v.double(), lens, layer_idx=0)
+    with pytest.raises(ValueError):  # k and v of one type
+        decode_attention(q, k, v.to(torch.bfloat16), lens, layer_idx=0)
+    with pytest.raises(ValueError):
+        prefill_attention(qc, k.double(), v.double(), torch.zeros(2, 8, device=dev),
+                          torch.arange(2, device=dev), layer_idx=0)
+
+
+@pytest.mark.parametrize("dtype", list(DENSE_DTYPES.values()), ids=list(DENSE_DTYPES))
+@pytest.mark.parametrize("paged", [False, True], ids=["linear", "paged"])
+def test_graph_engine_dense_cache_equals_eager(dev, dtype, paged):
+    """An engine over an fp16 / f32 cache replays its bursts as graphs with the
+    eager bursts' greedy tokens; its attention and appends run the cache's
+    own forms (chunked admission through #9, decode through #2 with the
+    append inside) and no bf16 form."""
+    kw = dict(kv_quant=False, cache_dtype=dtype)
+    if paged:
+        kw.update(paged=True, page_size=64)
+    reqs = _graph_requests()
+    want = _graph_engine(dev, eager=True, **kw).generate(reqs)
+    eng = _graph_engine(dev, **kw)
+    common.reset_counts()
+    got = eng.generate(reqs)
+    assert eng.cache.k.dtype == dtype
+    assert [c.tokens for c in got] == [c.tokens for c in want]
+    assert eng.loop_stats["graph_captures"] > 0
+    assert eng.loop_stats["graph_replays"] == eng.loop_stats["decode_steps"] / 4
+    sfx = {torch.float16: "_f16", torch.float32: "_f32"}[dtype] + ("_paged" if paged else "")
+    launched = {k for k, n in common.launches.items() if n}
+    assert {"decode_attention" + sfx, "kv_append" + sfx + "_fused",
+            "prefill_attention" + sfx} <= launched
+    assert not launched & {"decode_attention", "decode_attention_paged", "prefill_attention",
+                           "prefill_attention_paged"}
+    assert not any(common.plain_on_cuda.values())
+
+
+@pytest.mark.parametrize("dtype", list(DENSE_DTYPES.values()), ids=list(DENSE_DTYPES))
+@pytest.mark.parametrize("paged", [False, True], ids=["linear", "paged"])
+def test_graph_spec_engine_dense_cache_equals_eager(dev, dtype, paged):
+    """n-gram speculation over an fp16 / f32 cache: each verify step one replay,
+    tokens and ``spec_stats`` equal the eager engine's; the verify writes its
+    rows through the cache's standalone append (#4) and attends through its
+    prefill form (#9)."""
+    kw = dict(kv_quant=False, cache_dtype=dtype, burst=1, spec_tokens=3)
+    if paged:
+        kw.update(paged=True, page_size=64)
+    reqs = _graph_requests(n=5, new=10)
+    want_eng = _graph_engine(dev, eager=True, **kw)
+    want = want_eng.generate(reqs)
+    eng = _graph_engine(dev, **kw)
+    common.reset_counts()
+    got = eng.generate(reqs)
+    assert [c.tokens for c in got] == [c.tokens for c in want]
+    assert eng.spec_stats == want_eng.spec_stats
+    st = eng.loop_stats
+    assert st["graph_captures"] > 0 and st["graph_replays"] == st["decode_steps"] > 0
+    sfx = {torch.float16: "_f16", torch.float32: "_f32"}[dtype] + ("_paged" if paged else "")
+    launched = {k for k, n in common.launches.items() if n}
+    assert {"kv_append" + sfx, "prefill_attention" + sfx} <= launched
+    assert not any(common.plain_on_cuda.values())

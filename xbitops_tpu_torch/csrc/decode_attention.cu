@@ -11,9 +11,10 @@
 // that attends eagerly, as the TPU package keeps its kv_append kernels as
 // the fallback.
 //
-// Cache forms: bf16 rows k/v [B, Hkv, S, D]; the packed int8 cache, words
-// [B, Hkv, S/4, D] int32 (byte j of word w = position 4w + j, stored as value
-// + 128) with bf16 scales [B, 4, Hkv, S/4]; and the paged form of either,
+// Cache forms: dense rows k/v [B, Hkv, S, D] of bf16, fp16 or f32; the
+// packed int8 cache, words [B, Hkv, S/4, D] int32 (byte j of word w =
+// position 4w + j, stored as value + 128) with bf16 scales [B, 4, Hkv, S/4];
+// and the paged form of each,
 // pools [n_pages, Hkv, psz(/4), D] (scales [n_pages, 4, Hkv, psz/4]) where
 // position p of slot b lies in pool page table[b, p / psz] at row p % psz
 // (the linear cache is the case of one page of S rows a slot).
@@ -57,6 +58,25 @@
 //   A slot with one live split writes its output directly.
 // p is rounded to bf16 before p v (the plain version keeps f32 p; abs 2e-2).
 //
+// The fp16 and f32 caches (the JAX package's KVCache.init(dtype=); q and the
+// output stay bf16, as the model's activations are).  fp16: the same kernel
+// on the fp16 tensor cores (mma.sync ...f16.f16, f32 sums): q is converted to
+// fp16, exactly within fp16's range, and p is rounded to fp16.  f32: the form
+// must not round k or v to bf16 (that alone would cost ~1e-2), and TF32
+// would keep 11 bits.  Each f32 operand is split in registers into a bf16
+// high part and a bf16 low part (hi + lo holds 16 significant bits), and the
+// bf16 tensor cores take the pieces: q k^T = q (k_hi + k_lo), two products
+// (q is bf16, exact), and p v = p_hi v_hi + p_hi v_lo + p_lo v_hi, three,
+// the dropped p_lo v_lo below 2^-17 of the result.  The f32 tiles are read
+// from shared memory by plain loads in the fragments' order (k rows D + 8
+// floats apart, v rows D + 4, so that neither load meets a bank conflict) in
+// place of ldmatrix.  A tile of k and v takes twice the bytes (34 KB each at
+// D = 128): the ring keeps 3 stages at D <= 128 (201 KB, one block an SM,
+// the same ~137 KB in flight as two bf16 blocks) and one at D = 256, whose
+// stage alone is 131 KB.  The block that writes a new row converts it from
+// bf16 (or takes it in the cache's type) as it stores it, and its tile takes
+// the converted row by a plain store to shared memory in place of cp.async.
+//
 // The append, inside: the block whose split holds positions[b] writes the
 // row.  bf16: it stores the new row at the start, and its tile takes that row
 // from k_new/v_new, not from the cache.  int8: the tile pass reads the word
@@ -79,6 +99,7 @@
 
 #include <type_traits>
 
+#include "kvtype.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -89,18 +110,20 @@ constexpr int kBK = 64;                   // positions a tile
 constexpr int kRowsW = kBK / kWarps;      // positions a warp a tile: one m16 tile
 constexpr float kNegInf = -1e30f;
 constexpr int kLen64 = 1, kPos64 = 2, kNewScaleF32 = 4;  // Args::flags
+constexpr int kNewNative = 8;  // new dense rows are of the cache's type, else bf16
 static_assert(kThreads == 2 * kBK, "an int8 tile's scales: one a thread");
 
 struct Args {
   const __nv_bfloat16* q;  // [B, H, D]
-  void* k;                 // bf16 rows, or int32 words, of one layer
+  void* k;                 // bf16, fp16 or f32 rows, or int32 words, of one layer
   void* v;
   __nv_bfloat16* ks;       // int8: scales of one layer; else null
   __nv_bfloat16* vs;
   const void* lengths;     // int32 or int64 [B]
   const void* positions;   // int32 or int64 [B]; null without an append
   const int* table;        // [B, S / psz], or null: the linear cache
-  const void* k_new;       // bf16 [B, Hkv, D] (int8: int32 biased bytes); null: no append
+  const void* k_new;       // [B, Hkv, D] bf16 or the cache's type (int8: int32 biased
+                           // bytes); null: no append
   const void* v_new;
   const void* ks_new;      // int8: f32 or bf16 [B, Hkv]
   const void* vs_new;
@@ -111,10 +134,14 @@ struct Args {
   float scale;
 };
 
-template <int D>
-struct alignas(16) StageBf16 {
-  __nv_bfloat16 k[kBK][D + 8];  // rows 16 bytes apart in the banks: conflict-free ldmatrix
-  __nv_bfloat16 v[kBK][D + 8];
+// Dense rows of type T.  16-bit rows lie 16 bytes apart in the banks:
+// conflict-free ldmatrix.  f32: k rows D + 8 floats apart (the 8-byte loads of
+// a half-warp, rows g and columns 2t4, cover 32 banks once) and v rows D + 4
+// (the 4-byte loads of a warp, rows 2t4 and columns g, likewise).
+template <int D, typename T>
+struct alignas(16) StageDense {
+  T k[kBK][D + 8];
+  T v[kBK][D + (sizeof(T) == 4 ? 4 : 8)];
 };
 
 template <int D>
@@ -125,16 +152,19 @@ struct alignas(16) StageInt8 {
   uint8_t hi[2][kBK];          // 1: the scale is that word's upper half
 };
 
-template <int D, bool INT8>
+template <int D, int KV>
 struct Ring {
-  static constexpr int kStages = INT8 ? (D <= 128 ? 4 : 3) : (D <= 128 ? 3 : 2);
-  using Stage = typename std::conditional<INT8, StageInt8<D>, StageBf16<D>>::type;
+  static constexpr int kStages = KV == xb::kKvInt8  ? (D <= 128 ? 4 : 3)
+                                 : KV == xb::kKvF32 ? (D <= 128 ? 3 : 1)
+                                                    : (D <= 128 ? 3 : 2);
+  using Stage = typename std::conditional<KV == xb::kKvInt8, StageInt8<D>,
+                                          StageDense<D, typename xb::KvElem<KV>::T>>::type;
 };
 
 // The ring, and after the tiles the four warps' states, which reuse it.
-template <int D, int REP, bool INT8>
+template <int D, int REP, int KV>
 union Smem {
-  typename Ring<D, INT8>::Stage st[Ring<D, INT8>::kStages];
+  typename Ring<D, KV>::Stage st[Ring<D, KV>::kStages];
   struct {
     float o[kWarps][REP][D];
     float m[kWarps][REP];
@@ -168,15 +198,19 @@ __device__ __forceinline__ uint4 merge_byte(uint4 w, int4 n, int j) {
 }
 
 // D: head_dim.  REP: the largest GQA ratio the build takes (1, 2, 4, 8); the
-// call's rep <= REP.  INT8: k/v are packed words with scales.  PAGED: k/v are
-// page pools found through the table.
-template <int D, int REP, bool INT8, bool PAGED>
+// call's rep <= REP.  KV: the cache form (xb::KvForm): dense rows of bf16, fp16
+// or f32, or packed words with scales.  PAGED: k/v are page pools found
+// through the table.
+template <int D, int REP, int KV, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const Args a) {
+  constexpr bool INT8 = KV == xb::kKvInt8, F16 = KV == xb::kKvF16, F32 = KV == xb::kKvF32;
+  using T = typename xb::KvElem<KV>::T;  // a dense row's element
+  constexpr int EPC = 16 / sizeof(T);    // dense values in 16 bytes
   constexpr int KS = D / 16;  // k16 steps of q k^T, and m16 tiles of the output
-  constexpr int ST = Ring<D, INT8>::kStages;
+  constexpr int ST = Ring<D, KV>::kStages;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<D, REP, INT8>& sm = *reinterpret_cast<Smem<D, REP, INT8>*>(smem_raw);
+  Smem<D, REP, KV>& sm = *reinterpret_cast<Smem<D, REP, KV>*>(smem_raw);
   __shared__ int s_last;
 
   const int sp = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -243,11 +277,11 @@ decode_attention_kernel(const Args a) {
       }
     } else {
       const size_t at = ((pos_blk * Hkv + h) * psz + pos_row) * D;
-      for (int i = tid; i < 2 * (D / 8); i += kThreads) {
-        const int which = i / (D / 8), c = i - which * (D / 8);
-        *reinterpret_cast<uint4*>(static_cast<__nv_bfloat16*>(which ? a.v : a.k) + at + 8 * c) =
-            *reinterpret_cast<const uint4*>(
-                static_cast<const __nv_bfloat16*>(which ? a.v_new : a.k_new) + bh * D + 8 * c);
+      for (int i = tid; i < 2 * (D / EPC); i += kThreads) {
+        const int which = i / (D / EPC), c = i - which * (D / EPC);
+        *reinterpret_cast<uint4*>(static_cast<T*>(which ? a.v : a.k) + at + EPC * c) =
+            xb::row_chunk<T>(which ? a.v_new : a.k_new, bh * D + EPC * c,
+                             a.flags & kNewNative);
       }
     }
   }
@@ -271,6 +305,10 @@ decode_attention_kernel(const Args a) {
       const __nv_bfloat16* qr = a.q + (static_cast<size_t>(b) * a.H + h * rep + g) * D + 16 * s + 2 * t4;
       qb[s][0] = *reinterpret_cast<const uint32_t*>(qr);
       qb[s][1] = *reinterpret_cast<const uint32_t*>(qr + 8);
+      if constexpr (F16) {  // the fp16 products take q as fp16
+        qb[s][0] = xb::bf162_to_f162(qb[s][0]);
+        qb[s][1] = xb::bf162_to_f162(qb[s][1]);
+      }
     }
   }
 
@@ -343,26 +381,35 @@ decode_attention_kernel(const Args a) {
           st.hi[which][i] = valid ? static_cast<uint8_t>((src >> 1) & 1) : 0;
         }
       } else {
-        const __nv_bfloat16* kc = static_cast<const __nv_bfloat16*>(a.k);
-        const __nv_bfloat16* vc = static_cast<const __nv_bfloat16*>(a.v);
-        for (int idx = tid; idx < kBK * (D / 8); idx += kThreads) {
-          const int r = idx / (D / 8), c = idx - r * (D / 8);
+        const T* kc = static_cast<const T*>(a.k);
+        const T* vc = static_cast<const T*>(a.v);
+        for (int idx = tid; idx < kBK * (D / EPC); idx += kThreads) {
+          const int r = idx / (D / EPC), c = idx - r * (D / EPC);
           const int p = tb + r;
           const bool valid = p >= s0 && p < s1;
-          const __nv_bfloat16 *ksrc = kc, *vsrc = vc;
-          if (valid && p == pos) {  // the new row, from the inputs
-            ksrc = static_cast<const __nv_bfloat16*>(a.k_new) + bh * D + 8 * c;
-            vsrc = static_cast<const __nv_bfloat16*>(a.v_new) + bh * D + 8 * c;
+          if constexpr (KV != xb::kKvBf16) {
+            if (valid && p == pos) {  // the new row, converted from the inputs
+              const size_t n_at = bh * D + EPC * c;
+              const bool native = a.flags & kNewNative;
+              *reinterpret_cast<uint4*>(&st.k[r][EPC * c]) = xb::row_chunk<T>(a.k_new, n_at, native);
+              *reinterpret_cast<uint4*>(&st.v[r][EPC * c]) = xb::row_chunk<T>(a.v_new, n_at, native);
+              continue;
+            }
+          }
+          const T *ksrc = kc, *vsrc = vc;
+          if (valid && p == pos) {  // bf16: the new row, from the inputs
+            ksrc = static_cast<const T*>(a.k_new) + bh * D + EPC * c;
+            vsrc = static_cast<const T*>(a.v_new) + bh * D + EPC * c;
           } else if (valid) {
             size_t blk = tblk;
             int row = trow + r;
             if (!tile_page) locate(p, &blk, &row);
-            const size_t at = ((blk * Hkv + h) * psz + row) * D + 8 * c;
+            const size_t at = ((blk * Hkv + h) * psz + row) * D + EPC * c;
             ksrc = kc + at;
             vsrc = vc + at;
           }
-          xb::cp_async_16(&st.k[r][8 * c], ksrc, valid);
-          xb::cp_async_16(&st.v[r][8 * c], vsrc, valid);
+          xb::cp_async_16(&st.k[r][EPC * c], ksrc, valid);
+          xb::cp_async_16(&st.v[r][EPC * c], vsrc, valid);
         }
       }
     }
@@ -378,12 +425,22 @@ decode_attention_kernel(const Args a) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[mt][e] = 0.f;
 
+  // tiles queued ahead: ST - 1, or with one stage (f32 at D = 256) the first
+  constexpr int kAhead = ST > 1 ? ST - 1 : 1;
 #pragma unroll
-  for (int t = 0; t < ST - 1; ++t) issue(t);
+  for (int t = 0; t < kAhead; ++t) issue(t);
   for (int t = 0; t < n_tiles; ++t) {
-    xb::cp_async_wait<ST - 2>();
+    if constexpr (ST == 1) {
+      if (t > 0) {
+        __syncthreads();  // every warp is done with tile t - 1: its stage is free
+        issue(t);
+      }
+      xb::cp_async_wait<0>();
+    } else {
+      xb::cp_async_wait<ST - 2>();
+    }
     __syncthreads();  // tile t is in; every warp is done with tile t - 1
-    issue(t + ST - 1);
+    if constexpr (ST > 1) issue(t + ST - 1);
     const int wb = t_begin + t * kBK + warp * kRowsW;  // the warp's first position
     if (wb + kRowsW <= s0 || wb >= s1) continue;       // warp-uniform: nothing live
     const auto& st = sm.st[t % ST];
@@ -405,10 +462,27 @@ decode_attention_kernel(const Args a) {
         af[1] = xb::unpack_pair(x1.x, x1.y, g & 3);
         af[2] = xb::unpack_pair(x2.x, x2.y, g & 3);
         af[3] = xb::unpack_pair(x3.x, x3.y, g & 3);
+      } else if constexpr (F32) {
+        // rows g, g + 8 and columns 2t4 (+ 8) as ldmatrix would give them, split
+        const float* r0 = &st.k[warp * kRowsW + g][16 * s + 2 * t4];
+        const float* r1 = r0 + 8 * (D + 8);
+        const float2 x0 = *reinterpret_cast<const float2*>(r0);
+        const float2 x1 = *reinterpret_cast<const float2*>(r1);
+        const float2 x2 = *reinterpret_cast<const float2*>(r0 + 8);
+        const float2 x3 = *reinterpret_cast<const float2*>(r1 + 8);
+        uint32_t lo[4];
+        xb::split_bf16(x0.x, x0.y, af[0], lo[0]);
+        xb::split_bf16(x1.x, x1.y, af[1], lo[1]);
+        xb::split_bf16(x2.x, x2.y, af[2], lo[2]);
+        xb::split_bf16(x3.x, x3.y, af[3], lo[3]);
+        xb::mma_bf16(sc, lo, qb[s][0], qb[s][1]);
       } else {
         xb::ldmatrix_x4(af, &st.k[warp * kRowsW + (lane & 15)][16 * s + (lane >> 4) * 8]);
       }
-      xb::mma_bf16(sc, af, qb[s][0], qb[s][1]);
+      if constexpr (F16)
+        xb::mma_f16(sc, af, qb[s][0], qb[s][1]);
+      else
+        xb::mma_bf16(sc, af, qb[s][0], qb[s][1]);
     }
 
     // mask, one maximum and one rescale for the 16 positions: sc[e] is
@@ -450,8 +524,23 @@ decode_attention_kernel(const Args a) {
     l_r[1] = l_r[1] * alpha[1] + x[1] + x[3];
 
     // o^T += v^T p^T: p^T as the B operand, transposed from the score fragment
-    const uint32_t b0 = xb::movmatrix_trans(xb::pack_bf16(pv[0], pv[1]));
-    const uint32_t b1 = xb::movmatrix_trans(xb::pack_bf16(pv[2], pv[3]));
+    // (f32: its high part b0, b1 and its low part b0l, b1l)
+    uint32_t b0, b1, b0l = 0u, b1l = 0u;
+    if constexpr (F16) {
+      b0 = xb::movmatrix_trans(xb::pack_f16(pv[0], pv[1]));
+      b1 = xb::movmatrix_trans(xb::pack_f16(pv[2], pv[3]));
+    } else if constexpr (F32) {
+      uint32_t h0, l0, h1, l1;
+      xb::split_bf16(pv[0], pv[1], h0, l0);
+      xb::split_bf16(pv[2], pv[3], h1, l1);
+      b0 = xb::movmatrix_trans(h0);
+      b1 = xb::movmatrix_trans(h1);
+      b0l = xb::movmatrix_trans(l0);
+      b1l = xb::movmatrix_trans(l1);
+    } else {
+      b0 = xb::movmatrix_trans(xb::pack_bf16(pv[0], pv[1]));
+      b1 = xb::movmatrix_trans(xb::pack_bf16(pv[2], pv[3]));
+    }
 #pragma unroll
     for (int mt = 0; mt < KS; ++mt) {
       o[mt][0] *= alpha[0];
@@ -468,11 +557,25 @@ decode_attention_kernel(const Args a) {
         av[1] = xb::biased_bytes_to_bf162(__byte_perm(r0[8], 0u, sel));
         av[2] = xb::biased_bytes_to_bf162(__byte_perm(r1[0], 0u, sel));
         av[3] = xb::biased_bytes_to_bf162(__byte_perm(r1[8], 0u, sel));
+      } else if constexpr (F32) {
+        // dim g (+ 8) of positions 2t4, 2t4 + 1 (+ 8), as ldmatrix.trans would give them
+        constexpr int VS = D + 4;
+        const float* c0 = &st.v[warp * kRowsW + 2 * t4][16 * mt + g];
+        uint32_t lo[4];
+        xb::split_bf16(c0[0], c0[VS], av[0], lo[0]);
+        xb::split_bf16(c0[8], c0[VS + 8], av[1], lo[1]);
+        xb::split_bf16(c0[8 * VS], c0[9 * VS], av[2], lo[2]);
+        xb::split_bf16(c0[8 * VS + 8], c0[9 * VS + 8], av[3], lo[3]);
+        xb::mma_bf16(o[mt], lo, b0, b1);    // v_lo p_hi
+        xb::mma_bf16(o[mt], av, b0l, b1l);  // v_hi p_lo
       } else {
         xb::ldmatrix_x4_trans(av, &st.v[warp * kRowsW + (lane & 7) + (lane >> 4) * 8]
                                        [16 * mt + ((lane >> 3) & 1) * 8]);
       }
-      xb::mma_bf16(o[mt], av, b0, b1);
+      if constexpr (F16)
+        xb::mma_f16(o[mt], av, b0, b1);
+      else
+        xb::mma_bf16(o[mt], av, b0, b1);
     }
   }
   xb::cp_async_wait<0>();
@@ -552,10 +655,10 @@ decode_attention_kernel(const Args a) {
   if (tid == 0) a.counters[bh] = 0;  // ready for the next call
 }
 
-template <int D, int REP, bool INT8, bool PAGED>
+template <int D, int REP, int KV, bool PAGED>
 int launch(const Args& a, cudaStream_t st) {
-  auto kernel = decode_attention_kernel<D, REP, INT8, PAGED>;
-  const int smem = static_cast<int>(sizeof(Smem<D, REP, INT8>));
+  auto kernel = decode_attention_kernel<D, REP, KV, PAGED>;
+  const int smem = static_cast<int>(sizeof(Smem<D, REP, KV>));
   // above 48 KB shared memory is dynamic and has to be asked for
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -564,35 +667,41 @@ int launch(const Args& a, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool INT8, bool PAGED>
+template <int D, int KV, bool PAGED>
 int by_rep(const Args& a, cudaStream_t st) {
-  if (a.rep == 1) return launch<D, 1, INT8, PAGED>(a, st);
-  if (a.rep == 2) return launch<D, 2, INT8, PAGED>(a, st);
-  if (a.rep <= 4) return launch<D, 4, INT8, PAGED>(a, st);
-  return launch<D, 8, INT8, PAGED>(a, st);
+  if (a.rep == 1) return launch<D, 1, KV, PAGED>(a, st);
+  if (a.rep == 2) return launch<D, 2, KV, PAGED>(a, st);
+  if (a.rep <= 4) return launch<D, 4, KV, PAGED>(a, st);
+  return launch<D, 8, KV, PAGED>(a, st);
 }
 
-template <bool INT8, bool PAGED>
+template <int KV, bool PAGED>
 int by_dim(const Args& a, int D, cudaStream_t st) {
   switch (D) {
     case 64:
-      return by_rep<64, INT8, PAGED>(a, st);
+      return by_rep<64, KV, PAGED>(a, st);
     case 128:
-      return by_rep<128, INT8, PAGED>(a, st);
+      return by_rep<128, KV, PAGED>(a, st);
     case 256:
-      return by_rep<256, INT8, PAGED>(a, st);
+      return by_rep<256, KV, PAGED>(a, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+template <int KV>
+int by_table(const Args& a, int D, bool paged, cudaStream_t st) {
+  return paged ? by_dim<KV, true>(a, D, st) : by_dim<KV, false>(a, D, st);
+}
+
 }  // namespace
 
-// q, out [B, H, D] bf16; k, v one layer of the cache: bf16 rows, or with
-// ks/vs int32 words and their bf16 scales; table null (linear: psz = S,
-// n_pages = B) or int [B, S / psz] (k/v/ks/vs pools of n_pages pages).
-// lengths, positions int32 or int64 [B] (flags 1, 2).  k_new null: no append;
-// else bf16 [B, Hkv, D] rows (int8: int32 biased bytes, and ks_new/vs_new
+// q, out [B, H, D] bf16; k, v one layer of the cache: rows of dtype 0 (bf16),
+// 1 (fp16) or 2 (f32), or with ks/vs int32 words and their bf16 scales (dtype
+// ignored); table null (linear: psz = S, n_pages = B) or int [B, S / psz]
+// (k/v/ks/vs pools of n_pages pages).  lengths, positions int32 or int64 [B]
+// (flags 1, 2).  k_new null: no append; else [B, Hkv, D] rows, bf16 or of the
+// cache's type with flag 8 (int8: int32 biased bytes, and ks_new/vs_new
 // [B, Hkv] scales, f32 with flag 4, else bf16); positions [B] then.  part is
 // a workspace of B * H * n_split * (D + 2) floats, counters B * Hkv ints, all
 // 0 at the call and all 0 again when the kernel has run (calls that share
@@ -604,8 +713,8 @@ extern "C" int xb_decode_attention(const void* q, void* k, void* v, void* ks, vo
                                    const void* k_new, const void* v_new, const void* ks_new,
                                    const void* vs_new, void* part, void* counters, void* out,
                                    int B, int H, int Hkv, int S, int psz, int n_pages, int D,
-                                   int n_split, int split_len, int window, int flags, float scale,
-                                   void* stream) {
+                                   int n_split, int split_len, int window, int flags, int dtype,
+                                   float scale, void* stream) {
   if (B == 0) return 0;
   const bool int8 = ks != nullptr, paged = table != nullptr;
   if (Hkv <= 0 || H % Hkv || H / Hkv > 8 || split_len % kBK || n_split * split_len < S ||
@@ -641,7 +750,15 @@ extern "C" int xb_decode_attention(const void* q, void* k, void* v, void* ks, vo
   a.flags = flags;
   a.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (int8)
-    return paged ? by_dim<true, true>(a, D, st) : by_dim<true, false>(a, D, st);
-  return paged ? by_dim<false, true>(a, D, st) : by_dim<false, false>(a, D, st);
+  if (int8) return by_table<xb::kKvInt8>(a, D, paged, st);
+  switch (dtype) {
+    case xb::kKvBf16:
+      return by_table<xb::kKvBf16>(a, D, paged, st);
+    case xb::kKvF16:
+      return by_table<xb::kKvF16>(a, D, paged, st);
+    case xb::kKvF32:
+      return by_table<xb::kKvF32>(a, D, paged, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

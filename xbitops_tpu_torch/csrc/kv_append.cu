@@ -1,16 +1,20 @@
 // In-place KV append: write one new row per slot into the head-major cache of
-// one layer at row positions[i].  Two kernels: the bf16 cache k/v
-// [B, Hkv, S, D], and the packed int8 cache (below).
+// one layer at row positions[i].  Two kernels: the dense cache k/v
+// [B, Hkv, S, D] of bf16, fp16 or f32 rows, and the packed int8 cache (below).
 //
 // Replaces the Pallas kernels xbitops_tpu/kernels/kv_append.py:_kernel_dense
 // (entry kv_append_dense, kv_append.py:109) and :_kernel (entry
 // kv_append_packed, kv_append.py:166).
 //
 // What bounds it: nothing on an H100 -- it moves B * Hkv * D * 2 values
-// (1 MB at 7B, B=8), so its time is the launch.  The TPU kernel rewrote a
-// 16-row slab per slot because of the TPU's tiling; here one small block a
-// (slot, kv head) moves exactly that row of k and of v, one 16-byte load and
-// store a thread, nothing else.  Decode writes its rows inside the attention
+// (1 MB at 7B, B=8, bf16), so its time is the launch.  The TPU kernel
+// rewrote a slab of 32 bytes' worth of rows per slot (16 bf16 rows, 8 f32
+// rows) because of the TPU's tiling; here one small block a (slot, kv head)
+// moves exactly that row of k and of v, one 16-byte store a thread, nothing
+// else.  The dense cache's type is a template argument (csrc/kvtype.cuh):
+// new rows come as bf16 or in the cache's type, and a thread converts its
+// piece of a row on the way (16 bytes of the cache: 8 values of bf16 or fp16,
+// 4 of f32), rounded to nearest as the JAX kernel's .astype(k.dtype) does.  Decode writes its rows inside the attention
 // kernel (csrc/decode_attention.cu); this kernel serves the other one-row
 // writes.
 //
@@ -46,6 +50,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kvtype.cuh"
+
 namespace {
 
 // Where position pos of slot i goes: the linear cache keeps it in block i of
@@ -69,28 +75,27 @@ __device__ __forceinline__ bool locate(int i, long long pos, int rows,
   return true;
 }
 
-// Grid (Hkv, B), 2 * D / 8 threads: thread c < D / 8 moves 16 bytes of the k
-// row, the rest the v row.  positions int32, or int64 with pos64.
-template <bool PAGED>
+// Grid (Hkv, B), 2 * D / EPC threads (EPC = 16 / sizeof(T) values in 16
+// bytes): thread c < D / EPC writes 16 bytes of the k row, the rest the v row.
+// New rows T (native) or bf16; positions int32, or int64 with pos64.
+template <typename T, bool PAGED>
 __global__ void kv_append_kernel(uint4* __restrict__ k, uint4* __restrict__ v,
-                                 const uint4* __restrict__ k_new,
-                                 const uint4* __restrict__ v_new,
+                                 const void* __restrict__ k_new,
+                                 const void* __restrict__ v_new, int native,
                                  const void* __restrict__ positions, int pos64,
                                  const int* __restrict__ table, int P, int n_pages, int Hkv,
                                  int S, int D) {
+  constexpr int EPC = 16 / sizeof(T);
   const int h = blockIdx.x, i = blockIdx.y;
   const long long p = pos64 ? static_cast<const long long*>(positions)[i]
                             : static_cast<const int*>(positions)[i];
   int blk, pos;
   if (!locate<PAGED>(i, p, S, table, P, n_pages, &blk, &pos)) return;
-  const int chunks = D / 8;  // 16-byte pieces of a row
+  const int chunks = D / EPC;  // 16-byte pieces of a row
   const int which = threadIdx.x / chunks, c = threadIdx.x - which * chunks;
   const size_t dst = ((static_cast<size_t>(blk) * Hkv + h) * S + pos) * chunks + c;
-  const size_t src = (static_cast<size_t>(i) * Hkv + h) * chunks + c;
-  if (which)
-    v[dst] = v_new[src];
-  else
-    k[dst] = k_new[src];
+  const size_t src = ((static_cast<size_t>(i) * Hkv + h) * chunks + c) * EPC;
+  (which ? v : k)[dst] = xb::row_chunk<T>(which ? v_new : k_new, src, native);
 }
 
 // A new scale as bf16 bits: f32 (s_f32) rounded to nearest even, or bf16.
@@ -155,17 +160,39 @@ int append_packed(void* k, void* v, void* ks, void* vs, const void* kq, const vo
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, bool PAGED>
+int append_t(void* k, void* v, const void* k_new, const void* v_new, int native,
+             const void* positions, int pos64, const void* table, int P, int n_pages, int B,
+             int Hkv, int S, int D, void* stream) {
+  constexpr int EPC = 16 / sizeof(T);
+  kv_append_kernel<T, PAGED>
+      <<<dim3(Hkv, B), 2 * (D / EPC), 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<uint4*>(k), static_cast<uint4*>(v), k_new, v_new, native, positions,
+          pos64, static_cast<const int*>(table), P, n_pages, Hkv, S, D);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// dtype: the cache's type (xb::KvForm: bf16, fp16 or f32); native: the new
+// rows are of that type, else bf16.
 template <bool PAGED>
-int append(void* k, void* v, const void* k_new, const void* v_new, const void* positions,
-           int pos64, const void* table, int P, int n_pages, int B, int Hkv, int S, int D,
-           void* stream) {
+int append(void* k, void* v, const void* k_new, const void* v_new, int dtype, int native,
+           const void* positions, int pos64, const void* table, int P, int n_pages, int B,
+           int Hkv, int S, int D, void* stream) {
   if (D % 8 || D > 512) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
-  kv_append_kernel<PAGED><<<dim3(Hkv, B), 2 * (D / 8), 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<uint4*>(k), static_cast<uint4*>(v), static_cast<const uint4*>(k_new),
-      static_cast<const uint4*>(v_new), positions, pos64, static_cast<const int*>(table), P,
-      n_pages, Hkv, S, D);
-  return static_cast<int>(cudaGetLastError());
+  switch (dtype) {
+    case xb::kKvBf16:
+      return append_t<__nv_bfloat16, PAGED>(k, v, k_new, v_new, 1, positions, pos64, table, P,
+                                            n_pages, B, Hkv, S, D, stream);
+    case xb::kKvF16:
+      return append_t<__half, PAGED>(k, v, k_new, v_new, native, positions, pos64, table, P,
+                                     n_pages, B, Hkv, S, D, stream);
+    case xb::kKvF32:
+      return append_t<float, PAGED>(k, v, k_new, v_new, native, positions, pos64, table, P,
+                                    n_pages, B, Hkv, S, D, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -180,13 +207,14 @@ extern "C" int xb_kv_append_packed(void* k, void* v, void* ks, void* vs, const v
                               nullptr, 0, 0, B, Hkv, Sw, D, stream);
 }
 
-// k_new, v_new bf16 [B, Hkv, D], 16-byte aligned; positions int32 [B], or
+// k/v rows of dtype 0 (bf16), 1 (fp16) or 2 (f32); k_new, v_new [B, Hkv, D]
+// of that type (native = 1) or bf16, 16-byte aligned; positions int32 [B], or
 // int64 with pos64 = 1.
-extern "C" int xb_kv_append(void* k, void* v, const void* k_new, const void* v_new,
-                            const void* positions, int pos64, int B, int Hkv, int S, int D,
-                            void* stream) {
-  return append<false>(k, v, k_new, v_new, positions, pos64, nullptr, 0, 0, B, Hkv, S, D,
-                       stream);
+extern "C" int xb_kv_append(void* k, void* v, const void* k_new, const void* v_new, int dtype,
+                            int native, const void* positions, int pos64, int B, int Hkv, int S,
+                            int D, void* stream) {
+  return append<false>(k, v, k_new, v_new, dtype, native, positions, pos64, nullptr, 0, 0, B,
+                       Hkv, S, D, stream);
 }
 
 // The paged forms: k/v (and ks/vs) are the pools of one layer, table int
@@ -202,9 +230,10 @@ extern "C" int xb_kv_append_packed_paged(void* k, void* v, void* ks, void* vs, c
 }
 
 extern "C" int xb_kv_append_paged(void* k, void* v, const void* k_new, const void* v_new,
-                                  const void* positions, int pos64, const void* table, int P,
-                                  int n_pages, int B, int Hkv, int psz, int D, void* stream) {
+                                  int dtype, int native, const void* positions, int pos64,
+                                  const void* table, int P, int n_pages, int B, int Hkv, int psz,
+                                  int D, void* stream) {
   if (P <= 0 || n_pages <= 0 || psz <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  return append<true>(k, v, k_new, v_new, positions, pos64, table, P, n_pages, B, Hkv, psz, D,
-                      stream);
+  return append<true>(k, v, k_new, v_new, dtype, native, positions, pos64, table, P, n_pages, B,
+                      Hkv, psz, D, stream);
 }

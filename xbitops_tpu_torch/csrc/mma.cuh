@@ -1,7 +1,8 @@
 // Warp-level tensor-core pieces shared by the kernels that multiply on
 // mma.sync (qgemv_mma.cu, qgemv_word.cu, prefill_attention.cu,
-// decode_attention.cu): the bf16 m16n8k16 product, ldmatrix, movmatrix,
-// cp.async, and the exact decode of packed integers to bf16 pairs.
+// decode_attention.cu): the bf16 and fp16 m16n8k16 products, ldmatrix,
+// movmatrix, cp.async, the exact decode of packed integers to bf16 pairs, and
+// the split of f32 values into a bf16 high and low part.
 //
 // Fragment layout of mma.m16n8k16.row.col, lane = 4*g + t4 (g = 0..7, t4 = 0..3):
 //   A (16 x 16, row): a0 = (row g,   k 2t4, 2t4+1)   a1 = (row g+8, k 2t4, 2t4+1)
@@ -11,6 +12,7 @@
 // A 32-bit register holds two bf16 values, the lower index in the low half.
 #pragma once
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -24,6 +26,16 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
                                          uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The same product on fp16 operands (f32 sums).
+__device__ __forceinline__ void mma_f16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                        uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
       "{%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
@@ -112,6 +124,25 @@ __device__ __forceinline__ uint32_t bytes_to_bf162(uint32_t v) {
 __device__ __forceinline__ uint32_t pack_bf16(float a, float b) {
   const __nv_bfloat162 t = __floats2bfloat162_rn(a, b);
   return *reinterpret_cast<const uint32_t*>(&t);
+}
+
+__device__ __forceinline__ uint32_t pack_f16(float a, float b) {
+  const __half2 t = __floats2half2_rn(a, b);
+  return *reinterpret_cast<const uint32_t*>(&t);
+}
+
+// A bf16 pair (the lower index in the low half) as the fp16 pair of the same
+// values, rounded to nearest (exact for bf16 values inside fp16's normal range).
+__device__ __forceinline__ uint32_t bf162_to_f162(uint32_t a) {
+  return pack_f16(__uint_as_float(a << 16), __uint_as_float(a & 0xffff0000u));
+}
+
+// Two f32 values as a bf16 pair hi and a bf16 pair lo = x - hi, rounded: hi + lo
+// holds x to 16 significant bits (relative error <= 2^-17), so products of
+// them on the bf16 tensor cores keep an f32 operand to f32-like accuracy.
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+  hi = pack_bf16(x0, x1);
+  lo = pack_bf16(x0 - __uint_as_float(hi << 16), x1 - __uint_as_float(hi & 0xffff0000u));
 }
 
 // The biased bytes (value + 128) in bits 0-7 and 16-23 of t as the bf16 pair

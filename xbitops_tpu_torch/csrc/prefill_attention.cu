@@ -1,8 +1,9 @@
 // Chunked-prefill attention: a [N, T, H, D] chunk of queries against the
 // cache rows of slots slot_ids[n] of one layer, causal by global position;
-// out [N, T, H, D].  The cache is bf16 rows k/v [B, Hkv, S, D], or the packed
-// int8 cache, words [B, Hkv, S/4, D] int32 (byte j of word w = position
-// 4w + j, stored as value + 128) with bf16 scales [B, 4, Hkv, S/4].
+// out [N, T, H, D].  The cache is dense rows k/v [B, Hkv, S, D] of bf16, fp16
+// or f32, or the packed int8 cache, words [B, Hkv, S/4, D] int32 (byte j of
+// word w = position 4w + j, stored as value + 128) with bf16 scales
+// [B, 4, Hkv, S/4].
 //
 // Replaces the Pallas kernels xbitops_tpu/kernels/prefill_attention.py
 // _kernel_v2 (prefill_attention.py:188) and _kernel_v1
@@ -65,10 +66,25 @@
 // the same shared-memory tile.  The linear cache is the case of one page of S rows per
 // slot.  A table entry is clamped into [0, n_pages) before use: rows of a page
 // that was never given are never visible to a live query, and nothing faults.
+//
+// The fp16 and f32 caches (q and the output stay bf16), as in
+// csrc/decode_attention.cu.  fp16: the q-tile is converted to fp16 on its way
+// to shared memory, the key tiles come by cp.async as they are, and both
+// products run on the fp16 tensor cores with p rounded to fp16.  f32: k and v
+// must not be rounded to bf16, so each f32 operand is split in registers into
+// a bf16 high and low part: q k^T = q k_hi + q k_lo, and p v = p_hi v_hi +
+// p_hi v_lo + p_lo v_hi (the dropped term is below 2^-17 of the result).
+// The f32 tiles are read by plain loads in the fragments' order (k rows D + 8
+// floats apart, v rows D + 4: no bank conflicts) in place of ldmatrix, and
+// take twice the shared memory: two buffers of k and v at D <= 128 (156 KB at
+// D = 128), one at D = 256, whose key tile then loads after the previous one
+// is consumed.  The split costs 2 products for q k^T and 3 for p v where the
+// 16-bit forms take one each, on a kernel that is bound by its operations.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "kvtype.cuh"
 #include "mma.cuh"
 
 namespace {
@@ -80,11 +96,15 @@ constexpr int kTQ = kWarps * kRows;  // queries per block
 constexpr int kBK = 64;              // keys per tile
 constexpr float kNegInf = -1e30f;
 
-template <int D>
+// T: the key tiles' element (bf16, also for the int8 cache, fp16 or f32);
+// NBUF key tiles of k and of v.  16-bit rows lie 16 bytes apart in the banks:
+// conflict-free ldmatrix; f32 rows: k D + 8 floats apart, v D + 4 (see
+// csrc/decode_attention.cu).
+template <int D, typename T, int NBUF>
 struct alignas(16) Smem {
-  __nv_bfloat16 q[kTQ][D + 8];  // rows 16 bytes apart in the banks: conflict-free ldmatrix
-  __nv_bfloat16 k[2][kBK][D + 8];
-  __nv_bfloat16 v[2][kBK][D + 8];
+  uint16_t q[kTQ][D + 8];  // bf16 values, or fp16 for the fp16 cache; then the output
+  T k[NBUF][kBK][D + 8];
+  T v[NBUF][kBK][D + (sizeof(T) == 4 ? 4 : 8)];
   float ksc[2][kBK];  // int8, per key: softmax scale times the k scale
   float vsc[2][kBK];  // int8, per key: the v scale
   int pos[kTQ];       // per query: its position, -1 for padding
@@ -111,10 +131,18 @@ __device__ __forceinline__ size_t find_block(int r, int slot, int rows, int shif
   }
 }
 
-// DPL: D / 32.  INT8: k/v are packed words and ks/vs their scales; otherwise
-// k/v are bf16 rows and ks/vs are unused.  PAGED: k/v (and ks/vs) are pools of
-// pages of psz positions found through table [B, S / psz]; otherwise psz == S.
-template <int DPL, bool INT8, bool PAGED>
+template <int KV, int D>
+struct Tiles {
+  static constexpr int kBufs = KV == xb::kKvF32 && D > 128 ? 1 : 2;
+  using T = typename xb::KvElem<KV>::T;
+  using Layout = Smem<D, T, kBufs>;
+};
+
+// DPL: D / 32.  KV: the cache form (xb::KvForm).  INT8: k/v are packed words
+// and ks/vs their scales; otherwise k/v are dense rows and ks/vs are unused.
+// PAGED: k/v (and ks/vs) are pools of pages of psz positions found through
+// table [B, S / psz]; otherwise psz == S.
+template <int DPL, int KV, bool PAGED>
 __global__ void __launch_bounds__(kThreads)
 prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
                          const void* __restrict__ k_raw, const void* __restrict__ v_raw,
@@ -127,11 +155,15 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
   // log2 of the page size where it is a power of two (int8: of 4 or more), else -1
   const int psz_shift = PAGED && (psz & (psz - 1)) == 0 ? __ffs(psz) - 1 : -1;
   constexpr int D = DPL * 32;
+  constexpr bool INT8 = KV == xb::kKvInt8, F16 = KV == xb::kKvF16, F32 = KV == xb::kKvF32;
+  using E = typename Tiles<KV, D>::T;  // a key tile's element (T is the chunk's length)
+  constexpr int NBUF = Tiles<KV, D>::kBufs;
+  constexpr int EPC = 16 / sizeof(E);  // dense values in 16 bytes
   constexpr int KSTEPS = D / 16;     // k16 steps of q k^T; pairs of 8-wide output tiles of p v
   constexpr bool QREG = D <= 128;    // the q fragments stay in registers
   constexpr int ITEMS = D / 32;      // int8: (word row, four columns) items a thread a tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw);
+  auto& sm = *reinterpret_cast<typename Tiles<KV, D>::Layout*>(smem_raw);
 
   const int t0 = blockIdx.x * kTQ, h = blockIdx.y, n = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -162,6 +194,12 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
     if (t0 + r < T)
       w = *reinterpret_cast<const uint4*>(
           q + ((static_cast<size_t>(n) * T + t0 + r) * H + h) * D + c * 8);
+    if constexpr (F16) {  // the fp16 products take q as fp16
+      w.x = xb::bf162_to_f162(w.x);
+      w.y = xb::bf162_to_f162(w.y);
+      w.z = xb::bf162_to_f162(w.z);
+      w.w = xb::bf162_to_f162(w.w);
+    }
     *reinterpret_cast<uint4*>(&sm.q[r][c * 8]) = w;
   }
   __syncthreads();
@@ -173,7 +211,7 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
   int warp_hi = -1;
   for (int r = 0; r < kRows; ++r) warp_hi = max(warp_hi, sm.pos[warp * kRows + r]);
 
-  const __nv_bfloat16* q_lane = &sm.q[warp * kRows + (lane & 15)][(lane >> 4) * 8];
+  const uint16_t* q_lane = &sm.q[warp * kRows + (lane & 15)][(lane >> 4) * 8];
   uint32_t qf[QREG ? KSTEPS : 1][4];
   if constexpr (QREG) {
 #pragma unroll
@@ -189,21 +227,21 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
 
   const int Sw = S / 4, pszw = psz / 4;
 
-  // bf16 cache: queue the copies of the 64 rows from kb on into buffer `buf`
+  // dense cache: queue the copies of the 64 rows from kb on into buffer `buf`
   auto queue_tile = [&](int kb, int buf) {
-    const __nv_bfloat16* kp = static_cast<const __nv_bfloat16*>(k_raw);
-    const __nv_bfloat16* vp = static_cast<const __nv_bfloat16*>(v_raw);
-    for (int idx = tid; idx < kBK * (D / 8); idx += kThreads) {
-      const int r = idx / (D / 8), c = idx - r * (D / 8);
+    const E* kp = static_cast<const E*>(k_raw);
+    const E* vp = static_cast<const E*>(v_raw);
+    for (int idx = tid; idx < kBK * (D / EPC); idx += kThreads) {
+      const int r = idx / (D / EPC), c = idx - r * (D / EPC);
       const bool valid = kb + r < S;  // beyond the cache: zeros
       size_t at = 0;
       if (valid) {
         int ri;
         const size_t blk = find_block<PAGED>(kb + r, slot, psz, psz_shift, table_row, n_pages, &ri);
-        at = ((blk * Hkv + hk) * psz + ri) * D + c * 8;
+        at = ((blk * Hkv + hk) * psz + ri) * D + c * EPC;
       }
-      xb::cp_async_16(&sm.k[buf][r][c * 8], kp + at, valid);
-      xb::cp_async_16(&sm.v[buf][r][c * 8], vp + at, valid);
+      xb::cp_async_16(&sm.k[buf][r][c * EPC], kp + at, valid);
+      xb::cp_async_16(&sm.v[buf][r][c * EPC], vp + at, valid);
     }
     xb::cp_async_commit();
   };
@@ -274,18 +312,21 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
     }
   }
   for (int it = 0; it < n_tiles; ++it) {
-    const int kb = kb0 + it * kBK, buf = it & 1;
+    const int kb = kb0 + it * kBK, buf = NBUF == 2 ? it & 1 : 0;
     const bool more = it + 1 < n_tiles;
-    // the next tile is on its way while this one multiplies
+    // the next tile is on its way while this one multiplies (one buffer: it
+    // loads after this one is consumed, below)
     if constexpr (INT8) {
       if (more) fetch_tile(kb + kBK);
-    } else {
+    } else if constexpr (NBUF == 2) {
       if (more) {
         queue_tile(kb + kBK, buf ^ 1);
         xb::cp_async_wait<1>();
       } else {
         xb::cp_async_wait<0>();
       }
+    } else {
+      xb::cp_async_wait<0>();
     }
     __syncthreads();  // tile `it` is in shared memory
 
@@ -305,14 +346,34 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
         } else {
           xb::ldmatrix_x4(af, q_lane + s * 16);
         }
+        if constexpr (F32) {
 #pragma unroll
-        for (int np = 0; np < 4; ++np) {
-          // keys 16np.. : (keys 0-7, d 0-7), (keys 0-7, d 8-15), (keys 8-15, d 0-7), (8-15, 8-15)
-          uint32_t bk[4];
-          xb::ldmatrix_x4(bk, &sm.k[buf][np * 16 + ((lane >> 4) << 3) + (lane & 7)]
-                                       [s * 16 + ((lane >> 3) & 1) * 8]);
-          xb::mma_bf16(sc[2 * np], af, bk[0], bk[1]);
-          xb::mma_bf16(sc[2 * np + 1], af, bk[2], bk[3]);
+          for (int nt = 0; nt < 8; ++nt) {
+            // key 8nt + g, dims 2t4 (+ 8) as ldmatrix would give them, split
+            const float* r = &sm.k[buf][nt * 8 + g][s * 16 + 2 * t4];
+            const float2 x0 = *reinterpret_cast<const float2*>(r);
+            const float2 x1 = *reinterpret_cast<const float2*>(r + 8);
+            uint32_t h0, l0, h1, l1;
+            xb::split_bf16(x0.x, x0.y, h0, l0);
+            xb::split_bf16(x1.x, x1.y, h1, l1);
+            xb::mma_bf16(sc[nt], af, h0, h1);
+            xb::mma_bf16(sc[nt], af, l0, l1);
+          }
+        } else {
+#pragma unroll
+          for (int np = 0; np < 4; ++np) {
+            // keys 16np.. : (keys 0-7, d 0-7), (keys 0-7, d 8-15), (keys 8-15, d 0-7), (8-15, 8-15)
+            uint32_t bk[4];
+            xb::ldmatrix_x4(bk, &sm.k[buf][np * 16 + ((lane >> 4) << 3) + (lane & 7)]
+                                         [s * 16 + ((lane >> 3) & 1) * 8]);
+            if constexpr (F16) {
+              xb::mma_f16(sc[2 * np], af, bk[0], bk[1]);
+              xb::mma_f16(sc[2 * np + 1], af, bk[2], bk[3]);
+            } else {
+              xb::mma_bf16(sc[2 * np], af, bk[0], bk[1]);
+              xb::mma_bf16(sc[2 * np + 1], af, bk[2], bk[3]);
+            }
+          }
         }
       }
 
@@ -359,25 +420,59 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
       // o += p v: the score fragments of keys 16kk.. are the A fragment of step kk
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
-        uint32_t pa[4];
-        pa[0] = pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
-        pa[1] = pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
-        pa[2] = pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
-        pa[3] = pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
+        uint32_t pa[4], pl[4];  // p (f32: its high part) and, f32, its low part
+        if constexpr (F32) {
+          xb::split_bf16(sc[2 * kk][0], sc[2 * kk][1], pa[0], pl[0]);
+          xb::split_bf16(sc[2 * kk][2], sc[2 * kk][3], pa[1], pl[1]);
+          xb::split_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1], pa[2], pl[2]);
+          xb::split_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3], pa[3], pl[3]);
+        } else if constexpr (F16) {
+          pa[0] = xb::pack_f16(sc[2 * kk][0], sc[2 * kk][1]);
+          pa[1] = xb::pack_f16(sc[2 * kk][2], sc[2 * kk][3]);
+          pa[2] = xb::pack_f16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
+          pa[3] = xb::pack_f16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
+        } else {
+          pa[0] = pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
+          pa[1] = pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
+          pa[2] = pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
+          pa[3] = pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
+        }
 #pragma unroll
         for (int dp = 0; dp < KSTEPS; ++dp) {
-          // d 16dp.. : (keys 0-7, d 0-7), (keys 8-15, d 0-7), (keys 0-7, d 8-15), (8-15, 8-15)
-          uint32_t bv[4];
-          xb::ldmatrix_x4_trans(bv, &sm.v[buf][kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)]
-                                             [dp * 16 + ((lane >> 4) << 3)]);
-          xb::mma_bf16(o[2 * dp], pa, bv[0], bv[1]);
-          xb::mma_bf16(o[2 * dp + 1], pa, bv[2], bv[3]);
+          if constexpr (F32) {
+            // keys 2t4, 2t4 + 1 (+ 8) of dim g of each 8-wide output tile, split
+            constexpr int VS = D + 4;
+#pragma unroll
+            for (int j = 0; j < 2; ++j) {
+              const float* c0 = &sm.v[buf][kk * 16 + 2 * t4][dp * 16 + 8 * j + g];
+              uint32_t h0, l0, h1, l1;
+              xb::split_bf16(c0[0], c0[VS], h0, l0);
+              xb::split_bf16(c0[8 * VS], c0[9 * VS], h1, l1);
+              xb::mma_bf16(o[2 * dp + j], pa, h0, h1);
+              xb::mma_bf16(o[2 * dp + j], pa, l0, l1);
+              xb::mma_bf16(o[2 * dp + j], pl, h0, h1);
+            }
+          } else {
+            // d 16dp.. : (keys 0-7, d 0-7), (keys 8-15, d 0-7), (keys 0-7, d 8-15), (8-15, 8-15)
+            uint32_t bv[4];
+            xb::ldmatrix_x4_trans(bv, &sm.v[buf][kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)]
+                                               [dp * 16 + ((lane >> 4) << 3)]);
+            if constexpr (F16) {
+              xb::mma_f16(o[2 * dp], pa, bv[0], bv[1]);
+              xb::mma_f16(o[2 * dp + 1], pa, bv[2], bv[3]);
+            } else {
+              xb::mma_bf16(o[2 * dp], pa, bv[0], bv[1]);
+              xb::mma_bf16(o[2 * dp + 1], pa, bv[2], bv[3]);
+            }
+          }
         }
       }
     }
     __syncthreads();  // tile `it` is consumed: its buffer's other half may be written
     if constexpr (INT8) {
       if (more) store_tile(buf ^ 1);
+    } else if constexpr (NBUF == 1) {
+      if (more) queue_tile(kb + kBK, 0);
     }
   }
 
@@ -405,19 +500,19 @@ prefill_attention_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-template <int DPL, bool INT8, bool PAGED>
+template <int DPL, int KV, bool PAGED>
 int launch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
            const void* positions, const void* slot_ids, const void* table, void* out, int N,
            int T, int H, int Hkv, int B, int S, int psz, int n_pages, int window, float scale,
            cudaStream_t st) {
   constexpr int D = DPL * 32;
-  auto kernel = prefill_attention_kernel<DPL, INT8, PAGED>;
+  constexpr int smem = static_cast<int>(sizeof(typename Tiles<KV, D>::Layout));
+  auto kernel = prefill_attention_kernel<DPL, KV, PAGED>;
   // above 48 KB shared memory is dynamic and has to be asked for
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(sizeof(Smem<D>)));
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((T + kTQ - 1) / kTQ, H, N);
-  kernel<<<grid, kWarps * 32, sizeof(Smem<D>), st>>>(
+  kernel<<<grid, kWarps * 32, smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), k, v, static_cast<const __nv_bfloat16*>(ks),
       static_cast<const __nv_bfloat16*>(vs), static_cast<const int*>(positions),
       static_cast<const int*>(slot_ids), static_cast<const int*>(table),
@@ -425,11 +520,12 @@ int launch(const void* q, const void* k, const void* v, const void* ks, const vo
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool INT8, bool PAGED>
+template <int KV, bool PAGED>
 int dispatch(const void* q, const void* k, const void* v, const void* ks, const void* vs,
              const void* positions, const void* slot_ids, const void* table, void* out, int N,
              int T, int H, int Hkv, int B, int S, int psz, int n_pages, int D, int window,
              float scale, void* stream) {
+  constexpr bool INT8 = KV == xb::kKvInt8;
   if (N == 0 || T == 0) return 0;
   if (H % Hkv || (INT8 && S % 4)) return static_cast<int>(cudaErrorInvalidValue);
   if (PAGED && (psz <= 0 || n_pages <= 0 || S % psz || (INT8 && psz % 4)))
@@ -437,13 +533,13 @@ int dispatch(const void* q, const void* k, const void* v, const void* ks, const 
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:
-      return launch<2, INT8, PAGED>(q, k, v, ks, vs, positions, slot_ids, table, out, N, T, H,
+      return launch<2, KV, PAGED>(q, k, v, ks, vs, positions, slot_ids, table, out, N, T, H,
                                     Hkv, B, S, psz, n_pages, window, scale, st);
     case 128:
-      return launch<4, INT8, PAGED>(q, k, v, ks, vs, positions, slot_ids, table, out, N, T, H,
+      return launch<4, KV, PAGED>(q, k, v, ks, vs, positions, slot_ids, table, out, N, T, H,
                                     Hkv, B, S, psz, n_pages, window, scale, st);
     case 256:
-      return launch<8, INT8, PAGED>(q, k, v, ks, vs, positions, slot_ids, table, out, N, T, H,
+      return launch<8, KV, PAGED>(q, k, v, ks, vs, positions, slot_ids, table, out, N, T, H,
                                     Hkv, B, S, psz, n_pages, window, scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -452,34 +548,54 @@ int dispatch(const void* q, const void* k, const void* v, const void* ks, const 
 
 }  // namespace
 
+template <bool PAGED>
+int by_form(int dtype, const void* q, const void* k, const void* v, const void* ks,
+            const void* vs, const void* positions, const void* slot_ids, const void* table,
+            void* out, int N, int T, int H, int Hkv, int B, int S, int psz, int n_pages, int D,
+            int window, float scale, void* stream) {
+  const int form = ks != nullptr ? xb::kKvInt8 : dtype;
+  switch (form) {
+    case xb::kKvInt8:
+      return dispatch<xb::kKvInt8, PAGED>(q, k, v, ks, vs, positions, slot_ids, table, out, N,
+                                          T, H, Hkv, B, S, psz, n_pages, D, window, scale, stream);
+    case xb::kKvBf16:
+      return dispatch<xb::kKvBf16, PAGED>(q, k, v, ks, vs, positions, slot_ids, table, out, N,
+                                          T, H, Hkv, B, S, psz, n_pages, D, window, scale, stream);
+    case xb::kKvF16:
+      return dispatch<xb::kKvF16, PAGED>(q, k, v, ks, vs, positions, slot_ids, table, out, N, T,
+                                         H, Hkv, B, S, psz, n_pages, D, window, scale, stream);
+    case xb::kKvF32:
+      return dispatch<xb::kKvF32, PAGED>(q, k, v, ks, vs, positions, slot_ids, table, out, N, T,
+                                         H, Hkv, B, S, psz, n_pages, D, window, scale, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 // q, out [N, T, H, D] bf16; k/v of one layer; positions int [N, T]; slot_ids
 // int [N]; window 0 = none.  Returns cudaErrorInvalidValue (1) for a shape it
-// does not take.  With ks == nullptr the cache is bf16 rows [B, Hkv, S, D];
-// otherwise int8 words [B, Hkv, S/4, D] with scales ks/vs [B, 4, Hkv, S/4].
+// does not take.  With ks == nullptr the cache is rows [B, Hkv, S, D] of
+// dtype 0 (bf16), 1 (fp16) or 2 (f32); otherwise int8 words [B, Hkv, S/4, D]
+// with scales ks/vs [B, 4, Hkv, S/4] (dtype ignored).
 extern "C" int xb_prefill_attention(const void* q, const void* k, const void* v,
                                     const void* ks, const void* vs, const void* positions,
                                     const void* slot_ids, void* out, int N, int T, int H,
-                                    int Hkv, int B, int S, int D, int window, float scale,
-                                    void* stream) {
-  if (ks != nullptr)
-    return dispatch<true, false>(q, k, v, ks, vs, positions, slot_ids, nullptr, out, N, T, H,
-                                 Hkv, B, S, S, B, D, window, scale, stream);
-  return dispatch<false, false>(q, k, v, ks, vs, positions, slot_ids, nullptr, out, N, T, H,
-                                Hkv, B, S, S, B, D, window, scale, stream);
+                                    int Hkv, int B, int S, int D, int window, int dtype,
+                                    float scale, void* stream) {
+  return by_form<false>(dtype, q, k, v, ks, vs, positions, slot_ids, nullptr, out, N, T, H, Hkv,
+                        B, S, S, B, D, window, scale, stream);
 }
 
-// The paged form: k/v are pools [n_pages, Hkv, psz, D] bf16, or with ks/vs
-// word pools [n_pages, Hkv, psz/4, D] and scale pools [n_pages, 4, Hkv, psz/4];
-// table int [B, P], slot_ids choose its rows; a slot holds P * psz positions.
+// The paged form: k/v are pools [n_pages, Hkv, psz, D] of rows of dtype, or
+// with ks/vs word pools [n_pages, Hkv, psz/4, D] and scale pools
+// [n_pages, 4, Hkv, psz/4]; table int [B, P], slot_ids choose its rows; a slot
+// holds P * psz positions.
 extern "C" int xb_prefill_attention_paged(const void* q, const void* k, const void* v,
                                           const void* ks, const void* vs,
                                           const void* positions, const void* slot_ids,
                                           const void* table, void* out, int N, int T, int H,
                                           int Hkv, int B, int P, int psz, int n_pages, int D,
-                                          int window, float scale, void* stream) {
-  if (ks != nullptr)
-    return dispatch<true, true>(q, k, v, ks, vs, positions, slot_ids, table, out, N, T, H, Hkv,
-                                B, P * psz, psz, n_pages, D, window, scale, stream);
-  return dispatch<false, true>(q, k, v, ks, vs, positions, slot_ids, table, out, N, T, H, Hkv,
-                               B, P * psz, psz, n_pages, D, window, scale, stream);
+                                          int window, int dtype, float scale, void* stream) {
+  return by_form<true>(dtype, q, k, v, ks, vs, positions, slot_ids, table, out, N, T, H, Hkv, B,
+                       P * psz, psz, n_pages, D, window, scale, stream);
 }

@@ -165,10 +165,13 @@ class Engine:
         draft_cfg: Optional[llama.LlamaConfig] = None,
         max_restarts: int = 0,
     ):
-        """``kv_quant``: True for the packed int8 KV cache, False for bf16;
-        None picks int8 for long contexts (``max_seq_len >=
-        AUTO_KV_QUANT_MIN_S``) where the cache allows it, and bf16 for a paged
-        cache, as the JAX package does.  ``prefill_chunk``:
+        """``cache_dtype``: the dense KV cache's rows, ``torch.bfloat16``,
+        ``torch.float16`` or ``torch.float32`` (the draft model's cache too;
+        activations stay bf16).  ``kv_quant``: True for the packed int8 KV
+        cache, False for the dense one; None picks int8 for long contexts
+        (``max_seq_len >= AUTO_KV_QUANT_MIN_S``) where the cache allows it and
+        ``cache_dtype`` is bf16, and the dense cache for a paged cache, as the
+        JAX package does.  ``prefill_chunk``:
         the longest bucket, and the chunk length for longer prompts.
         ``seed`` seeds the engine's ``torch.Generator`` for sampled rows.
 
@@ -216,6 +219,7 @@ class Engine:
         the embedding and the norms whole) and its cache."""
         if cfg != model.cfg:
             raise ValueError("cfg differs from the model's config")
+        common.check_kv_dtype(cache_dtype)
         self.mesh = mesh
         if mesh is not None and draft_params is not None:
             raise ValueError("draft-model speculation supports mesh=None, paged=False")
@@ -325,7 +329,8 @@ class Engine:
         cfg, slots = self.model.cfg, self.slots
         if self.draft is not None:
             self._draft_cache = None
-            self._draft_cache = llama.KVCache.init(self.draft.cfg, slots, self.device)
+            self._draft_cache = llama.KVCache.init(self.draft.cfg, slots, self.device,
+                                                   dtype=self.cache_dtype)
         if not self.paged:
             return llama.KVCache.init(cfg, slots, self.device, dtype=self.cache_dtype,
                                       quantized=self.kv_quant)

@@ -105,7 +105,7 @@ def params_from_numpy(params: dict, cfg: LlamaConfig, device) -> Llama:
 
 def kvcache_from_numpy(cache: Any, device) -> KVCache:
     """The JAX package's ``KVCache`` (numpy leaves, any object with its
-    fields) -> the port's, bf16 or packed int8, linear or paged (pools, scale
+    fields) -> the port's, dense (bf16, fp16 or f32) or packed int8, linear or paged (pools, scale
     pools and page table): both keep the same layout, so a request can prefill
     in one package and decode in the other."""
     quantized = cache.k_scale is not None

@@ -38,14 +38,37 @@ NVCC_FLAGS = [
 # A wrapper adds one where it launches its kernel and nowhere else, so a run
 # can show that the main path went through the kernels.
 # The decode-attention kernel appends the new rows itself: its launches with
-# ``kv_new`` count once more under the append form's name + "_fused".
-APPENDS = ("kv_append", "kv_append_packed", "kv_append_paged", "kv_append_packed_paged")
+# ``kv_new`` count once more under the append form's name + "_fused".  The
+# fp16 and f32 caches' forms of the attention kernels and the append count
+# under their own names (``dense_suffix``).
+APPENDS = ("kv_append", "kv_append_packed", "kv_append_paged", "kv_append_packed_paged",
+           "kv_append_f16", "kv_append_f32", "kv_append_f16_paged", "kv_append_f32_paged")
 KERNELS = ("qgemv", "decode_attention", "prefill_attention", "decode_attention_int8", "dequant",
            "qgemv_a8", "qgemv_a8_perchannel", "decode_attention_paged",
            "decode_attention_int8_paged", "prefill_attention_paged", "qgemv_mma",
-           "qgemv_cuda_core", "qgemv_planes") + APPENDS + tuple(n + "_fused" for n in APPENDS)
+           "qgemv_cuda_core", "qgemv_planes", "decode_attention_f16", "decode_attention_f32",
+           "decode_attention_f16_paged", "decode_attention_f32_paged", "prefill_attention_f16",
+           "prefill_attention_f32", "prefill_attention_f16_paged",
+           "prefill_attention_f32_paged") + APPENDS + tuple(n + "_fused" for n in APPENDS)
 launches = dict.fromkeys(KERNELS, 0)
 plain_on_cuda = dict.fromkeys(KERNELS, 0)
+
+
+# The dense KV cache's element types and their codes in the C entries (csrc/kvtype.cuh).
+DENSE_KV = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+
+
+def check_kv_dtype(dtype) -> None:
+    """Reject a dense KV cache type the kernels do not take."""
+    if dtype not in DENSE_KV:
+        raise ValueError(f"KV cache dtype {dtype}: the dense cache is torch.bfloat16, "
+                         "torch.float16 or torch.float32")
+
+
+def dense_suffix(dtype) -> str:
+    """A dense cache form's part of a counter name: "" (bf16), "_f16", "_f32"."""
+    check_kv_dtype(dtype)
+    return {torch.bfloat16: "", torch.float16: "_f16", torch.float32: "_f32"}[dtype]
 
 
 def reset_counts() -> None:
@@ -71,13 +94,13 @@ _SIGNATURES = {
                       _I, _VP],
     "xb_qgemv_word_planes": [_VP, _I, _I, _I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP, _I,
                              _I, _I, _I, _I, _I, _VP, _VP, _VP, _I, _VP],
-    "xb_kv_append": [_VP] * 5 + [_I] * 5 + [_VP],
+    "xb_kv_append": [_VP] * 4 + [_I, _I, _VP] + [_I] * 5 + [_VP],
     "xb_kv_append_packed": [_VP] * 8 + [_I, _VP] + [_I] * 5 + [_VP],
-    "xb_decode_attention": [_VP] * 15 + [_I] * 11 + [ctypes.c_float, _VP],
-    "xb_prefill_attention": [_VP] * 8 + [_I] * 8 + [ctypes.c_float, _VP],
-    "xb_kv_append_paged": [_VP] * 5 + [_I, _VP] + [_I] * 6 + [_VP],
+    "xb_decode_attention": [_VP] * 15 + [_I] * 12 + [ctypes.c_float, _VP],
+    "xb_prefill_attention": [_VP] * 8 + [_I] * 9 + [ctypes.c_float, _VP],
+    "xb_kv_append_paged": [_VP] * 4 + [_I, _I, _VP, _I, _VP] + [_I] * 6 + [_VP],
     "xb_kv_append_packed_paged": [_VP] * 8 + [_I, _VP, _I, _VP] + [_I] * 6 + [_VP],
-    "xb_prefill_attention_paged": [_VP] * 9 + [_I] * 10 + [ctypes.c_float, _VP],
+    "xb_prefill_attention_paged": [_VP] * 9 + [_I] * 11 + [ctypes.c_float, _VP],
     "xb_dequant": [_I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP, _I, _I, _I, _I, _VP, _I, _VP],
     "xb_qgemv_a8": [_VP, _I, _I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP, _I, _I, _I, _I,
                     _I, _I, _I, _I, _I, _VP, _VP, _VP],

@@ -1,10 +1,10 @@
-"""Length-aware one-token (decode) attention over the head-major cache, bf16
-or packed int8, with the KV append fused in: the CUDA kernel
-(``csrc/decode_attention.cu``) and its plain PyTorch version.
+"""Length-aware one-token (decode) attention over the head-major cache, dense
+(bf16, fp16 or f32 rows) or packed int8, with the KV append fused in: the
+CUDA kernel (``csrc/decode_attention.cu``) and its plain PyTorch version.
 
 Replaces the Pallas kernels ``xbitops_tpu/kernels/decode_attention.py``
-``_kernel_v2`` and ``_kernel`` (entry ``decode_attention``) for the dense bf16
-cache and the packed int8 cache (words ``[(L,) B, Hkv, S/4, D]`` int32 and
+``_kernel_v2`` and ``_kernel`` (entry ``decode_attention``) for the dense cache
+of any of the three types (q and the output stay bf16) and the packed int8 cache (words ``[(L,) B, Hkv, S/4, D]`` int32 and
 scales ``[(L,) B, 4, Hkv, S/4]`` bf16, see ``kernels/kv_append.py``), and for
 their paged forms: with ``page_table`` int32 ``[B, P]`` the k/v operands are
 page pools ``[(L,) n_pages, Hkv, psz(/4), D]`` (scale pools
@@ -13,8 +13,10 @@ page up as it walks a slot's positions.
 
 On the card one launch a layer writes the new rows (``kv_new``), attends and
 combines the splits, as the TPU kernel writes the new row inside itself.  The
-launch counts under its form's name (``common.launches["decode_attention*"]``)
-and, with ``kv_new``, under the fused append's (``"kv_append*_fused"``).
+launch counts under its form's name (``common.launches["decode_attention*"]``:
+``decode_attention`` for bf16 rows, ``_f16``, ``_f32``, ``_int8``, each with
+``_paged``) and, with ``kv_new``, under the fused append's
+(``"kv_append*_fused"``).
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from xbitops_tpu_torch.kernels.kv_append import (
     gather_pages,
     kv_append_dense,
     kv_append_packed,
+    new_rows,
     stacked_view,
 )
 
@@ -43,8 +46,10 @@ SPLIT_LEN = 256
 TILE = 64
 
 
-def _kernel_name(int8: bool, paged: bool) -> str:
-    return "decode_attention" + ("_int8" if int8 else "") + ("_paged" if paged else "")
+def _kernel_name(int8: bool, paged: bool, dtype=torch.bfloat16) -> str:
+    """The counter of a form; ``dtype`` is a dense cache's row type."""
+    form = "_int8" if int8 else common.dense_suffix(dtype)
+    return "decode_attention" + form + ("_paged" if paged else "")
 
 
 def n_splits(S: int) -> int:
@@ -64,7 +69,9 @@ def decode_attention_reference(q, k, v, lengths, window: Optional[int] = None,
     clamped into the pool), and the rest is the same, so the result equals the
     linear form's on the gathered cache exactly."""
     int8 = k_scale is not None
-    common.count_plain(_kernel_name(int8, page_table is not None), q)
+    if q.is_cuda:
+        common.count_plain(_kernel_name(int8, page_table is not None,
+                                        None if int8 else k.dtype), q)
     if page_table is not None:
         k, v = gather_pages(k, page_table), gather_pages(v, page_table)
         if int8:
@@ -90,8 +97,8 @@ def decode_attention_reference(q, k, v, lengths, window: Optional[int] = None,
 
 
 def decode_attention(
-    q: torch.Tensor,  # [B, H, D]
-    k: torch.Tensor,  # [B, Hkv, S, D] bf16, or [L, B, Hkv, S, D] with layer_idx
+    q: torch.Tensor,  # [B, H, D] bf16
+    k: torch.Tensor,  # [B, Hkv, S, D] bf16/fp16/f32, or [L, B, Hkv, S, D] with layer_idx
     v: torch.Tensor,
     lengths: torch.Tensor,  # int [B]: attend positions < lengths[b]
     layer_idx: Optional[int] = None,
@@ -108,9 +115,9 @@ def decode_attention(
     int32 words ``[(L,) B, Hkv, S/4, D]``.  ``window``: attend only
     ``[max(0, len - window), len)``; a window that covers the whole cache is
     dropped.  ``kv_new``: write the new rows at ``positions`` into the cache
-    first (in place, positions >= S write nothing).  For the bf16 cache it is
-    ``(k_new [B, Hkv, D], v_new, positions [B])`` and the result
-    ``(out, k, v)``; for the int8 cache ``(kq [B, Hkv, D] biased int32, vq,
+    first (in place, positions >= S write nothing).  For a dense cache it is
+    ``(k_new [B, Hkv, D], v_new, positions [B])``, the rows cast to the
+    cache's type, and the result ``(out, k, v)``; for the int8 cache ``(kq [B, Hkv, D] biased int32, vq,
     ks_new [B, Hkv], vs_new, positions)`` and the result
     ``(out, k, v, k_scale, v_scale)`` -- the same tensors, updated.
 
@@ -181,7 +188,7 @@ def _launch(q, k, v, ks, vs, lengths, layer_idx, window, page_table=None, kv_new
     req(H % Hkv == 0 and H // Hkv <= 8, f"H={H}, Hkv={Hkv}: GQA ratio must be <= 8")
     req(q.dtype == torch.bfloat16, "q must be bf16")
     req(lengths.shape == (B,), "lengths must be [B]")
-    dev = q.device
+    dev, dtype = q.device, k.dtype  # dtype: a dense cache's rows (int32 for int8)
     inp = lambda t, dtypes: common.kernel_input(t, dtypes, dev)
     idx = (torch.int64, torch.int32)  # the kernel reads either as it comes
     q, lens = inp(q, (torch.bfloat16,)), inp(lengths, idx)
@@ -193,8 +200,12 @@ def _launch(q, k, v, ks, vs, lengths, layer_idx, window, page_table=None, kv_new
         for t in rows[:2]:
             req(t.shape == (B, Hkv, D) and not (int8 and t.dtype.is_floating_point),
                 f"new rows must be [{B}, {Hkv}, {D}]" + (", integers" if int8 else ""))
-        new[:3] = [inp(positions, idx)] + [inp(t, ((torch.int32,) if int8 else (torch.bfloat16,)))
-                                           for t in rows[:2]]
+        if int8:
+            new[1:3] = [inp(t, (torch.int32,)) for t in rows[:2]]
+        else:
+            *new[1:3], native = new_rows(*rows[:2], dtype, dev)
+            flags |= 8 * int(native)  # the rows are of the cache's type, not bf16
+        new[0] = inp(positions, idx)
         flags |= 2 * int(new[0].dtype == torch.int64)
         if int8:
             for t in rows[2:]:
@@ -207,15 +218,16 @@ def _launch(q, k, v, ks, vs, lengths, layer_idx, window, page_table=None, kv_new
     part, counters = _workspace(q, B, H, Hkv, n_split, D)
     out = torch.empty((B, H, D), dtype=torch.bfloat16, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
-    name = _kernel_name(int8, paged)
+    name = _kernel_name(int8, paged, dtype)
     err = common.lib().xb_decode_attention(
         q.data_ptr(), k[layer_idx].data_ptr(), v[layer_idx].data_ptr(),
         ptr(ks[layer_idx]) if int8 else None, ptr(vs[layer_idx]) if int8 else None,
         lens.data_ptr(), ptr(new[0]), ptr(page_table), *[ptr(t) for t in new[1:]],
         part.data_ptr(), counters.data_ptr(), out.data_ptr(), B, H, Hkv, S, psz, n_pages, D,
-        n_split, SPLIT_LEN, window or 0, flags, float(D) ** -0.5, common.stream_ptr(q))
+        n_split, SPLIT_LEN, window or 0, flags, 0 if int8 else common.DENSE_KV[dtype],
+        float(D) ** -0.5, common.stream_ptr(q))
     common.check(err, name)
     common.launches[name] += 1
     if kv_new is not None:
-        common.launches[append_name(int8, paged) + "_fused"] += 1
+        common.launches[append_name(int8, paged, dtype) + "_fused"] += 1
     return out

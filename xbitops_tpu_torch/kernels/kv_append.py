@@ -1,5 +1,6 @@
-"""In-place KV append into the head-major cache, bf16 and packed int8: the CUDA
-kernels (``csrc/kv_append.cu``) and their plain PyTorch versions.
+"""In-place KV append into the head-major cache, dense (bf16, fp16 or f32 rows)
+and packed int8: the CUDA kernels (``csrc/kv_append.cu``) and their plain
+PyTorch versions.
 
 Replaces the Pallas kernels ``xbitops_tpu/kernels/kv_append.py:_kernel_dense``
 (entry ``kv_append_dense``) and ``:_kernel`` (entry ``kv_append_packed``).
@@ -15,7 +16,11 @@ The packed int8 cache: words ``[L, B, Hkv, S/4, D]`` int32, byte ``j`` of word
 quantize, pack and unpack that layout are here too (plain PyTorch, as the JAX
 package left them to XLA).
 
-The paged cache: k/v are page pools ``[L, n_pages, Hkv, psz, D]`` bf16 (int8:
+The dense cache's rows are bf16, fp16 or f32, as the JAX package's
+``KVCache.init(dtype=)`` builds them; new rows come as bf16 (the model's
+activations) or in the cache's type, and are cast to it as ``.astype`` casts.
+
+The paged cache: k/v are page pools ``[L, n_pages, Hkv, psz, D]`` (int8:
 words ``[L, n_pages, Hkv, psz/4, D]`` and scale pools
 ``[L, n_pages, 4, Hkv, psz/4]``) shared by the slots, and ``page_table`` int32
 ``[B, P]`` gives the pool page of each slot's page (-1: none).  Position ``p``
@@ -93,18 +98,21 @@ def stacked_view(k, v, k_scale, v_scale, layer_idx, window, page_table=None):
 
 def check_cache(k_all, v_all, ks_all=None, vs_all=None):
     """Reject a stacked cache the kernels do not take; returns
-    ``(L, B, Hkv, S, D)`` with S in positions.  bf16 rows [L, B, Hkv, S, D],
-    or with scales the packed int8 form.  A kernel reads one layer, so each
-    layer must be contiguous, not the stack: a range of slots of every layer
-    (``cache.k[:, lo:hi]``, a pipeline stage's microbatch) is taken."""
+    ``(L, B, Hkv, S, D)`` with S in positions.  Rows [L, B, Hkv, S, D] of
+    bf16, fp16 or f32 (k and v of one type), or with scales the packed int8
+    form.  A kernel reads one layer, so each layer must be contiguous, not the
+    stack: a range of slots of every layer (``cache.k[:, lo:hi]``, a pipeline
+    stage's microbatch) is taken."""
     req = common.require
     int8 = ks_all is not None
     L, B, Hkv, rows, D = k_all.shape
+    if not int8:
+        common.check_kv_dtype(k_all.dtype)
     for t in (k_all, v_all):
-        req(t.dtype == (torch.int32 if int8 else torch.bfloat16) and t[0].is_contiguous()
+        req(t.dtype == (torch.int32 if int8 else k_all.dtype) and t[0].is_contiguous()
             and t.shape == k_all.shape and t.device == k_all.device,
             "k/v caches: int32 words [L, B, Hkv, S/4, D], each layer contiguous" if int8
-            else "k/v caches: bf16 [L, B, Hkv, S, D], each layer contiguous")
+            else "k/v caches: one dtype, [L, B, Hkv, S, D], each layer contiguous")
     if int8:
         for t in (ks_all, vs_all):
             req(t is not None and t.dtype == torch.bfloat16 and t[0].is_contiguous()
@@ -155,17 +163,33 @@ def gather_pages(pool, page_table, scales: bool = False):
     return got.movedim(1, 2).reshape(n, pool.shape[1], -1, pool.shape[3])
 
 
-def append_name(int8: bool, paged: bool) -> str:
-    """The launch counter of an append form: ``kv_append``, ``kv_append_packed``,
-    and each with ``_paged``."""
-    return "kv_append" + ("_packed" if int8 else "") + ("_paged" if paged else "")
+def append_name(int8: bool, paged: bool, dtype=torch.bfloat16) -> str:
+    """The launch counter of an append form: ``kv_append`` (bf16 rows),
+    ``kv_append_f16``, ``kv_append_f32``, ``kv_append_packed``, and each with
+    ``_paged``; ``dtype`` is a dense cache's row type."""
+    form = "_packed" if int8 else common.dense_suffix(dtype)
+    return "kv_append" + form + ("_paged" if paged else "")
+
+
+def new_rows(k_new: torch.Tensor, v_new: torch.Tensor, dtype, device):
+    """New dense rows as the kernels read them: bf16 or the cache's ``dtype``
+    as they come (the kernel casts), any other type (or a pair of two types)
+    cast to ``dtype`` first, as the plain version casts it.  Returns ``(k_new,
+    v_new, native)``, native True where the rows are of the cache's type."""
+    keep = (torch.bfloat16, dtype)
+    k_new, v_new = (common.kernel_input(t, keep if t.dtype in keep else (dtype,), device)
+                    for t in (k_new, v_new))
+    if k_new.dtype != v_new.dtype:
+        k_new, v_new = k_new.to(dtype), v_new.to(dtype)
+    return k_new, v_new, k_new.dtype == dtype
 
 
 def kv_append_dense_reference(
     k_all, v_all, k_new, v_new, positions, layer: int, page_table=None
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`kv_append_dense` (in place, same guards)."""
-    common.count_plain(append_name(False, page_table is not None), k_all)
+    if k_all.is_cuda:
+        common.count_plain(append_name(False, page_table is not None, k_all.dtype), k_all)
     L, B, Hkv, S, D = k_all.shape
     pos = positions.long()
     if page_table is None:
@@ -183,17 +207,17 @@ def kv_append_dense_reference(
 
 
 def kv_append_dense(
-    k_all: torch.Tensor,  # [L, B, Hkv, S, D] bf16
+    k_all: torch.Tensor,  # [L, B, Hkv, S, D] bf16, fp16 or f32
     v_all: torch.Tensor,
-    k_new: torch.Tensor,  # [B, Hkv, D]
+    k_new: torch.Tensor,  # [B, Hkv, D], cast to the cache's type
     v_new: torch.Tensor,
     positions: torch.Tensor,  # int [B]; outside [0, S) writes nothing
     layer: int,
     page_table: Optional[torch.Tensor] = None,  # int32 [B, P]: k/v are page pools
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Write row ``positions[b]`` of slot ``b`` in layer ``layer``, in place;
-    returns ``(k_all, v_all)``.  Slots whose position lies outside ``[0, S)``
-    write nothing.  With ``page_table``, k/v are pools
+    """Write row ``positions[b]`` of slot ``b`` in layer ``layer``, in place,
+    cast to the cache's type (bf16, fp16 or f32); returns ``(k_all, v_all)``.
+    Slots whose position lies outside ``[0, S)`` write nothing.  With ``page_table``, k/v are pools
     ``[L, n_pages, Hkv, psz, D]`` and the row goes to page
     ``page_table[b, pos // psz]``; a slot with no page there writes nothing.
 
@@ -213,12 +237,13 @@ def kv_append_dense(
             f"new rows must be [{B}, {Hkv}, {D}] on the cache's device")
     req(positions.shape == (B,), "positions must be [B]")
     req(D % 8 == 0, f"head_dim {D}: rows move in 16-byte pieces")
-    dev = k_all.device
-    k_new, v_new = (common.kernel_input(t, (torch.bfloat16,), dev) for t in (k_new, v_new))
+    dev, dtype = k_all.device, k_all.dtype
+    k_new, v_new, native = new_rows(k_new, v_new, dtype, dev)
     pos = common.kernel_input(positions, (torch.int64, torch.int32), dev)  # read as it comes
     head = (k_all[layer].data_ptr(), v_all[layer].data_ptr(), k_new.data_ptr(),
-            v_new.data_ptr(), pos.data_ptr(), int(pos.dtype == torch.int64))
-    name = append_name(False, page_table is not None)
+            v_new.data_ptr(), common.DENSE_KV[dtype], int(native), pos.data_ptr(),
+            int(pos.dtype == torch.int64))
+    name = append_name(False, page_table is not None, dtype)
     if page_table is None:
         err = common.lib().xb_kv_append(*head, B, Hkv, S, D, common.stream_ptr(k_all))
     else:

@@ -1,7 +1,9 @@
 """Chunked-prefill attention: a chunk of queries against the cache rows of
-their slots, causal by global position, over the bf16 or the packed int8
-cache: the CUDA kernel (``csrc/prefill_attention.cu``) and its plain PyTorch
-version.
+their slots, causal by global position, over the dense cache (bf16, fp16 or
+f32 rows; q and the output bf16) or the packed int8 cache: the CUDA kernel
+(``csrc/prefill_attention.cu``) and its plain PyTorch version.  Its launches
+count under ``prefill_attention`` (bf16 and int8), ``prefill_attention_f16``
+and ``prefill_attention_f32``, each with ``_paged``.
 
 Replaces the Pallas kernels ``xbitops_tpu/kernels/prefill_attention.py``
 ``_kernel_v2`` and ``_kernel_v1`` (entry ``prefill_attention``).  The chunk's
@@ -34,6 +36,12 @@ from xbitops_tpu_torch.kernels.kv_append import (
 NEG_INF = -1e30
 
 
+def _kernel_name(int8: bool, paged: bool, dtype=torch.bfloat16) -> str:
+    """The counter of a form; ``dtype`` is a dense cache's row type."""
+    form = "" if int8 else common.dense_suffix(dtype)
+    return "prefill_attention" + form + ("_paged" if paged else "")
+
+
 def prefill_attention_reference(q, k, v, positions, slot_ids, k_scale=None, v_scale=None,
                                 window: Optional[int] = None, page_table=None):
     """Plain version, in f32, over ONE layer's cache: k/v [B, Hkv, S, D], or
@@ -45,7 +53,8 @@ def prefill_attention_reference(q, k, v, positions, slot_ids, k_scale=None, v_sc
     the rest is the same, so the result equals the linear form's on the
     gathered cache exactly."""
     paged = page_table is not None
-    common.count_plain("prefill_attention_paged" if paged else "prefill_attention", q)
+    if q.is_cuda:
+        common.count_plain(_kernel_name(k_scale is not None, paged, k.dtype), q)
     N, T, H, D = q.shape
     rows = slot_ids.long().clamp(0, (page_table if paged else k).shape[0] - 1)
     if paged:
@@ -75,8 +84,8 @@ def prefill_attention_reference(q, k, v, positions, slot_ids, k_scale=None, v_sc
 
 
 def prefill_attention(
-    q: torch.Tensor,  # [N, T, H, D] chunk queries
-    k: torch.Tensor,  # [(L,) B, Hkv, S, D] bf16, or int8 words [(L,) B, Hkv, S/4, D]
+    q: torch.Tensor,  # [N, T, H, D] chunk queries, bf16
+    k: torch.Tensor,  # [(L,) B, Hkv, S, D] bf16/fp16/f32, or int8 words [(L,) B, Hkv, S/4, D]
     v: torch.Tensor,
     positions: torch.Tensor,  # int [N, T] global positions; outside [0, S): padding
     slot_ids: torch.Tensor,  # int [N] cache slot of each row (clamped into [0, B))
@@ -133,14 +142,14 @@ def prefill_attention(
     head = (q.data_ptr(), k_all[li].data_ptr(), v_all[li].data_ptr(),
             ks_all[li].data_ptr() if int8 else None, vs_all[li].data_ptr() if int8 else None,
             pos.data_ptr(), slots.data_ptr())
-    tail = (D, window or 0, float(D) ** -0.5, common.stream_ptr(q))
+    tail = (D, window or 0, 0 if int8 else common.DENSE_KV[k_all.dtype], float(D) ** -0.5,
+            common.stream_ptr(q))
+    name = _kernel_name(int8, paged, k_all.dtype)
     if paged:
-        name = "prefill_attention_paged"
         err = common.lib().xb_prefill_attention_paged(
             *head, page_table.data_ptr(), out.data_ptr(), N, T, H, Hkv, B, P, psz, n_pages,
             *tail)
     else:
-        name = "prefill_attention"
         err = common.lib().xb_prefill_attention(
             *head, out.data_ptr(), N, T, H, Hkv, B, S, *tail)
     common.check(err, name)

@@ -5,7 +5,8 @@ Every projection is a :class:`QLinear` over a packed
 kernel (with ``prefill_a8``, a block's projections of a forward of 32 rows or
 more run its int8-activation form), or a :class:`DenseLinear` over a dense
 bf16 weight (the unquantized model that quality is measured against).  The KV
-cache is head-major, ``[L, B, Hkv, S, D]`` bf16 or packed int8, or a pool of
+cache is head-major, ``[L, B, Hkv, S, D]`` bf16, fp16 or f32 (activations stay
+bf16 whatever its type) or packed int8, or a pool of
 pages shared by the slots behind a page table (see :class:`KVCache`), and,
 unlike the JAX package's functional updates, every
 function here writes it IN PLACE and returns the same :class:`KVCache` object.
@@ -43,6 +44,7 @@ import torch
 from torch import nn
 
 from xbitops_tpu_torch.formats import QTensor
+from xbitops_tpu_torch.kernels.common import check_kv_dtype
 from xbitops_tpu_torch.kernels.decode_attention import (
     decode_attention,
     decode_attention_reference,
@@ -165,7 +167,8 @@ A8_MIN_T = 32
 @dataclasses.dataclass
 class KVCache:
     """Head-major cache with per-slot ``lengths`` (int32 [B]), updated in
-    place by the model.  Either ``k, v: [L, B, Hkv, S, D]`` bf16, or packed
+    place by the model.  Either ``k, v: [L, B, Hkv, S, D]`` of ``dtype``
+    (bf16, fp16 or f32: new rows are cast to it, attention reads it), or packed
     int8 (``k_scale`` set): ``k, v: [L, B, Hkv, S/4, D]`` int32 words, byte j
     of word w holding position 4w + j as its quantized value + 128, with
     per-(position, head) scales ``k_scale, v_scale: [L, B, 4, Hkv, S/4]``
@@ -225,8 +228,7 @@ class KVCache:
                 k_scale=torch.zeros(scales, dtype=torch.bfloat16, device=device),
                 v_scale=torch.zeros(scales, dtype=torch.bfloat16, device=device),
             )
-        if dtype != torch.bfloat16:
-            raise NotImplementedError("the port's dense KV cache is bf16")
+        check_kv_dtype(dtype)
         shape = (L, batch, Hkv, S, D)
         return KVCache(
             k=torch.zeros(shape, dtype=dtype, device=device),
@@ -245,8 +247,6 @@ class KVCache:
             raise ValueError("max_seq_len must be a multiple of page_size")
         if quantized and page_size % 4:
             raise ValueError("int8 paged cache needs page_size % 4 == 0")
-        if not quantized and dtype != torch.bfloat16:
-            raise NotImplementedError("the port's dense KV cache is bf16")
         # a pool is laid out as a linear cache of pool_pages slots of page_size positions
         paged_cfg = dataclasses.replace(cfg, max_seq_len=page_size)
         pool = KVCache.init(paged_cfg, pool_pages, device, dtype=dtype, quantized=quantized)

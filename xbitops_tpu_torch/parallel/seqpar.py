@@ -82,8 +82,8 @@ def sp_prefill(model: Llama, cfg: LlamaConfig, mesh: Mesh, tokens: torch.Tensor,
     row of length T, as ``llama.prefill``; the same tokens on every rank),
     the sequence split over ``seq_axis``, the blocks tensor-parallel over
     ``tp_axis`` (``model``: ``model_tp.shard_params``' shard there, else the
-    whole model).  Writes slots ``[0, B)`` of the dense bf16 ``cache`` (this
-    rank's kv heads) in place and sets their lengths to T.  Returns the last
+    whole model).  Writes slots ``[0, B)`` of the dense ``cache`` (bf16, fp16
+    or f32 rows, this rank's kv heads) in place and sets their lengths to T.  Returns the last
     token's logits [B, V] f32 on every rank and the cache.
 
     Raises ``ValueError`` for a quantized or paged cache (a long quantized

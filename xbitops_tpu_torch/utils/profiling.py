@@ -21,18 +21,92 @@ engine's burst), whose numbers are given a step (``replayed``, with
 ``event_ms``: CUDA events around each replay); a verify step is replayed as a
 graph of one step, as the engine replays it.  It needs one CUDA device and
 prints one JSON object per case.
+
+It also holds the decode step's roofline accounting (port of
+``xbitops_tpu/utils/profiling.py``): :func:`model_weight_bytes` (the packed
+and dense weights a step streams), :func:`kv_step_bytes` (the cache rows it
+reads and writes, at 2 or 4 bytes an element) and :func:`decode_roofline`,
+their sum over the H100's memory rate.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
 from collections import defaultdict
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
+
+# NVIDIA H100 SXM, published: 3.35 TB/s of HBM3 at the 700 W limit
+H100_HBM_GBPS = 3350.0
+
+
+@dataclasses.dataclass
+class DecodeRoofline:
+    """A decode step's device-memory traffic and the least time it takes."""
+
+    weight_bytes: int  # packed + dense weights a step reads
+    cache_bytes: int  # k/v rows read and written a step at the current lengths
+    total_bytes: int
+    hbm_gbps_peak: float
+    bound_ms: float  # total_bytes / peak
+    measured_ms: Optional[float] = None
+
+    @property
+    def efficiency(self) -> Optional[float]:
+        if self.measured_ms is None:
+            return None
+        return self.bound_ms / self.measured_ms
+
+    def __str__(self) -> str:
+        s = (f"weights {self.weight_bytes / 1e9:.2f} GB + cache {self.cache_bytes / 1e9:.3f} GB "
+             f"per step -> bound {self.bound_ms:.2f} ms @ {self.hbm_gbps_peak:.0f} GB/s")
+        if self.measured_ms is not None:
+            s += f"; measured {self.measured_ms:.2f} ms ({self.efficiency:.0%} of roofline)"
+        return s
+
+
+def model_weight_bytes(model) -> int:
+    """The weight bytes a decode step reads: each projection's packed planes
+    and scales (``QTensor.bytes_packed``, the act-order ``perm`` left out as
+    the JAX package leaves it), every dense weight, norm and router, and not
+    the embedding (a step gathers B of its rows)."""
+    from xbitops_tpu_torch.models.llama import QLinear
+
+    total = 0
+    for mod in model.modules():
+        if isinstance(mod, QLinear):
+            total += mod.qtensor.bytes_packed()
+            continue
+        for name, buf in mod.named_buffers(recurse=False):
+            if not (mod is model and name == "embed"):
+                total += buf.numel() * buf.element_size()
+    return total
+
+
+def kv_step_bytes(cfg, batch: int, mean_len: int, dtype_bytes: int = 2) -> int:
+    """Cache bytes a decode step touches: every cached position read and one
+    written, k and v, at ``dtype_bytes`` an element (2: bf16 or fp16, 4: f32)."""
+    per_pos = cfg.num_kv_heads * cfg.head_dim * dtype_bytes * 2  # k and v
+    return cfg.num_layers * batch * (mean_len + 1) * per_pos
+
+
+def decode_roofline(model, cfg, batch: int, mean_len: int = 0,
+                    hbm_gbps_peak: float = H100_HBM_GBPS, measured_ms: Optional[float] = None,
+                    dtype_bytes: int = 2) -> DecodeRoofline:
+    """The least time of a decode step of ``batch`` slots at ``mean_len``
+    cached positions over a cache of ``dtype_bytes`` an element: its weight
+    and cache bytes over the memory rate."""
+    wb = model_weight_bytes(model)
+    cb = kv_step_bytes(cfg, batch, mean_len, dtype_bytes)
+    total = wb + cb
+    return DecodeRoofline(weight_bytes=wb, cache_bytes=cb, total_bytes=total,
+                          hbm_gbps_peak=hbm_gbps_peak, bound_ms=total / hbm_gbps_peak / 1e6,
+                          measured_ms=measured_ms)
 
 
 def profile(fn: Callable[[], object], steps: int = 4, warmup: int = 3, top: int = 8) -> Dict:
@@ -103,8 +177,6 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("profiling: no CUDA device; nothing run", file=sys.stderr)
         return 2
-    import dataclasses
-
     from xbitops_tpu_torch.models import llama
     from xbitops_tpu_torch.ops.quantize import requantize_a8
     from xbitops_tpu_torch.utils import synth

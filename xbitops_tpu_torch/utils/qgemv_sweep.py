@@ -2,7 +2,8 @@
 card, to set the routing constants of ``kernels/qgemv_kernel.py``
 (``GEMV_MAX_M``, ``MMA_MIN_M``, ``BLOCKS_PER_SM``).
 
-    python3 -m xbitops_tpu_torch.utils.qgemv_sweep [--splits | --widths | --a8 [--a8-splits]]
+    python3 -m xbitops_tpu_torch.utils.qgemv_sweep [--splits | --widths | --a8 [--a8-splits] |
+                                                    --library]
 
 For the five Llama-2-7B projection shapes (4-bit, g=128) and M in 1, 8, 9,
 16, 32, 64, 128, 256, 2560 it prints one JSON line per (shape, M) with the
@@ -22,7 +23,14 @@ g=128, on the five shapes at M = 1, 8 and 16: the routed form (the few-rows
 form's planes kernel) beside the CUDA-core form, with the packed stream's
 GB/s and the bound (bytes read and written once over 3.35 TB/s); with
 ``--widths --splits`` the planes kernel's split-K target (blocks per SM 1, 2,
-4, 8) at M=8 instead.  It needs one CUDA device.
+4, 8) at M=8 instead.  With ``--library`` it times, on the five shapes at M = 8,
+16, 32, 256 and 2560, the routed form against PyTorch's own weight-only
+matmuls, the yardstick of the kernel table's library column (the port calls
+neither): ``torch.ops.aten._weight_int4pack_mm`` on the same 4-bit g=128
+weight (converted once, outside the timed window, by :func:`int4pack`), first
+held to the plain version within rel 2e-2; and ``_weight_int8pack_mm`` beside
+the 8-bit per-channel form, or the error it raises on CUDA tensors.  It needs
+one CUDA device.
 """
 
 from __future__ import annotations
@@ -86,6 +94,8 @@ def main() -> int:
 
     if "--a8" in sys.argv[1:]:
         return a8_rows(qk, synth, gen, dev, flush, shapes)
+    if "--library" in sys.argv[1:]:
+        return library_rows(qk, synth, gen, dev, flush, shapes)
     if "--widths" in sys.argv[1:]:
         return width_rows(qk, synth, gen, dev, flush, shapes)
     if "--splits" not in sys.argv[1:]:
@@ -181,6 +191,87 @@ def a8_rows(qk, synth, gen, dev, flush, shapes) -> int:
                     row["ms_by_blocks_per_sm"] = ms
                 print(json.dumps(row), flush=True)
             del qt
+    return 0
+
+
+def group_rows(ts, qt):
+    """Tiled scales (or scale_zeros) ``[T, gt_pad, N]`` -> one row a group,
+    f32 ``[K_logical / group_size, N]``."""
+    from xbitops_tpu_torch.formats import _expand_tiled_scales
+
+    return _expand_tiled_scales(ts, qt)[: qt.K_logical : qt.group_size]
+
+
+def int4pack(qt, inner_k_tiles: int = 8):
+    """A 4-bit QTensor (no act-order perm) as ``_weight_int4pack_mm`` takes it:
+    the codes ``q`` [N, K] two to a byte (the even k in the high nibble) through
+    ``_convert_weight_to_int4pack``, and ``qScaleAndZeros`` [K / g, N, 2] bf16
+    of scale ``s`` and zero ``8 s - sz``, whose ``(q - 8) s + (8 s - sz)`` is the
+    QTensor's ``q s - sz``."""
+    from xbitops_tpu_torch.formats import unpack_planes_reference
+
+    q = unpack_planes_reference(qt.planes, qt.bits, qt.tile_k, qt.K, paired=qt.paired)
+    q = q[: qt.K_logical, : qt.shape[1]].t().contiguous()  # [N, K]
+    w = torch.ops.aten._convert_weight_to_int4pack(
+        (q[:, ::2] << 4 | q[:, 1::2]).to(torch.uint8), inner_k_tiles)
+    s = group_rows(qt.scales, qt)
+    z = 8 * s - group_rows(qt.scale_zeros, qt)
+    return w, torch.stack([s, z], dim=2)[:, : qt.shape[1]].to(torch.bfloat16).contiguous()
+
+
+def library_rows(qk, synth, gen, dev, flush, shapes) -> int:
+    from xbitops_tpu_torch.ops.qmatmul import qmatmul
+
+    for name, (K, N) in shapes.items():
+        qt = synth.random_qtensor(gen, K, N, 4, 128)
+        w4, sz = int4pack(qt)
+        for M in (8, 16, 32, 256, 2560):
+            a = torch.randn(M, K, device=dev, generator=gen).to(torch.bfloat16)
+            lib = torch.ops.aten._weight_int4pack_mm(a, w4, 128, sz)
+            want = qmatmul(a, qt, use_kernel=False).float()
+            err = ((lib.float() - want).abs().max() / want.abs().max()).item()
+            row = dict(case=name, bits=4, K=K, N=N, M=M, routed=qk.qgemv_form(M, False, qt),
+                       library="_weight_int4pack_mm", library_rel_err=round(err, 6))
+            if err > 2e-2:
+                row["error"] = "the library call does not compute the same function"
+                print(json.dumps(row), flush=True)
+                return 1
+            row["ms"] = round(timed(lambda: qk.qmatmul_kernel(a, qt), flush), 5)
+            row["library_ms"] = round(timed(
+                lambda: torch.ops.aten._weight_int4pack_mm(a, w4, 128, sz), flush), 5)
+            row["library_over_port"] = round(row["library_ms"] / row["ms"], 3)
+            moved = qt.bytes_packed() + a.numel() * 2 + M * N * 2
+            row["bound_ms"] = round(1e3 * max(moved / 3.35e12, 2 * M * K * N / 989e12), 5)
+            print(json.dumps(row), flush=True)
+        del qt, w4, sz
+        # 8-bit per channel, its zero point set to 128: (q - 128) s, a symmetric int8 weight
+        qt = synth.random_qtensor(gen, K, N, 8, K)
+        qt.scale_zeros.copy_(128 * qt.scales.float())
+        from xbitops_tpu_torch.formats import unpack_planes_reference
+
+        q = unpack_planes_reference(qt.planes, 8, qt.tile_k, qt.K, paired=qt.paired)
+        w8 = (q[:K, :N] - 128).to(torch.int8).t().contiguous()  # [N, K]
+        s8 = group_rows(qt.scales, qt)[0, :N].to(torch.bfloat16)
+        for M in (8, 256):
+            a = torch.randn(M, K, device=dev, generator=gen).to(torch.bfloat16)
+            row = dict(case=name, bits=8, per_channel=True, K=K, N=N, M=M,
+                       routed=qk.qgemv_form(M, False, qt), library="_weight_int8pack_mm")
+            try:
+                lib = torch.ops.aten._weight_int8pack_mm(a, w8, s8)
+            except (RuntimeError, NotImplementedError) as e:
+                row["library_raises"] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+                print(json.dumps(row), flush=True)
+                break
+            want = qmatmul(a, qt, use_kernel=False).float()
+            row["library_rel_err"] = round(
+                ((lib.float() - want).abs().max() / want.abs().max()).item(), 6)
+            if row["library_rel_err"] > 2e-2:  # timed for information: no yardstick
+                row["error"] = "the library call does not compute the same function"
+            row["ms"] = round(timed(lambda: qk.qmatmul_kernel(a, qt), flush), 5)
+            row["library_ms"] = round(timed(
+                lambda: torch.ops.aten._weight_int8pack_mm(a, w8, s8), flush), 5)
+            print(json.dumps(row), flush=True)
+        del qt
     return 0
 
 
