@@ -17,7 +17,7 @@ kernels and the two appends are held to their plain versions at the same
 tolerances, and to the linear kernels on the cache the pool was cut from.
 The fp16 and f32 caches' forms of the two attention kernels and of the append
 (linear and paged) are held to the same plain versions on the same cache:
-appends bit for bit, fp16 attention abs 2e-2, f32 attention abs 4e-3 beyond
+appends bit for bit, fp16 attention abs 2e-2, f32 attention abs 1e-4 beyond
 the rounding of its bf16 output (``_beyond_rounding``: both outputs are bf16,
 and a flip of their last bit is 7.8e-3 at |out| >= 1, whatever the
 arithmetic), and the graph and speculative engines serve on such caches.
@@ -1304,13 +1304,13 @@ def _beyond_rounding(out, ref32):
 
 
 def _check_dense_attention(out, want, want32, dtype, rows=None):
-    """fp16: abs 2e-2; f32: abs 4e-3 beyond the bf16 output's rounding, and
+    """fp16: abs 2e-2; f32: abs 1e-4 beyond the bf16 output's rounding, and
     abs 2e-2 outright."""
     if rows is not None:
         out, want, want32 = out[rows], want[rows], want32[rows]
     assert (out.float() - want.float()).abs().max() <= 2e-2
     if dtype == torch.float32:
-        assert _beyond_rounding(out, want32) <= 4e-3
+        assert _beyond_rounding(out, want32) <= 1e-4
 
 
 @pytest.mark.parametrize("dtype", list(DENSE_DTYPES.values()), ids=list(DENSE_DTYPES))
@@ -1360,23 +1360,19 @@ def test_dense_forms_fused_decode_equals_append_then_plain(dev, dtype, paged, D,
                                         page_table=table)
     _check_dense_attention(out, want, want32, dtype, defined)
     assert want.float().abs().max() > 0.05 and torch.isfinite(out.float()).all()
-    # rows given in the cache's own type take the same path and land as they are
-    ref2 = [t.clone() for t in cache]
-    new2 = tuple(t.to(dtype) + 0.25 for t in new)
-    decode_attention(q, cache[0], cache[1], lens, layer_idx=0, kv_new=(*new2, pos),
-                     page_table=table)
-    kv_append_dense_reference(*ref2, *new2, pos, 0, table)
-    assert all(torch.equal(a, b) for a, b in zip(cache, ref2))
+    # rows of another type than bf16 would be rounded to bf16 on the way: refused
+    with pytest.raises(ValueError, match="must be bf16"):
+        decode_attention(q, cache[0], cache[1], lens, layer_idx=0,
+                         kv_new=(*(t.to(dtype) for t in new), pos), page_table=table)
 
 
 @pytest.mark.parametrize("dtype", list(DENSE_DTYPES.values()), ids=list(DENSE_DTYPES))
 @pytest.mark.parametrize("paged", [False, True], ids=["linear", "paged"])
 @pytest.mark.parametrize("D", [64, 128, 256])
-@pytest.mark.parametrize("rows", ["bf16", "native", "f32rows"])
-def test_dense_forms_kv_append_equal_plain(dev, dtype, paged, D, rows):
+def test_dense_forms_kv_append_equal_plain(dev, dtype, paged, D):
     """The standalone append into an fp16 / f32 cache, equal bit for bit to
-    the plain cast and write: rows given as bf16 (cast in the kernel), in the
-    cache's type, or as f32 into an fp16 cache (cast by the wrapper first)."""
+    the plain cast and write of bf16 rows (cast in the kernel); rows of
+    another type are refused."""
     gen = _gen(dev, D + 2 * paged + 5 * (dtype == torch.float32))
     L, B, Hkv, S = 2, 6, 3, 128
     cache = [torch.randn(L, B, Hkv, S, D, device=dev, generator=gen).to(dtype)
@@ -1386,11 +1382,10 @@ def test_dense_forms_kv_append_equal_plain(dev, dtype, paged, D, rows):
     if paged:
         table, cache = synth.cut_pages(gen, cache, S // 16, torch.full((B,), S, device=dev))
         table[1, 63 // 16] = -1
-    rdt = {"bf16": torch.bfloat16, "native": dtype, "f32rows": torch.float32}[rows]
     # bf16 values past fp16's range and below its normal range round as a cast does
     new = [(torch.randn(B, Hkv, D, device=dev, generator=gen)
             * torch.tensor([1e-6, 1.0, 7e4], device=dev)[torch.arange(D, device=dev) % 3])
-           .to(torch.bfloat16).to(rdt) for _ in range(2)]
+           .to(torch.bfloat16) for _ in range(2)]
     ref = [t.clone() for t in cache]
     before = [t.clone() for t in cache]
     common.reset_counts()
@@ -1400,6 +1395,9 @@ def test_dense_forms_kv_append_equal_plain(dev, dtype, paged, D, rows):
     kv_append_dense_reference(*ref, *new, pos, 1, table)
     assert all(torch.equal(a, b) for a, b in zip(cache, ref))
     assert not torch.equal(cache[0], before[0]) and torch.equal(cache[0][0], before[0][0])
+    for rdt in (dtype, torch.float32):
+        with pytest.raises(ValueError, match="must be bf16"):
+            kv_append_dense(*cache, *(t.to(rdt) for t in new), pos, 1, table)
 
 
 @pytest.mark.parametrize("dtype", list(DENSE_DTYPES.values()), ids=list(DENSE_DTYPES))

@@ -110,7 +110,6 @@ constexpr int kBK = 64;                   // positions a tile
 constexpr int kRowsW = kBK / kWarps;      // positions a warp a tile: one m16 tile
 constexpr float kNegInf = -1e30f;
 constexpr int kLen64 = 1, kPos64 = 2, kNewScaleF32 = 4;  // Args::flags
-constexpr int kNewNative = 8;  // new dense rows are of the cache's type, else bf16
 static_assert(kThreads == 2 * kBK, "an int8 tile's scales: one a thread");
 
 struct Args {
@@ -122,8 +121,8 @@ struct Args {
   const void* lengths;     // int32 or int64 [B]
   const void* positions;   // int32 or int64 [B]; null without an append
   const int* table;        // [B, S / psz], or null: the linear cache
-  const void* k_new;       // [B, Hkv, D] bf16 or the cache's type (int8: int32 biased
-                           // bytes); null: no append
+  const void* k_new;       // [B, Hkv, D] bf16 (int8: int32 biased bytes); null: no
+                           // append
   const void* v_new;
   const void* ks_new;      // int8: f32 or bf16 [B, Hkv]
   const void* vs_new;
@@ -280,8 +279,8 @@ decode_attention_kernel(const Args a) {
       for (int i = tid; i < 2 * (D / EPC); i += kThreads) {
         const int which = i / (D / EPC), c = i - which * (D / EPC);
         *reinterpret_cast<uint4*>(static_cast<T*>(which ? a.v : a.k) + at + EPC * c) =
-            xb::row_chunk<T>(which ? a.v_new : a.k_new, bh * D + EPC * c,
-                             a.flags & kNewNative);
+            xb::row_chunk<T>(
+                static_cast<const __nv_bfloat16*>(which ? a.v_new : a.k_new), bh * D + EPC * c);
       }
     }
   }
@@ -390,9 +389,10 @@ decode_attention_kernel(const Args a) {
           if constexpr (KV != xb::kKvBf16) {
             if (valid && p == pos) {  // the new row, converted from the inputs
               const size_t n_at = bh * D + EPC * c;
-              const bool native = a.flags & kNewNative;
-              *reinterpret_cast<uint4*>(&st.k[r][EPC * c]) = xb::row_chunk<T>(a.k_new, n_at, native);
-              *reinterpret_cast<uint4*>(&st.v[r][EPC * c]) = xb::row_chunk<T>(a.v_new, n_at, native);
+              *reinterpret_cast<uint4*>(&st.k[r][EPC * c]) =
+                  xb::row_chunk<T>(static_cast<const __nv_bfloat16*>(a.k_new), n_at);
+              *reinterpret_cast<uint4*>(&st.v[r][EPC * c]) =
+                  xb::row_chunk<T>(static_cast<const __nv_bfloat16*>(a.v_new), n_at);
               continue;
             }
           }
@@ -700,8 +700,8 @@ int by_table(const Args& a, int D, bool paged, cudaStream_t st) {
 // 1 (fp16) or 2 (f32), or with ks/vs int32 words and their bf16 scales (dtype
 // ignored); table null (linear: psz = S, n_pages = B) or int [B, S / psz]
 // (k/v/ks/vs pools of n_pages pages).  lengths, positions int32 or int64 [B]
-// (flags 1, 2).  k_new null: no append; else [B, Hkv, D] rows, bf16 or of the
-// cache's type with flag 8 (int8: int32 biased bytes, and ks_new/vs_new
+// (flags 1, 2).  k_new null: no append; else [B, Hkv, D] bf16 rows, cast to
+// the cache's type (int8: int32 biased bytes, and ks_new/vs_new
 // [B, Hkv] scales, f32 with flag 4, else bf16); positions [B] then.  part is
 // a workspace of B * H * n_split * (D + 2) floats, counters B * Hkv ints, all
 // 0 at the call and all 0 again when the kernel has run (calls that share

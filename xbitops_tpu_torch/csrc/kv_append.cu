@@ -77,11 +77,11 @@ __device__ __forceinline__ bool locate(int i, long long pos, int rows,
 
 // Grid (Hkv, B), 2 * D / EPC threads (EPC = 16 / sizeof(T) values in 16
 // bytes): thread c < D / EPC writes 16 bytes of the k row, the rest the v row.
-// New rows T (native) or bf16; positions int32, or int64 with pos64.
+// New rows bf16, cast to T; positions int32, or int64 with pos64.
 template <typename T, bool PAGED>
 __global__ void kv_append_kernel(uint4* __restrict__ k, uint4* __restrict__ v,
-                                 const void* __restrict__ k_new,
-                                 const void* __restrict__ v_new, int native,
+                                 const __nv_bfloat16* __restrict__ k_new,
+                                 const __nv_bfloat16* __restrict__ v_new,
                                  const void* __restrict__ positions, int pos64,
                                  const int* __restrict__ table, int P, int n_pages, int Hkv,
                                  int S, int D) {
@@ -95,7 +95,7 @@ __global__ void kv_append_kernel(uint4* __restrict__ k, uint4* __restrict__ v,
   const int which = threadIdx.x / chunks, c = threadIdx.x - which * chunks;
   const size_t dst = ((static_cast<size_t>(blk) * Hkv + h) * S + pos) * chunks + c;
   const size_t src = ((static_cast<size_t>(i) * Hkv + h) * chunks + c) * EPC;
-  (which ? v : k)[dst] = xb::row_chunk<T>(which ? v_new : k_new, src, native);
+  (which ? v : k)[dst] = xb::row_chunk<T>(which ? v_new : k_new, src);
 }
 
 // A new scale as bf16 bits: f32 (s_f32) rounded to nearest even, or bf16.
@@ -161,34 +161,34 @@ int append_packed(void* k, void* v, void* ks, void* vs, const void* kq, const vo
 }
 
 template <typename T, bool PAGED>
-int append_t(void* k, void* v, const void* k_new, const void* v_new, int native,
+int append_t(void* k, void* v, const void* k_new, const void* v_new,
              const void* positions, int pos64, const void* table, int P, int n_pages, int B,
              int Hkv, int S, int D, void* stream) {
   constexpr int EPC = 16 / sizeof(T);
   kv_append_kernel<T, PAGED>
       <<<dim3(Hkv, B), 2 * (D / EPC), 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<uint4*>(k), static_cast<uint4*>(v), k_new, v_new, native, positions,
-          pos64, static_cast<const int*>(table), P, n_pages, Hkv, S, D);
+          static_cast<uint4*>(k), static_cast<uint4*>(v),
+          static_cast<const __nv_bfloat16*>(k_new), static_cast<const __nv_bfloat16*>(v_new),
+          positions, pos64, static_cast<const int*>(table), P, n_pages, Hkv, S, D);
   return static_cast<int>(cudaGetLastError());
 }
 
-// dtype: the cache's type (xb::KvForm: bf16, fp16 or f32); native: the new
-// rows are of that type, else bf16.
+// dtype: the cache's type (xb::KvForm: bf16, fp16 or f32); new rows bf16.
 template <bool PAGED>
-int append(void* k, void* v, const void* k_new, const void* v_new, int dtype, int native,
+int append(void* k, void* v, const void* k_new, const void* v_new, int dtype,
            const void* positions, int pos64, const void* table, int P, int n_pages, int B,
            int Hkv, int S, int D, void* stream) {
   if (D % 8 || D > 512) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0) return 0;
   switch (dtype) {
     case xb::kKvBf16:
-      return append_t<__nv_bfloat16, PAGED>(k, v, k_new, v_new, 1, positions, pos64, table, P,
+      return append_t<__nv_bfloat16, PAGED>(k, v, k_new, v_new, positions, pos64, table, P,
                                             n_pages, B, Hkv, S, D, stream);
     case xb::kKvF16:
-      return append_t<__half, PAGED>(k, v, k_new, v_new, native, positions, pos64, table, P,
+      return append_t<__half, PAGED>(k, v, k_new, v_new, positions, pos64, table, P,
                                      n_pages, B, Hkv, S, D, stream);
     case xb::kKvF32:
-      return append_t<float, PAGED>(k, v, k_new, v_new, native, positions, pos64, table, P,
+      return append_t<float, PAGED>(k, v, k_new, v_new, positions, pos64, table, P,
                                     n_pages, B, Hkv, S, D, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
@@ -207,14 +207,13 @@ extern "C" int xb_kv_append_packed(void* k, void* v, void* ks, void* vs, const v
                               nullptr, 0, 0, B, Hkv, Sw, D, stream);
 }
 
-// k/v rows of dtype 0 (bf16), 1 (fp16) or 2 (f32); k_new, v_new [B, Hkv, D]
-// of that type (native = 1) or bf16, 16-byte aligned; positions int32 [B], or
-// int64 with pos64 = 1.
+// k/v rows of dtype 0 (bf16), 1 (fp16) or 2 (f32); k_new, v_new bf16
+// [B, Hkv, D], 16-byte aligned; positions int32 [B], or int64 with pos64 = 1.
 extern "C" int xb_kv_append(void* k, void* v, const void* k_new, const void* v_new, int dtype,
-                            int native, const void* positions, int pos64, int B, int Hkv, int S,
-                            int D, void* stream) {
-  return append<false>(k, v, k_new, v_new, dtype, native, positions, pos64, nullptr, 0, 0, B,
-                       Hkv, S, D, stream);
+                            const void* positions, int pos64, int B, int Hkv, int S, int D,
+                            void* stream) {
+  return append<false>(k, v, k_new, v_new, dtype, positions, pos64, nullptr, 0, 0, B, Hkv, S, D,
+                       stream);
 }
 
 // The paged forms: k/v (and ks/vs) are the pools of one layer, table int
@@ -230,10 +229,10 @@ extern "C" int xb_kv_append_packed_paged(void* k, void* v, void* ks, void* vs, c
 }
 
 extern "C" int xb_kv_append_paged(void* k, void* v, const void* k_new, const void* v_new,
-                                  int dtype, int native, const void* positions, int pos64,
+                                  int dtype, const void* positions, int pos64,
                                   const void* table, int P, int n_pages, int B, int Hkv, int psz,
                                   int D, void* stream) {
   if (P <= 0 || n_pages <= 0 || psz <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  return append<true>(k, v, k_new, v_new, dtype, native, positions, pos64, table, P, n_pages, B,
-                      Hkv, psz, D, stream);
+  return append<true>(k, v, k_new, v_new, dtype, positions, pos64, table, P, n_pages, B, Hkv,
+                      psz, D, stream);
 }

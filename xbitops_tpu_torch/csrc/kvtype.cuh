@@ -1,8 +1,7 @@
 // The element types of a dense KV cache (bf16, fp16 or f32 rows), shared by
 // kv_append.cu, decode_attention.cu and prefill_attention.cu, and the
 // conversion of new rows into them.  New rows come as bf16 (the model's
-// activations) or already in the cache's type ("native"); a bf16 value is
-// converted as PyTorch's and JAX's casts convert it: exactly to f32, and to
+// activations); a bf16 value is converted as PyTorch's and JAX's casts convert it: exactly to f32, and to
 // fp16 rounded to nearest even (inf past fp16's range, subnormals kept).
 #pragma once
 #include <cuda_bf16.h>
@@ -35,21 +34,19 @@ __device__ __forceinline__ void from_float(float x, __nv_bfloat16* o) { *o = __f
 __device__ __forceinline__ void from_float(float x, __half* o) { *o = __float2half_rn(x); }
 __device__ __forceinline__ void from_float(float x, float* o) { *o = x; }
 
-// 16 bytes of a row as the cache's type T: elements [at, at + 16 / sizeof(T))
-// of `rows`, which hold T values (native) or bf16 values.  Aligned: `at`
-// is a multiple of 16 / sizeof(T) and the rows start on 16 bytes.
+// 16 bytes of a row as the cache's type T: bf16 elements [at, at + 16 /
+// sizeof(T)) of `rows`, converted.  Aligned: `at` is a multiple of
+// 16 / sizeof(T) and the rows start on 16 bytes.
 template <typename T>
-__device__ __forceinline__ uint4 row_chunk(const void* rows, size_t at, bool native) {
-  if (native || std::is_same<T, __nv_bfloat16>::value)
-    return *reinterpret_cast<const uint4*>(static_cast<const T*>(rows) + at);
+__device__ __forceinline__ uint4 row_chunk(const __nv_bfloat16* rows, size_t at) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    return *reinterpret_cast<const uint4*>(rows + at);
   constexpr int n = 16 / sizeof(T);
   __nv_bfloat16 src[n];
   if constexpr (n == 8)
-    *reinterpret_cast<uint4*>(src) =
-        *reinterpret_cast<const uint4*>(static_cast<const __nv_bfloat16*>(rows) + at);
+    *reinterpret_cast<uint4*>(src) = *reinterpret_cast<const uint4*>(rows + at);
   else
-    *reinterpret_cast<uint2*>(src) =
-        *reinterpret_cast<const uint2*>(static_cast<const __nv_bfloat16*>(rows) + at);
+    *reinterpret_cast<uint2*>(src) = *reinterpret_cast<const uint2*>(rows + at);
   uint4 out;
   T* o = reinterpret_cast<T*>(&out);
 #pragma unroll

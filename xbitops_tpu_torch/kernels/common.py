@@ -94,11 +94,11 @@ _SIGNATURES = {
                       _I, _VP],
     "xb_qgemv_word_planes": [_VP, _I, _I, _I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP, _I,
                              _I, _I, _I, _I, _I, _VP, _VP, _VP, _I, _VP],
-    "xb_kv_append": [_VP] * 4 + [_I, _I, _VP] + [_I] * 5 + [_VP],
+    "xb_kv_append": [_VP] * 4 + [_I, _VP] + [_I] * 5 + [_VP],
     "xb_kv_append_packed": [_VP] * 8 + [_I, _VP] + [_I] * 5 + [_VP],
     "xb_decode_attention": [_VP] * 15 + [_I] * 12 + [ctypes.c_float, _VP],
     "xb_prefill_attention": [_VP] * 8 + [_I] * 9 + [ctypes.c_float, _VP],
-    "xb_kv_append_paged": [_VP] * 4 + [_I, _I, _VP, _I, _VP] + [_I] * 6 + [_VP],
+    "xb_kv_append_paged": [_VP] * 4 + [_I, _VP, _I, _VP] + [_I] * 6 + [_VP],
     "xb_kv_append_packed_paged": [_VP] * 8 + [_I, _VP, _I, _VP] + [_I] * 6 + [_VP],
     "xb_prefill_attention_paged": [_VP] * 9 + [_I] * 11 + [ctypes.c_float, _VP],
     "xb_dequant": [_I, _I, _VP, _VP, _VP, _I, _I, _I, _I, _VP, _VP, _I, _I, _I, _I, _VP, _I, _VP],

@@ -116,7 +116,7 @@ def decode_attention(
     ``[max(0, len - window), len)``; a window that covers the whole cache is
     dropped.  ``kv_new``: write the new rows at ``positions`` into the cache
     first (in place, positions >= S write nothing).  For a dense cache it is
-    ``(k_new [B, Hkv, D], v_new, positions [B])``, the rows cast to the
+    ``(k_new [B, Hkv, D] bf16, v_new, positions [B])``, the rows cast to the
     cache's type, and the result ``(out, k, v)``; for the int8 cache ``(kq [B, Hkv, D] biased int32, vq,
     ks_new [B, Hkv], vs_new, positions)`` and the result
     ``(out, k, v, k_scale, v_scale)`` -- the same tensors, updated.
@@ -203,8 +203,7 @@ def _launch(q, k, v, ks, vs, lengths, layer_idx, window, page_table=None, kv_new
         if int8:
             new[1:3] = [inp(t, (torch.int32,)) for t in rows[:2]]
         else:
-            *new[1:3], native = new_rows(*rows[:2], dtype, dev)
-            flags |= 8 * int(native)  # the rows are of the cache's type, not bf16
+            new[1:3] = new_rows(*rows[:2], dtype, dev)
         new[0] = inp(positions, idx)
         flags |= 2 * int(new[0].dtype == torch.int64)
         if int8:

@@ -18,7 +18,7 @@ package left them to XLA).
 
 The dense cache's rows are bf16, fp16 or f32, as the JAX package's
 ``KVCache.init(dtype=)`` builds them; new rows come as bf16 (the model's
-activations) or in the cache's type, and are cast to it as ``.astype`` casts.
+activations), and the kernel casts them to it as ``.astype`` casts.
 
 The paged cache: k/v are page pools ``[L, n_pages, Hkv, psz, D]`` (int8:
 words ``[L, n_pages, Hkv, psz/4, D]`` and scale pools
@@ -172,16 +172,14 @@ def append_name(int8: bool, paged: bool, dtype=torch.bfloat16) -> str:
 
 
 def new_rows(k_new: torch.Tensor, v_new: torch.Tensor, dtype, device):
-    """New dense rows as the kernels read them: bf16 or the cache's ``dtype``
-    as they come (the kernel casts), any other type (or a pair of two types)
-    cast to ``dtype`` first, as the plain version casts it.  Returns ``(k_new,
-    v_new, native)``, native True where the rows are of the cache's type."""
-    keep = (torch.bfloat16, dtype)
-    k_new, v_new = (common.kernel_input(t, keep if t.dtype in keep else (dtype,), device)
-                    for t in (k_new, v_new))
-    if k_new.dtype != v_new.dtype:
-        k_new, v_new = k_new.to(dtype), v_new.to(dtype)
-    return k_new, v_new, k_new.dtype == dtype
+    """New dense rows as the kernels read them: bf16, which the kernel casts to
+    the cache's ``dtype``.  Rows of another type go only into a bf16 cache
+    (cast to bf16 first, as the plain version casts them); into an fp16 or f32
+    cache they would be rounded to bf16 on the way, so they are refused."""
+    for t in (k_new, v_new):
+        common.require(t.dtype == torch.bfloat16 or dtype == torch.bfloat16,
+                       f"new rows into a {dtype} cache must be bf16, not {t.dtype}")
+    return tuple(common.kernel_input(t, (torch.bfloat16,), device) for t in (k_new, v_new))
 
 
 def kv_append_dense_reference(
@@ -209,7 +207,7 @@ def kv_append_dense_reference(
 def kv_append_dense(
     k_all: torch.Tensor,  # [L, B, Hkv, S, D] bf16, fp16 or f32
     v_all: torch.Tensor,
-    k_new: torch.Tensor,  # [B, Hkv, D], cast to the cache's type
+    k_new: torch.Tensor,  # [B, Hkv, D] bf16, cast to the cache's type
     v_new: torch.Tensor,
     positions: torch.Tensor,  # int [B]; outside [0, S) writes nothing
     layer: int,
@@ -238,10 +236,10 @@ def kv_append_dense(
     req(positions.shape == (B,), "positions must be [B]")
     req(D % 8 == 0, f"head_dim {D}: rows move in 16-byte pieces")
     dev, dtype = k_all.device, k_all.dtype
-    k_new, v_new, native = new_rows(k_new, v_new, dtype, dev)
+    k_new, v_new = new_rows(k_new, v_new, dtype, dev)
     pos = common.kernel_input(positions, (torch.int64, torch.int32), dev)  # read as it comes
     head = (k_all[layer].data_ptr(), v_all[layer].data_ptr(), k_new.data_ptr(),
-            v_new.data_ptr(), common.DENSE_KV[dtype], int(native), pos.data_ptr(),
+            v_new.data_ptr(), common.DENSE_KV[dtype], pos.data_ptr(),
             int(pos.dtype == torch.int64))
     name = append_name(False, page_table is not None, dtype)
     if page_table is None:
