@@ -1,0 +1,6 @@
+"""``qgemv_decode_roofline`` in the cells served below capacity, where it moves the tail,
+``latency_p95_ms``: the same reading as ``qgemv_decode_roofline.py``."""
+
+from benchmark.metrics.qgemv_decode_roofline import LAYER, UNIT, read  # noqa: F401
+
+MOVES = "latency_p95_ms"
