@@ -1032,6 +1032,39 @@ def test_graph_engine_replays_with_a_slot_deferred(dev):
     assert all(len(c.tokens) == r.max_new_tokens for c, r in zip(got, reqs))
 
 
+def test_graph_engine_mirrored_spans_stay_host_events(dev):
+    """Under ``torch.profiler`` with CUDA activity, the spans mirrored into it
+    (``engine.accept``, ``engine.admit_prep``: host work alone) come back as
+    host events and no span's name as a device event (a range around kernel
+    launches may come back as a ``gpu_user_annotation``, which a trace would
+    count as device work); ``loop_stats`` keeps the captures out of
+    ``decode``, which the replays' dispatch and wait spans sum to."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from xbitops_tpu_torch.utils import tracing
+
+    eng = _graph_engine(dev, kv_quant=False)
+    eng.generate(_graph_requests(n=2, new=4))  # the capture, before the profiler
+    mark = tracing.span("mark").id
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.start()
+    eng.generate(_graph_requests())
+    torch.cuda.synchronize()
+    prof.stop()
+    events = prof.profiler.kineto_results.events()
+    cuda = torch.autograd.DeviceType.CUDA
+    mirrored = [e for e in events if e.name() in ("engine.accept", "engine.admit_prep")]
+    assert {e.name() for e in mirrored} == {"engine.accept", "engine.admit_prep"}
+    assert all(e.device_type() != cuda for e in mirrored)
+    assert not [e.name() for e in events
+                if e.device_type() == cuda and e.name().startswith(("engine.", "endpoint."))]
+    spans = [s for s in tracing.spans() if s.id > mark]
+    lt = eng.loop_stats
+    assert lt["graph_captures"] == 0 and lt["graph_replays"] > 0
+    dispatch_wait = sum(s.seconds for s in spans if s.name in ("engine.dispatch", "engine.wait"))
+    assert lt["decode"] == pytest.approx(dispatch_wait, rel=1e-9)
+
+
 # --- speculative decoding and pipelined bursts on the card ---
 #
 # ``forward(kv_unaligned=True)`` writes T rows a slot in T append launches a

@@ -70,6 +70,7 @@ import torch
 from xbitops_tpu_torch.engine.sampling import sample_tokens
 from xbitops_tpu_torch.kernels import common
 from xbitops_tpu_torch.models import llama
+from xbitops_tpu_torch.utils import tracing
 
 
 @dataclasses.dataclass
@@ -485,28 +486,28 @@ class Engine:
         else:  # the greedy body consumes no randomness
             body, warm_up = (lambda: self._burst(key)), (lambda: self._burst(True))
         lt = self.loop_stats
-        t0 = time.perf_counter()
         dev = self.device
-        self._act_in.zero_()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            warm_up()
-        torch.cuda.current_stream(dev).wait_stream(side)
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        graph = torch.cuda.CUDAGraph()
-        if key is False:
-            graph.register_generator_state(self.generator)
-        before = dict(common.launches)
-        # thread_local: a server captures on its worker thread while others wait
-        with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
-            body()
-        launches = {k: n - before[k] for k, n in common.launches.items() if n != before[k]}
-        common.launches.update(before)  # a capture records launches; it makes none
-        prog = self._programs[key] = _Program(graph, launches)
+        with tracing.span("engine.capture") as cap:
+            self._act_in.zero_()
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                warm_up()
+            torch.cuda.current_stream(dev).wait_stream(side)
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            if key is False:
+                graph.register_generator_state(self.generator)
+            before = dict(common.launches)
+            # thread_local: a server captures on its worker thread while others wait
+            with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+                body()
+            launches = {k: n - before[k] for k, n in common.launches.items() if n != before[k]}
+            common.launches.update(before)  # a capture records launches; it makes none
+            prog = self._programs[key] = _Program(graph, launches)
         lt["graph_captures"] += 1
-        lt["graph_capture"] += time.perf_counter() - t0
+        lt["graph_capture"] += cap.seconds
         return prog
 
     @torch.no_grad()
@@ -515,7 +516,24 @@ class Engine:
         requests: Sequence[Request],
         on_token: Optional[Callable[[int, int], None]] = None,
     ) -> List[Completion]:
-        """Run all requests to completion; slots refill as they free."""
+        """Run all requests to completion; slots refill as they free.
+
+        Each call records its spans (``utils/tracing.py``): ``engine.generate``;
+        under it ``engine.request`` a request, from the admission forward that
+        takes it to its last token; ``engine.admit`` (bucketed) and
+        ``engine.admit_chunks`` with their host preparation
+        ``engine.admit_prep``; a burst's ``engine.dispatch`` (``slots``, ``steps``;
+        ``engine.capture`` at a program's first use), ``engine.wait`` (blocked
+        on its tokens) and ``engine.accept`` (taking them in, ``on_token``
+        included); ``engine.spec`` a speculative step; ``engine.restart``.
+        ``loop_stats`` sums their seconds: ``decode`` is dispatch less capture
+        plus the wait, ``decode_wait`` the wait, ``decode_accept`` the accept;
+        ``decode_slot_steps`` counts the active slots times the steps of every
+        burst or speculative step dispatched."""
+        with tracing.span("engine.generate") as gen:
+            return self._generate(requests, on_token, gen.id)
+
+    def _generate(self, requests, on_token, gen_id: int) -> List[Completion]:
         S = self.cfg.max_seq_len
         dev = self.device
         pending = deque()
@@ -548,9 +566,12 @@ class Engine:
         in_admission: List[Request] = []
         resume_prefix: dict = {}  # id -> tokens emitted before a restart
         orig_plen: dict = {}  # id -> the prompt length before a restart
+        admitted_ns: dict = {}  # id -> the start of its first admission forward
 
         def finish(b: int, reason: str):
             r = slot_req[b]
+            tracing.record("engine.request", admitted_ns.pop(r.id), time.monotonic_ns(),
+                           request=r.id, parent=gen_id)
             done.append(Completion(r.id, len(r.prompt), slot_gen[b], reason))
             slot_req[b] = None
             slot_gen[b] = []
@@ -598,95 +619,106 @@ class Engine:
         def dispatch(step_active) -> None:
             """Queue one decode burst for the slots of ``step_active``; continuing
             slots take their input from the newest burst in flight, on the device."""
-            t_mark = time.perf_counter()
-            greedy = not (temps[step_active] > 0).any()
-            self._upload(self._tok_in, cur_tok)
-            if inflight:  # host tokens lag the bursts in flight
-                newest = inflight[-1]
-                self._upload(self._cont_in, newest.step_active & (slot_epoch == newest.epochs))
-                self._tok_in.copy_(torch.where(self._cont_in, self._burst_out[-1], self._tok_in))
-            # only now: a first capture's warm-up overwrites _burst_out and _act_in
-            captured = lt["graph_capture"]
-            prog = self._program(greedy)
-            captured = lt["graph_capture"] - captured  # kept apart from decode time
-            self._upload(self._act_in, step_active)
-            self._upload(self._temps_in, temps)
-            if prog is None:
-                self._burst(greedy)
-                events = None
-            else:
-                events = replay(prog)
-            # copied out before the next burst overwrites it (the stream orders both)
-            toks, fetched = self._fetch(self._burst_out)
-            inflight.append(_InFlight(toks, fetched, events, step_active.copy(),
-                                      slot_epoch.copy()))
-            lt["decode"] += time.perf_counter() - t_mark - captured
+            n = int(step_active.sum())
+            with tracing.span("engine.dispatch", slots=n, steps=self.decode_burst) as sp:
+                greedy = not (temps[step_active] > 0).any()
+                self._upload(self._tok_in, cur_tok)
+                if inflight:  # host tokens lag the bursts in flight
+                    newest = inflight[-1]
+                    self._upload(self._cont_in, newest.step_active & (slot_epoch == newest.epochs))
+                    self._tok_in.copy_(torch.where(self._cont_in, self._burst_out[-1],
+                                                   self._tok_in))
+                # only now: a first capture's warm-up overwrites _burst_out and _act_in
+                captured = lt["graph_capture"]
+                prog = self._program(greedy)
+                captured = lt["graph_capture"] - captured  # kept apart from decode time
+                self._upload(self._act_in, step_active)
+                self._upload(self._temps_in, temps)
+                if prog is None:
+                    self._burst(greedy)
+                    events = None
+                else:
+                    events = replay(prog)
+                # copied out before the next burst overwrites it (the stream orders both)
+                toks, fetched = self._fetch(self._burst_out)
+                inflight.append(_InFlight(toks, fetched, events, step_active.copy(),
+                                          slot_epoch.copy()))
+            lt["decode"] += sp.seconds - captured
             lt["decode_steps"] += self.decode_burst
+            lt["decode_slot_steps"] += n * self.decode_burst
 
         def drain() -> None:
             """Accept the oldest burst in flight, step by step, for the slots it
             ran that still hold the request it ran for (blocks until it is done)."""
             burst = inflight.popleft()
-            t_mark = time.perf_counter()
-            toks = burst.wait()  # [burst, slots]
-            if burst.events is not None:
-                lt["graph_device"] += 1e-3 * burst.events[0].elapsed_time(burst.events[1])
-            lt["decode"] += time.perf_counter() - t_mark
+            with tracing.span("engine.wait") as wait:
+                toks = burst.wait()  # [burst, slots]
+                if burst.events is not None:
+                    lt["graph_device"] += 1e-3 * burst.events[0].elapsed_time(burst.events[1])
+            lt["decode"] += wait.seconds
+            lt["decode_wait"] += wait.seconds
             sa, epochs = burst.step_active, burst.epochs
-            for step in range(toks.shape[0]):
-                for b in range(self.slots):
-                    if sa[b] and active[b] and slot_epoch[b] == epochs[b]:
-                        accept(b, int(toks[step, b]))
-                        lt["decode_tokens"] += 1
-                if not active.any():
-                    break  # the rest of the burst is garbage for every slot
+            with tracing.span("engine.accept", mirror=True) as acc:
+                for step in range(toks.shape[0]):
+                    for b in range(self.slots):
+                        if sa[b] and active[b] and slot_epoch[b] == epochs[b]:
+                            accept(b, int(toks[step, b]))
+                            lt["decode_tokens"] += 1
+                    if not active.any():
+                        break  # the rest of the burst is garbage for every slot
+            lt["decode_accept"] += acc.seconds
 
         def spec_step(step_active) -> None:
             """One speculative step: draft (n-gram here, or the draft model's
             chain inside the program), verify, accept."""
-            t_mark = time.perf_counter()
-            g = self.spec_tokens
-            toks = np.zeros((self.slots, g + 1), np.int32)
-            toks[:, 0] = cur_tok
-            if self.draft is None:
-                for b in range(self.slots):
-                    if step_active[b]:
-                        toks[b, 1:] = self._draft(list(slot_req[b].prompt) + slot_gen[b], g)
-            captured = lt["graph_capture"]
-            prog = self._program("spec")
-            captured = lt["graph_capture"] - captured
-            self._upload(self._spec_in, toks)
-            self._upload(self._act_in, step_active)
-            if prog is None:
-                self._spec()
-                events = None
-            else:
-                events = replay(prog)
-            out, fetched = self._fetch(self._spec_out)
-            if fetched is not None:
-                fetched.synchronize()
-            out = out.numpy()
-            if events is not None:
-                lt["graph_device"] += 1e-3 * events[0].elapsed_time(events[1])
-            lt["decode"] += time.perf_counter() - t_mark - captured
+            n = int(step_active.sum())
+            with tracing.span("engine.spec", slots=n, steps=1) as sp:
+                g = self.spec_tokens
+                toks = np.zeros((self.slots, g + 1), np.int32)
+                toks[:, 0] = cur_tok
+                if self.draft is None:
+                    for b in range(self.slots):
+                        if step_active[b]:
+                            toks[b, 1:] = self._draft(list(slot_req[b].prompt) + slot_gen[b], g)
+                captured = lt["graph_capture"]
+                prog = self._program("spec")
+                captured = lt["graph_capture"] - captured
+                self._upload(self._spec_in, toks)
+                self._upload(self._act_in, step_active)
+                if prog is None:
+                    self._spec()
+                    events = None
+                else:
+                    events = replay(prog)
+                out, fetched = self._fetch(self._spec_out)
+                with tracing.span("engine.wait") as wait:
+                    if fetched is not None:
+                        fetched.synchronize()
+                    out = out.numpy()
+                    if events is not None:
+                        lt["graph_device"] += 1e-3 * events[0].elapsed_time(events[1])
+            lt["decode"] += sp.seconds - captured
+            lt["decode_wait"] += wait.seconds
             lt["decode_steps"] += 1
+            lt["decode_slot_steps"] += n
             toks, greedy, accepted = out[:, : g + 1], out[:, g + 1 : 2 * g + 2], out[:, -1]
-            for b in range(self.slots):
-                if not step_active[b]:
-                    continue
-                a = int(accepted[b])
-                self.spec_stats["drafted"] += g
-                self.spec_stats["accepted"] += a
-                emitted = list(toks[b, 1 : 1 + a]) + [greedy[b, a]]
-                # the verify wrote nothing past the capacity: neither is emitted
-                for tok in emitted[: max(0, S - int(slot_len[b]))]:
-                    if active[b]:
-                        accept(b, int(tok))
-                        lt["decode_tokens"] += 1
+            with tracing.span("engine.accept", mirror=True) as acc:
+                for b in range(self.slots):
+                    if not step_active[b]:
+                        continue
+                    a = int(accepted[b])
+                    self.spec_stats["drafted"] += g
+                    self.spec_stats["accepted"] += a
+                    emitted = list(toks[b, 1 : 1 + a]) + [greedy[b, a]]
+                    # the verify wrote nothing past the capacity: neither is emitted
+                    for tok in emitted[: max(0, S - int(slot_len[b]))]:
+                        if active[b]:
+                            accept(b, int(tok))
+                            lt["decode_tokens"] += 1
+            lt["decode_accept"] += acc.seconds
 
         def run_loop() -> None:
             while pending or active.any() or inflight:
-                t_mark = time.perf_counter()
                 admit, longs = [], []
                 for b in range(self.slots):
                     if not active[b] and pending:
@@ -714,57 +746,67 @@ class Engine:
                     C = self.prefill_chunk
                     n = len(longs)
                     n_chunks = -(-max(len(p) for _, _, p in longs) // C)
-                    t_adm = [r.temperature for _, r, _ in longs]
-                    temps_dev = torch.tensor(t_adm, device=dev)
-                    last_tok = [0] * n
-                    for ci in range(n_chunks):
-                        begin = ci * C
-                        tokens = np.zeros((n, C), np.int64)
-                        lens = np.zeros(n, np.int64)
-                        slots = np.full(n, self.slots, np.int64)
-                        for i, (b, _, prompt) in enumerate(longs):
-                            if begin < len(prompt):
-                                piece = prompt[begin : begin + C]
-                                tokens[i, : len(piece)] = piece
-                                lens[i], slots[i] = len(prompt), b
-                        args = (torch.from_numpy(tokens).to(dev),
-                                torch.full((n,), begin, device=dev),
-                                torch.from_numpy(lens).to(dev), torch.from_numpy(slots).to(dev))
-                        resets = torch.full((n,), ci == 0, device=dev)
-                        logits, _ = self._steps.prefill_slots_chunk(
-                            self.model, *args, self.cache, resets=resets)
-                        if self.draft is not None:
-                            llama.prefill_slots_chunk(self.draft, *args, self._draft_cache,
-                                                      resets=resets)
-                        final = [i for i, (_, _, p) in enumerate(longs)
-                                 if ci == (len(p) - 1) // C]
-                        if final:
-                            toks = self._sample(logits, temps_dev, greedy=max(t_adm) <= 0)
-                            toks = toks.cpu().numpy()
-                            for i in final:
-                                last_tok[i] = int(toks[i])
-                        lt["chunks"] += 1
-                        lt["chunk_rows"] += n * C
-                    start(longs, last_tok)
-                    lt["admit_prefill_chunks"] += time.perf_counter() - t_mark
-                    t_mark = time.perf_counter()
+                    with tracing.span("engine.admit_chunks", rows=n, chunks=n_chunks) as adm:
+                        for _, r, _ in longs:
+                            admitted_ns.setdefault(r.id, adm.start_ns)
+                        t_adm = [r.temperature for _, r, _ in longs]
+                        temps_dev = torch.tensor(t_adm, device=dev)
+                        last_tok = [0] * n
+                        for ci in range(n_chunks):
+                            begin = ci * C
+                            with tracing.span("engine.admit_prep", mirror=True):
+                                tokens = np.zeros((n, C), np.int64)
+                                lens = np.zeros(n, np.int64)
+                                slots = np.full(n, self.slots, np.int64)
+                                for i, (b, _, prompt) in enumerate(longs):
+                                    if begin < len(prompt):
+                                        piece = prompt[begin : begin + C]
+                                        tokens[i, : len(piece)] = piece
+                                        lens[i], slots[i] = len(prompt), b
+                            args = (torch.from_numpy(tokens).to(dev),
+                                    torch.full((n,), begin, device=dev),
+                                    torch.from_numpy(lens).to(dev),
+                                    torch.from_numpy(slots).to(dev))
+                            resets = torch.full((n,), ci == 0, device=dev)
+                            logits, _ = self._steps.prefill_slots_chunk(
+                                self.model, *args, self.cache, resets=resets)
+                            if self.draft is not None:
+                                llama.prefill_slots_chunk(self.draft, *args, self._draft_cache,
+                                                          resets=resets)
+                            final = [i for i, (_, _, p) in enumerate(longs)
+                                     if ci == (len(p) - 1) // C]
+                            if final:
+                                toks = self._sample(logits, temps_dev, greedy=max(t_adm) <= 0)
+                                toks = toks.cpu().numpy()
+                                for i in final:
+                                    last_tok[i] = int(toks[i])
+                            lt["chunks"] += 1
+                            lt["chunk_rows"] += n * C
+                        start(longs, last_tok)
+                    lt["admit_prefill_chunks"] += adm.seconds
                 if admit:
-                    bucket = self._bucket(max(len(p) for _, _, p in admit))
-                    tokens = np.zeros((len(admit), bucket), np.int64)
-                    for i, (_, _, prompt) in enumerate(admit):
-                        tokens[i, : len(prompt)] = prompt
-                    lens = torch.tensor([len(p) for _, _, p in admit], device=dev)
-                    slots = torch.tensor([b for b, _, _ in admit], device=dev)
-                    t_adm = [r.temperature for _, r, _ in admit]
-                    tokens = torch.from_numpy(tokens).to(dev)
-                    logits, _ = self._steps.prefill_slots(self.model, tokens, lens, slots,
-                                                          self.cache)
-                    if self.draft is not None:
-                        llama.prefill_slots(self.draft, tokens, lens, slots, self._draft_cache)
-                    toks = self._sample(logits, torch.tensor(t_adm, device=dev),
-                                        greedy=max(t_adm) <= 0).cpu().numpy()
-                    start(admit, toks)
-                    lt["admit_prefill"] += time.perf_counter() - t_mark
+                    with tracing.span("engine.admit", rows=len(admit)) as adm:
+                        for _, r, _ in admit:
+                            admitted_ns.setdefault(r.id, adm.start_ns)
+                        with tracing.span("engine.admit_prep", mirror=True):
+                            bucket = self._bucket(max(len(p) for _, _, p in admit))
+                            tokens = np.zeros((len(admit), bucket), np.int64)
+                            for i, (_, _, prompt) in enumerate(admit):
+                                tokens[i, : len(prompt)] = prompt
+                        adm.attrs["bucket"] = bucket
+                        lens = torch.tensor([len(p) for _, _, p in admit], device=dev)
+                        slots = torch.tensor([b for b, _, _ in admit], device=dev)
+                        t_adm = [r.temperature for _, r, _ in admit]
+                        tokens = torch.from_numpy(tokens).to(dev)
+                        logits, _ = self._steps.prefill_slots(self.model, tokens, lens, slots,
+                                                              self.cache)
+                        if self.draft is not None:
+                            llama.prefill_slots(self.draft, tokens, lens, slots,
+                                                self._draft_cache)
+                        toks = self._sample(logits, torch.tensor(t_adm, device=dev),
+                                            greedy=max(t_adm) <= 0).cpu().numpy()
+                        start(admit, toks)
+                    lt["admit_prefill"] += adm.seconds
                     lt["admit_rows"] += len(admit) * bucket
                 in_admission.clear()
                 if not active.any():
@@ -810,42 +852,45 @@ class Engine:
             except DEVICE_ERRORS:
                 if self.restarts >= self.max_restarts:
                     raise
-                self.restarts += 1
-                lt["restarts"] += 1
-                inflight.clear()
-                # requeue the slots' requests as prompt + emitted so far (the
-                # JAX package's order: the last slot's request first), then the
-                # requests caught in admission
-                requeued = {c.id for c in done}
-                for b in range(self.slots):
-                    r = slot_req[b]
-                    if r is None:
-                        continue
-                    requeued.add(r.id)
-                    orig_plen.setdefault(r.id, len(r.prompt))
-                    resume_prefix[r.id] = resume_prefix.get(r.id, []) + slot_gen[b]
-                    remaining = r.max_new_tokens - len(slot_gen[b])
-                    if remaining <= 0:
-                        done.append(Completion(r.id, orig_plen[r.id], [], "length"))
-                    else:
-                        pending.appendleft(dataclasses.replace(
-                            r, prompt=list(r.prompt) + slot_gen[b], max_new_tokens=remaining))
-                    slot_req[b] = None
-                    slot_gen[b] = []
-                for r in in_admission:
-                    if r.id not in requeued and all(p.id != r.id for p in pending):
-                        pending.appendleft(r)
-                in_admission.clear()
-                active[:] = False
-                slot_len[:] = 0
-                cur_tok[:] = 0
-                temps[:] = 0
-                slot_epoch[:] += 1
-                # the graphs hold the old caches' addresses: drop them all,
-                # then capture again at the next burst
-                self._programs.clear()
-                self.cache = None
-                self.cache = self._new_cache()
+                with tracing.span("engine.restart"):
+                    self.restarts += 1
+                    lt["restarts"] += 1
+                    inflight.clear()
+                    # requeue the slots' requests as prompt + emitted so far (the
+                    # JAX package's order: the last slot's request first), then the
+                    # requests caught in admission
+                    requeued = {c.id for c in done}
+                    for b in range(self.slots):
+                        r = slot_req[b]
+                        if r is None:
+                            continue
+                        requeued.add(r.id)
+                        orig_plen.setdefault(r.id, len(r.prompt))
+                        resume_prefix[r.id] = resume_prefix.get(r.id, []) + slot_gen[b]
+                        remaining = r.max_new_tokens - len(slot_gen[b])
+                        if remaining <= 0:
+                            tracing.record("engine.request", admitted_ns.pop(r.id),
+                                           time.monotonic_ns(), request=r.id, parent=gen_id)
+                            done.append(Completion(r.id, orig_plen[r.id], [], "length"))
+                        else:
+                            pending.appendleft(dataclasses.replace(
+                                r, prompt=list(r.prompt) + slot_gen[b], max_new_tokens=remaining))
+                        slot_req[b] = None
+                        slot_gen[b] = []
+                    for r in in_admission:
+                        if r.id not in requeued and all(p.id != r.id for p in pending):
+                            pending.appendleft(r)
+                    in_admission.clear()
+                    active[:] = False
+                    slot_len[:] = 0
+                    cur_tok[:] = 0
+                    temps[:] = 0
+                    slot_epoch[:] += 1
+                    # the graphs hold the old caches' addresses: drop them all,
+                    # then capture again at the next burst
+                    self._programs.clear()
+                    self.cache = None
+                    self.cache = self._new_cache()
 
         if resume_prefix:  # merge the tokens emitted before a restart
             merged = {}

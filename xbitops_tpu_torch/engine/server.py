@@ -14,6 +14,12 @@ forwards and decode bursts.  Arrivals during a running wave wait for the
 next.  The worker is the only thread that touches the device (on a CUDA
 engine it captures and replays the decode graphs); the HTTP threads wait on
 an event.
+
+Spans (``utils/tracing.py``): ``endpoint.request`` a request, from its
+enqueueing to its waiter's wake-up, under the id the engine serves it by;
+``endpoint.wave`` a wave, from its first take to waking its waiters (the
+parent of its ``engine.generate``), and ``endpoint.gather`` its batching
+window.
 """
 
 from __future__ import annotations
@@ -26,18 +32,20 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 from xbitops_tpu_torch.engine.engine import Engine, Request
+from xbitops_tpu_torch.utils import tracing
 
 __all__ = ["ServingEndpoint"]
 
 
 class _Pending:
-    __slots__ = ("request", "event", "completion", "error")
+    __slots__ = ("request", "event", "completion", "error", "queued_ns")
 
     def __init__(self, request: Request):
         self.request = request
         self.event = threading.Event()
         self.completion = None
         self.error: Optional[str] = None
+        self.queued_ns = 0
 
 
 class ServingEndpoint:
@@ -67,27 +75,30 @@ class ServingEndpoint:
                 first = self._queue.get(timeout=0.1)
             except queue.Empty:
                 continue
-            wave = [first]
-            t0 = time.monotonic()
-            # collect arrivals within the batching window (up to slot count)
-            while (len(wave) < self.engine.slots
-                   and time.monotonic() - t0 < self.batch_window_s):
+            with tracing.span("endpoint.wave") as wave_span:
+                wave = [first]
+                with tracing.span("endpoint.gather", mirror=True):
+                    t0 = time.monotonic()
+                    # collect arrivals within the batching window (up to slot count)
+                    while (len(wave) < self.engine.slots
+                           and time.monotonic() - t0 < self.batch_window_s):
+                        try:
+                            wave.append(self._queue.get_nowait())
+                        except queue.Empty:
+                            time.sleep(0.001)
+                wave_span.attrs["requests"] = len(wave)
                 try:
-                    wave.append(self._queue.get_nowait())
-                except queue.Empty:
-                    time.sleep(0.001)
-            try:
-                outs = self.engine.generate([p.request for p in wave])
-                by_id = {c.id: c for c in outs}
+                    outs = self.engine.generate([p.request for p in wave])
+                    by_id = {c.id: c for c in outs}
+                    for p in wave:
+                        p.completion = by_id.get(p.request.id)
+                        if p.completion is None:
+                            p.error = "generation dropped the request"
+                except Exception as e:  # engine fault: every waiter learns it
+                    for p in wave:
+                        p.error = f"{type(e).__name__}: {e}"
                 for p in wave:
-                    p.completion = by_id.get(p.request.id)
-                    if p.completion is None:
-                        p.error = "generation dropped the request"
-            except Exception as e:  # engine fault: every waiter learns it
-                for p in wave:
-                    p.error = f"{type(e).__name__}: {e}"
-            for p in wave:
-                p.event.set()
+                    p.event.set()
             self._served += len(wave)
 
     # --- request handling ---
@@ -115,6 +126,7 @@ class ServingEndpoint:
         # engine ids are assigned in generate(); mint one here so the wave
         # can match completions to waiters
         p.request.id = self._next_id()
+        p.queued_ns = time.monotonic_ns()
         self._queue.put(p)
         return p
 
@@ -166,6 +178,8 @@ class ServingEndpoint:
                     self._json(400, dict(error=str(e)))
                     return
                 p.event.wait()
+                tracing.record("endpoint.request", p.queued_ns, time.monotonic_ns(),
+                               request=p.request.id)
                 if p.error is not None:
                     self._json(500, dict(error=p.error))
                     return
