@@ -116,7 +116,8 @@ def test_concurrent_clients_batch(endpoint, jax_tokens):
     for t in threads:
         t.start()
     for t in threads:
-        t.join()
+        t.join(timeout=300)
+        assert not t.is_alive()
     assert all(code == 200 for code, _ in results.values()), results
     assert [results[i][1]["choices"][0]["tokens"] for i in range(len(PROMPTS))] == jax_tokens
 

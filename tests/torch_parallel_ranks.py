@@ -9,7 +9,9 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import multiprocessing
 import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -18,9 +20,37 @@ import torch
 from xbitops_tpu_torch.parallel import multihost
 
 
+# A world that has not ended by then is ended (a collective waits 600 s for a
+# dead peer): 10x the longest world of an 8-core run of the suite at -n 6
+# (engine_tp2, 15 s).
+WORLD_DEADLINE_S = 150.0
+
+
 def run(case: str, world: int, d: Path) -> None:
-    """Run ``case(rank, d)`` on every rank of a new ``world``-rank gloo world."""
-    multihost.spawn(_entry, world, args=(case, str(d)), backend="gloo", device="cpu")
+    """Run ``case(rank, d)`` on every rank of a new ``world``-rank gloo world,
+    and raise ``TimeoutError`` where the world has not ended within
+    ``WORLD_DEADLINE_S`` seconds (its ranks are ended)."""
+    deadline_s = WORLD_DEADLINE_S
+    before = set(multiprocessing.active_children())
+    expired = threading.Event()
+
+    def end_world():
+        expired.set()
+        for p in set(multiprocessing.active_children()) - before:
+            p.terminate()
+
+    timer = threading.Timer(deadline_s, end_world)
+    timer.start()
+    try:
+        multihost.spawn(_entry, world, args=(case, str(d)), backend="gloo", device="cpu")
+    except (torch.multiprocessing.ProcessExitedException,
+            torch.multiprocessing.ProcessRaisedException) as e:
+        if expired.is_set():
+            raise TimeoutError(f"rank case {case!r} ({world} ranks) did not end within "
+                               f"{deadline_s} s") from e
+        raise
+    finally:
+        timer.cancel()
 
 
 def _entry(rank: int, case: str, d: str) -> None:
@@ -497,3 +527,14 @@ def seq4(rank: int, d: Path) -> None:
                                               dense))]
     (d / f"raises_rank{rank}.json").write_text(json.dumps(msgs))
     _save(d, "seq4", rank, **out)
+
+
+# --- the world deadline (tests/test_torch_world_deadline.py) ---
+
+
+def hang(rank: int, d: Path) -> None:
+    """Never ends: rank 0 waits in a barrier that the other ranks never enter."""
+    if rank == 0:
+        torch.distributed.barrier()
+    else:
+        threading.Event().wait()
