@@ -69,7 +69,7 @@ import torch
 
 from xbitops_tpu_torch.engine.sampling import sample_tokens
 from xbitops_tpu_torch.kernels import common
-from xbitops_tpu_torch.models import llama
+from xbitops_tpu_torch.models import llama, moe
 from xbitops_tpu_torch.utils import tracing
 
 
@@ -474,8 +474,9 @@ class Engine:
         ``_act_in`` and the program's outputs (``_burst_out``; ``_spec_out``
         and a draft model's columns of ``_spec_in``): a caller that reads
         them, as a pipelined burst reads ``_burst_out``, does so before this
-        call, and sets the inputs after it.  Sampled graphs register the
-        engine's generator, so each replay draws new numbers."""
+        call, and sets the inputs after it.  The run's MoE forwards are taken
+        back out of the route counters.  Sampled graphs register the engine's
+        generator, so each replay draws new numbers."""
         if self.device.type != "cuda" or self._eager or self.mesh is not None:
             return None
         prog = self._programs.get(key)
@@ -489,11 +490,14 @@ class Engine:
         dev = self.device
         with tracing.span("engine.capture") as cap:
             self._act_in.zero_()
+            counted = [t.clone() for t in moe.route_counters(self.model)]
             side = torch.cuda.Stream(dev)
             side.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(side):
                 warm_up()
             torch.cuda.current_stream(dev).wait_stream(side)
+            for t, c in zip(moe.route_counters(self.model), counted):
+                t.copy_(c)
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
             graph = torch.cuda.CUDAGraph()
@@ -529,7 +533,10 @@ class Engine:
         ``loop_stats`` sums their seconds: ``decode`` is dispatch less capture
         plus the wait, ``decode_wait`` the wait, ``decode_accept`` the accept;
         ``decode_slot_steps`` counts the active slots times the steps of every
-        burst or speculative step dispatched."""
+        burst or speculative step dispatched.  A MoE model's route counters,
+        counted on the device through the call and read back once at its end,
+        add the ``moe.ROUTE_STATS`` keys (``moe.route_stats``); a dense
+        model's call adds none."""
         with tracing.span("engine.generate") as gen:
             return self._generate(requests, on_token, gen.id)
 
@@ -561,6 +568,7 @@ class Engine:
         slot_epoch = np.zeros(self.slots, np.int64)
         done: List[Completion] = []
         lt = self.loop_stats = defaultdict(float)
+        moe.reset_route_counts(self.model)
         # requests taken from the queue and not yet in slot_req: a device error
         # during their admission requeues them
         in_admission: List[Request] = []
@@ -906,4 +914,5 @@ class Engine:
             done[:] = merged.values()
         if self.paged:
             self._push_table()  # every page is back: the card's table says so too
+        lt.update(moe.route_stats(self.model))
         return sorted(done, key=lambda c: c.id)

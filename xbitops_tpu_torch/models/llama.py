@@ -542,16 +542,19 @@ class LlamaBlock(nn.Module):
             v = self.wv(hx, use_kernel, a8).reshape(B, T, Hkv, D)
         return _rope(q, rope), _rope(k, rope), v
 
-    def out(self, x, att, use_kernel: bool = True, a8: bool = False):
+    def out(self, x, att, use_kernel: bool = True, a8: bool = False, live=None,
+            admit: bool = False):
         """The block's output from its input x and the attention's output att
         [B, T, H, D]: the residual through wo, then through the MLP (or the
-        routed experts)."""
+        routed experts).  ``live`` bool [B, T] (rows at a position below S)
+        and ``admit`` go to the routed experts' route counters only (None:
+        nothing is counted)."""
         cfg = self.cfg
         B, T, _ = x.shape
         x = x + self.wo(att.reshape(B, T, cfg.num_heads * cfg.head_dim), use_kernel, a8)
         hx = rms_norm(x, self.ln_mlp, cfg.rms_eps)
         if hasattr(self, "moe"):
-            return x + self.moe(hx, use_kernel, a8)
+            return x + self.moe(hx, use_kernel, a8, live, admit)
         if hasattr(self, "w_gateup"):
             gu = self.w_gateup(hx, use_kernel, a8)
             gate, up = gu[..., : cfg.intermediate_size], gu[..., cfg.intermediate_size :]
@@ -609,7 +612,9 @@ class LlamaBlock(nn.Module):
                     window=cfg.sliding_window, page_table=table, **scales)
             else:  # eager, over every row of the slots
                 att = _attention(q, *_slot_rows(cache, li, slot_ids), mask, D ** -0.5)
-        return self.out(x, att, use_kernel, a8)
+        # a MoE block counts its live rows' routes: a decode (or verify) step's, or an admission's
+        live = positions < S if hasattr(self, "moe") else None
+        return self.out(x, att, use_kernel, a8, live, admit=not (one_row or kv_unaligned))
 
 
 class Llama(nn.Module):

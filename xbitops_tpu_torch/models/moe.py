@@ -20,6 +20,16 @@ Routing ties: the top-k routes are taken by k rounds of ``argmax`` (which
 returns the FIRST maximal index), so among equal logits the lower expert index
 comes first, as ``jax.lax.top_k`` orders them.
 
+Route counters: a :class:`MoeFFN` given the live mask of its rows (a row is
+live where its position is below ``S``; inactive slots and padding rows
+compute too) counts on the device, into a small buffer it owns, the routes of
+live rows to each expert, the forwards in which each expert got one, its
+forwards and the rows its expert products ran (``E * C``), for decode steps
+and admissions apart.  The counts are in-place adds of a few tiny kernels, with
+no read-back, so a replayed decode graph counts every step;
+:func:`route_stats` reads them back once.  The mask reaches the counters
+only: routing, dispatch and the experts' arithmetic do not see it.
+
 Expert parallelism (one rank a process, ``parallel/``): :func:`shard_experts`
 gives rank ``r`` of an ``n``-rank expert axis the experts ``[r E/n, (r+1)
 E/n)`` (views of the stacked QTensors, or a model built with those experts
@@ -34,6 +44,7 @@ the cast (:class:`ExpertParallel`); :func:`ep_decode_step` and
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
@@ -47,7 +58,8 @@ from xbitops_tpu_torch.ops.quantize import quantize_array
 
 __all__ = ["MoeConfig", "MoeFFN", "stack_experts", "init_moe_params", "moe_ffn",
            "moe_capacity", "route", "ExpertParallel", "shard_experts", "ep_decode_step",
-           "ep_prefill_slots"]
+           "ep_prefill_slots", "DECODE", "ADMIT", "ROUTE_STATS", "route_counters",
+           "reset_route_counts", "route_stats"]
 
 Weight = Union[QTensor, torch.Tensor]
 
@@ -146,7 +158,8 @@ class ExpertParallel:
 
 
 def moe_ffn(hx: torch.Tensor, layer: Dict[str, Weight], cfg: MoeConfig, a8: bool = False,
-            use_kernel: bool = True, ep: Optional[ExpertParallel] = None) -> torch.Tensor:
+            use_kernel: bool = True, ep: Optional[ExpertParallel] = None,
+            count: Optional[Callable[[torch.Tensor, int], None]] = None) -> torch.Tensor:
     """Top-k routed expert FFN of ``hx [B, T, h]`` (the post-norm residual
     input); returns ``[B, T, h]`` in ``hx``'s dtype.
 
@@ -159,7 +172,12 @@ def moe_ffn(hx: torch.Tensor, layer: Dict[str, Weight], cfg: MoeConfig, a8: bool
 
     ``ep``: the layer holds this rank's ``El = E / n`` experts only; routes to
     other ranks' experts add 0 here and the f32 sum is summed over the axis
-    (``psum``) before the cast."""
+    (``psum``) before the cast.
+
+    ``count(onehot, rows)``, where given, takes each route's expert as
+    ``onehot`` int64 ``[N * k, E]`` (row-major over (token, route), all ``E``
+    experts under ``ep`` too) and the rows this rank's expert products run,
+    ``El * C`` (:class:`MoeFFN`'s route counters)."""
     B, T, h = hx.shape
     E, k, ffn = cfg.n_experts, cfg.experts_per_token, cfg.intermediate_size
     w_gu, w_down = layer["w_experts_gateup"], layer["w_experts_down"]
@@ -179,6 +197,8 @@ def moe_ffn(hx: torch.Tensor, layer: Dict[str, Weight], cfg: MoeConfig, a8: bool
     # slot of each route: the j-th route (row-major over (n, k)) to expert e
     # takes slot e * C + j; past the capacity it goes to the spare row E * C
     onehot = (idx[..., None] == torch.arange(E, device=x.device)).reshape(N * k, E).long()
+    if count is not None:
+        count(onehot, El * C)
     pos = ((torch.cumsum(onehot, dim=0) - onehot) * onehot).sum(dim=1).reshape(N, k)
     # a route to another rank's expert reads the spare row too
     keep = (pos < C) & (idx >= e0) & (idx < e0 + El)
@@ -208,12 +228,38 @@ def moe_ffn(hx: torch.Tensor, layer: Dict[str, Weight], cfg: MoeConfig, a8: bool
     return y.reshape(B, T, h).to(hx.dtype)
 
 
+# The route counters' phases: decode steps (a verify step too) and admissions.
+DECODE, ADMIT = 0, 1
+# The keys :func:`route_stats` gives (and ``Engine.loop_stats`` adds).
+ROUTE_STATS = ("moe_routes", "moe_admit_routes", "moe_expert_rows", "moe_admit_expert_rows",
+               "moe_experts_hit", "moe_layer_forwards", "moe_busiest_share")
+
+
+def _count_routes(counts: torch.Tensor, live: torch.Tensor, onehot: torch.Tensor,
+                  rows: int) -> None:
+    """Add one forward to a phase's counters ``counts`` int64 ``[2 E + 2]``,
+    in place on the device: the live rows' routes to each expert, the
+    forwards in which each expert got one, the forwards, and the ``rows``
+    their expert products ran.  ``live`` bool ``[N]``: the rows whose
+    position is below ``S``."""
+    N, E = live.shape[0], onehot.shape[-1]
+    load = (onehot.view(N, -1, E) * live.view(N, 1, 1)).sum(dim=(0, 1))
+    counts[: 2 * E].add_(torch.cat((load, load.clamp(max=1))))
+    counts[2 * E].add_(1)
+    counts[2 * E + 1].add_(rows)
+
+
 class MoeFFN(nn.Module):
     """The MoE FFN of a block: the ``router`` f32 ``[h, E]`` as a buffer and
     the stacked experts ``w_experts_gateup`` / ``w_experts_down`` held as
     projection modules (their arrays as buffers, read through expert views).
     ``role``: an :class:`ExpertParallel` where the module holds one rank's
-    experts."""
+    experts.
+
+    ``route_counts`` int64 ``[phase, 2 E + 2]`` are its route counters
+    (module docstring; ``phase`` :data:`DECODE` or :data:`ADMIT`; laid out
+    as :func:`_count_routes` adds them), a buffer kept out of the state
+    dict."""
 
     role = None
 
@@ -223,14 +269,70 @@ class MoeFFN(nn.Module):
         self.register_buffer("router", router)
         self.w_experts_gateup = _linear(w_gateup)
         self.w_experts_down = _linear(w_down)
+        self.register_buffer("route_counts", torch.zeros(
+            (2, 2 * cfg.n_experts + 2), dtype=torch.int64, device=router.device), persistent=False)
 
     def weights(self) -> Dict[str, Weight]:
         return dict(router=self.router,
                     w_experts_gateup=linear_weight(self.w_experts_gateup),
                     w_experts_down=linear_weight(self.w_experts_down))
 
-    def forward(self, hx: torch.Tensor, use_kernel: bool = True, a8: bool = False) -> torch.Tensor:
-        return moe_ffn(hx, self.weights(), self.cfg, a8=a8, use_kernel=use_kernel, ep=self.role)
+    def forward(self, hx: torch.Tensor, use_kernel: bool = True, a8: bool = False,
+                live: Optional[torch.Tensor] = None, admit: bool = False) -> torch.Tensor:
+        """:func:`moe_ffn` of ``hx [B, T, h]``.  ``live`` bool ``[B, T]``: count
+        this forward's routes of live rows, as an admission's where ``admit``,
+        else a decode step's; None counts nothing."""
+        count = None
+        if live is not None:
+            count = functools.partial(_count_routes, self.route_counts[ADMIT if admit else DECODE],
+                                      live.reshape(-1))
+        return moe_ffn(hx, self.weights(), self.cfg, a8=a8, use_kernel=use_kernel, ep=self.role,
+                       count=count)
+
+
+def _moe_layers(model) -> List[MoeFFN]:
+    return [b.moe for b in model.blocks if hasattr(b, "moe")]
+
+
+def route_counters(model) -> List[torch.Tensor]:
+    """The route counters of ``model``'s MoE layers (none for a dense model):
+    what a caller zeros, or saves and puts back around work it does not count."""
+    return [m.route_counts for m in _moe_layers(model)]
+
+
+def reset_route_counts(model) -> None:
+    for t in route_counters(model):
+        t.zero_()
+
+
+def route_stats(model) -> Dict[str, float]:
+    """``model``'s route counters since :func:`reset_route_counts`, read back
+    once, by the :data:`ROUTE_STATS` keys ({} for a dense model):
+    ``moe_routes`` / ``moe_admit_routes``, the routes of live rows in decode
+    steps / admissions; ``moe_expert_rows`` / ``moe_admit_expert_rows``, the
+    rows the expert products ran, ``E * C`` a MoE layer forward;
+    ``moe_experts_hit``, the experts a decode forward's live routes reached,
+    summed over the forwards; ``moe_layer_forwards``, the MoE layer forwards of
+    decode steps; ``moe_busiest_share``, the most-routed expert's share of a
+    layer's decode routes, the mean over the layers that have any."""
+    counters = route_counters(model)
+    if not counters:
+        return {}
+    counts = torch.stack(counters).cpu()  # [L, phase, 2 E + 2]
+    E = (counts.shape[-1] - 2) // 2
+    dec, adm = counts[:, DECODE], counts[:, ADMIT]
+    load = dec[:, :E]  # [L, E]
+    total = load.sum(dim=1)
+    busiest = load.amax(dim=1)[total > 0] / total[total > 0]
+    return dict(
+        moe_routes=float(total.sum()),
+        moe_admit_routes=float(adm[:, :E].sum()),
+        moe_expert_rows=float(dec[:, -1].sum()),
+        moe_admit_expert_rows=float(adm[:, -1].sum()),
+        moe_experts_hit=float(dec[:, E : 2 * E].sum()),
+        moe_layer_forwards=float(dec[:, -2].sum()),
+        moe_busiest_share=float(busiest.mean()) if busiest.numel() else 0.0,
+    )
 
 
 def init_moe_params(

@@ -16,13 +16,16 @@ ring of the process (``MAXLEN``): the oldest drop out first.
 
 Spans mark the engine's and the endpoint's phases only, about ten a decode
 burst, never code that a CUDA graph captures (a span there would record once
-at capture and never at a replay).  Off the profiler a span costs two clock
-reads, a stack push and pop and a ring append.  While ``torch.profiler``
-records on the span's thread, a span opened with ``mirror=True`` also opens
-``torch.profiler.record_function`` of its name, so that the profiler's
-timeline names that stretch of host time.  Only spans that enqueue no device
-work are mirrored: with CUDA activity on, the profiler may report a range
-around kernel launches as a device event of its own.
+at capture and never at a replay).  What captured code does is counted on the
+device instead, into buffers the model owns, and read back once a
+``generate`` call: a MoE layer's routes (``models/moe.py``, ``route_stats``).
+Off the profiler a span costs two clock reads, a stack push and pop and a ring
+append.  While ``torch.profiler`` records on the span's thread, a span opened
+with ``mirror=True`` also opens ``torch.profiler.record_function`` of its
+name, so that the profiler's timeline names that stretch of host time.  Only
+spans that enqueue no device work are mirrored: with CUDA activity on, the
+profiler may report a range around kernel launches as a device event of its
+own.
 """
 
 from __future__ import annotations
