@@ -306,7 +306,7 @@ class Timer:
 
 def phase_kernels(dev, timer):
     from xbitops_tpu_torch.kernels import common
-    from xbitops_tpu_torch.kernels.qgemv_kernel import qgemv_form, qmatmul_kernel
+    from xbitops_tpu_torch.kernels.qgemv_kernel import qgemv_form, qmatmul_kernel, word16
     from xbitops_tpu_torch.ops.qmatmul import qmatmul
     from xbitops_tpu_torch.utils import synth
 
@@ -326,7 +326,9 @@ def phase_kernels(dev, timer):
         common.reset_counts()
         got = qmatmul(a, qt, precise=precise)
         name = next(k for k, v in common.launches.items() if v)
-        check(sum(common.launches.values()) == 1 and name in worst_abs
+        sixteen = common.launches["qgemv_word16"]  # the few-rows form's 9-16-row instance, apart
+        check(sum(common.launches.values()) == 1 + sixteen and name in worst_abs
+              and sixteen == int(name == "qgemv" and word16(a.shape[0], qt))
               and not any(common.plain_on_cuda.values()), f"qmatmul {label}: {common.launches}")
         ref = qmatmul(a, qt, out_dtype=torch.float32, use_kernel=False)
         e_abs = (got.float() - ref).abs().max().item()
@@ -444,6 +446,7 @@ def phase_kernels(dev, timer):
     for kname in ("qgemv", "qgemv_mma", "qgemv_planes"):  # the CUDA-core form: no serving path
         res[kname]["max_abs_err"] = worst_abs[kname]
 
+    res["word16"] = kernels_word16(dev, gen)
     res.update(kernels_quant(dev, timer, gen, shapes))
     res.update(kernels_decode(dev, timer, gen))
     res.update(kernels_prefill(dev, timer, gen))
@@ -459,6 +462,98 @@ def phase_kernels(dev, timer):
             row = res[v["kernel"]]
             row["max_abs_err"] = max(row["max_abs_err"], v["max_abs_err"])
     return res
+
+
+def kernels_word16(dev, gen):
+    """The few-rows form's 9-16-row instance (``qgemv_word_kernel16``, every
+    decode step of 16 slots): at M = 9, 13 and 16 on Mistral-7B's and
+    Mixtral-8x7B's projections, an expert's ``layer(e)`` view, and the
+    layout's edges (N % 256, N % 8 and N % 4 not 0, K padded: Ka < K), against
+    the plain version (rel 2e-2) and the CUDA-core form in f32 (rel 1e-4 of
+    the largest output); a second call gives the same bits and the split-K
+    tickets come back to 0; a graph replay gives the same bits.  Its times:
+    ``utils/qgemv_sweep.py --served``."""
+    from xbitops_tpu_torch.kernels import common
+    from xbitops_tpu_torch.kernels.qgemv_kernel import (
+        _stream_counters,
+        qgemv_form,
+        qmatmul_kernel,
+        word16,
+    )
+    from xbitops_tpu_torch.models.moe import stack_experts
+    from xbitops_tpu_torch.ops.qmatmul import qmatmul
+    from xbitops_tpu_torch.utils import synth
+    from xbitops_tpu_torch.utils.qgemv_sweep import SERVED
+
+    tickets = _stream_counters(dev, torch.cuda.current_stream(dev).cuda_stream)
+
+    def held(a, qt, label):
+        M = a.shape[0]
+        check(word16(M, qt) and qgemv_form(M, False, qt) == "gemv", f"{label}: not the instance")
+        common.reset_counts()
+        got = qmatmul_kernel(a, qt, out_dtype=torch.float32)
+        check({k: n for k, n in common.launches.items() if n} == {"qgemv": 1, "qgemv_word16": 1},
+              f"{label}: launches {dict(common.launches)}")
+        ref = qmatmul(a, qt, out_dtype=torch.float32, use_kernel=False)
+        top = ref.abs().max()
+        core = qmatmul_kernel(torch.nn.functional.pad(a, (0, qt.K - a.shape[1])), qt,
+                              out_dtype=torch.float32, form="cuda_core")
+        e_core = ((got - core).abs().max() / top).item()
+        e = rel_err(qmatmul_kernel(a, qt), ref)
+        again = qmatmul_kernel(a, qt, out_dtype=torch.float32)
+        torch.cuda.synchronize()
+        check(e_core <= 1e-4 and e <= 2e-2 and torch.equal(again, got)
+              and tickets.abs().max().item() == 0,
+              f"{label}: rel err {e:.2e} (plain), {e_core:.2e} (CUDA-core form), equal again "
+              f"{torch.equal(again, got)}, tickets {tickets.abs().max().item()}")
+        return got, e, e_core
+
+    worst, worst_core = 0.0, 0.0
+    cases = [(n, synth.random_qtensor(gen, K, N, 4, 128)) for n, (K, N, _) in SERVED.items()]
+    cases.append(("expert gate|up, layer(5)", stack_experts(
+        [synth.random_qtensor(gen, 4096, 28672, 4, 128) for _ in range(8)]).layer(5)))
+    check(cases[-1][1].planes[0].storage_offset() > 0, "the expert view has no offset")
+    for K, N, g, tk in ((2048, 160, 128, None), (2048, 100, 128, None), (2048, 99, 128, None),
+                        (11008, 4096, 128, None), (1024, 300, 256, 512)):
+        cases.append((f"{K}x{N} g={g}", synth.random_qtensor(gen, K, N, 4, g, tile_k=tk)))
+    for name, qt in cases:
+        for M in (9, 13, 16):
+            a = torch.randn(M, qt.K_logical, device=dev, generator=gen).to(torch.bfloat16)
+            got, e, e_core = held(a, qt, f"word16 {name} M={M}")
+            worst, worst_core = max(worst, e), max(worst_core, e_core)
+            if M == 16 and name in ("wo", "2048x99 g=128"):  # one split / 8; 4-byte copies
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    out = qmatmul_kernel(a, qt, out_dtype=torch.float32)
+                graph.replay()
+                torch.cuda.synchronize()
+                check(torch.equal(out, got), f"word16 {name}: a graph replay differs")
+    del cases
+    print(f"qmatmul 9-16-row instance: worst rel err {worst:.2e} (plain, gate 2e-2), "
+          f"{worst_core:.2e} (CUDA-core form in f32, gate 1e-4)", flush=True)
+    return dict(worst_rel_err=worst, worst_rel_err_core=worst_core)
+
+
+def step16(model, cfg, dev, label: str, want: int) -> dict:
+    """One decode step of 16 slots (the benchmark's cells run 16): every
+    projection and the lm_head on the few-rows form's 9-16-row instance,
+    ``want`` launches of it (a 32-layer dense model 129, Mixtral 577)."""
+    from xbitops_tpu_torch.kernels import common
+    from xbitops_tpu_torch.models import llama
+
+    small = dataclasses.replace(cfg, max_seq_len=256)
+    cache = llama.KVCache.init(small, 16, dev, quantized=True)
+    tokens = torch.arange(16, device=dev) * 997 % cfg.vocab_size
+    common.reset_counts()
+    logits, _ = llama.decode_step(model, tokens, cache)
+    torch.cuda.synchronize()
+    step = {k: n for k, n in common.launches.items() if n}
+    check(step.get("qgemv_word16") == want and step.get("qgemv") == want
+          and "qgemv_mma" not in step and "qgemv_cuda_core" not in step
+          and torch.isfinite(logits.float()).all().item(),
+          f"{label}, a decode step of 16 slots: launches {step}, want qgemv_word16 {want}")
+    print(f"{label}, a decode step of 16 slots: launches {step}", flush=True)
+    return step
 
 
 def kernels_quant(dev, timer, gen, shapes):
@@ -1964,6 +2059,7 @@ def phase_serving(dev, model):
     print(f"decode step, each of {len(layer_errs)} blocks on the same input, kernels vs "
           f"plain: worst rel err {layer_errs[worst]:.2e} (block {worst})", flush=True)
     check(layer_errs[worst] <= 2e-2, f"block {worst}: rel err {layer_errs[worst]:.3e} > 2e-2")
+    step16(model, cfg, dev, "7B", 4 * cfg.num_layers + 1)
     return launches, dict(ms_step=ms_step, tok_s=tok_s, admit_s=st["admit_prefill"],
                           admit_rows=st["admit_rows"], graphs=graphs)
 
@@ -3517,7 +3613,10 @@ def phase_mixtral(dev):
     res["spec"] = dict(rates=rates, plain=plain_rates, rate=rate, launches=prog)
     # phase 11b holds expert parallelism to these one-rank tokens
     res["copy"] = dict(prompts=[r.prompt for r in creqs], tokens=[c.tokens for c in plain])
-    del eng, model
+    del eng
+    want = cfg.num_layers * (2 + 2 * cfg.n_experts) + 1  # no-drop: every expert, 16 rows
+    res["step16"] = step16(model, cfg, dev, "Mixtral", want)
+    del model
     torch.cuda.empty_cache()
     return launches, res
 

@@ -44,10 +44,15 @@ LAYOUTS = {
 
 @pytest.mark.parametrize("layout", LAYOUTS)
 @pytest.mark.parametrize("precise", [False, True])
-@pytest.mark.parametrize("M", [1, 8, 9, 32, 2560])
+@pytest.mark.parametrize("M", [1, 8, 9, 13, 16, 32, 2560])
 def test_qgemv_form(layout, precise, M):
     qt = _qt(**LAYOUTS[layout])
     form = qk.qgemv_form(M, precise, qt)
+    # the few-rows form's 9-16-row instance: the paired plane at groups of 128
+    # and K-tiles of 1024 (its windows of four slabs lie in one group)
+    assert qk.word16(M, qt) == (layout == "paired" and 9 <= M <= 16)
+    assert qk.plan_form(form, M, qt) == ("gemv16" if form == "gemv" and qk.word16(M, qt)
+                                         else form)
     assert qt.paired == (layout in ("paired", "three_planes"))  # width 7 pairs its 4-bit plane
     whole = ("paired", "eight", "two_planes", "three_planes")
     if precise:
@@ -131,6 +136,25 @@ def _meta(bits, g, K, N, storage_bits=None):
 
 SHAPES = [(4096, 12288), (4096, 4096), (4096, 22016), (11008, 4096), (4096, 32000), (640, 160)]
 SHAPES_7B = SHAPES[:5]
+# Mistral-7B's and Mixtral-8x7B's (its experts'): q|k|v, wo, gate|up, down, lm_head
+SERVED_SHAPES = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096), (4096, 32000)]
+
+
+@pytest.mark.parametrize("K,N", SERVED_SHAPES)
+def test_served_shapes_take_the_16_row_instance(K, N):
+    """Every decode step of 16 slots, a γ=1 verify on 8 and an admission's
+    lm_head on 9-16 logits rows run the few-rows form's 9-16-row instance on
+    the served layout (4-bit, g=128, K-tiles of 1024); 8 rows and fewer keep
+    the first instance, 17 take the tile."""
+    qt = _meta(4, 128, K, N)
+    assert qt.tile_k == 1024 and qt.paired and qk.word_layout(qt) and not qk.word_planes(qt)
+    for M in range(1, 18):
+        form = qk.qgemv_form(M, False, qt)
+        assert form == ("gemv" if M <= 16 else "mma")
+        assert qk.word16(M, qt) == (9 <= M <= 16) and qk.counter(form, qt) != "qgemv_planes"
+    for other in (_meta(8, 128, K, N), _meta(4, 64, K, N), _meta(4, 128, K, N, "auto"),
+                  _meta(3, 128, K, N, "auto")):  # the 8-bit plane, groups of 64, width 3 on 4
+        assert not qk.word16(16, other) or (other.bits, other.group_size) == (4, 128)
 
 
 @pytest.mark.parametrize("bits", [1, 2, 3, 5, 6, 7])
@@ -186,8 +210,8 @@ def test_planes_kernel_group_rules():
     assert not qk.word_planes(paired4) and qk.word_layout(paired4)
 
 
-@pytest.mark.parametrize("K,N", SHAPES)
-@pytest.mark.parametrize("M", [1, 8, 16, 32, 64, 256, 2560])
+@pytest.mark.parametrize("K,N", SHAPES + SERVED_SHAPES)
+@pytest.mark.parametrize("M", [1, 8, 9, 13, 16, 32, 64, 256, 2560])
 @pytest.mark.parametrize("bits,g", [(4, 128), (8, 128), (4, 40), (3, 128), (8, None), (1, 128),
                                     (2, 128), (5, 128), (6, 128), (7, 128), (3, 32)])
 def test_k_splits_cover_k(K, N, M, bits, g):
@@ -197,9 +221,14 @@ def test_k_splits_cover_k(K, N, M, bits, g):
     whole groups), no split is empty, and the grid reaches the target of
     blocks per SM unless K runs out first.  The a8 split-K workspace holds
     f32 partial outputs grouped and int32 partial sums (and row sums) per
-    channel (g None: one group over K)."""
+    channel (g None: one group over K).  The few-rows form plans by
+    :func:`plan_form`: at 9-16 rows on the paired plane (``gemv16``) splits
+    of whole slabs that may cut a window (the kernel folds at a split's end
+    too), at most one resident block an SM; otherwise, where the lazy fold
+    runs, splits that start on a window of four slabs.  Its column tiles fit
+    the split-K tickets."""
     qt = _qt(bits, g or K, K, N=8)
-    forms = {"cuda_core", "a8", qk.qgemv_form(M, False, qt)}
+    forms = {"cuda_core", "a8", qk.plan_form(qk.qgemv_form(M, False, qt), M, qt)}
     if (qt.tile_k // qt.groups_per_tile) % 8 == 0:
         forms.add("mma")
     for form in forms:
@@ -209,8 +238,14 @@ def test_k_splits_cover_k(K, N, M, bits, g):
         assert splits * per >= units > (splits - 1) * per
         blocks = qk._blocks(form, M, N)
         target = qk.BLOCKS_PER_SM[form] * 132
-        if form == "gemv":  # at most one wave of resident blocks, unless one split is over it
-            assert splits == 1 or blocks * splits <= target
+        if form in ("gemv", "gemv16"):  # at most one wave of resident blocks, unless one split
+            assert splits == 1 or blocks * splits <= target  # is over it
+            assert blocks == -(-N // 256) <= qk.SPLIT_COUNTERS
+            rows = 128 if qt.bits == 4 else 64  # K rows a slab
+            lazy = not qk.word_planes(qt) and qt.tile_k % (4 * rows) == 0 and (
+                (qt.tile_k // qt.groups_per_tile) % rows == 0)  # a window: one group a nibble
+            assert align == (4 if form == "gemv" and lazy else 1)
+            assert (form == "gemv16") == (qt.bits == 4 and lazy and 9 <= M <= 16)
         else:
             assert splits == 1 or blocks * (splits - 1) < target + blocks
         if form == "cuda_core":
@@ -218,7 +253,7 @@ def test_k_splits_cover_k(K, N, M, bits, g):
         elif form == "gemv" and qk.word_planes(qt):
             # units of 16 word rows of the narrowest plane
             assert units * 16 * qk.planes_runs(qt) == qt.K and align == 1
-        elif form == "gemv":
+        elif form in ("gemv", "gemv16"):
             assert units * 16 * (32 // qt.bits) == qt.K  # slabs of 16 word rows
         elif form == "a8":
             g_tile = qt.tile_k // qt.groups_per_tile
@@ -314,6 +349,20 @@ def _pieces_gemv(qt):
             yield k0, rj, src
 
 
+def _folds_gemv16(qt, per):
+    """The few-rows form's 9-16-row walk (csrc/qgemv_word.cu
+    ``qgemv_word_kernel16``): splits of ``per`` slabs in split order, each a
+    list of folds; a fold is a window of four slabs (cut at the split's ends)
+    and a nibble j, and holds that window's pieces of :func:`_pieces_gemv`
+    for j, in slab order: one sum and one asum, folded once."""
+    pieces = list(_pieces_gemv(qt))  # slab-major, then j
+    n = qt.K // 128
+    for lo in range(0, n, per):
+        hi = min(n, lo + per)
+        yield [[pieces[4 * sl + j] for sl in range(4 * w, 4 * w + 4) if lo <= sl < hi]
+               for w in range(lo // 4, (hi - 1) // 4 + 1) for j in range(4)]
+
+
 def _prmt(x, y, sel):
     """``__byte_perm(x, y, sel)`` on arrays of 32-bit words (held in int64)."""
     src = [(x >> (8 * i)) & 0xFF for i in range(4)] + [(y >> (8 * i)) & 0xFF for i in range(4)]
@@ -386,6 +435,7 @@ def _pieces_a8(qt):
     (c, "mma") for c in ("paired", "paired_tile256", "eight", "eight_g16", "slot", "two_planes",
                          "long_groups")
 ] + [(c, "gemv") for c in ("paired", "paired_tile256", "eight", "eight_g16")] + [
+    (c, "gemv16") for c in ("paired", "paired_tile512_g256")] + [
     (c, "gemv") for c in ("one_bit", "two_bit", "three_bit", "five_bit", "six_bit", "seven_bit",
                           "three_bit_tile1024", "three_bit_g32", "three_bit_g32_tile1536",
                           "seven_bit_one_group")
@@ -430,6 +480,9 @@ def test_kernel_walk_covers_k_inside_groups_and_folds_to_the_product(case, form)
     if qk.word_planes(qt):
         _planes_walk_folds_to_the_product(qt)
         return
+    if form == "gemv16":
+        _gemv16_walk_folds_to_the_product(qt)
+        return
     assert form == "mma" or qk.word_layout(qt)
     g_tile = qt.tile_k // qt.groups_per_tile
     wq = formats.unpack_planes_reference(qt.planes, qt.bits, qt.tile_k, qt.K, paired=qt.paired)
@@ -454,6 +507,39 @@ def test_kernel_walk_covers_k_inside_groups_and_folds_to_the_product(case, form)
     assert (seen == 1).all()
     want = a @ dequant_qtensor_reference(qt, torch.float64).numpy()
     np.testing.assert_allclose(acc, want, rtol=1e-9, atol=1e-9)
+
+
+def _gemv16_walk_folds_to_the_product(qt):
+    """The 9-16-row walk at splits that cut windows (3 and 5 slabs), that
+    keep them (4) and one split: each fold's rows are consecutive, in one
+    scale group and read whole where the kernel reads them; every K row
+    once a split plan; the folds, summed in split order, give the product."""
+    assert qk.word16(16, qt)
+    g_tile = qt.tile_k // qt.groups_per_tile
+    wq = formats.unpack_planes_reference(qt.planes, qt.bits, qt.tile_k, qt.K, paired=qt.paired)
+    wq = wq.numpy().astype(np.float64)
+    words = qt.planes[0].numpy().astype(np.int64) & 0xFFFFFFFF
+    a = np.random.default_rng(0).standard_normal((16, qt.K))
+    s, sz = qt.scales.double().numpy(), qt.scale_zeros.double().numpy()
+    want = a @ dequant_qtensor_reference(qt, torch.float64).numpy()
+    n = qt.K // 128
+    for per in (3, 4, 5, n):
+        out = np.zeros((16, qt.N))
+        seen = np.zeros(qt.K, np.int64)
+        for folds in _folds_gemv16(qt, per):
+            acc = np.zeros_like(out)
+            for fold in folds:
+                rows = np.concatenate([np.arange(k0, k0 + r) for k0, r, _ in fold])
+                assert (np.diff(rows) == 1).all() and len(rows) <= 128
+                assert rows[0] // g_tile == rows[-1] // g_tile  # one scale row
+                got = np.stack([(words[r] >> sh) & 15 for _, _, src in fold for r, sh in src])
+                np.testing.assert_array_equal(got, wq[rows])
+                seen[rows] += 1
+                t, gi = divmod(rows[0] // g_tile, qt.groups_per_tile)
+                acc += s[t, gi] * (a[:, rows] @ wq[rows]) - sz[t, gi] * a[:, rows].sum(1)[:, None]
+            out += acc
+        assert (seen == 1).all()
+        np.testing.assert_allclose(out, want, rtol=1e-9, atol=1e-9)
 
 
 def _walk_planes(qt):

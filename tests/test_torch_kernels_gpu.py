@@ -37,11 +37,13 @@ tp=4) take the few-rows form at M=8 and agree with its plain version.
 """
 
 import dataclasses
+import hashlib
 
 import pytest
 import torch
 
 from xbitops_tpu_torch.kernels import common
+from xbitops_tpu_torch.kernels import qgemv_kernel as _qk
 from xbitops_tpu_torch.kernels.dequant_kernel import dequant_kernel, dequant_kernel_reference
 from xbitops_tpu_torch.kernels.decode_attention import (
     decode_attention,
@@ -66,13 +68,16 @@ from xbitops_tpu_torch.kernels.qgemv_kernel import (
     a8_plan,
     counter,
     mma_whole_words,
+    plan_form,
     qgemv_form,
     qmatmul_kernel,
     qmatmul_kernel_a8,
     qmatmul_kernel_a8_reference,
+    word16,
     word_layout,
     word_planes,
 )
+from xbitops_tpu_torch.models.moe import stack_experts
 from xbitops_tpu_torch.ops.dequant import dequant_qtensor
 from xbitops_tpu_torch.ops.qmatmul import qmatmul, quantize_activations
 from xbitops_tpu_torch.ops.quantize import quantize_array, requantize_a8
@@ -147,7 +152,11 @@ def test_qmatmul_forms_match_plain(dev, bits, g, K, tile_k, M, N):
         common.reset_counts()
         got = qmatmul_kernel(a_pad, qt, out_dtype=torch.float32, form=form)
         assert common.launches[counter(form, qt)] == 1
-        assert sum(common.launches.values()) == 1 and not any(common.plain_on_cuda.values())
+        # the few-rows form's 9-16-row instance counts once more, apart
+        sixteen = int(form == "gemv" and word16(M, qt))
+        assert common.launches["qgemv_word16"] == sixteen
+        assert sum(common.launches.values()) == 1 + sixteen
+        assert not any(common.plain_on_cuda.values())
         assert (got - core).abs().max() <= 1e-4 * top, form
         got16 = qmatmul_kernel(a_pad, qt, form=form)
         assert got16.dtype == torch.bfloat16
@@ -228,6 +237,125 @@ def test_qmatmul_forms_f32_scales_perm_n_logical_layer(dev, M):
         assert common.launches[name] == 1 and not any(common.plain_on_cuda.values())
         assert got.shape == (*M, 250) and got.dtype == torch.bfloat16
         assert (got.float() - ref).abs().max() <= 2e-2 * ref.abs().max()
+
+
+# the few-rows form's 9-16-row instance (csrc/qgemv_word.cu qgemv_word_kernel16):
+# (K, N, group, tile_k): Mistral-7B's and Mixtral-8x7B's projections (one split
+# at gate|up and lm_head, 5-8 at the others), N that ends inside a block's 256
+# columns (160, 264), N % 8 != 0 (100: scales read from memory), N % 4 != 0
+# (99: 4-byte copies), K padded to its tile (11008 -> 11264: Ka < K), groups of
+# 256 on K-tiles of 512
+W16_CASES = [(4096, 6144, 128, None), (4096, 4096, 128, None), (4096, 28672, 128, None),
+             (14336, 4096, 128, None), (4096, 32000, 128, None), (2048, 160, 128, None),
+             (4096, 264, 128, None), (2048, 100, 128, None), (2048, 99, 128, None),
+             (11008, 4096, 128, None), (1024, 300, 256, 512)]
+
+
+def _held16(dev, a, qt):
+    """The 9-16-row instance on ``a`` and ``qt``, routed: one launch counted
+    as ``qgemv`` and ``qgemv_word16``, rel 1e-4 of the largest output from
+    the CUDA-core form in f32 (exact products, f32 sums in another order) and
+    2e-2 from the plain version in bf16; a second call gives the same bits
+    and leaves the split-K tickets at 0.  Returns the f32 output."""
+    M = a.shape[0]
+    assert word16(M, qt) and qgemv_form(M, False, qt) == "gemv"
+    ref = qmatmul(a, qt, out_dtype=torch.float32, use_kernel=False)
+    top = ref.abs().max()
+    core = qmatmul_kernel(torch.nn.functional.pad(a, (0, qt.K - a.shape[1])), qt,
+                          out_dtype=torch.float32, form="cuda_core")
+    common.reset_counts()
+    got = qmatmul_kernel(a, qt, out_dtype=torch.float32)
+    assert common.launches == {**dict.fromkeys(common.launches, 0), "qgemv": 1,
+                               "qgemv_word16": 1}
+    assert not any(common.plain_on_cuda.values())
+    assert (got - core).abs().max() <= 1e-4 * top
+    got16 = qmatmul_kernel(a, qt)
+    assert got16.dtype == torch.bfloat16 and (got16.float() - ref).abs().max() <= 2e-2 * top
+    assert torch.equal(qmatmul_kernel(a, qt, out_dtype=torch.float32), got)
+    torch.cuda.synchronize()
+    assert _stream_counters(dev, torch.cuda.current_stream(dev).cuda_stream).abs().max() == 0
+    return got
+
+
+@pytest.mark.parametrize("K,N,g,tile_k", W16_CASES)
+@pytest.mark.parametrize("M", [9, 13, 16])
+def test_few_rows_16_row_instance_matches_plain(dev, K, N, g, tile_k, M):
+    """The 9-16-row instance against the CUDA-core form and the plain version
+    (``_held16``) at the served shapes and the layout's edges, and the same
+    bits from a CUDA graph replay (which zeroes split-K tickets of its own)."""
+    gen = _gen(dev, K + N + M)
+    qt = synth.random_qtensor(gen, K, N, 4, g, tile_k=tile_k)
+    a = torch.randn(M, K, device=dev, generator=gen).to(torch.bfloat16)
+    got = _held16(dev, a, qt)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = qmatmul_kernel(a, qt, out_dtype=torch.float32)
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
+
+
+@pytest.mark.parametrize("per_sm", [0.1, 1, 3, 8])
+def test_few_rows_16_row_instance_split_plans(dev, monkeypatch, per_sm):
+    """Split plans of 1, 8, 16 and 32 splits at wo (4096x4096, 32 slabs:
+    splits that cut the four-slab windows, down to one slab a split) give the
+    plain version's product, an expert's ``layer(e)`` view of a stacked
+    QTensor (a storage offset into one plane) and f32 scales too."""
+    monkeypatch.setitem(_qk.BLOCKS_PER_SM, "gemv16", per_sm)
+    gen = _gen(dev, 16)
+    qts = [synth.random_qtensor(gen, 4096, 4096, 4, 128) for _ in range(3)]
+    a = torch.randn(16, 4096, device=dev, generator=gen).to(torch.bfloat16)
+    key = plan_form("gemv", 16, qts[0])
+    units, align = _qk._units(key, qts[0])
+    splits, per = _qk._k_splits(key, 16, 4096, units, 132, align)
+    assert key == "gemv16" and align == 1
+    assert splits == {0.1: 1, 1: 8, 3: 16, 8: 32}[per_sm]
+    _held16(dev, a, qts[0])
+    st = stack_experts(qts)
+    for e in (1, 2):
+        view = st.layer(e)
+        assert view.planes[0].storage_offset() > 0
+        assert torch.equal(_held16(dev, a, view), _held16(dev, a, qts[e]))
+    f32 = dataclasses.replace(qts[0], scales=qts[0].scales.float(),
+                              scale_zeros=qts[0].scale_zeros.float())
+    _held16(dev, a, f32)
+
+
+# The first instance's f32 outputs at M = 1, 4 and 8, as the commit before the
+# 9-16-row instance gave them on an H100 SXM (132 SMs: the split plans follow
+# the SM count): sha256 of the bytes, 16 hex digits, by shape and M.  The inputs
+# come from one generator in this order, M = 16's activations drawn too.
+W8_SHAPES = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096), (4096, 32000), (2048, 99),
+             (11008, 4096)]
+W8_DIGESTS = [("cf8c4b553aae960c", "f885720cee1faad5", "ce4d5834f91bf25c"),
+              ("14a27597eb3bbbca", "77c9cec97ed2b5cd", "d08e57e88f1e6838"),
+              ("1e4d30814306832d", "273f773d9b5c82e6", "ce780c0aa14dfc7d"),
+              ("b6611fc4dd0b0322", "7cabf281d4f12fbd", "43c0bd8e8a40bfe8"),
+              ("9e18d9e7755da973", "1af42e0967d04e08", "1c94fd21f32b73b8"),
+              ("28fb664d7ee954ba", "1d266aa969e9b740", "a048ece921167118"),
+              ("52f41f7fc69e2c4f", "0a21a6adac0cdfce", "6ac75ff8d76c9cdf")]
+
+
+def test_few_rows_up_to_8_rows_keep_their_bits(dev):
+    """M <= 8 runs the first instance as before: its f32 outputs equal, bit
+    for bit, what the commit before the 9-16-row instance gave (the split
+    sum's batched loads add in the same order)."""
+    if _qk._sm_count(dev.index) != 132:
+        pytest.skip("the digests were taken on 132 SMs; other split plans add in other orders")
+    gen = _gen(dev, 5)
+    got = []
+    for K, N in W8_SHAPES:
+        qt = synth.random_qtensor(gen, K, N, 4, 128)
+        row = []
+        for M in (1, 4, 8, 16):
+            a = torch.randn(M, K, device=dev, generator=gen).to(torch.bfloat16)
+            out = qmatmul(a, qt, out_dtype=torch.float32)
+            if M <= 8:
+                row.append(hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16])
+        got.append(tuple(row))
+        del qt
+    assert got == W8_DIGESTS
 
 
 def test_qmatmul_few_rows_on_two_streams(dev):

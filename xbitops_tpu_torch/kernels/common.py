@@ -37,6 +37,8 @@ NVCC_FLAGS = [
 # Launch counts per kernel, and calls of a plain version on CUDA tensors.
 # A wrapper adds one where it launches its kernel and nowhere else, so a run
 # can show that the main path went through the kernels.
+# The few-rows matmul's 9-16-row instance counts once more under
+# ``qgemv_word16`` (``qgemv_kernel.word16``).
 # The decode-attention kernel appends the new rows itself: its launches with
 # ``kv_new`` count once more under the append form's name + "_fused".  The
 # fp16 and f32 caches' forms of the attention kernels and the append count
@@ -49,7 +51,8 @@ KERNELS = ("qgemv", "decode_attention", "prefill_attention", "decode_attention_i
            "qgemv_cuda_core", "qgemv_planes", "decode_attention_f16", "decode_attention_f32",
            "decode_attention_f16_paged", "decode_attention_f32_paged", "prefill_attention_f16",
            "prefill_attention_f32", "prefill_attention_f16_paged",
-           "prefill_attention_f32_paged") + APPENDS + tuple(n + "_fused" for n in APPENDS)
+           "prefill_attention_f32_paged", "qgemv_word16") + APPENDS + tuple(
+               n + "_fused" for n in APPENDS)
 launches = dict.fromkeys(KERNELS, 0)
 plain_on_cuda = dict.fromkeys(KERNELS, 0)
 

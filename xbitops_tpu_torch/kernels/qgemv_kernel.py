@@ -64,8 +64,11 @@ SUB = 64  # K rows a sub-chunk of the tensor-core tile (csrc/qgemv_mma.cu KS)
 # / 40.6 / 54.2 at 4); its planes kernel at widths 1-7 on the five shapes
 # (`--widths --splits`): 2 sums to 1.448 ms against 1.498 / 1.460 / 1.482 at
 # 1 / 4 / 8.  mma at M=32 and 256: 1, 2, 4 and 8 read within 10% of each
-# other; 2 is the blocks an SM holds.
-BLOCKS_PER_SM = {"cuda_core": 4, "gemv": 2, "mma": 2, "a8": 2}
+# other; 2 is the blocks an SM holds.  gemv16, the few-rows form's 9-16-row
+# instance (:func:`word16`): 1, the block an SM holds (152 KB of shared
+# memory), splits at any slab; at 2 and 3 (waves of blocks) the served shapes
+# at M=16 read 21-39% and 33-75% slower.
+BLOCKS_PER_SM = {"cuda_core": 4, "gemv": 2, "gemv16": 1, "mma": 2, "a8": 2}
 # The largest M the few-rows form takes (its tile holds 16 activation rows),
 # and the smallest the tensor-core tile takes on layouts the few-rows form
 # does not decode.  `utils/qgemv_sweep.py`, same card: at M=16 the few-rows
@@ -87,9 +90,12 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
+SPLIT_COUNTERS = 8192  # column tiles of 256 the few-rows form's split-K tickets cover
+
+
 @functools.lru_cache(maxsize=None)
 def _stream_counters(device: torch.device, stream: int) -> torch.Tensor:
-    return torch.zeros(8192, dtype=torch.int32, device=device)
+    return torch.zeros(SPLIT_COUNTERS, dtype=torch.int32, device=device)
 
 
 def _split_counters(a: torch.Tensor, tiles: int) -> torch.Tensor:
@@ -120,6 +126,24 @@ def _word_bytes(qt: QTensor) -> bool:
     if qt.bits == 4 and qt.paired:
         return qt.tile_k % 128 == 0 and _g_tile(qt) % 32 == 0
     return qt.bits == 8 and qt.tile_k % 64 == 0 and _g_tile(qt) % 16 == 0
+
+
+def word16(M: int, qt: QTensor) -> bool:
+    """Whether the few-rows form runs ``csrc/qgemv_word.cu``'s 9-16-row
+    instance (``qgemv_word_kernel16``, counter ``qgemv_word16`` beside
+    ``qgemv``): 9 <= M <= 16 on the paired 4-bit plane where each nibble's
+    run of four slabs lies in one scale group (groups of a multiple of 128
+    rows, K-tiles of a multiple of 512: the served layouts).  The 8-bit plane
+    and the other layouts keep the first instance."""
+    return (MMA_MIN_M <= M <= GEMV_MAX_M and qt.bits == 4 and _word_bytes(qt)
+            and _g_tile(qt) % 128 == 0 and qt.tile_k % 512 == 0)
+
+
+def plan_form(form: str, M: int, qt: QTensor) -> str:
+    """The key of ``form``'s split plan (:func:`_units`, :func:`_blocks`,
+    :func:`_k_splits`): ``"gemv16"`` where the few-rows form runs its
+    9-16-row instance, else the form."""
+    return "gemv16" if form == "gemv" and word16(M, qt) else form
 
 
 def planes_runs(qt: QTensor) -> int:
@@ -255,6 +279,8 @@ def _units(form: str, qt: QTensor):
         return -(-qt.K // CHUNK), 1
     if form == "gemv" and word_planes(qt):
         return qt.K // (RUN * planes_runs(qt)), 1
+    if form == "gemv16":  # slabs; a split may cut a window, where it folds too
+        return qt.K // 128, 1
     if form == "gemv":
         # four slabs fold together where a scale group holds their rows: the
         # splits then start on a stage (csrc/qgemv_word.cu LAZY)
@@ -271,7 +297,7 @@ def _blocks(form: str, M: int, N: int) -> int:
     """Blocks of the form's grid before K is split."""
     if form == "cuda_core":
         tm, cols = (8, 128 if N % 4 == 0 else 32) if M <= 8 else (32, 32)
-    elif form == "gemv":
+    elif form in ("gemv", "gemv16"):
         tm, cols = 16, 256
     elif form == "a8":
         tm, cols = 128, 128
@@ -288,7 +314,7 @@ def _k_splits(form: str, M: int, N: int, units: int, sms: int, align: int = 1):
     wave of resident blocks: a second wave of its short-lived blocks cost
     more than it filled); the other two go just over it."""
     target, blocks = BLOCKS_PER_SM[form] * sms, _blocks(form, M, N)
-    want = target // blocks if form == "gemv" else -(-target // blocks)
+    want = target // blocks if form in ("gemv", "gemv16") else -(-target // blocks)
     want = min(units, max(1, want))
     per = -(-(-(-units // want)) // align) * align
     return -(-units // per), per
@@ -329,7 +355,7 @@ def qmatmul_kernel(
     if M == 0:
         return out
     form = form or qgemv_form(M, precise, qt)
-    req(form in BLOCKS_PER_SM, f"form {form!r}")
+    req(form in COUNTER, f"form {form!r}")
     if form == "cuda_core" or Ka % 8:  # the form, or its 16-byte copies, need whole rows
         a, Ka = _pad_k(a, K), K
     if a.data_ptr() % 16:  # a view that starts inside an allocation
@@ -337,8 +363,9 @@ def qmatmul_kernel(
     req(form == "cuda_core" or not precise, "`precise` runs on the CUDA-core form only")
     req(form != "gemv" or (M <= GEMV_MAX_M and word_layout(qt)),
         f"the few-rows form does not take M={M}, bits={qt.bits}, tile_k={qt.tile_k}")
-    units, align = _units(form, qt)
-    splits, per = _k_splits(form, M, N, units, _sm_count(a.device.index), align)
+    key = plan_form(form, M, qt)
+    units, align = _units(key, qt)
+    splits, per = _k_splits(key, M, N, units, _sm_count(a.device.index), align)
     part = None
     if splits > 1:
         part = torch.empty((splits, M, N), dtype=torch.float32, device=a.device)
@@ -362,6 +389,8 @@ def qmatmul_kernel(
     name = counter(form, qt)
     common.check(err, name)
     common.launches[name] += 1
+    if key == "gemv16":
+        common.launches["qgemv_word16"] += 1
     return out
 
 

@@ -3,7 +3,7 @@ card, to set the routing constants of ``kernels/qgemv_kernel.py``
 (``GEMV_MAX_M``, ``MMA_MIN_M``, ``BLOCKS_PER_SM``).
 
     python3 -m xbitops_tpu_torch.utils.qgemv_sweep [--splits | --widths | --a8 [--a8-splits] |
-                                                    --library]
+                                                    --library | --served]
 
 For the five Llama-2-7B projection shapes (4-bit, g=128) and M in 1, 8, 9,
 16, 32, 64, 128, 256, 2560 it prints one JSON line per (shape, M) with the
@@ -29,8 +29,17 @@ matmuls, the yardstick of the kernel table's library column (the port calls
 neither): ``torch.ops.aten._weight_int4pack_mm`` on the same 4-bit g=128
 weight (converted once, outside the timed window, by :func:`int4pack`), first
 held to the plain version within rel 2e-2; and ``_weight_int8pack_mm`` beside
-the 8-bit per-channel form, or the error it raises on CUDA tensors.  It needs
-one CUDA device.
+the 8-bit per-channel form, or the error it raises on CUDA tensors.  With
+``--served`` it times the routed form on the served set, :data:`SERVED`
+(Mistral-7B's and Mixtral-8x7B's projections, 4-bit g=128), at M = 8, 9, 13
+and 16: ms cold as above, ``graph_ms`` of launches back to back in a CUDA
+graph over copies of the weight that together pass L2 (:func:`in_graph`, how
+a replayed decode step meets them), the bound (packed bytes, activations and
+output moved once over 3.35 TB/s), the share of it in the graph, the launch
+counters raised, and at M = 16 ``_weight_int4pack_mm`` on the same weights
+timed both ways; then a decode step's sum of the projections' ``graph_ms`` at
+each M (Mistral: 129 launches, Mixtral: 577, every expert).
+It needs one CUDA device.
 """
 
 from __future__ import annotations
@@ -40,6 +49,13 @@ import subprocess
 import sys
 
 import torch
+
+# Mistral-7B's and Mixtral-8x7B's projections (K, N): the two share every shape
+# (Mixtral's experts have Mistral's FFN width); (layers' launches a decode step:
+# Mistral, Mixtral)
+SERVED = {"wqkv": (4096, 6144, (32, 32)), "wo": (4096, 4096, (32, 32)),
+          "w_gateup": (4096, 28672, (32, 256)), "w_down": (14336, 4096, (32, 256)),
+          "lm_head": (4096, 32000, (1, 1))}
 
 
 def timed(fn, flush, iters: int = 8, warmup: int = 2) -> float:
@@ -96,6 +112,8 @@ def main() -> int:
         return a8_rows(qk, synth, gen, dev, flush, shapes)
     if "--library" in sys.argv[1:]:
         return library_rows(qk, synth, gen, dev, flush, shapes)
+    if "--served" in sys.argv[1:]:
+        return served_rows(qk, synth, gen, dev, flush)
     if "--widths" in sys.argv[1:]:
         return width_rows(qk, synth, gen, dev, flush, shapes)
     if "--splits" not in sys.argv[1:]:
@@ -156,6 +174,68 @@ def width_rows(qk, synth, gen, dev, flush, shapes) -> int:
                 row["x_cuda_core"] = round(row["cuda_core_ms"] / row["ms"], 2)
                 print(json.dumps(row), flush=True)
             del qt
+    return 0
+
+
+def in_graph(fns, reps: int = 3) -> float:
+    """Mean device ms a launch of ``fns`` (calls on distinct weights, together
+    past L2) run back to back in one CUDA graph: how a decode step's replay
+    meets them, with no host time and no flush between launches."""
+    for fn in fns:
+        fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for fn in fns:
+            fn()
+    graph.replay()
+    e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    e0.record()
+    for _ in range(reps):
+        graph.replay()
+    e1.record()
+    e1.synchronize()
+    return e0.elapsed_time(e1) / (reps * len(fns))
+
+
+def served_rows(qk, synth, gen, dev, flush) -> int:
+    from xbitops_tpu_torch.kernels import common
+
+    Ms = (8, 9, 13, 16)
+    step = {M: [0.0, 0.0] for M in Ms}
+    for name, (K, N, per_step) in SERVED.items():
+        qts = [synth.random_qtensor(gen, K, N, 4, 128)]
+        qts += [synth.random_qtensor(gen, K, N, 4, 128)
+                for _ in range(min(24, 600_000_000 // qts[0].bytes_packed()) - 1)]
+        qt = qts[0]
+        for M in Ms:
+            a = torch.randn(M, K, device=dev, generator=gen).to(torch.bfloat16)
+            common.reset_counts()
+            qk.qmatmul_kernel(a, qt)
+            row = dict(case=name, K=K, N=N, M=M, routed=qk.qgemv_form(M, False, qt),
+                       launches={k: v for k, v in common.launches.items() if v})
+            row["ms"] = round(timed(lambda: qk.qmatmul_kernel(a, qt), flush), 5)
+            row["graph_ms"] = round(in_graph(
+                [lambda q=q: qk.qmatmul_kernel(a, q) for q in qts]), 5)
+            moved = qt.bytes_packed() + a.numel() * 2 + M * N * 2
+            row["bound_ms"] = round(1e3 * moved / 3.35e12, 5)
+            row["share_of_bound"] = round(row["bound_ms"] / row["graph_ms"], 3)
+            row["packed_GBs"] = round(qt.bytes_packed() / row["graph_ms"] / 1e6, 1)
+            if M == 16:
+                packs = [int4pack(q) for q in qts]
+                w4, sz = packs[0]
+                row["library_ms"] = round(timed(
+                    lambda: torch.ops.aten._weight_int4pack_mm(a, w4, 128, sz), flush), 5)
+                row["library_graph_ms"] = round(in_graph(
+                    [lambda w=w, sz=sz: torch.ops.aten._weight_int4pack_mm(a, w, 128, sz)
+                     for w, sz in packs]), 5)
+                del packs, w4, sz
+            for i, n in enumerate(per_step):
+                step[M][i] += n * row["graph_ms"]
+            print(json.dumps(row), flush=True)
+        del qts, qt
+    for M in Ms:
+        print(json.dumps(dict(M=M, step_ms_mistral_129=round(step[M][0], 4),
+                              step_ms_mixtral_577=round(step[M][1], 4))), flush=True)
     return 0
 
 
